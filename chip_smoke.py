@@ -12,13 +12,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    7-family bank (bank-wide and per-replica keep/mu/sigma);
 3. main    — ``Fleet.from_scenarios(n=1024).run(replicas=64)`` (65,536
    elements) in tick and leap mode, default and stochastic params, with the
-   kernels' launch counts;
+   kernels' launch counts of each timed run (counts set to 0 just before
+   it, read just after);
 4. parity  — bitwise window invariance (K=1 vs K=64) on 64 scenarios x 4
    replicas, and the card's results against the CPU path on a small bank;
 5. profile — device time by kernel of one tick and one leap main-path run
    under ``torch.profiler``, and the device's busy share;
-6. timing  — each kernel and its plain version timed with CUDA events at the
-   main path's shapes, beside the least time the card could take.
+6. timing  — each kernel and its plain version at the main path's shapes:
+   the outputs held against each other, the times taken with CUDA events,
+   beside the least time the card could take.
 
 Then the ``kernels`` line, the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -153,20 +155,22 @@ def phase_kernels(dev) -> dict:
 
 
 def phase_main(dev) -> dict:
+    """The four timed runs (tick/leap x default/stochastic), each after an
+    uncounted warm-up. ``launches`` sums the four runs' counts."""
     fleet = Fleet.from_scenarios(n=N_SCEN, seed=0, device=dev)
     runs = []
-    grid_tick.reset_launches()
     for leap in (False, True):
         for label, kw in (("default", {}), ("stochastic", dict(bg_mu=2.0, bg_sigma=1.0))):
             params = fleet.params(**kw)
             fleet.run(params, replicas=N_REP, leap=leap)  # warm-up
             torch.cuda.synchronize()
-            before = dict(grid_tick.LAUNCHES)
             engine.STATS["windows"] = 0
+            grid_tick.reset_launches()
             t0 = time.perf_counter()
             res = fleet.run(params, replicas=N_REP, leap=leap)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            launches = dict(grid_tick.LAUNCHES)
             shape = (N_SCEN, N_REP, fleet.pads[0])
             for f in ("transfer_time", "conth_mb", "conpr_mb", "start_tick"):
                 x = getattr(res, f)
@@ -180,15 +184,17 @@ def phase_main(dev) -> dict:
                 windows=engine.STATS["windows"],
                 realized_ticks=int(res.ticks.max()),
                 done_share=float((res.done & valid).sum() / valid.expand_as(res.done).sum()),
-                launches={k: grid_tick.LAUNCHES[k] - before[k] for k in before},
+                launches=launches,
             )
             emit("main", **run)
             runs.append(run)
-    launches = dict(grid_tick.LAUNCHES)
+    launches = {k: sum(r["launches"][k] for r in runs) for k in grid_tick.LAUNCHES}
+    by_run = {k: {f"{r['mode']}_{r['params']}": r["launches"][k] for r in runs}
+              for k in grid_tick.LAUNCHES}
     for name, n in launches.items():
         assert n > 0, f"kernel {name} was not launched on the main path"
-    emit("main", pads=list(fleet.pads), launches=launches)
-    return {"launches": launches, "runs": runs}
+    emit("main", pads=list(fleet.pads), launches=launches, launches_by_run=by_run)
+    return {"launches": launches, "by_run": by_run, "runs": runs}
 
 
 def phase_parity(dev) -> None:
@@ -253,9 +259,10 @@ def phase_profile(dev, main_run: dict) -> dict:
     return out
 
 
-def timed(fn, reps: int) -> float:
-    """Mean ms of ``fn`` over ``reps`` calls, CUDA events, after a warm-up."""
-    fn()
+def timed(fn, reps: int):
+    """``(ms, out)``: the mean ms of ``fn`` over ``reps`` calls (CUDA events)
+    after a warm-up call, and that warm-up call's output."""
+    out = fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -263,7 +270,7 @@ def timed(fn, reps: int) -> float:
         fn()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return start.elapsed_time(stop) / reps, out
 
 
 def nbytes(*xs) -> int:
@@ -271,6 +278,10 @@ def nbytes(*xs) -> int:
 
 
 def phase_timing(dev) -> dict:
+    """Each kernel and its plain version on the main path's inputs: the
+    fused kernel over one K=32 window of the stochastic tick run's first
+    carry, the one-tick kernel with ``remaining = inf`` as the leap scan
+    calls it. The outputs are held against each other, then timed."""
     bank = build_bank(n=N_SCEN, seed=0)
     S, R, K = N_SCEN, N_REP, 32
     T, P, L = bank.pad_legs, bank.pad_procs, bank.pad_links
@@ -284,15 +295,15 @@ def phase_timing(dev) -> dict:
              c.t_start, c.t_end, c.conth, c.conpr, c.bg)
     noise = torch.randn((K, S, R, L), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(0))
-    tables = ref.bank_index_tables(spec.leg_proc, spec.proc_link, spec.leg_link)
+    tables = spec.index_tables
     f32 = torch.float32
     args = (state, noise, mu.contiguous(), sigma.contiguous(), *consts[:5], consts[5], *tables)
-    fused = lambda: grid_tick.grid_tick_bank_fused_cuda(*args)
-    out = fused()
-    alive_steps = int(out[1].sum())
-    fused_ms = timed(fused, 20)
-    plain_fused_ms = timed(lambda: ref.grid_tick_bank_window(
+    fused_ms, got = timed(lambda: grid_tick.grid_tick_bank_fused_cuda(*args), 20)
+    alive_steps = int(got[1].sum())
+    plain_fused_ms, want = timed(lambda: ref.grid_tick_bank_window(
         state, mu, sigma, *consts, leap=False, noise=noise), 2)
+    fused_errs = {name: compare(f"fused {name} at main shapes", g_, w_, exact=False)
+                  for name, g_, w_ in zip(ref.BANK_WINDOW_STATE_FIELDS, got, want)}
     # bytes: carry in and out once, the window's noise, the scenario tables
     fused_bytes = 2 * nbytes(*state) + nbytes(noise, mu, sigma, *consts[:6], *tables)
     # fp32 operations per alive element-tick: ~14 per leg (share, sums,
@@ -307,12 +318,13 @@ def phase_timing(dev) -> dict:
     bg = torch.rand((S, R, L), generator=g).to(dev)
     keep = p.keep_frac.contiguous()
     targs = (active, remaining, keep, bg, spec.bandwidth.to(f32), *tables)
-    tick = lambda: grid_tick.grid_tick_bank_cuda(*targs)
-    tick_ms = timed(tick, 50)
+    tick_ms, got = timed(lambda: grid_tick.grid_tick_bank_cuda(*targs), 50)
     keep3 = keep[:, None]
-    plain_tick_ms = timed(lambda: ref.grid_tick(
+    plain_tick_ms, want = timed(lambda: ref.grid_tick(
         active, remaining, keep3, bg, spec.bandwidth[:, None], spec.leg_proc[:, None],
         spec.proc_link[:, None], spec.leg_link[:, None]), 5)
+    tick_errs = {n: compare(f"tick {n} at main shapes", g_, w_, exact=False)
+                 for n, g_, w_ in zip(("xfer", "proc_xfer", "link_xfer"), got, want)}
     tick_bytes = nbytes(active, remaining, keep, bg, spec.bandwidth, *tables) + 4 * S * R * (T + P + L)
     tick_ops = S * R * (14 * T + 5 * L)
     tick_bound = max(tick_bytes / PEAK_BYTES, tick_ops / PEAK_FP32) * 1e3
@@ -320,18 +332,17 @@ def phase_timing(dev) -> dict:
     res = {
         "grid_tick_bank_fused": dict(ms=fused_ms, plain_ms=plain_fused_ms, bound_ms=fused_bound,
                                      bound_by=fused_by, bytes=fused_bytes, ops=fused_ops,
-                                     shape=[K, S, R, T, P, L], alive_steps=alive_steps),
+                                     shape=[K, S, R, T, P, L], alive_steps=alive_steps,
+                                     max_abs_err=fused_errs),
         "grid_tick_bank": dict(ms=tick_ms, plain_ms=plain_tick_ms, bound_ms=tick_bound,
                                bound_by=tick_by, bytes=tick_bytes, ops=tick_ops,
-                               shape=[S, R, T, P, L]),
+                               shape=[S, R, T, P, L], max_abs_err=tick_errs),
     }
     emit("timing", card=smi(), **res)
     return res
 
 
-def main(argv) -> int:
-    """``argv`` may name a subset of the phases (build, kernels, main, parity,
-    timing) for a shorter run, which then prints no result lines."""
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -340,16 +351,6 @@ def main(argv) -> int:
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    if argv:
-        phases = dict(build=lambda: phase_build(), kernels=lambda: phase_kernels(dev),
-                      main=lambda: phase_main(dev), parity=lambda: phase_parity(dev),
-                      timing=lambda: phase_timing(dev))
-        if "profile" in argv:
-            phases["profile"] = lambda: phase_profile(dev, phase_main(dev))
-        for name in argv:
-            phases[name]()
-        emit("done", seconds=time.perf_counter() - t0, phases=argv)
-        return 0
     phase_build()
     errs = phase_kernels(dev)
     main_run = phase_main(dev)
@@ -366,7 +367,9 @@ def main(argv) -> int:
         kernels.append(dict(
             name=name, route="cuda", source="src/repro_torch/kernels/csrc/grid_tick.cu",
             replaces=replaces[name], launches=main_run["launches"][name],
-            max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
+            launches_by_run=main_run["by_run"][name],
+            max_abs_err=max(errs[name], *t["max_abs_err"].values()),
+            ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
         ))
     emit("done", seconds=time.perf_counter() - t0)
@@ -379,4 +382,4 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

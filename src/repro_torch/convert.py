@@ -15,7 +15,14 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.engine import DeviceLike, SimParams, SimSpec, resolve_device
+from repro_torch.core.engine import (
+    INDEX_TABLE_FIELDS,
+    DeviceLike,
+    SimParams,
+    SimSpec,
+    resolve_device,
+    with_index_tables,
+)
 
 __all__ = ["from_reference"]
 
@@ -28,6 +35,7 @@ def from_reference(
     ``[N, R, 2]`` keys."""
     dev = resolve_device(device)
     t = lambda a: None if a is None else torch.as_tensor(np.array(a)).to(dev)
-    spec = SimSpec(*(t(getattr(bank, f)) for f in SimSpec._fields))
+    fields = [f for f in SimSpec._fields if f not in INDEX_TABLE_FIELDS]
+    spec = with_index_tables(SimSpec(**{f: t(getattr(bank, f)) for f in fields}))
     sim_params = SimParams(*(t(getattr(params, f, None)) for f in SimParams._fields))
     return spec, sim_params, t(np.asarray(keys).astype(np.int64))

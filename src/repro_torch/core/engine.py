@@ -19,13 +19,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.workload import BucketedBank, ScenarioBank
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 __all__ = [
     "SimSpec",
     "SimParams",
     "SimResult",
     "resolve_device",
+    "INDEX_TABLE_FIELDS",
+    "with_index_tables",
     "bank_spec",
     "make_bank_params",
     "default_tick_window",
@@ -40,7 +42,9 @@ STATS = {"windows": 0}
 class SimSpec(NamedTuple):
     """Device tensors describing a stacked bank of compiled campaigns: every
     field has a leading ``[N]`` scenario dim, ``max_ticks`` is per scenario
-    and ``leg_valid`` masks the padding (padded legs are born done)."""
+    and ``leg_valid`` masks the padding (padded legs are born done). The
+    last three fields are the one-hot incidences as the kernels read them
+    (``ref.bank_index_tables``), filled by :func:`with_index_tables`."""
 
     size_mb: torch.Tensor  # [N, T] f32
     release: torch.Tensor  # [N, T] i32
@@ -54,6 +58,13 @@ class SimSpec(NamedTuple):
     bg_period: torch.Tensor  # [N, L] i32
     max_ticks: torch.Tensor  # [N] i32
     leg_valid: Optional[torch.Tensor] = None  # [N, T] bool
+    proc_of_leg: Optional[torch.Tensor] = None  # [N, T] i32
+    link_of_leg: Optional[torch.Tensor] = None  # [N, T] i32
+    link_of_proc: Optional[torch.Tensor] = None  # [N, P] i32
+
+    @property
+    def index_tables(self):
+        return (self.proc_of_leg, self.link_of_leg, self.link_of_proc)
 
     @property
     def n_legs(self) -> int:
@@ -118,6 +129,19 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+#: The :class:`SimSpec` fields that :func:`with_index_tables` derives.
+INDEX_TABLE_FIELDS = ("proc_of_leg", "link_of_leg", "link_of_proc")
+
+
+def with_index_tables(spec: SimSpec) -> SimSpec:
+    """``spec`` with its index tables derived from its incidences, unless it
+    already carries them."""
+    if spec.proc_of_leg is not None:
+        return spec
+    tables = ref.bank_index_tables(spec.leg_proc, spec.proc_link, spec.leg_link)
+    return spec._replace(**dict(zip(INDEX_TABLE_FIELDS, tables)))
+
+
 def bank_spec(bank: ScenarioBank, device: DeviceLike = None) -> SimSpec:
     """The stacked ``[N, ...]`` SimSpec of a compiled bank on ``device``,
     memoized per device on the bank (compiled banks are immutable)."""
@@ -126,14 +150,14 @@ def bank_spec(bank: ScenarioBank, device: DeviceLike = None) -> SimSpec:
     spec = cache.get(str(dev))
     if spec is None:
         t = lambda a: torch.as_tensor(np.asarray(a)).to(dev)
-        spec = SimSpec(
+        spec = with_index_tables(SimSpec(
             size_mb=t(bank.size_mb), release=t(bank.release), dep=t(bank.dep),
             profile=t(bank.profile), protocol_id=t(bank.protocol_id),
             leg_proc=t(bank.leg_proc), proc_link=t(bank.proc_link),
             leg_link=t(bank.leg_link), bandwidth=t(bank.bandwidth),
             bg_period=t(bank.bg_period), max_ticks=t(bank.max_ticks),
             leg_valid=t(bank.leg_valid),
-        )
+        ))
         cache[str(dev)] = spec
     return spec
 
@@ -222,11 +246,12 @@ def _banked_result(spec: SimSpec, final: _Carry) -> SimResult:
 
 
 def _bank_window_body(
-    spec: SimSpec, params: SimParams, leap: bool, window: int, c: _Carry
+    spec: SimSpec, params: SimParams, leap: bool, window: int, draw: bool, c: _Carry
 ) -> _Carry:
     """Advance the whole bank by one fused ``window``: one
     :func:`ops.grid_tick_bank_fused` call, each element's key advancing by
-    exactly its alive-step count."""
+    exactly its alive-step count. ``draw`` says whether any ``sigma`` is
+    positive (else the window splits keys and draws no normals)."""
     state = (
         c.t, torch.zeros_like(c.t), c.remaining, c.done, c.started,
         c.t_start, c.t_end, c.conth, c.conpr, c.bg,
@@ -238,6 +263,7 @@ def _bank_window_body(
         params.keep_frac, spec.bandwidth,
         spec.leg_proc, spec.proc_link, spec.leg_link,
         window=window, leap=leap, key=c.key,
+        tables=spec.index_tables, draw=draw,
     )
     return _Carry(
         t=t, remaining=remaining, done=done, started=started,
@@ -251,9 +277,11 @@ def _banked_core(
 ) -> SimResult:
     """The host loop of windows: run fused windows until no element is
     alive (one device-to-host read of the live flag per window)."""
+    spec = with_index_tables(spec)
+    draw = bool(torch.any(params.bg_sigma > 0))
     c = _banked_init_carry(spec, params, keys)
     while bool(torch.any(_banked_live(spec, c))):
-        c = _bank_window_body(spec, params, leap, window, c)
+        c = _bank_window_body(spec, params, leap, window, draw, c)
         STATS["windows"] += 1
     return _banked_result(spec, c)
 

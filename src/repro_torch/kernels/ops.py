@@ -12,6 +12,7 @@ the one-hot incidence products are exact only there.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -36,12 +37,15 @@ def grid_tick_bank(
     leg_proc: torch.Tensor,  # [S, T, P]
     proc_link: torch.Tensor,  # [S, P, L]
     leg_link: torch.Tensor,  # [S, T, L]
+    *,
+    tables: Optional[Tuple[torch.Tensor, ...]] = None,  # ref.bank_index_tables
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Scenario-bank fair-share tick with per-scenario incidences:
     ``(xfer [S, R, T], proc_xfer [S, R, P], link_xfer [S, R, L])``.
 
     Per-sim state must carry the replica dim; ``keep_frac`` may be bank-wide
-    ``[S, T]`` or per replica ``[S, R, T]``.
+    ``[S, T]`` or per replica ``[S, R, T]``. The kernel reads the
+    incidences as ``tables``, derived from them when ``None``.
     """
     if active.dim() != 3 or remaining.dim() != 3 or bg_load.dim() != 3:
         raise ValueError(
@@ -82,12 +86,13 @@ def grid_tick_bank(
         )
     from repro_torch.kernels import grid_tick as _k
 
+    if tables is None:
+        tables = ref.bank_index_tables(leg_proc, proc_link, leg_link)
     f32 = torch.float32
     return _k.grid_tick_bank_cuda(
         active.to(f32).contiguous(), remaining.to(f32).contiguous(),
         keep_frac.to(f32).contiguous(), bg_load.to(f32).contiguous(),
-        bandwidth.to(f32).contiguous(),
-        *ref.bank_index_tables(leg_proc, proc_link, leg_link),
+        bandwidth.to(f32).contiguous(), *tables,
     )
 
 
@@ -127,6 +132,8 @@ def grid_tick_bank_fused(
     leap: bool = False,
     key: Optional[torch.Tensor] = None,  # [S, R, 2] carried keys
     noise: Optional[torch.Tensor] = None,  # [K, S, R, L] predrawn normals
+    tables: Optional[Tuple[torch.Tensor, ...]] = None,  # ref.bank_index_tables
+    draw: Optional[bool] = None,  # any bg_sigma > 0 (key= mode)
 ):
     """``window`` fused simulation ticks (event leaps under ``leap``) of a
     scenario bank; ``state`` follows ``ref.BANK_WINDOW_STATE_FIELDS``.
@@ -139,6 +146,10 @@ def grid_tick_bank_fused(
     its noise drawn ahead, each element's key then resynchronised from its
     alive-step count); leap mode is the plain scan driving the one-tick
     kernel once per event step, as the reference's kernel path does.
+
+    ``tables`` (the incidences as index tables) and ``draw`` (whether any
+    ``sigma`` is positive) are fixed for a bank: a caller that runs many
+    windows passes them, else they are derived here on every call.
     """
     if len(state) != len(ref.BANK_WINDOW_STATE_FIELDS):
         raise ValueError(
@@ -162,13 +173,18 @@ def grid_tick_bank_fused(
             "grid_tick_bank_fused: bg moments must be [S, 1, L] or "
             f"[S, R, L]: {tuple(bg_mu.shape)}, {tuple(bg_sigma.shape)}"
         )
+    if tables is None:
+        tables = ref.bank_index_tables(leg_proc, proc_link, leg_link)
+    if key is not None and draw is None:
+        draw = bool(torch.any(bg_sigma > 0))
     on_cpu = _device_kind(state[2]) == "cpu"
     if on_cpu or leap:
+        tick = None if on_cpu else functools.partial(grid_tick_bank, tables=tables)
         return ref.grid_tick_bank_window(
             state, bg_mu, bg_sigma, release, dep, bg_period, max_ticks,
             keep_frac, bandwidth, leg_proc, proc_link, leg_link,
-            leap=leap, tick=None if on_cpu else grid_tick_bank,
-            key=key, noise=noise, window=window,
+            leap=leap, tick=tick, key=key, noise=noise, window=window,
+            tables=tables, draw=draw,
         )
     from repro_torch.kernels import grid_tick as _k
 
@@ -176,7 +192,6 @@ def grid_tick_bank_fused(
     L = bg_mu.shape[-1]
     chain = None
     if key is not None:
-        draw = bool(torch.any(bg_sigma > 0))
         chain, noise = _bank_noise_chain(L, key, window, draw=draw)
     # mu and sigma agree on their replica dim inside the kernel: if either
     # carries one, broadcast both
@@ -192,8 +207,7 @@ def grid_tick_bank_fused(
     out = _k.grid_tick_bank_fused_cuda(
         state, c(noise, f32), c(bg_mu, f32), c(bg_sigma, f32),
         c(release, i32), c(dep, i32), c(bg_period, i32), c(max_ticks, i32),
-        c(keep_frac, f32), c(bandwidth, f32),
-        *ref.bank_index_tables(leg_proc, proc_link, leg_link),
+        c(keep_frac, f32), c(bandwidth, f32), *tables,
     )
     if chain is None:
         return out

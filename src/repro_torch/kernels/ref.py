@@ -141,6 +141,8 @@ def grid_tick_bank_window(
     key: Optional[torch.Tensor] = None,  # [S, R, 2] carried keys
     noise: Optional[torch.Tensor] = None,  # [K, S, R, L] predrawn normals
     window: Optional[int] = None,  # required with key=
+    tables: Optional[Tuple[torch.Tensor, ...]] = None,  # bank_index_tables
+    draw: Optional[bool] = None,
 ):
     """``K`` simulation ticks (event leaps under ``leap``) of a whole bank,
     element for element those of ``K`` per-tick iterations under the alive
@@ -156,6 +158,11 @@ def grid_tick_bank_window(
     ``tick`` is the bank fair-share tick to drive, with the signature of
     ``ops.grid_tick_bank``; ``None`` runs the built-in index-based tick (the
     one-hot gathers as index gathers, bitwise equal).
+
+    ``tables`` are the bank's :func:`bank_index_tables`, computed here when
+    ``None``; ``draw`` says whether any ``sigma`` is positive (``key=`` mode
+    then draws normals), read from ``bg_sigma`` when ``None``. A caller that
+    runs many windows of one bank passes both once.
     """
     f32 = torch.float32
     i32 = torch.int32
@@ -168,7 +175,9 @@ def grid_tick_bank_window(
         raise ValueError("grid_tick_bank_window: key= mode requires window=")
     n_links = bg_mu.shape[-1]
     n_procs = leg_proc.shape[-1]
-    proc_of_leg, link_of_leg, _ = bank_index_tables(leg_proc, proc_link, leg_link)
+    if tables is None:
+        tables = bank_index_tables(leg_proc, proc_link, leg_link)
+    proc_of_leg, link_of_leg, _ = tables
     m_cat = torch.cat([leg_proc, leg_link], dim=-1).to(f32)  # [S, T, P + L]
     keep3 = keep_frac if keep_frac.dim() == 3 else keep_frac[:, None]
     leg_from_proc = lambda v: _to_legs(v, proc_of_leg)
@@ -199,7 +208,10 @@ def grid_tick_bank_window(
     has_dep = (dep >= 0)[:, None, :]
     dep_idx = torch.clamp_min(dep, 0).long()[:, None, :]
     stochastic = bg_sigma > 0
-    draw = key is not None and bool(torch.any(stochastic))
+    if key is None:
+        draw = False
+    elif draw is None:
+        draw = bool(torch.any(stochastic))
     steps_k = window if key is not None else noise.shape[0]
 
     (t, steps, remaining, done, started, t_start, t_end, conth, conpr,
