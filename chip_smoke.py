@@ -15,12 +15,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    kernels' launch counts of each timed run (counts set to 0 just before
    it, read just after);
 4. parity  — bitwise window invariance (K=1 vs K=64) on 64 scenarios x 4
-   replicas, and the card's results against the CPU path on a small bank;
+   replicas; the card's normals bitwise against the CPU path's (200,000
+   keys x 11); the card's ``Fleet.run`` against the CPU path on a small
+   bank, default and stochastic (``bg_mu=2, bg_sigma=1.5``) params;
 5. profile — device time by kernel of one tick and one leap main-path run
    under ``torch.profiler``, and the device's busy share;
-6. timing  — each kernel and its plain version at the main path's shapes:
-   the outputs held against each other, the times taken with CUDA events,
-   beside the least time the card could take.
+6. timing  — each grid-tick kernel and its plain version at the main
+   path's shapes: the outputs held against each other, the times taken
+   with CUDA events, beside the least time the card could take;
+7. calibrate — the SELU-MLP kernel against its plain version at the
+   calibration path's shapes (forward and backward), timed beside its
+   bound; then the amortized calibration path at full width,
+   ``Fleet.from_scenarios(n=1024).calibrate(x_true, key,
+   CalibrationConfig(), amortized=True)`` (65,536 presimulated tuples, 30
+   epochs of the 4x128 classifier at batch 4,096), ``theta_star_all`` over
+   every scenario (8,192 chains) and ``Fleet.validate``, with each stage's
+   seconds and kernel launches (counts set to 0 just before a stage, read
+   just after); the device time per MCMC and training step under
+   ``torch.profiler``; and a 200-step chain on the card against the CPU
+   path.
 
 Then the ``kernels`` line, the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -34,15 +47,18 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
 
-from repro_torch import Fleet  # noqa: E402
-from repro_torch.core import engine  # noqa: E402
+from repro_torch import CalibrationConfig, Fleet  # noqa: E402
+from repro_torch.convert import classifier_from_reference, classifier_to_reference  # noqa: E402
+from repro_torch.core import calibration, classifier, engine, mcmc, prng  # noqa: E402
 from repro_torch.core.scenarios import build_bank  # noqa: E402
-from repro_torch.kernels import _build, grid_tick, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, grid_tick, ops, ref, selu_mlp  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 non-tensor FLOP/s
 PEAK_BYTES = 3.35e12
@@ -52,6 +68,10 @@ PEAK_FP32 = 67e12
 RTOL, ATOL = 1e-5, 1e-4
 
 N_SCEN, N_REP = 1024, 64
+# the calibration path's classifier: 3 theta + 3 x + 9 context features in,
+# 4 hidden SELU layers of 128, one logit out
+MLP_IN, MLP_HIDDEN, MLP_DEPTH = 15, 128, 4
+THETA_TRUE = (0.05, 40.0, 20.0)
 
 
 def emit(phase: str, **fields) -> None:
@@ -66,7 +86,7 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def compare(name, got, want, exact: bool) -> float:
+def compare(name, got, want, exact: bool, rtol: float = RTOL, atol: float = ATOL) -> float:
     """Max abs error of ``got`` against ``want``; raises past tolerance
     (or on any difference when ``exact``)."""
     if got.dtype in (torch.bool, torch.int32, torch.int64) or exact:
@@ -75,7 +95,7 @@ def compare(name, got, want, exact: bool) -> float:
             raise AssertionError(f"{name}: {bad} elements differ")
         return 0.0
     err = (got.double() - want.double()).abs()
-    lim = ATOL + RTOL * want.double().abs()
+    lim = atol + rtol * want.double().abs()
     if not bool(torch.all(err <= lim)):
         raise AssertionError(f"{name}: max abs err {float(err.max())} past tolerance")
     return float(err.max())
@@ -113,7 +133,8 @@ def phase_build() -> dict:
     built = _build.build()
     limits = grid_tick.limits()
     emit("build", seconds=time.perf_counter() - t0, sources=_build.sources(),
-         built=sorted(built), max_legs_procs_links=list(limits), card=smi(),
+         built=sorted(built), max_legs_procs_links=list(limits),
+         selu_mlp_max_hidden_in_out_depth=list(selu_mlp.limits()), card=smi(),
          ptxas={k: [ln for ln in v.splitlines() if "Used" in ln]
                 for k, v in _build.build_logs.items()})
     return {"seconds": time.perf_counter() - t0}
@@ -207,16 +228,58 @@ def phase_parity(dev) -> None:
             compare(f"K-invariance leap={leap} {f}", getattr(b, f), getattr(a, f), exact=True)
         emit("parity", check="window K=1 vs K=64 bitwise", leap=leap,
              scenarios=64, replicas=4, realized_ticks=int(a.ticks.max()))
+    # the card's normals against the CPU path's, bit for bit
+    keys = prng.split(prng.PRNGKey(42), 200_000)
+    got = prng.normal(keys.to(dev), (11,)).cpu()
+    want = prng.normal(keys, (11,))
+    ulp = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+    emit("parity", check="normals card vs CPU path", draws=want.numel(),
+         max_ulp=int(ulp.max()), mismatched=int((ulp > 0).sum()))
+    if int(ulp.max()) != 0:
+        raise AssertionError(f"card normals differ from the CPU path's by up to {int(ulp.max())} ulp")
     # the card's main path against the plain CPU path on a small bank
     small_gpu = Fleet.from_scenarios(n=7, seed=0, max_ticks=2000, device=dev)
     small_cpu = Fleet.from_scenarios(n=7, seed=0, max_ticks=2000, device="cpu")
-    for leap in (False, True):
-        g = small_gpu.run(replicas=2, leap=leap)
-        c = small_cpu.run(replicas=2, leap=leap)
-        errs = {}
-        for f in g._fields:
-            errs[f] = compare(f"gpu vs cpu leap={leap} {f}", getattr(g, f).cpu(), getattr(c, f), exact=False)
-        emit("parity", check="card vs CPU path", leap=leap, scenarios=7, replicas=2, max_abs_err=errs)
+    for label, kw in (("default", {}), ("stochastic", dict(bg_mu=2.0, bg_sigma=1.5))):
+        for leap in (False, True):
+            g = small_gpu.run(small_gpu.params(**kw), replicas=2, leap=leap)
+            c = small_cpu.run(small_cpu.params(**kw), replicas=2, leap=leap)
+            errs = {}
+            for f in g._fields:
+                errs[f] = compare(f"gpu vs cpu {label} leap={leap} {f}", getattr(g, f).cpu(),
+                                  getattr(c, f), exact=False)
+            emit("parity", check="card vs CPU path", params=label, leap=leap, scenarios=7,
+                 replicas=2, max_abs_err=errs)
+
+
+def device_rows(prof):
+    """``(name, device us, count)`` of a profile's device-side events
+    (kernels, copies), largest first: the CPU-side op events carry their
+    kernels' time too and would count it twice."""
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0)
+    return sorted(
+        ((e.key, dev_us(e), e.count) for e in prof.key_averages()
+         if str(e.device_type).endswith("CUDA") and dev_us(e) > 0),
+        key=lambda r: -r[1],
+    )
+
+
+def profile_steps(fn, steps: int, wall_per_step: float) -> dict:
+    """Device time per step of ``fn()`` (``steps`` steps) under
+    ``torch.profiler``, beside the unprofiled wall per step of the same
+    stage: their ratio is the device's busy share there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    dev_s = sum(r[1] for r in rows) / 1e6 / steps
+    return dict(device_s_per_step=dev_s, wall_s_per_step=wall_per_step,
+                busy_share=dev_s / wall_per_step, device_launches_per_step=sum(r[2] for r in rows) / steps,
+                top=[[k[:60], us / 1e6 / steps, n / steps] for k, us, n in rows[:6]])
 
 
 def phase_profile(dev, main_run: dict) -> dict:
@@ -234,15 +297,7 @@ def phase_profile(dev, main_run: dict) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fleet.run(replicas=N_REP, leap=leap)
             torch.cuda.synchronize()
-        # device-side events only (kernels, copies): the CPU-side op events
-        # carry their kernels' time too and would count it twice
-        dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0)
-        rows = sorted(
-            ((e.key, dev_us(e), e.count) for e in prof.key_averages()
-             if str(e.device_type).endswith("CUDA") and dev_us(e) > 0),
-            key=lambda r: -r[1],
-        )
+        rows = device_rows(prof)
         total_s = sum(r[1] for r in rows) / 1e6
         wall = walls[(mode, "default")]
         fused = sum(r[1] for r in rows if "bank_fused_kernel" in r[0]) / 1e6
@@ -342,6 +397,172 @@ def phase_timing(dev) -> dict:
     return res
 
 
+def mlp_net(n: int, f_in: int, dev, seed: int = 0):
+    """Random LeCun-scaled weights of the classifier's shape and ``n``
+    unit-box input rows, made from a seed."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    dims = [f_in] + [MLP_HIDDEN] * MLP_DEPTH + [1]
+    ws = [(torch.randn(a, b, generator=g) / a ** 0.5).to(dev) for a, b in zip(dims[:-1], dims[1:])]
+    bs = [(0.1 * torch.randn(b, generator=g)).to(dev) for b in dims[1:]]
+    return torch.rand(n, f_in, generator=g).to(dev), ws, bs
+
+
+def mlp_grads(fn, x, ws, bs):
+    """Gradients of the classifier's BCE loss (half the rows labelled 1)
+    through ``fn(x, ws, bs)``."""
+    labels = (torch.arange(x.shape[0], device=x.device) < x.shape[0] // 2).float()
+    leaves = [p.clone().requires_grad_() for p in ws + bs]
+    logits = fn(x, leaves[:len(ws)], leaves[len(ws):])[:, 0]
+    loss = (logits.clamp(min=0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))).mean()
+    return torch.autograd.grad(loss, leaves)
+
+
+def phase_selu_mlp(dev) -> dict:
+    """The SELU-MLP kernel against its plain version at the calibration
+    path's shapes: N = 8,192 (every scenario's chains in one MCMC step) and
+    N = 4,096 (a training batch), F_in = 15. Forward outputs and
+    pre-activations within rtol/atol 1e-5 (the same ascending sums; expm1
+    may round differently); the autograd gradients of the BCE loss within
+    1e-4 of each tensor's largest entry (sums over the batch in torch
+    matmuls, from slightly different forwards). The forward is timed at
+    both sizes; the kernel line carries the MCMC shape."""
+    out = {}
+    for n in (8192, 4096):
+        x, ws, bs = mlp_net(n, MLP_IN, dev, seed=n)
+        got, pre = selu_mlp.selu_mlp_cuda(x, ws, bs, save_pre=True)
+        want, want_pre = ref.selu_mlp(x, ws, bs, return_pre=True)
+        err = max(compare(f"selu_mlp N={n} out", got, want, False, 1e-5, 1e-5),
+                  compare(f"selu_mlp N={n} pre", pre, want_pre, False, 1e-5, 1e-5))
+        g_k = mlp_grads(ops.selu_mlp, x, ws, bs)
+        g_p = mlp_grads(lambda a, w, b: ref.selu_mlp(a, w, b), x, ws, bs)
+        grad_rel = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(g_k, g_p))
+        if grad_rel > 1e-4:
+            raise AssertionError(f"selu_mlp N={n} gradients differ: {grad_rel} of the largest entry")
+        ms, _ = timed(lambda: selu_mlp.selu_mlp_cuda(x, ws, bs), 200)
+        plain_ms, _ = timed(lambda: ref.selu_mlp(x, ws, bs), 3)
+        # operations: a multiply and an add per weight per row; bytes: the
+        # input rows and weights read once, the logits written once
+        ops_ = 2 * n * (MLP_IN * MLP_HIDDEN + (MLP_DEPTH - 1) * MLP_HIDDEN ** 2 + MLP_HIDDEN)
+        bytes_ = nbytes(x, *ws, *bs) + 4 * n
+        bound = max(bytes_ / PEAK_BYTES, ops_ / PEAK_FP32) * 1e3
+        out[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                      bound_by="bytes" if bytes_ / PEAK_BYTES >= ops_ / PEAK_FP32 else "operations",
+                      ops=ops_, bytes=bytes_, max_abs_err=err, grad_max_rel_err=grad_rel)
+        emit("calibrate", check="selu_mlp kernel vs plain", N=n, F_in=MLP_IN, card=smi(),
+             library_ms=None, library="none: no single PyTorch call computes the SELU MLP",
+             **out[n])
+    torch.cuda.synchronize()
+    return out
+
+
+def reset_counts() -> None:
+    grid_tick.reset_launches()
+    selu_mlp.reset_launches()
+
+
+def counts() -> dict:
+    return {**grid_tick.LAUNCHES, **selu_mlp.LAUNCHES}
+
+
+def phase_calibrate(dev) -> dict:
+    """The amortized calibration path at full width on the card, stage by
+    stage, each stage's launches counted from 0."""
+    cfg = CalibrationConfig()
+    fleet = Fleet.from_scenarios(n=N_SCEN, seed=0, leap=True, device=dev)
+    stages = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        stages[name] = dict(seconds=time.perf_counter() - t0, launches=counts())
+        return res
+
+    # the observation: per-scenario medians of 8 replicas at a known theta
+    coefs = stage("x_true", lambda: fleet.coefficients(
+        torch.tensor(THETA_TRUE), replicas=8, key=prng.PRNGKey(42, dev)))
+    x_true = calibration._median(coefs, 1)
+    assert tuple(x_true.shape) == (N_SCEN, 3) and bool(torch.isfinite(x_true).all())
+    key = prng.PRNGKey(0, dev)
+    # presimulation alone, as Fleet.calibrate runs it (same key and batch),
+    # for its seconds; calibrate then runs it again ahead of training
+    n_per = -(-cfg.n_presim // N_SCEN)
+    theta, x_sim, sid = stage("presimulate", lambda: fleet.presimulate(
+        calibration.PriorBox.paper(), prng.split(key, 2)[1], n_per, batch=min(128, n_per),
+        leap=cfg.use_leap))
+    assert tuple(theta.shape) == (N_SCEN * n_per, 3) and bool(torch.isfinite(x_sim).all())
+    post = stage("calibrate", lambda: fleet.calibrate(x_true, key, cfg, amortized=True))
+    stages["train"] = dict(seconds=stages["calibrate"]["seconds"] - stages["presimulate"]["seconds"],
+                           launches={"selu_mlp": stages["calibrate"]["launches"]["selu_mlp"]})
+    theta_star, stats = stage("mcmc", lambda: post.theta_star_all(
+        prng.PRNGKey(1, dev), return_stats=True))
+    if tuple(theta_star.shape) != (N_SCEN, 3) or not bool(torch.isfinite(theta_star).all()):
+        raise AssertionError(f"theta_star not finite [{N_SCEN}, 3]: {tuple(theta_star.shape)}")
+    val = stage("validate", lambda: fleet.validate(theta_star, x_true, prng.PRNGKey(2, dev)))
+    # a fit whose normal matrix is singular in float32 is NaN, as in the
+    # reference; nearly all must be finite
+    finite = float(np.isfinite(val["coefficients"]).all(-1).mean())
+    if val["coefficients"].shape != (N_SCEN, 64, 3) or finite < 0.99:
+        raise AssertionError(f"validation: {val['coefficients'].shape}, finite share {finite}")
+    for name, want in (("calibrate", ("selu_mlp", "grid_tick_bank")), ("mcmc", ("selu_mlp",)),
+                       ("validate", ("grid_tick_bank",))):
+        for k in want:
+            if stages[name]["launches"][k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched in stage {name}")
+    mcmc_steps = cfg.burn_in + cfg.n_mcmc
+    res = dict(
+        scenarios=N_SCEN, presim_tuples=int(theta.shape[0]), epochs=cfg.epochs,
+        batch_size=cfg.batch_size, chains=N_SCEN * cfg.n_chains, mcmc_steps=mcmc_steps,
+        train_loss=post.train_loss, train_accuracy=post.train_accuracy,
+        accept_rate_mean=float(stats["accept_rate"].mean()),
+        accept_rate_min=float(stats["accept_rate"].min()),
+        rhat_max=float(stats["rhat"].max()),
+        rhat_median=float(stats["rhat"].max(dim=1).values.median()),
+        theta_star_shape=list(theta_star.shape),
+        theta_star_median=theta_star.median(dim=0).values.tolist(),
+        theta_true=list(THETA_TRUE),
+        validate_finite_share=finite,
+        validate_mean_abs_error_median=np.nanmedian(val["mean_abs_error"], axis=0).tolist(),
+        stages=stages,
+    )
+    emit("calibrate", **res)
+
+    # where the time goes: a 501-step MCMC over every scenario's chains and
+    # two training epochs on the presimulated tuples, profiled
+    prof = {}
+    prof["mcmc"] = profile_steps(
+        lambda: post.theta_star_all(prng.PRNGKey(1, dev), n_samples=400, burn_in=100),
+        501, stages["mcmc"]["seconds"] / (mcmc_steps + 1))
+    theta_u = calibration.PriorBox.paper(dev).to_unit(theta)
+    x_lo, x_hi = (torch.tensor(v, device=dev) for v in (cfg.x_low, cfg.x_high))
+    x_u = torch.clamp((x_sim - x_lo) / (x_hi - x_lo), 0.0, 1.0)
+    train_steps = cfg.epochs * -(-theta.shape[0] // cfg.batch_size)
+    prof["train"] = profile_steps(
+        lambda: classifier.train_classifier(
+            prng.PRNGKey(5, dev), classifier.ClassifierConfig(context_dim=post.n_features, lr=cfg.lr),
+            theta_u, x_u, post.features[sid.long()], epochs=2, batch_size=cfg.batch_size),
+        2 * train_steps // cfg.epochs, stages["train"]["seconds"] / train_steps)
+    for name, p_ in prof.items():
+        emit("calibrate", profile=name, **p_)
+    res["profile"] = prof
+
+    # a chain on the card against the CPU path, from the same converted
+    # weights and key: samples within 1e-5
+    cpu_params = classifier_from_reference(classifier_to_reference(post.classifier_params), "cpu")
+    x0, ctx0 = post.x_true_unit[0], post.features[0]
+    key = prng.PRNGKey(3)
+    a = mcmc.run_chain(post.classifier_params, x0, key, n_samples=150, burn_in=50, context=ctx0)
+    b = mcmc.run_chain(cpu_params, x0.cpu(), key, n_samples=150, burn_in=50, context=ctx0.cpu())
+    err = compare("run_chain card vs CPU", a.samples.cpu(), b.samples, False, 0.0, 1e-5)
+    if float(a.accept_rate) != float(b.accept_rate):
+        raise AssertionError(f"accept rate card {float(a.accept_rate)} vs CPU {float(b.accept_rate)}")
+    emit("calibrate", check="run_chain 200 steps card vs CPU path", max_abs_err=err,
+         accept_rate=float(a.accept_rate))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -357,6 +578,8 @@ def main() -> int:
     phase_parity(dev)
     phase_profile(dev, main_run)
     times = phase_timing(dev)
+    mlp = phase_selu_mlp(dev)
+    cal = phase_calibrate(dev)
     kernels = []
     replaces = {
         "grid_tick_bank_fused": "src/repro/kernels/grid_tick.py:477",
@@ -372,6 +595,16 @@ def main() -> int:
             ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
         ))
+    m = mlp[8192]
+    by_stage = {k: cal["stages"][k]["launches"]["selu_mlp"] for k in ("train", "mcmc")}
+    kernels.append(dict(
+        name="selu_mlp", route="cuda", source="src/repro_torch/kernels/csrc/selu_mlp.cu",
+        replaces="src/repro/kernels/selu_mlp.py:64", launches=sum(by_stage.values()),
+        launches_by_run=by_stage,
+        max_abs_err=max(v["max_abs_err"] for v in mlp.values()),
+        ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+        library_ms=None,
+    ))
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)

@@ -10,16 +10,24 @@ bits after each add and shift). The functions mirror ``jax.random``:
 - :func:`split` — the partitionable ("fold-like") split: key ``i`` of ``n``
   is the threefry hash of the 64-bit counter ``i`` (hi word, lo word);
 - :func:`random_bits` — 32-bit words ``hash(counter)[0] ^ hash(counter)[1]``;
+- :func:`fold_in` — the threefry hash of the counter ``(0, data)``;
+- :func:`uniform` — float32 on ``[lo, hi)`` from the top 23 bits, ``lo``
+  and ``hi`` scalars or tensors that broadcast against the draw;
 - :func:`normal` — ``sqrt(2) * erf_inv(u)`` with ``u`` uniform on
-  ``[nextafter(-1, 0), 1)`` from the top 23 bits, as ``_normal_real`` does.
+  ``[nextafter(-1, 0), 1)`` from the top 23 bits, as ``_normal_real`` does;
+- :func:`permutation` — ``jax.random.permutation(key, n)``: rounds of a
+  stable sort of ``arange(n)`` by fresh 32-bit words.
 
 ``erf_inv`` is the single-precision Giles polynomial that XLA lowers
-``lax.erf_inv`` to. XLA on the CPU contracts its Horner steps into fused
-multiply-adds, so :func:`fma` reproduces one correctly rounded ``a * b + c``
-in float64 (exact product, one rounding of the sum, one rounding to float32).
-These are plain tensor ops on whatever device the key lies on; the engine
-draws the whole window's noise with them ahead of the kernel, as the
-reference draws its key chain outside the Pallas kernel.
+``lax.erf_inv`` to, and :func:`log` is the Cephes polynomial that XLA's CPU
+emitter lowers float32 ``log`` to. XLA on the CPU contracts their Horner
+steps into fused multiply-adds, so :func:`fma` reproduces one correctly
+rounded ``a * b + c`` in float64 (exact product, one rounding of the sum,
+one rounding to float32). Written in explicit elementary ops, both give
+the same bits on the CPU and on the card, where ``torch.log`` would give
+each device's own. These are plain tensor ops on whatever device the key
+lies on; the engine draws the whole window's noise with them ahead of the
+kernel, as the reference draws its key chain outside the Pallas kernel.
 """
 from __future__ import annotations
 
@@ -31,10 +39,13 @@ import torch
 __all__ = [
     "PRNGKey",
     "split",
+    "fold_in",
     "random_bits",
     "uniform",
     "normal",
+    "permutation",
     "erf_inv",
+    "log",
     "fma",
     "threefry2x32",
 ]
@@ -67,6 +78,16 @@ _LOG1P_DEN = (
     2.1642788614495947685003e2, 6.0118660497603843919306e1,
 )
 _LOG1P_SMALL = 0.41421356237309504880
+# XLA's float32 log (Cephes, Eigen's plog): the polynomial p0..p8 and the
+# split ln(2) = q2 - q1
+_LOG_P = (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1,
+)
+_LOG_Q1 = -2.12194440e-4
+_LOG_Q2 = 0.693359375
+_SQRT_HALF = 0.707106781186547524
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -111,6 +132,15 @@ def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
+def fold_in(key: torch.Tensor, data: Union[int, torch.Tensor]) -> torch.Tensor:
+    """``jax.random.fold_in``: ``[..., 2]`` keys and a 32-bit ``data`` (an
+    int, or a tensor that broadcasts against the keys' leading dims) ->
+    ``[..., 2]`` keys, the hash of the counter ``(0, data)``."""
+    data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _MASK
+    b1, b2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(data), data)
+    return torch.stack([b1, b2], dim=-1)
+
+
 def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """32-bit random words of ``shape`` per key: ``[..., 2]`` -> ``[..., *shape]``
     int64 (``jax.random.bits`` under the partitionable threefry)."""
@@ -129,16 +159,39 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
+Bound = Union[float, torch.Tensor]
+
+
 def uniform(
-    key: torch.Tensor, shape: Sequence[int], lo: float = 0.0, hi: float = 1.0
+    key: torch.Tensor, shape: Sequence[int], lo: Bound = 0.0, hi: Bound = 1.0
 ) -> torch.Tensor:
-    """float32 uniform on ``[lo, hi)`` per key, from the top 23 bits."""
+    """float32 uniform on ``[lo, hi)`` per key, from the top 23 bits
+    (``jax.random.uniform(key, shape, minval=lo, maxval=hi)``). ``lo`` and
+    ``hi`` are scalars or float32 tensors that broadcast against the
+    ``[..., *shape]`` draw."""
     bits = random_bits(key, shape)
     one = torch.tensor(1.0, dtype=torch.float32).view(torch.int32).item()
     f = ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
-    lo_t = torch.tensor(lo, dtype=torch.float32, device=key.device)
-    scale = torch.tensor(hi, dtype=torch.float32, device=key.device) - lo_t
+    lo_t = torch.as_tensor(lo, dtype=torch.float32, device=key.device)
+    scale = torch.as_tensor(hi, dtype=torch.float32, device=key.device) - lo_t
     return torch.maximum(lo_t, fma(f, scale, lo_t))
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` per key: ``[..., 2]`` keys ->
+    ``[..., n]`` int64. ``arange(n)`` is sorted ``ceil(3 ln(n) /
+    ln(2**32 - 1))`` times, each round by the 32-bit words of a fresh
+    subkey, with a stable sort (ties keep their order, as
+    ``lax.sort_key_val`` keeps them)."""
+    lead = key.shape[:-1]
+    x = torch.arange(n, dtype=torch.int64, device=key.device).expand(*lead, n)
+    rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(2.0**32 - 1)))
+    for _ in range(rounds):
+        pair = split(key, 2)
+        key, sub = pair[..., 0, :], pair[..., 1, :]
+        order = torch.sort(random_bits(sub, (n,)), dim=-1, stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x
 
 
 def _polevl(x: torch.Tensor, coefs: Sequence[float]) -> torch.Tensor:
@@ -148,22 +201,55 @@ def _polevl(x: torch.Tensor, coefs: Sequence[float]) -> torch.Tensor:
     return p
 
 
+def log(x: torch.Tensor) -> torch.Tensor:
+    """float32 natural log as XLA's CPU emitter computes it, bit for bit:
+    ``x = m * 2**e`` with ``m`` shifted into ``[sqrt(1/2), sqrt(2))``, the
+    Cephes degree-8 polynomial in ``m - 1`` evaluated in three fused chains,
+    then ``e * ln(2)`` added back in two parts. ``log(0) = -inf``,
+    ``log(inf) = inf``, negative or NaN inputs give NaN."""
+    x = x.to(torch.float32)
+    m, e = torch.frexp(torch.clamp(x, min=torch.finfo(torch.float32).tiny))
+    e = e.to(torch.float32)
+    low = m < _SQRT_HALF
+    e = e - low.to(torch.float32)
+    m = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    x2 = m * m
+    x3 = x2 * m
+    c = lambda v: torch.full_like(m, v)
+    p = _LOG_P
+    y = fma(c(p[0]), m, c(p[1]))
+    y1 = fma(c(p[3]), m, c(p[4]))
+    y2 = fma(c(p[6]), m, c(p[7]))
+    y = fma(y, m, c(p[2]))
+    y1 = fma(y1, m, c(p[5]))
+    y2 = fma(y2, m, c(p[8]))
+    y = fma(y, x3, y1)
+    y = fma(y, x3, y2)
+    y = fma(y, x3, e * _LOG_Q1)
+    m = fma(x2, c(-0.5), m) + y
+    out = fma(e, c(_LOG_Q2), m)
+    out = torch.where(x == math.inf, x, out)
+    out = torch.where(x == 0.0, torch.full_like(x, -math.inf), out)
+    return torch.where((x < 0.0) | torch.isnan(x), torch.full_like(x, math.nan), out)
+
+
 def _log1p(x: torch.Tensor) -> torch.Tensor:
     """float32 ``log(1 + x)`` as XLA's CPU emitter computes it: the Cephes
     rational approximation (fused Horner steps) for ``|x| < sqrt(2) - 1``,
-    ``log(1 + x)`` beyond. The far branch uses torch's ``log``, which differs
-    from XLA's in the last bits for a small share of inputs."""
+    :func:`log` of ``1 + x`` beyond."""
     x2 = x * x
     small = (x * x2) * (_polevl(x, _LOG1P_NUM) / _polevl(x, _LOG1P_DEN))
     small = x + fma(torch.full_like(x, -0.5), x2, small)
-    return torch.where(x.abs() < _LOG1P_SMALL, small, torch.log(x + 1.0))
+    return torch.where(x.abs() < _LOG1P_SMALL, small, log(x + 1.0))
 
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
     """float32 inverse error function, XLA's Giles polynomial."""
     w = -_log1p(-(x * x))
     small = w < 5.0
-    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    # sqrt in float64, rounded once: the correctly rounded float32 sqrt that
+    # XLA and the card compute (torch's CPU float32 sqrt is not always)
+    w = torch.where(small, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
     coef = lambda i: torch.where(
         small,
         torch.tensor(_ERFINV_SMALL[i], dtype=torch.float32, device=x.device),

@@ -1,10 +1,17 @@
-"""Dispatch of the grid-tick operations by device.
+"""Dispatch of the grid-tick and SELU-MLP operations by device.
 
 A CPU tensor takes the plain PyTorch version (:mod:`repro_torch.kernels.ref`)
 and a CUDA tensor takes the hand-written kernel
-(:mod:`repro_torch.kernels.grid_tick`); there is no other switch and no
-fallback from one to the other. Validation mirrors the reference package's
-``repro.kernels.ops``.
+(:mod:`repro_torch.kernels.grid_tick`, :mod:`repro_torch.kernels.selu_mlp`);
+there is no other switch and no fallback from one to the other. Validation
+mirrors the reference package's ``repro.kernels.ops``.
+
+:func:`selu_mlp` is differentiable through :class:`SeluMLP`, whose forward
+is that dispatch and whose backward is written in torch ops (``torch.matmul``
+for the products, SELU's derivative from the saved pre-activations). The
+reference has no backward kernel either: its ``selu_mlp_pallas`` carries no
+``custom_vjp``, and the classifier's gradient is XLA autodiff of the plain
+expression, outside any Pallas kernel.
 
 Float32 contractions of the plain version run at full precision
 (``torch.backends.cuda.matmul.allow_tf32`` must stay False, its default):
@@ -19,7 +26,7 @@ import torch
 
 from repro_torch.kernels import ref
 
-__all__ = ["grid_tick_bank", "grid_tick_bank_fused"]
+__all__ = ["grid_tick_bank", "grid_tick_bank_fused", "selu_mlp", "SeluMLP"]
 
 
 def _device_kind(x: torch.Tensor) -> str:
@@ -214,3 +221,69 @@ def grid_tick_bank_fused(
     steps = out[1].long()
     key = torch.gather(chain, 0, steps[None, :, :, None].expand(1, S, R, 2))[0]
     return out, key
+
+
+def _selu_mlp_forward(x, weights, biases, save_pre: bool):
+    if _device_kind(x) == "cpu":
+        if save_pre:
+            return ref.selu_mlp(x, weights, biases, return_pre=True)
+        return ref.selu_mlp(x, weights, biases), None
+    from repro_torch.kernels import selu_mlp as _k
+
+    f32 = torch.float32
+    c = lambda t: t.detach().to(f32).contiguous()
+    return _k.selu_mlp_cuda(
+        c(x), [c(w) for w in weights], [c(b) for b in biases], save_pre=save_pre
+    )
+
+
+class SeluMLP(torch.autograd.Function):
+    """``selu_mlp`` with a backward: inputs ``(x, w0..wD, b0..bD)``."""
+
+    @staticmethod
+    def forward(ctx, x, *params):
+        d = len(params) // 2
+        weights, biases = params[:d], params[d:]
+        want_grad = any(ctx.needs_input_grad)
+        out, pre = _selu_mlp_forward(x, weights, biases, want_grad)
+        if want_grad:
+            ctx.save_for_backward(x, pre, *weights)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, pre, *weights = ctx.saved_tensors
+        depth = len(weights) - 1
+        f32 = torch.float32
+        g = grad_out.to(f32)
+        gw, gb = [None] * (depth + 1), [None] * (depth + 1)
+        for i in range(depth, -1, -1):
+            h = x.to(f32) if i == 0 else ref.selu(pre[i - 1])
+            gw[i] = h.transpose(0, 1) @ g
+            gb[i] = g.sum(0)
+            if i > 0 or ctx.needs_input_grad[0]:
+                g = g @ weights[i].to(f32).transpose(0, 1)
+            if i > 0:
+                z = pre[i - 1]
+                g = g * torch.where(
+                    z > 0, ref.SELU_SCALE, ref.SELU_SCALE * ref.SELU_ALPHA * torch.exp(z)
+                )
+        gx = g if ctx.needs_input_grad[0] else None
+        return (gx, *gw, *gb)
+
+
+def selu_mlp(
+    x: torch.Tensor,  # [N, F_in]
+    weights: Tuple[torch.Tensor, ...],
+    biases: Tuple[torch.Tensor, ...],
+) -> torch.Tensor:
+    """SELU MLP forward ``[N, f_out]`` (SELU on all layers but the last):
+    the plain version on a CPU tensor, the CUDA kernel on a CUDA tensor,
+    differentiable in ``x``, ``weights`` and ``biases`` either way."""
+    if x.dim() != 2:
+        raise ValueError(f"selu_mlp: x must be [N, F_in]: {tuple(x.shape)}")
+    if len(weights) != len(biases):
+        raise ValueError(
+            f"selu_mlp: {len(weights)} weights but {len(biases)} biases"
+        )
+    return SeluMLP.apply(x, *weights, *biases)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the grid-tick kernels.
+"""Plain PyTorch versions of the grid-tick and SELU-MLP kernels.
 
 Each function is the port's semantic ground truth for one CUDA kernel: the
 CPU path runs it directly, the tests hold it against the reference package's
@@ -27,6 +27,10 @@ __all__ = [
     "bank_split_draw",
     "bank_index_tables",
     "grid_tick_bank_window",
+    "SELU_ALPHA",
+    "SELU_SCALE",
+    "selu",
+    "selu_mlp",
 ]
 
 Tick = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
@@ -304,3 +308,47 @@ def grid_tick_bank_window(
     if key is not None:
         return final, k
     return final
+
+
+# ---------------------------------------------------------------------------
+# selu_mlp: the AALR classifier's forward (4 hidden SELU layers x 128)
+# ---------------------------------------------------------------------------
+SELU_ALPHA = 1.6732632423543772848170429916717
+SELU_SCALE = 1.0507009873554804934193349852946
+
+
+def selu(z: torch.Tensor) -> torch.Tensor:
+    """``scale * (z if z > 0 else alpha * expm1(z))``, as ``jax.nn.selu``."""
+    return SELU_SCALE * torch.where(z > 0, z, SELU_ALPHA * torch.expm1(z))
+
+
+def selu_mlp(
+    x: torch.Tensor,  # [N, F_in]
+    weights: Tuple[torch.Tensor, ...],  # [F_i, F_i+1]
+    biases: Tuple[torch.Tensor, ...],  # [F_i+1]
+    *,
+    return_pre: bool = False,
+):
+    """MLP with SELU on every layer but the last, in float32.
+
+    Each product sums its terms in ascending input unit, a rounded multiply
+    then a rounded add, and adds the bias after the sum: the CUDA kernel's
+    order, so a row's result does not depend on the other rows of the call
+    (a BLAS product changes its blocking with the row count). With
+    ``return_pre`` it also returns the ``[depth, N, H]`` stack of hidden
+    pre-activations that the backward reads."""
+    h = x.to(torch.float32)
+    pre = []
+    n = len(weights)
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        w = w.to(torch.float32)
+        acc = h[:, 0:1] * w[0]
+        for k in range(1, w.shape[0]):
+            acc = acc + h[:, k:k + 1] * w[k]
+        h = acc + b.to(torch.float32)
+        if i < n - 1:
+            pre.append(h)
+            h = selu(h)
+    if return_pre:
+        return h, torch.stack(pre)
+    return h

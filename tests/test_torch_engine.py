@@ -6,8 +6,7 @@ and stochastic background load: ``done``, ``ticks``, ``transfer_time`` and
 atol 1e-4 (the segment sums run in another order than the reference's
 one-hot matmul). The port's results at window K=1 and K=16 are bitwise
 equal, and both match the reference. Under ``bg_sigma > 0`` the normals
-may differ from ``jax.random`` in the last ulp (see test_torch_prng.py);
-a flipped done tick would show here as an unequal ``ticks``."""
+are ``jax.random``'s bit for bit (see test_torch_prng.py)."""
 import numpy as np
 import pytest
 import torch
@@ -126,9 +125,17 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_paths_raise():
+    """A calibration theta now maps onto the bank; the bucketed dispatch
+    (ROADMAP A.3) and the per-campaign engine paths (A.7) still raise."""
+    from repro_torch.core import calibration
+
     fleet = Fleet.from_scenarios(n=4, seed=2, max_ticks=200, n_buckets=2, device="cpu")
     with pytest.raises(NotImplementedError, match="A.3"):
         fleet.run()
     assert fleet.run(bucketed=False).ticks.shape == (4, 1)
+    res = fleet.run([0.1, 2.0, 1.0], bucketed=False)
+    assert res.ticks.shape == (4, 1)
     with pytest.raises(TypeError, match="theta"):
-        fleet.run([0.1, 2.0, 1.0], bucketed=False)
+        fleet.run([0.1, 2.0], bucketed=False)
+    with pytest.raises(NotImplementedError, match="A.7"):
+        calibration.presimulate(None, None, None, None, 8)

@@ -1,17 +1,20 @@
-"""The CUDA grid-tick kernels against their plain PyTorch versions, on the
-card. These need an NVIDIA GPU and ``nvcc``; they carry the ``cuda`` marker
+"""The CUDA grid-tick and SELU-MLP kernels against their plain PyTorch
+versions, on the card. These need an NVIDIA GPU and ``nvcc``; they carry the ``cuda`` marker
 and skip elsewhere. On the card: ``python -m pytest -m cuda
 tests/test_torch_kernels_cuda.py``.
 
 Integer and bool fields are equal; float fields within rtol 1e-5, atol 1e-4
-(the kernels' ascending segment sums against the plain version's matmul)."""
+(the kernels' ascending segment sums against the plain version's matmul).
+The SELU-MLP kernel sums in the plain version's order: logits and
+pre-activations within rtol/atol 1e-5 (expm1 may round differently), its
+autograd gradients within 1e-4 of each tensor's largest entry."""
 import pytest
 import torch
 
 from repro_torch import Fleet
 from repro_torch.core import engine
 from repro_torch.core.scenarios import build_bank
-from repro_torch.kernels import grid_tick, ops, ref
+from repro_torch.kernels import grid_tick, ops, ref, selu_mlp
 
 pytestmark = pytest.mark.cuda
 
@@ -79,3 +82,53 @@ def test_kernels_refuse_shapes_past_their_limits():
         grid_tick.grid_tick_bank_cuda(
             f(S, R, T), f(S, R, T), f(S, T), f(S, R, L), f(S, L), i(S, T), i(S, T), i(S, P)
         )
+
+
+def _mlp(n, f_in, hidden=128, depth=4, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    dims = [f_in] + [hidden] * depth + [1]
+    dev = torch.device("cuda")
+    ws = [(torch.randn(a, b, generator=g) / a ** 0.5).to(dev) for a, b in zip(dims[:-1], dims[1:])]
+    bs = [(0.1 * torch.randn(b, generator=g)).to(dev) for b in dims[1:]]
+    return torch.rand(n, f_in, generator=g).to(dev), ws, bs
+
+
+@pytest.mark.parametrize("n,f_in,hidden", [(8192, 15, 128), (4096, 15, 128), (77, 6, 128), (300, 15, 256)])
+def test_selu_mlp_kernel_matches_plain(n, f_in, hidden):
+    _need_cuda()
+    x, ws, bs = _mlp(n, f_in, hidden)
+    before = selu_mlp.LAUNCHES["selu_mlp"]
+    out, pre = selu_mlp.selu_mlp_cuda(x, ws, bs, save_pre=True)
+    torch.cuda.synchronize()
+    assert selu_mlp.LAUNCHES["selu_mlp"] == before + 1
+    want, want_pre = ref.selu_mlp(x, ws, bs, return_pre=True)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(pre, want_pre, rtol=1e-5, atol=1e-5)
+
+
+def test_selu_mlp_backward_matches_plain():
+    _need_cuda()
+    x, ws, bs = _mlp(4096, 15)
+    labels = (torch.arange(4096, device=x.device) < 2048).float()
+
+    def grads(fn):
+        leaves = [p.clone().requires_grad_() for p in ws + bs]
+        logits = fn(x, leaves[:5], leaves[5:])[:, 0]
+        loss = (logits.clamp(min=0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))).mean()
+        return torch.autograd.grad(loss, leaves)
+
+    got = grads(ops.selu_mlp)
+    want = grads(lambda a, w, b: ref.selu_mlp(a, w, b))
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_selu_mlp_kernel_refuses_other_widths():
+    _need_cuda()
+    x, ws, bs = _mlp(16, 15, hidden=96)
+    ws[1] = ws[1][:, :80].contiguous()
+    with pytest.raises(ValueError):
+        selu_mlp.selu_mlp_cuda(x, ws, bs)
+    x, ws, bs = _mlp(16, 15, hidden=40)
+    with pytest.raises(ValueError, match="hidden widths"):
+        selu_mlp.selu_mlp_cuda(x, ws, bs)
