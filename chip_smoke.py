@@ -33,7 +33,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    seconds and kernel launches (counts set to 0 just before a stage, read
    just after); the device time per MCMC and training step under
    ``torch.profiler``; and a 200-step chain on the card against the CPU
-   path.
+   path;
+8. kernels (per campaign) — the per-campaign kernel against its plain
+   versions (``ref.grid_tick_indexed`` bitwise, ``ref.grid_tick`` within
+   RTOL/ATOL) on the paper's Section-5 campaign (T=106, P=11, L=1) at
+   B = 7 and B = 2,048, shared and per-row keep, finite and infinite
+   ``remaining``, and on a 700-leg campaign;
+9. campaign — ``simulate_batch`` of the Section-5 campaign at B = 2,048,
+   tick and leap, default and stochastic background load, with sims/s and
+   launches per run; device time by kernel of a stochastic tick (300
+   ticks) and leap run under ``torch.profiler``; window invariance (K=1 vs
+   K=64, bitwise); card vs CPU path; the kernel's device time at the main
+   shape (``torch.profiler``) beside its bound;
+10. section5 — ``repro_torch.launch.calibrate``'s ``main`` at its defaults
+   (8,192 presimulated tuples x 4 replicates, 120 epochs, 4 x 8,000 MCMC
+   steps, 64 validation runs), seconds and kernel launches per stage,
+   finite theta*, MAP and R-hat;
+11. optimize — ``optimize_profiles`` (population 32, 12 generations) on the
+   congested grid of the repo's scheduler test: no worse than all-remote,
+   the same history as the CPU path.
 
 Then the ``kernels`` line, the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -41,6 +59,8 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -57,8 +77,10 @@ import torch  # noqa: E402
 from repro_torch import CalibrationConfig, Fleet  # noqa: E402
 from repro_torch.convert import classifier_from_reference, classifier_to_reference  # noqa: E402
 from repro_torch.core import calibration, classifier, engine, mcmc, prng  # noqa: E402
+from repro_torch.core import scheduler, topology, workload  # noqa: E402
 from repro_torch.core.scenarios import build_bank  # noqa: E402
 from repro_torch.kernels import _build, grid_tick, ops, ref, selu_mlp  # noqa: E402
+from repro_torch.launch import calibrate as calibrate_launcher  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 non-tensor FLOP/s
 PEAK_BYTES = 3.35e12
@@ -68,6 +90,12 @@ PEAK_FP32 = 67e12
 RTOL, ATOL = 1e-5, 1e-4
 
 N_SCEN, N_REP = 1024, 64
+BANK_KERNELS = ("grid_tick_bank_fused", "grid_tick_bank")
+# the paper's Section-5 campaign as the calibration launcher compiles it
+# (T=106 legs, P=11 processes, L=1 link), the batch of one presimulation
+# chunk (512 thetas x 4 replicates) and the launcher's ground truth
+SECTION5_MAX_TICKS, CAMPAIGN_B = 30_000, 2048
+THETA_SECTION5 = (0.02, 36.9, 14.4)
 # the calibration path's classifier: 3 theta + 3 x + 9 context features in,
 # 4 hidden SELU layers of 128, one logit out
 MLP_IN, MLP_HIDDEN, MLP_DEPTH = 15, 128, 4
@@ -209,9 +237,9 @@ def phase_main(dev) -> dict:
             )
             emit("main", **run)
             runs.append(run)
-    launches = {k: sum(r["launches"][k] for r in runs) for k in grid_tick.LAUNCHES}
+    launches = {k: sum(r["launches"][k] for r in runs) for k in BANK_KERNELS}
     by_run = {k: {f"{r['mode']}_{r['params']}": r["launches"][k] for r in runs}
-              for k in grid_tick.LAUNCHES}
+              for k in BANK_KERNELS}
     for name, n in launches.items():
         assert n > 0, f"kernel {name} was not launched on the main path"
     emit("main", pads=list(fleet.pads), launches=launches, launches_by_run=by_run)
@@ -563,6 +591,312 @@ def phase_calibrate(dev) -> dict:
     return res
 
 
+def section5_table():
+    return workload.compile_campaign(*workload.wlcg_production_workload(seed=0))
+
+
+def random_campaign(T, P, L, seed):
+    """One-hot incidences of a random campaign past the bank kernels' 128
+    legs: every leg in one process, every process on one link."""
+    g = torch.Generator().manual_seed(seed)
+    lp = torch.nn.functional.one_hot(torch.randint(0, P, (T,), generator=g), P).float()
+    pl = torch.nn.functional.one_hot(torch.randint(0, L, (P,), generator=g), L).float()
+    return lp, pl, lp @ pl
+
+
+def campaign_tick_inputs(B, T, L, dev, per_row: bool, inf: bool, seed: int = 0):
+    """A random ``[B, T]`` tick state: 0/1 active flags, remaining MB (or
+    ``inf``, as the leap calls the tick), keep ``[T]`` or ``[B, T]``,
+    background load ``[B, L]``."""
+    g = torch.Generator().manual_seed(seed)
+    a = (torch.rand(B, T, generator=g) < 0.6).float()
+    rem = torch.full((B, T), float("inf")) if inf else 50 * torch.rand(B, T, generator=g)
+    keep = 0.9 + 0.1 * torch.rand((B, T) if per_row else (T,), generator=g)
+    bg = 3 * torch.rand(B, L, generator=g)
+    return tuple(x.to(dev) for x in (a, rem, keep, bg))
+
+
+def check_campaign_kernel(label, a, rem, keep, bg, bw, lp, pl, ll) -> float:
+    """The per-campaign kernel against ``ref.grid_tick_indexed`` (bitwise)
+    and ``ref.grid_tick`` (within RTOL/ATOL); the max abs error against the
+    latter."""
+    tables = ref.campaign_index_tables(lp, pl, ll)
+    got = grid_tick.grid_tick_cuda(a, rem, keep, bg, bw, tables)
+    want = ref.grid_tick_indexed(a, rem, keep, bg, bw, tables)
+    for name, g_, w_ in zip(("xfer", "proc_xfer", "link_xfer"), got, want):
+        compare(f"grid_tick {label} {name} vs indexed", g_, w_, exact=True)
+    plain = ref.grid_tick(a, rem, keep, bg, bw, lp, pl, ll)
+    return max(compare(f"grid_tick {label} {name}", g_, w_, exact=False)
+               for name, g_, w_ in zip(("xfer", "proc_xfer", "link_xfer"), got, plain))
+
+
+def phase_campaign_kernel(dev) -> float:
+    """The per-campaign kernel against its plain versions: the Section-5
+    campaign at B = 7 and at the main shape B = 2,048 (shared and per-row
+    keep, finite and infinite remaining), and a 700-leg campaign."""
+    spec = engine.SimSpec.from_table(section5_table(), max_ticks=SECTION5_MAX_TICKS, device=dev)
+    inc = (spec.leg_proc, spec.proc_link, spec.leg_link)
+    T, P, L = spec.n_legs, spec.leg_proc.shape[1], spec.n_links
+    err = 0.0
+    for B in (7, CAMPAIGN_B):
+        for per_row in (False, True):
+            for inf in (False, True):
+                x = campaign_tick_inputs(B, T, L, dev, per_row, inf, seed=B)
+                e = check_campaign_kernel(f"B={B}", *x, spec.bandwidth, *inc)
+                emit("kernels", kernel="grid_tick", B=B, T=T, P=P, L=L, per_row_keep=per_row,
+                     remaining_inf=inf, bitwise_vs_indexed=True, max_abs_err=e)
+                err = max(err, e)
+    T2, P2, L2, B2 = 700, 90, 40, 300
+    inc2 = tuple(m.to(dev) for m in random_campaign(T2, P2, L2, seed=3))
+    bw2 = (1 + 100 * torch.rand(L2, generator=torch.Generator().manual_seed(4))).to(dev)
+    e = check_campaign_kernel("T=700", *campaign_tick_inputs(B2, T2, L2, dev, True, False, 5),
+                              bw2, *inc2)
+    emit("kernels", kernel="grid_tick", B=B2, T=T2, P=P2, L=L2, per_row_keep=True,
+         bitwise_vs_indexed=True, max_abs_err=e)
+    torch.cuda.synchronize()
+    return max(err, e)
+
+
+def phase_campaign(dev) -> dict:
+    """``simulate_batch`` of the Section-5 campaign at B = 2,048 through
+    the per-campaign kernel: tick and leap, the campaign's own
+    (deterministic) background load and the launcher's stochastic theta;
+    each timed run's launches counted from 0. Then window invariance
+    (K = 1 vs K = 64, bitwise), the card against the CPU path, and the
+    kernel's time at the main shape beside its bound."""
+    table = section5_table()
+    spec = engine.SimSpec.from_table(table, max_ticks=SECTION5_MAX_TICKS, device=dev)
+    mapper = calibration.make_theta_mapper(table, device=dev)
+    theta = torch.tensor(THETA_SECTION5, device=dev)
+    params = {"default": engine.make_params(table, device=dev), "stochastic": mapper(theta)}
+    keys = prng.split(prng.PRNGKey(0, dev), CAMPAIGN_B)
+    short = spec._replace(max_ticks=64)
+    runs = []
+    for leap in (False, True):
+        for label, p in params.items():
+            engine.simulate_batch(short, p, keys, leap=leap)  # warm-up
+            torch.cuda.synchronize()
+            engine.STATS["windows"] = 0
+            reset_counts()
+            t0 = time.perf_counter()
+            res = engine.simulate_batch(spec, p, keys, leap=leap)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = counts()
+            for f in ("transfer_time", "conth_mb", "conpr_mb", "start_tick"):
+                x = getattr(res, f)
+                assert tuple(x.shape) == (CAMPAIGN_B, spec.n_legs), (f, tuple(x.shape))
+                assert bool(torch.isfinite(x).all()), f"{f} not finite"
+            if launches["grid_tick"] <= 0:
+                raise AssertionError(f"grid_tick was not launched in the {label} run (leap={leap})")
+            run = dict(mode="leap" if leap else "tick", params=label, sims=CAMPAIGN_B, wall_s=wall,
+                       sims_per_s=CAMPAIGN_B / wall, windows=engine.STATS["windows"],
+                       realized_ticks=int(res.ticks.max()),
+                       done_share=float(res.done.float().mean()), launches=launches)
+            emit("campaign", **run)
+            runs.append(run)
+
+    # where a run's time goes: the stochastic tick run cut at 300 ticks and
+    # the stochastic leap run, unprofiled wall then device time by kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = {}
+    for leap, cut in ((False, 300), (True, SECTION5_MAX_TICKS)):
+        s_ = spec._replace(max_ticks=cut)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.simulate_batch(s_, params["stochastic"], keys, leap=leap)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+            engine.simulate_batch(s_, params["stochastic"], keys, leap=leap)
+            torch.cuda.synchronize()
+        rows = device_rows(pr)
+        dev_s = sum(r[1] for r in rows) / 1e6
+        mode = "leap" if leap else "tick"
+        prof[mode] = dict(
+            max_ticks=cut, wall_s=wall, device_s=dev_s, busy_share=dev_s / wall,
+            grid_tick_kernel_s=sum(r[1] for r in rows if "campaign_tick_kernel" in r[0]) / 1e6,
+            device_launches=sum(r[2] for r in rows),
+            top=[[k[:60], us / 1e6, n] for k, us, n in rows[:6]],
+        )
+        emit("campaign", profile=mode, params="stochastic", sims=CAMPAIGN_B, **prof[mode])
+
+    # window invariance on 64 simulations (stochastic theta, per-sim keep),
+    # the tick run cut at 2,000 ticks
+    th = calibration.PriorBox.paper(dev).from_unit(
+        prng.uniform(prng.PRNGKey(1, dev), (64, 3)))
+    p64, k64 = mapper(th), prng.split(prng.PRNGKey(2, dev), 64)
+    for leap, cut in ((False, 2000), (True, SECTION5_MAX_TICKS)):
+        s_ = spec._replace(max_ticks=cut)
+        a = engine.simulate_batch(s_, p64, k64, leap=leap, window=1)
+        b = engine.simulate_batch(s_, p64, k64, leap=leap, window=64)
+        for f in a._fields:
+            compare(f"campaign K-invariance leap={leap} {f}", getattr(b, f), getattr(a, f),
+                    exact=True)
+        emit("campaign", check="window K=1 vs K=64 bitwise", leap=leap, sims=64,
+             max_ticks=cut, realized_ticks=int(a.ticks.max()))
+    # the card against the CPU path: 4 simulations, stochastic theta
+    cpu_spec = engine.SimSpec.from_table(table, max_ticks=SECTION5_MAX_TICKS, device="cpu")
+    cpu_p = calibration.make_theta_mapper(table, device="cpu")(theta.cpu())
+    for leap, cut in ((False, 1500), (True, SECTION5_MAX_TICKS)):
+        g = engine.simulate_batch(spec._replace(max_ticks=cut), params["stochastic"],
+                                  keys[:4], leap=leap)
+        c = engine.simulate_batch(cpu_spec._replace(max_ticks=cut), cpu_p, keys[:4].cpu(),
+                                  leap=leap)
+        errs = {f: compare(f"campaign card vs CPU leap={leap} {f}", getattr(g, f).cpu(),
+                           getattr(c, f), exact=False) for f in g._fields}
+        emit("campaign", check="card vs CPU path", leap=leap, sims=4, max_ticks=cut,
+             max_abs_err=errs)
+
+    # the kernel at the main shape, as presimulation's leap calls it: one
+    # keep per row, remaining = inf
+    T, P, L = spec.n_legs, spec.leg_proc.shape[1], spec.n_links
+    a, rem, keep, bg = campaign_tick_inputs(CAMPAIGN_B, T, L, dev, per_row=True, inf=True)
+    tables = spec.campaign_tables
+    launch = lambda: grid_tick.grid_tick_cuda(a, rem, keep, bg, spec.bandwidth, tables)
+    # a launch's device time is shorter than the wrapper's host time, so
+    # CUDA events around back-to-back launches time the host: the kernel's
+    # own time is its device time under the profiler
+    wall_ms, got = timed(launch, 200)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+        for _ in range(200):
+            launch()
+        torch.cuda.synchronize()
+    ms = sum(us for k, us, _ in device_rows(pr) if "campaign_tick_kernel" in k) / 1e3 / 200
+    if not ms > 0:
+        raise AssertionError("the profiler recorded no device time for campaign_tick_kernel")
+    plain_ms, want = timed(lambda: ref.grid_tick(a, rem, keep, bg, spec.bandwidth, spec.leg_proc,
+                                                 spec.proc_link, spec.leg_link), 20)
+    err = max(compare(f"grid_tick main shape {n}", g_, w_, exact=False)
+              for n, g_, w_ in zip(("xfer", "proc_xfer", "link_xfer"), got, want))
+    # bytes: the [B, T] inputs and bg read once, the tables, the outputs
+    # written once; operations per row: a sum over the legs for the thread
+    # counts and for each of the two transfer sums, five per leg for the
+    # share, a few per process and link
+    bytes_ = nbytes(a, rem, keep, bg, spec.bandwidth, tables.packed, *got)
+    ops_ = CAMPAIGN_B * (8 * T + 2 * P + 4 * L)
+    bound = max(bytes_ / PEAK_BYTES, ops_ / PEAK_FP32) * 1e3
+    timing = dict(ms=ms, wall_ms_per_launch=wall_ms, plain_ms=plain_ms, bound_ms=bound,
+                  bound_by="bytes" if bytes_ / PEAK_BYTES >= ops_ / PEAK_FP32 else "operations",
+                  bytes=bytes_, ops=ops_, shape=[CAMPAIGN_B, T, P, L], max_abs_err=err)
+    emit("campaign", check="grid_tick kernel timing", card=smi(), library_ms=None,
+         library="none: no single PyTorch call computes the tick", **timing)
+    by_run = {f"{r['mode']}_{r['params']}": r["launches"]["grid_tick"] for r in runs}
+    return {"runs": runs, "timing": timing, "launches_by_run": by_run, "profile": prof}
+
+
+def phase_section5(dev) -> dict:
+    """The calibration launcher (``repro_torch.launch.calibrate``) at its
+    defaults on the Section-5 campaign: each stage's seconds between
+    ``torch.cuda.synchronize()`` calls and its kernel launches (counts set
+    to 0 just before it)."""
+    stages = {}
+
+    @contextlib.contextmanager
+    def stage(name):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        stages[name] = dict(seconds=time.perf_counter() - t0, launches=counts())
+
+    out = os.path.join(ROOT, "build", "reports", "section5_calibration.json")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # its report goes to the file
+        report = calibrate_launcher.main(["--device", "cuda", "--out", out], stage=stage)
+    wall = time.perf_counter() - t0
+    for key in ("theta_star_marginal", "theta_map", "rhat", "x_true"):
+        v = np.asarray(report[key], dtype=np.float64)
+        if v.shape != (3,) or not np.isfinite(v).all():
+            raise AssertionError(f"section5 {key} not finite [3]: {report[key]}")
+    if not 0.0 < report["accept_rate"] < 1.0:
+        raise AssertionError(f"section5 accept rate {report['accept_rate']}")
+    for name, want in (("x_true", "grid_tick"), ("presimulate", "grid_tick"),
+                       ("train", "selu_mlp"), ("mcmc", "selu_mlp"), ("validate", "grid_tick")):
+        if stages[name]["launches"][want] <= 0:
+            raise AssertionError(f"kernel {want} was not launched in stage {name}")
+    res = dict(wall_s=wall, stages=stages, theta_true=report["theta_true"],
+               x_true=report["x_true"], theta_star=report["theta_star_marginal"],
+               theta_map=report["theta_map"], rhat=report["rhat"],
+               accept_rate=report["accept_rate"],
+               validation_mean_abs_error=report["validation_mean_abs_error"])
+    emit("section5", **res)
+    return res
+
+
+def scheduler_grid():
+    """tests/test_scheduler.py's grid (built here, from the port's modules):
+    a WAN into the worker nodes loaded with background traffic, clear
+    SE->SE and LAN links; 6 files, each read remotely or placed."""
+    g = topology.Grid()
+    g.add_data_center("SRC")
+    g.add_data_center("DST")
+    g.add_storage_element("seS", "SRC")
+    g.add_storage_element("seD", "DST")
+    for w in range(2):
+        g.add_worker_node(f"wn{w}", "DST")
+    for w in range(2):
+        g.add_link("seS", f"wn{w}", 60.0, bg_mu=12.0, bg_sigma=1.0)
+        g.add_link("seD", f"wn{w}", 400.0)
+    g.add_link("seS", "seD", 500.0)
+    accesses = []
+    rng = np.random.RandomState(0)
+    for j in range(2):
+        for _ in range(3):
+            size = float(rng.uniform(100.0, 400.0))
+            remote = workload.FileAccess(workload.Replica(size, "seS"),
+                                         workload.AccessProfileKind.REMOTE, "webdav")
+            placed = workload.FileAccess(workload.Replica(size, "seS"),
+                                         workload.AccessProfileKind.DATA_PLACEMENT, "gsiftp",
+                                         local_storage_element="seD")
+            accesses.append(scheduler.CandidateAccess(job=j, candidates=(remote, placed)))
+    return g, accesses
+
+
+def run_optimize(where) -> dict:
+    """``optimize_profiles`` (population 32, 12 generations) on the
+    congested grid on ``where``, with its kernels' launches, and the
+    all-remote assignment's fitness (``_fitness``: one per-campaign
+    simulation, its ``grid_tick`` launches counted apart)."""
+    g, acc = scheduler_grid()
+    st = scheduler.build_super_table(g, ["wn0", "wn1"], acc, max_ticks=60_000, device=where)
+    base = engine.make_params(st.table, device=where)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    best, f_best, hist = scheduler.optimize_profiles(st, base, prng.PRNGKey(1), population=32,
+                                                     generations=12)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    reset_counts()
+    f_remote = float(scheduler._fitness(st, base, torch.zeros(st.n_access, dtype=torch.int64),
+                                        prng.PRNGKey(0)))
+    return dict(wall_s=wall, best=best.tolist(), best_fitness=f_best, all_remote_fitness=f_remote,
+                history=hist, launches=launches, fitness_launches=counts())
+
+
+def phase_optimize(dev) -> dict:
+    """The optimizer on the card: its best fitness no worse than the
+    all-remote assignment's, its history equal to the CPU path's, the bank
+    kernels launched by the population runs and the per-campaign kernel by
+    the single-assignment fitness."""
+    card = run_optimize(dev)
+    cpu = run_optimize(torch.device("cpu"))
+    if card["history"] != cpu["history"] or card["best"] != cpu["best"]:
+        raise AssertionError(f"optimize card {card['history']} vs CPU {cpu['history']}")
+    if not card["best_fitness"] <= card["all_remote_fitness"]:
+        raise AssertionError(f"best fitness {card['best_fitness']} worse than all-remote "
+                             f"{card['all_remote_fitness']}")
+    if card["launches"]["grid_tick_bank_fused"] <= 0 or card["fitness_launches"]["grid_tick"] <= 0:
+        raise AssertionError(f"optimize launches {card['launches']}, {card['fitness_launches']}")
+    emit("optimize", population=32, generations=12, card=card, cpu_wall_s=cpu["wall_s"],
+         history_equal_cpu=True)
+    return card
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -580,12 +914,16 @@ def main() -> int:
     times = phase_timing(dev)
     mlp = phase_selu_mlp(dev)
     cal = phase_calibrate(dev)
+    campaign_err = phase_campaign_kernel(dev)
+    camp = phase_campaign(dev)
+    sec5 = phase_section5(dev)
+    phase_optimize(dev)
     kernels = []
     replaces = {
         "grid_tick_bank_fused": "src/repro/kernels/grid_tick.py:477",
         "grid_tick_bank": "src/repro/kernels/grid_tick.py:242",
     }
-    for name in ("grid_tick_bank_fused", "grid_tick_bank"):
+    for name in BANK_KERNELS:
         t = times[name]
         kernels.append(dict(
             name=name, route="cuda", source="src/repro_torch/kernels/csrc/grid_tick.cu",
@@ -595,8 +933,20 @@ def main() -> int:
             ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
         ))
+    t = camp["timing"]
+    by_run = {f"campaign_{k}": n for k, n in camp["launches_by_run"].items()}
+    by_run.update({f"section5_{k}": v["launches"]["grid_tick"] for k, v in sec5["stages"].items()})
+    kernels.append(dict(
+        name="grid_tick", route="cuda", source="src/repro_torch/kernels/csrc/grid_tick.cu",
+        replaces="src/repro/kernels/grid_tick.py:115", launches=sum(by_run.values()),
+        launches_by_run=by_run, max_abs_err=max(campaign_err, t["max_abs_err"]),
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=None,
+    ))
     m = mlp[8192]
     by_stage = {k: cal["stages"][k]["launches"]["selu_mlp"] for k in ("train", "mcmc")}
+    by_stage.update({f"section5_{k}": sec5["stages"][k]["launches"]["selu_mlp"]
+                     for k in ("train", "mcmc")})
     kernels.append(dict(
         name="selu_mlp", route="cuda", source="src/repro_torch/kernels/csrc/selu_mlp.cu",
         replaces="src/repro/kernels/selu_mlp.py:64", launches=sum(by_stage.values()),

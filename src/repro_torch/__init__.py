@@ -1,5 +1,6 @@
-"""repro_torch: the GDAPS scenario-bank simulator and its likelihood-free
-calibration in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
+"""repro_torch: the GDAPS grid simulator (one campaign or a scenario bank),
+its likelihood-free calibration and the access-profile optimizer in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 The port of the reference JAX package ``repro``; it imports ``torch`` and
 ``numpy`` only. Entry points run on ``cuda`` unless the caller passes
@@ -10,7 +11,10 @@ from repro_torch.core.engine import (
     SimResult,
     SimSpec,
     make_bank_params,
+    make_params,
+    simulate,
     simulate_bank,
+    simulate_batch,
 )
 from repro_torch.core.calibration import (
     AmortizedPosterior,
@@ -18,7 +22,10 @@ from repro_torch.core.calibration import (
     PriorBox,
     calibrate,
     make_theta_mapper,
+    presimulate,
     presimulate_bank,
+    simulate_coefficients,
+    validate,
     validate_bank,
 )
 from repro_torch.core.fleet import Fleet
@@ -31,7 +38,10 @@ __all__ = [
     "SimSpec",
     "SimParams",
     "SimResult",
+    "simulate",
+    "simulate_batch",
     "simulate_bank",
+    "make_params",
     "make_bank_params",
     "summary_features",
     "PriorBox",
@@ -39,6 +49,9 @@ __all__ = [
     "AmortizedPosterior",
     "calibrate",
     "make_theta_mapper",
+    "simulate_coefficients",
+    "presimulate",
     "presimulate_bank",
+    "validate",
     "validate_bank",
 ]

@@ -1,10 +1,12 @@
 """Carry the reference package's inputs across to the port.
 
-The simulator's "weights" are its compiled bank, its parameters and its
-replica keys. :func:`from_reference` takes them as the reference package
-holds them (a bank with numpy arrays, a ``SimParams`` of arrays, ``[N, R,
-2]`` uint32 keys), duck-typed and read through ``numpy.asarray``, and
-returns the port's :class:`~repro_torch.core.engine.SimSpec`,
+The simulator's "weights" are its compiled campaigns, its parameters and
+its keys. :func:`from_reference` takes them as the reference package holds
+them (a bank with numpy arrays or a stacked ``SimSpec`` with ``[N, R, 2]``
+keys; or one campaign's unstacked ``SimSpec`` with ``[B, 2]`` keys; a
+``SimParams`` of arrays in either case), duck-typed and read through
+``numpy.asarray``, and returns the port's
+:class:`~repro_torch.core.engine.SimSpec` (index tables filled),
 :class:`~repro_torch.core.engine.SimParams` and int64 keys on ``device``,
 so both packages run the same inputs.
 
@@ -37,8 +39,9 @@ def from_reference(
     bank: Any, params: Any, keys: Any, device: DeviceLike = None
 ) -> Tuple[SimSpec, SimParams, torch.Tensor]:
     """``(SimSpec, SimParams, keys)`` on ``device`` from a reference bank
-    (or stacked reference ``SimSpec``), reference ``SimParams`` and
-    ``[N, R, 2]`` keys."""
+    (or stacked reference ``SimSpec``) with ``[N, R, 2]`` keys, or from one
+    campaign's unstacked reference ``SimSpec`` with ``[B, 2]`` keys, and
+    reference ``SimParams``."""
     dev = resolve_device(device)
     t = lambda a: None if a is None else torch.as_tensor(np.array(a)).to(dev)
     fields = [f for f in SimSpec._fields if f not in INDEX_TABLE_FIELDS]

@@ -1,25 +1,25 @@
-"""Simulator calibration over a scenario fleet (paper Section 5).
+"""Simulator calibration (paper Section 5).
 
-The port of ``repro.core.calibration`` on the banked path:
+The port of ``repro.core.calibration``, for one campaign and for a fleet:
 
-1. **Presimulate** ``(theta, x_sim, scenario_id)`` tuples
-   (:func:`presimulate_bank`): theta from the uniform prior box (overhead,
-   mu, sigma) per (scenario, draw), one stochastic fleet run of all of
-   them, Eq.-1 coefficients of each run's remote observations as ``x_sim``.
+1. **Presimulate** ``(theta, x_sim)`` tuples: theta from the uniform prior
+   box (overhead, mu, sigma), stochastic simulations under it, the Eq.-1
+   coefficients of each run's remote observations as ``x_sim``. For one
+   campaign (:func:`presimulate`) each chunk of thetas is one
+   :func:`engine.simulate_batch`; over a fleet (:func:`presimulate_bank`)
+   one fleet run, with a ``scenario_id`` per tuple.
 2. **Project** thetas and coefficients onto (0, 1).
 3. **Train** the AALR classifier (:func:`classifier.train_classifier`).
 4. **MCMC** over theta given ``x_true``; theta* is the per-axis density
    mode (:class:`AmortizedPosterior` serves every scenario from one net).
-5. **Validate** (:func:`validate_bank`): stochastic runs under theta*,
-   per-run Eq.-1 fits and Eq.-6 errors.
+5. **Validate** (:func:`validate`, :func:`validate_bank`): stochastic runs
+   under theta*, per-run Eq.-1 fits and Eq.-6 errors.
 
-Everything runs on the device of the fleet (``cuda`` by default). The
-per-campaign paths (``presimulate``, ``validate``, ``simulate_coefficients``
-and ``calibrate`` without ``presim``) need the per-campaign engine, which is
-not ported yet, and raise.
+Everything runs on the device of the spec or fleet (``cuda`` by default).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import logging
@@ -32,7 +32,7 @@ from repro_torch.core import mcmc as mcmc_lib
 from repro_torch.core import prng
 from repro_torch.core.classifier import ClassifierConfig, Params, train_classifier
 from repro_torch.core.dataset import observations
-from repro_torch.core.engine import SimParams, SimResult, resolve_device
+from repro_torch.core.engine import SimParams, SimResult, SimSpec, resolve_device, simulate_batch
 from repro_torch.core.regression import coefficient_error, fit_eq1
 from repro_torch.core.workload import LegTable, ProfileTag, ScenarioBank, summary_features
 
@@ -51,13 +51,6 @@ __all__ = [
     "validate_bank",
     "make_theta_mapper",
 ]
-
-_PER_CAMPAIGN = (
-    "needs the per-campaign engine (engine.simulate), which is not ported "
-    "yet (ROADMAP A.7); use the fleet path (Fleet.presimulate / "
-    "Fleet.calibrate / Fleet.validate)"
-)
-
 
 class PriorBox(NamedTuple):
     """Uniform prior bounds over theta = (overhead, mu, sigma) (paper)."""
@@ -239,12 +232,14 @@ def _theta_to_params(keep: torch.Tensor, protocol_mask: torch.Tensor,
     """theta = (overhead, mu, sigma) onto SimParams: the calibrated
     protocol's legs get the overhead, every valid link the background-load
     moments. Per campaign (``keep``/``mask`` ``[T]``, ``link_scale`` ones
-    ``[L]``) or bank-wide (``[N, T]`` / ``[N, L]``, ``link_scale`` the link
-    validity mask); on a bank, ``theta`` may be ``[3]`` or per scenario
-    ``[N, 3]`` (row ``i`` parameterizes scenario ``i``)."""
+    ``[L]``), where ``theta`` may be ``[3]`` or one per simulation ``[B,
+    3]`` (the fields then ``[B, T]`` / ``[B, L]``); or bank-wide (``[N, T]``
+    / ``[N, L]``, ``link_scale`` the link validity mask), where ``theta``
+    may be ``[3]`` or per scenario ``[N, 3]`` (row ``i`` parameterizes
+    scenario ``i``)."""
     theta = torch.as_tensor(theta, dtype=torch.float32, device=keep.device)
     if theta.dim() == 2:
-        if protocol_mask.dim() != 2 or theta.shape[0] != protocol_mask.shape[0]:
+        if protocol_mask.dim() == 2 and theta.shape[0] != protocol_mask.shape[0]:
             raise ValueError(
                 f"per-scenario theta {tuple(theta.shape)} needs a bank-wide mapper "
                 f"over {protocol_mask.shape[0] if protocol_mask.dim() == 2 else 1} "
@@ -306,19 +301,106 @@ def _eq1_coefficients(res: SimResult) -> torch.Tensor:
     return fit_eq1(ds.transfer_time, ds.size_mb, ds.conth_mb, ds.conpr_mb, valid).coef
 
 
-def simulate_coefficients(*args, **kwargs):
-    """Per-campaign stochastic simulation -> Eq.-1 coefficients (not ported)."""
-    raise NotImplementedError(f"simulate_coefficients {_PER_CAMPAIGN}")
+def _replicated_coefficients(
+    spec: SimSpec, params: SimParams, keys: torch.Tensor, n_replicates: int, leap: bool
+) -> torch.Tensor:
+    """Eq.-1 coefficients ``[B, 3]`` of ``B`` simulations (one key each,
+    ``params`` shared or one row per key), each the mean over
+    ``n_replicates`` replicates keyed ``split(key, n_replicates)``: all
+    ``B * n_replicates`` runs as one :func:`engine.simulate_batch`."""
+    if n_replicates == 1:
+        return _eq1_coefficients(simulate_batch(spec, params, keys, leap=leap))
+    B = keys.shape[0]
+    rep = lambda f: f if f is None or f.dim() < 2 else f.repeat_interleave(n_replicates, 0)
+    res = simulate_batch(
+        spec, SimParams(*(rep(f) for f in params)),
+        prng.split(keys, n_replicates).reshape(B * n_replicates, 2), leap=leap,
+    )
+    return _eq1_coefficients(res).reshape(B, n_replicates, 3).mean(dim=1)
 
 
-def presimulate(*args, **kwargs):
-    """Per-campaign presimulation (not ported)."""
-    raise NotImplementedError(f"presimulate {_PER_CAMPAIGN}")
+def simulate_coefficients(
+    spec: SimSpec,
+    params: SimParams,
+    key: torch.Tensor,
+    *,
+    n_replicates: int = 1,
+    leap: bool = False,
+) -> torch.Tensor:
+    """Stochastic simulation(s) of one campaign -> Eq.-1 coefficient triple
+    ``[3]``. ``n_replicates > 1`` averages the coefficients of independent
+    simulations under the same theta, keyed ``split(key, n_replicates)``."""
+    key = key.to(spec.device).reshape(1, 2)
+    return _replicated_coefficients(spec, params, key, n_replicates, leap)[0]
 
 
-def validate(*args, **kwargs):
-    """Per-campaign validation (not ported)."""
-    raise NotImplementedError(f"validate {_PER_CAMPAIGN}")
+def presimulate(
+    spec: SimSpec,
+    theta_mapper,
+    prior: PriorBox,
+    key: torch.Tensor,
+    n: int,
+    *,
+    batch: int = 512,
+    n_replicates: int = 1,
+    leap: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Draw thetas from the prior and simulate their coefficient triples:
+    ``(theta [n, 3], x_sim [n, 3])``, on the spec's device. Chunks of
+    ``batch`` thetas, each one :func:`engine.simulate_batch` of ``batch *
+    n_replicates`` runs, with the reference's keys: per chunk ``key, sub =
+    split(key)``, ``kt, ks = split(sub)``, thetas from ``uniform(kt)``,
+    one key per theta from ``split(ks, batch)``."""
+    dev = spec.device
+    prior = prior.to(dev)
+    key = key.to(dev)
+    outs_t, outs_x = [], []
+    n_chunks = -(-n // batch)
+    for i in range(n_chunks):
+        key, sub = prng.split(key, 2)
+        kt, ks = prng.split(sub, 2)
+        thetas = prior.from_unit(prng.uniform(kt, (batch, 3)))
+        x = _replicated_coefficients(
+            spec, theta_mapper(thetas), prng.split(ks, batch), n_replicates, leap
+        )
+        outs_t.append(thetas)
+        outs_x.append(x)
+        if (i + 1) % max(n_chunks // 10, 1) == 0:
+            log.info("presimulate: %d/%d chunks", i + 1, n_chunks)
+    return torch.cat(outs_t)[:n], torch.cat(outs_x)[:n]
+
+
+def validate(
+    spec: SimSpec,
+    table: LegTable,
+    theta_star,
+    x_true,
+    key: torch.Tensor,
+    *,
+    n_sims: int = 256,
+    protocol: str = "webdav",
+    n_replicates: int = 1,
+    leap: bool = True,
+) -> dict:
+    """Paper Fig. 6 / Table 1: ``n_sims`` stochastic simulations under
+    theta* (keys ``split(key, n_sims)``, each the mean of ``n_replicates``),
+    per-run Eq.-1 fits and Eq.-6 errors against ``x_true``. The reference
+    maps the runs in batches of 64; they are independent, so one batch of
+    all of them gives the same numbers."""
+    dev = spec.device
+    params = make_theta_mapper(table, protocol, device=dev)(theta_star)
+    keys = prng.split(key.to(dev), n_sims)
+    coefs = _replicated_coefficients(spec, params, keys, n_replicates, leap)
+    x_ref = torch.as_tensor(x_true, dtype=torch.float32, device=dev)
+    errors = coefficient_error(x_ref, coefs)
+    np_ = lambda a: a.cpu().numpy()
+    return {
+        "coefficients": np_(coefs),
+        "errors": np_(errors),
+        "median_coef": np_(_median(coefs, 0)),
+        "mean_abs_error": np_(errors.mean(0)),
+        "sum_error": np_(errors.sum(1)),
+    }
 
 
 def _as_fleet(bank_or_fleet):
@@ -452,24 +534,43 @@ def calibrate(
     presim: Optional[Tuple[torch.Tensor, ...]] = None,
     amortized: bool = False,
     features=None,
+    stage=None,
 ):
-    """Likelihood-free calibration of (overhead, mu, sigma) from supplied
-    presimulation tuples, on the device of ``presim``.
+    """Full likelihood-free calibration of (overhead, mu, sigma).
 
-    ``presim = (theta, x_sim[, scenario_id])``; ``spec`` is unused. With
-    ``amortized=True`` the classifier is conditioned on each tuple's
-    scenario context row (``features[scenario_id]``, by default
-    :func:`summary_features` of ``table``, a bank or fleet) and an
-    :class:`AmortizedPosterior` comes back; else the chains run at
-    ``x_true`` and a :class:`CalibrationResult` comes back."""
-    if presim is None:
-        raise NotImplementedError(f"calibrate without presim= {_PER_CAMPAIGN}")
-    dev = presim[0].device
+    With ``presim=None`` the tuples are presimulated first
+    (:func:`presimulate` of ``spec`` under ``table``'s theta mapper,
+    ``cfg.n_presim`` of them, ``cfg.n_replicates`` each, leap as
+    ``cfg.use_leap`` says), on the spec's device. With ``presim = (theta,
+    x_sim[, scenario_id])`` that stage is skipped, ``spec`` is unused and
+    everything runs on the device of ``presim``. With ``amortized=True``
+    the classifier is conditioned on each tuple's scenario context row
+    (``features[scenario_id]``, by default :func:`summary_features` of
+    ``table``, a bank or fleet) and an :class:`AmortizedPosterior` comes
+    back; else the chains run at ``x_true`` and a
+    :class:`CalibrationResult` comes back. ``stage(name)``, if given, is
+    entered as a context manager around each stage (``"presimulate"``,
+    ``"train"``, ``"mcmc"``): a caller's timer."""
+    stage = stage or (lambda name: contextlib.nullcontext())
+    dev = spec.device if presim is None else presim[0].device
     prior = (prior or PriorBox.paper()).to(dev)
-    key, _k_pre, k_train, k_mcmc = prng.split(key.to(dev), 4)
+    key, k_pre, k_train, k_mcmc = prng.split(key.to(dev), 4)
 
     scenario_id = None
-    if len(presim) == 3:
+    if presim is None:
+        if amortized:
+            raise ValueError(
+                "amortized calibration needs presim=(theta, x_sim, "
+                "scenario_id): presimulate over a fleet first "
+                "(Fleet.calibrate(amortized=True) does both)"
+            )
+        log.info("presimulating %d tuples (x%d replicates)", cfg.n_presim, cfg.n_replicates)
+        with stage("presimulate"):
+            theta, x_sim = presimulate(
+                spec, make_theta_mapper(table, protocol, device=dev), prior, k_pre,
+                cfg.n_presim, n_replicates=cfg.n_replicates, leap=cfg.use_leap,
+            )
+    elif len(presim) == 3:
         theta, x_sim, scenario_id = presim
     else:
         theta, x_sim = presim
@@ -523,10 +624,11 @@ def calibrate(
     log.info("training %sAALR classifier (%d tuples, %d epochs)",
              "conditional " if amortized else "", theta.shape[0], cfg.epochs)
     clf_cfg = ClassifierConfig(theta_dim=3, x_dim=3, context_dim=ctx_dim, lr=cfg.lr)
-    params, metrics = train_classifier(
-        k_train, clf_cfg, theta_u, x_u, context,
-        epochs=cfg.epochs, batch_size=cfg.batch_size,
-    )
+    with stage("train"):
+        params, metrics = train_classifier(
+            k_train, clf_cfg, theta_u, x_u, context,
+            epochs=cfg.epochs, batch_size=cfg.batch_size,
+        )
     if amortized:
         return AmortizedPosterior(
             classifier_params=params,
@@ -539,12 +641,15 @@ def calibrate(
             train_accuracy=float(metrics.accuracy),
         )
 
-    res, rhat = mcmc_lib.run_chains(
-        params, proj_x(x_true), k_mcmc,
-        n_chains=cfg.n_chains, n_samples=cfg.n_mcmc,
-        burn_in=cfg.burn_in, step_size=cfg.step_size,
-        adaptive=cfg.adaptive_mcmc,
-    )
+    with stage("mcmc"):
+        res, rhat = mcmc_lib.run_chains(
+            params, proj_x(x_true), k_mcmc,
+            n_chains=cfg.n_chains, n_samples=cfg.n_mcmc,
+            burn_in=cfg.burn_in, step_size=cfg.step_size,
+            adaptive=cfg.adaptive_mcmc,
+        )
+    log.info("mcmc accept rate: %.3f, split-R-hat: %s",
+             float(res.accept_rate), rhat.cpu().numpy().round(3))
     _warn_rhat(rhat, "MCMC")
     theta_star = prior.from_unit(mcmc_lib.posterior_mode(res.samples))
     # the chain state with the largest ratio at x_true: a MAP estimate under

@@ -2,7 +2,8 @@
 
 The port's façade over :func:`workload.compile_bank` and
 :func:`engine.simulate_bank`, mirroring the reference's ``repro.Fleet``:
-:meth:`Fleet.from_pairs` / :meth:`Fleet.from_scenarios` compile a bank,
+:meth:`Fleet.from_pairs` / :meth:`Fleet.from_scenarios` compile a bank
+(:meth:`Fleet.from_table` lifts one compiled campaign),
 :meth:`Fleet.params` builds its parameters and :meth:`Fleet.run` simulates
 it with the reference's replica-key schedule; :meth:`Fleet.run` also takes
 a calibration theta (``[3]`` or per scenario ``[N, 3]``). The calibration
@@ -34,7 +35,9 @@ from repro_torch.core.topology import Grid
 from repro_torch.core.workload import (
     BucketedBank,
     Campaign,
+    LegTable,
     ScenarioBank,
+    bank_from_tables,
     compile_bank,
     summary_features,
 )
@@ -112,6 +115,25 @@ class Fleet:
             max_ticks=max_ticks, n_buckets=n_buckets, leap=leap,
             window=window, device=device,
         )
+
+    @classmethod
+    def from_table(
+        cls,
+        table: LegTable,
+        *,
+        name: str = "table0",
+        max_ticks: TicksLike = None,
+        leap: bool = False,
+        window: Optional[int] = None,
+        device: DeviceLike = None,
+    ) -> "Fleet":
+        """Lift one compiled :class:`LegTable` into a single-scenario fleet
+        (pads equal the table's own shape, so nothing is padded). This is
+        how the scheduler runs population fitness as one banked batch:
+        ``B`` ``enabled`` masks become per-replica params of the one
+        scenario."""
+        bank = bank_from_tables([table], [name], max_ticks=max_ticks)
+        return cls(bank, leap=leap, window=window, device=device)
 
     @property
     def n_scenarios(self) -> int:

@@ -13,6 +13,8 @@ bits after each add and shift). The functions mirror ``jax.random``:
 - :func:`fold_in` — the threefry hash of the counter ``(0, data)``;
 - :func:`uniform` — float32 on ``[lo, hi)`` from the top 23 bits, ``lo``
   and ``hi`` scalars or tensors that broadcast against the draw;
+- :func:`randint` — int32 on ``[lo, hi)`` from two 32-bit draws and the
+  span arithmetic of ``jax.random.randint``;
 - :func:`normal` — ``sqrt(2) * erf_inv(u)`` with ``u`` uniform on
   ``[nextafter(-1, 0), 1)`` from the top 23 bits, as ``_normal_real`` does;
 - :func:`permutation` — ``jax.random.permutation(key, n)``: rounds of a
@@ -42,6 +44,7 @@ __all__ = [
     "fold_in",
     "random_bits",
     "uniform",
+    "randint",
     "normal",
     "permutation",
     "erf_inv",
@@ -175,6 +178,23 @@ def uniform(
     lo_t = torch.as_tensor(lo, dtype=torch.float32, device=key.device)
     scale = torch.as_tensor(hi, dtype=torch.float32, device=key.device) - lo_t
     return torch.maximum(lo_t, fma(f, scale, lo_t))
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], lo: int, hi: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, lo, hi)`` (int32) per key: ``[...,
+    2]`` keys -> ``[..., *shape]`` int64 values in ``[lo, hi)``. Two word
+    draws from ``split(key)`` (high then low) are reduced modulo the span
+    as ``(high % span) * (2**32 % span) + low % span``, in uint32
+    arithmetic that wraps; an empty range gives ``lo``."""
+    lo, hi = int(lo), int(hi)
+    pair = split(key, 2)
+    higher = random_bits(pair[..., 0, :], shape)
+    lower = random_bits(pair[..., 1, :], shape)
+    span = (hi - lo) & _MASK if hi > lo else 1
+    multiplier = (2**16 % span) ** 2 & _MASK
+    multiplier %= span
+    offset = (((higher % span) * multiplier) & _MASK) + lower % span
+    return lo + (offset & _MASK) % span
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

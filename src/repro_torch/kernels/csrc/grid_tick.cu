@@ -1,11 +1,13 @@
-// Fair-share grid-tick kernels of a scenario bank, for Hopper (sm_90a).
+// Fair-share grid-tick kernels, for Hopper (sm_90a).
 //
 // Replaces the reference package's Pallas TPU kernels in
 // src/repro/kernels/grid_tick.py:
 //   - bank_fused_kernel  <- grid_tick_bank_fused_pallas / _bank_fused_kernel
 //     (K fair-share ticks per launch, the carry resident on chip);
 //   - bank_tick_kernel   <- grid_tick_bank_pallas / _bank_tick_kernel
-//     (one tick -> xfer, proc_xfer, link_xfer; the leap engine's rates).
+//     (one tick -> xfer, proc_xfer, link_xfer; the leap engine's rates);
+//   - campaign_tick_kernel <- grid_tick_pallas / _tick_kernel
+//     (one tick of B simulations of one campaign; see its own note below).
 //
 // What bounds them on the card. Per element and tick the work is a few
 // hundred scalar operations on ~T legs, P processes and L links (T <= 128,
@@ -375,6 +377,127 @@ bank_tick_kernel(TickArgs g) {
   if (lane < L) g.link_xfer[e * L + lane] = ws.lx[lane];
 }
 
+
+// ---------------------------------------------------------------------------
+// campaign_tick_kernel: one fair-share tick of B simulations of one campaign
+// ---------------------------------------------------------------------------
+//
+// Replaces grid_tick_pallas (src/repro/kernels/grid_tick.py:115), whose
+// _tick_kernel broadcasts the campaign's dense one-hot incidences into VMEM
+// and contracts them on the MXU. Here the incidences arrive as index tables
+// (repro_torch.kernels.ref.campaign_index_tables, packed into one int32
+// buffer): the gathers read one column per leg, and every segment sum walks
+// an ascending CSR list of legs (or processes), so a one-hot dot's "one term
+// and zeros" becomes that term, bitwise, and the float sums are the plain
+// grid_tick_indexed's, in the same order, with no float atomics.
+//
+// What bounds it: one launch reads active, remaining and keep and writes
+// xfer ([B, T] each), a few hundred bytes of tables and [B, P + L] sums; a
+// few operations per byte, so memory, and at the engine's shapes (B up to a
+// few thousand, T ~ 100) the launch latency comes first.
+//
+// Layout: one warp per simulation row, kWarpsPerBlock rows per block (fewer
+// when the tables and scratch rows would pass 48 KB). The campaign's tables
+// are staged in shared memory once per block; each warp keeps its row's
+// active flags, transfers and per-process and per-link values in its own
+// scratch rows. Legs are strided over the lanes, processes and links too.
+// Limits: T <= kMaxCampaignT legs, P <= T processes, L <= kMaxCampaignL links.
+
+constexpr int kMaxCampaignT = 1024;
+constexpr int kMaxCampaignL = 256;
+
+struct CampaignArgs {
+  const float* active;     // [B, T]
+  const float* remaining;  // [B, T]
+  const float* keep;       // [T] or [B, T]
+  int keep_rstride;        // T for per-row keeps, else 0
+  const float* bg;         // [B, L]
+  const float* bw;         // [L]
+  const int* tables;       // packed, see ref.CampaignTables
+  int n_tables;
+  float* xfer;             // [B, T]
+  float* proc_xfer;        // [B, P]
+  float* link_xfer;        // [B, L]
+  int B, T, P, L, rows_per_block;
+};
+
+// Scratch floats per warp: active flags and transfers per leg, threads and
+// transfers per process, fair share and transfers per link.
+__host__ __device__ inline int campaign_scratch_floats(int T, int P, int L) {
+  return 2 * T + 2 * P + 2 * L;
+}
+
+// Segment sum of v over the ascending list idx[ptr[c] .. ptr[c + 1]).
+__device__ inline float ascending_sum(const float* v, const int* ptr,
+                                      const int* idx, int c) {
+  float acc = 0.f;
+  for (int j = ptr[c]; j < ptr[c + 1]; ++j) acc = __fadd_rn(acc, v[idx[j]]);
+  return acc;
+}
+
+__global__ void campaign_tick_kernel(CampaignArgs g) {
+  extern __shared__ int smem[];
+  const int T = g.T, P = g.P, L = g.L;
+  for (int i = threadIdx.x; i < g.n_tables; i += blockDim.x) smem[i] = g.tables[i];
+  __syncthreads();
+  const int* proc_of_leg = smem;
+  const int* link_of_leg = proc_of_leg + T;
+  const int* proc_ptr = link_of_leg + T;
+  const int* proc_legs = proc_ptr + P + 1;
+  const int* link_ptr = proc_legs + proc_ptr[P];
+  const int* link_legs = link_ptr + L + 1;
+  const int* link_proc_ptr = link_legs + link_ptr[L];
+  const int* link_procs = link_proc_ptr + L + 1;
+
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int row = blockIdx.x * g.rows_per_block + warp;
+  if (row >= g.B) return;  // warp-uniform; no block barrier follows
+  float* ws = reinterpret_cast<float*>(smem + g.n_tables) +
+              (size_t)warp * campaign_scratch_floats(T, P, L);
+  float* act = ws;
+  float* xs = act + T;
+  float* threads = xs + T;
+  float* px = threads + P;
+  float* ppbw = px + P;
+  float* lx = ppbw + L;
+
+  const size_t leg0 = (size_t)row * T;
+  const float* keep_row = g.keep + (size_t)row * g.keep_rstride;
+  for (int i = lane; i < T; i += kWarp) act[i] = g.active[leg0 + i];
+  __syncwarp();
+  // threads per process: ascending sums of the active flags
+  for (int p = lane; p < P; p += kWarp) {
+    threads[p] = ascending_sum(act, proc_ptr, proc_legs, p);
+  }
+  __syncwarp();
+  // active campaign processes per link, fair share per process
+  for (int l = lane; l < L; l += kWarp) {
+    float c = 0.f;
+    for (int j = link_proc_ptr[l]; j < link_proc_ptr[l + 1]; ++j) {
+      if (threads[link_procs[j]] > 0.f) c = __fadd_rn(c, 1.f);
+    }
+    const float denom = fmaxf(__fadd_rn(c, fmaxf(g.bg[(size_t)row * L + l], 0.f)), 1.f);
+    ppbw[l] = __fdiv_rn(g.bw[l], denom);
+  }
+  __syncwarp();
+  for (int i = lane; i < T; i += kWarp) {
+    const float threads_leg = fmaxf(threads[proc_of_leg[i]], 1.f);
+    const float chunk = __fdiv_rn(
+        __fmul_rn(__fmul_rn(act[i], keep_row[i]), ppbw[link_of_leg[i]]), threads_leg);
+    const float x = fminf(g.remaining[leg0 + i], chunk);
+    xs[i] = x;
+    g.xfer[leg0 + i] = x;
+  }
+  __syncwarp();
+  for (int p = lane; p < P; p += kWarp) {
+    g.proc_xfer[(size_t)row * P + p] = ascending_sum(xs, proc_ptr, proc_legs, p);
+  }
+  for (int l = lane; l < L; l += kWarp) {
+    g.link_xfer[(size_t)row * L + l] = ascending_sum(xs, link_ptr, link_legs, l);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -428,6 +551,37 @@ int grid_tick_bank_launch(
              S, R, T, P, L};
   dim3 grid(S, (R + kWarpsPerBlock - 1) / kWarpsPerBlock);
   bank_tick_kernel<<<grid, kWarpsPerBlock * kWarp, 0, (cudaStream_t)stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
+
+// Limits of the per-campaign kernel; the wrapper checks against them.
+int grid_tick_campaign_limits(int* max_t, int* max_p, int* max_l) {
+  *max_t = kMaxCampaignT;
+  *max_p = kMaxCampaignT;
+  *max_l = kMaxCampaignL;
+  return 0;
+}
+
+int grid_tick_campaign_launch(
+    const float* active, const float* remaining, const float* keep,
+    int keep_rstride, const float* bg, const float* bw, const int* tables,
+    int n_tables, float* xfer, float* proc_xfer, float* link_xfer, int B,
+    int T, int P, int L, void* stream) {
+  if (T < 1 || T > kMaxCampaignT || P < 1 || P > T || L < 1 ||
+      L > kMaxCampaignL || B < 1 || n_tables > 4 * T + 2 * P + 2 * L + 3) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // as many warps (rows) per block as fit beside the tables in 48 KB
+  const size_t table_bytes = (size_t)n_tables * sizeof(int);
+  const size_t row_bytes = (size_t)campaign_scratch_floats(T, P, L) * sizeof(float);
+  int rows = kWarpsPerBlock;
+  while (rows > 1 && table_bytes + rows * row_bytes > 48 * 1024) --rows;
+  const size_t smem = table_bytes + rows * row_bytes;
+  CampaignArgs g{active, remaining, keep, keep_rstride, bg, bw, tables,
+                 n_tables, xfer, proc_xfer, link_xfer, B, T, P, L, rows};
+  dim3 grid((B + rows - 1) / rows);
+  campaign_tick_kernel<<<grid, rows * kWarp, smem, (cudaStream_t)stream>>>(g);
   return (int)cudaGetLastError();
 }
 

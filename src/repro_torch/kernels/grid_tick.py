@@ -1,5 +1,7 @@
 """Wrappers of the hand-written CUDA grid-tick kernels (``csrc/grid_tick.cu``).
 
+- :func:`grid_tick_cuda` — one fair-share tick of ``B`` simulations of one
+  campaign (replaces the reference's ``grid_tick_pallas``);
 - :func:`grid_tick_bank_cuda` — one fair-share tick of a scenario bank
   (replaces the reference's ``grid_tick_bank_pallas``);
 - :func:`grid_tick_bank_fused_cuda` — ``K`` ticks of a scenario bank per
@@ -10,9 +12,9 @@ Each wrapper takes CUDA tensors only, checks their device, dtype, shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on the
 current stream and raises if the launch is refused. :data:`LAUNCHES` counts
 the launches of each kernel. The kernels take the one-hot incidences as
-index tables (``ref.bank_index_tables``); the plain versions of both live in
-:mod:`repro_torch.kernels.ref`, and :mod:`repro_torch.kernels.ops`
-dispatches between them by device.
+index tables (``ref.bank_index_tables``, ``ref.campaign_index_tables``);
+the plain versions live in :mod:`repro_torch.kernels.ref`, and
+:mod:`repro_torch.kernels.ops` dispatches between them by device.
 """
 from __future__ import annotations
 
@@ -22,17 +24,20 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import CampaignTables
 
 __all__ = [
     "LAUNCHES",
     "reset_launches",
     "limits",
+    "campaign_limits",
+    "grid_tick_cuda",
     "grid_tick_bank_cuda",
     "grid_tick_bank_fused_cuda",
 ]
 
 #: Launch counts per kernel, raised by one at every launch.
-LAUNCHES: Dict[str, int] = {"grid_tick_bank": 0, "grid_tick_bank_fused": 0}
+LAUNCHES: Dict[str, int] = {"grid_tick": 0, "grid_tick_bank": 0, "grid_tick_bank_fused": 0}
 
 _WARPS_PER_BLOCK = 4
 _MAX_GRID_Y = 65535
@@ -41,6 +46,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _FUSED_ARGTYPES = [_P] * 13 + [_I] + [_P] * 5 + [_I] + [_P] * 14 + [_I] * 6 + [_P]
 _TICK_ARGTYPES = [_P] * 3 + [_I] + [_P] * 8 + [_I] * 5 + [_P]
+_CAMPAIGN_ARGTYPES = [_P] * 3 + [_I] + [_P] * 3 + [_I] + [_P] * 3 + [_I] * 4 + [_P]
 
 
 def reset_launches() -> None:
@@ -55,17 +61,29 @@ def _lib() -> ctypes.CDLL:
         lib.grid_tick_bank_fused_launch.restype = _I
         lib.grid_tick_bank_launch.argtypes = _TICK_ARGTYPES
         lib.grid_tick_bank_launch.restype = _I
-        lib.grid_tick_limits.argtypes = [ctypes.POINTER(_I)] * 3
-        lib.grid_tick_limits.restype = _I
+        lib.grid_tick_campaign_launch.argtypes = _CAMPAIGN_ARGTYPES
+        lib.grid_tick_campaign_launch.restype = _I
+        for fn in (lib.grid_tick_limits, lib.grid_tick_campaign_limits):
+            fn.argtypes = [ctypes.POINTER(_I)] * 3
+            fn.restype = _I
         lib._repro_bound = True
     return lib
 
 
-def limits() -> Tuple[int, int, int]:
-    """The kernels' largest ``(legs, processes, links)`` per scenario."""
+def _limits(fn) -> Tuple[int, int, int]:
     t, p, l = _I(), _I(), _I()
-    _lib().grid_tick_limits(ctypes.byref(t), ctypes.byref(p), ctypes.byref(l))
+    fn(ctypes.byref(t), ctypes.byref(p), ctypes.byref(l))
     return t.value, p.value, l.value
+
+
+def limits() -> Tuple[int, int, int]:
+    """The bank kernels' largest ``(legs, processes, links)`` per scenario."""
+    return _limits(_lib().grid_tick_limits)
+
+
+def campaign_limits() -> Tuple[int, int, int]:
+    """The per-campaign kernel's largest ``(legs, processes, links)``."""
+    return _limits(_lib().grid_tick_campaign_limits)
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: Tuple[int, ...]) -> int:
@@ -99,6 +117,55 @@ def _replica_stride(name: str, x: torch.Tensor, S: int, R: int, W: int) -> int:
         return W
     _check(name, x, torch.float32, (S, 1, W) if x.dim() == 3 else (S, W))
     return 0
+
+
+def grid_tick_cuda(
+    active: torch.Tensor,  # [B, T] f32 0/1
+    remaining: torch.Tensor,  # [B, T] f32
+    keep_frac: torch.Tensor,  # [T] or [B, T] f32
+    bg_load: torch.Tensor,  # [B, L] f32
+    bandwidth: torch.Tensor,  # [L] f32
+    tables: CampaignTables,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fair-share tick of ``B`` simulations of one campaign on the
+    card: ``(xfer [B, T], proc_xfer [B, P], link_xfer [B, L])``."""
+    B, T = active.shape
+    L = bandwidth.shape[-1]
+    P = tables.link_of_proc.shape[-1]
+    if tables.shape != (T, P, L):
+        raise ValueError(f"tables are for (T, P, L) = {tables.shape}, got {(T, P, L)}")
+    per_row = keep_frac.dim() == 2
+    ptrs = [
+        _check("active", active, torch.float32, (B, T)),
+        _check("remaining", remaining, torch.float32, (B, T)),
+        _check("keep_frac", keep_frac, torch.float32, (B, T) if per_row else (T,)),
+    ]
+    keep_rs = T if per_row else 0
+    ptrs2 = [
+        _check("bg_load", bg_load, torch.float32, (B, L)),
+        _check("bandwidth", bandwidth, torch.float32, (L,)),
+        _check("tables", tables.packed, torch.int32, tuple(tables.packed.shape)),
+    ]
+    max_t, max_p, max_l = campaign_limits()
+    if T > max_t or P > min(max_p, T) or L > max_l:
+        raise ValueError(
+            f"the per-campaign grid-tick kernel takes at most {max_t} legs, "
+            f"as many processes as legs and {max_l} links: got T={T}, P={P}, L={L}"
+        )
+    dev = active.device
+    xfer = torch.empty((B, T), dtype=torch.float32, device=dev)
+    proc_xfer = torch.empty((B, P), dtype=torch.float32, device=dev)
+    link_xfer = torch.empty((B, L), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().grid_tick_campaign_launch(
+        *ptrs, keep_rs, *ptrs2, tables.packed.numel(),
+        xfer.data_ptr(), proc_xfer.data_ptr(), link_xfer.data_ptr(),
+        B, T, P, L, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"grid_tick kernel launch failed: cudaError_t {err}")
+    LAUNCHES["grid_tick"] += 1
+    return xfer, proc_xfer, link_xfer
 
 
 def grid_tick_bank_cuda(

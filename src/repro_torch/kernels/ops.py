@@ -26,13 +26,66 @@ import torch
 
 from repro_torch.kernels import ref
 
-__all__ = ["grid_tick_bank", "grid_tick_bank_fused", "selu_mlp", "SeluMLP"]
+__all__ = ["grid_tick", "grid_tick_bank", "grid_tick_bank_fused", "selu_mlp", "SeluMLP"]
 
 
 def _device_kind(x: torch.Tensor) -> str:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"grid-tick ops run on cpu or cuda tensors, got {x.device}")
     return x.device.type
+
+
+def grid_tick(
+    active: torch.Tensor,  # [B, T]
+    remaining: torch.Tensor,  # [B, T]
+    keep_frac: torch.Tensor,  # [T] or [B, T]
+    bg_load: torch.Tensor,  # [B, L]
+    bandwidth: torch.Tensor,  # [L]
+    leg_proc: torch.Tensor,  # [T, P]
+    proc_link: torch.Tensor,  # [P, L]
+    leg_link: torch.Tensor,  # [T, L]
+    *,
+    tables: Optional[ref.CampaignTables] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fair-share tick of ``B`` simulations of one campaign (shared
+    incidences): ``(xfer [B, T], proc_xfer [B, P], link_xfer [B, L])``.
+
+    ``keep_frac`` may be shared ``[T]`` or per simulation ``[B, T]``. The
+    kernel reads the incidences as ``tables``
+    (:func:`ref.campaign_index_tables`), derived from them when ``None``.
+    """
+    if active.dim() != 2 or remaining.dim() != 2 or bg_load.dim() != 2:
+        raise ValueError(
+            "grid_tick: per-sim state must be [B, ...] — got active "
+            f"{tuple(active.shape)}, remaining {tuple(remaining.shape)}, "
+            f"bg_load {tuple(bg_load.shape)}"
+        )
+    if keep_frac.dim() not in (1, 2) or bandwidth.dim() != 1:
+        raise ValueError(
+            f"grid_tick: keep_frac must be [T] or [B, T] and bandwidth [L]: "
+            f"{tuple(keep_frac.shape)}, {tuple(bandwidth.shape)}"
+        )
+    if leg_proc.dim() != 2 or proc_link.dim() != 2 or leg_link.dim() != 2:
+        raise ValueError(
+            "grid_tick: incidences must be shared [T, P] / [P, L] / [T, L] — "
+            f"got {tuple(leg_proc.shape)}, {tuple(proc_link.shape)}, "
+            f"{tuple(leg_link.shape)}"
+        )
+    if _device_kind(active) == "cpu":
+        return ref.grid_tick(
+            active, remaining, keep_frac, bg_load, bandwidth,
+            leg_proc, proc_link, leg_link,
+        )
+    from repro_torch.kernels import grid_tick as _k
+
+    if tables is None:
+        tables = ref.campaign_index_tables(leg_proc, proc_link, leg_link)
+    f32 = torch.float32
+    return _k.grid_tick_cuda(
+        active.to(f32).contiguous(), remaining.to(f32).contiguous(),
+        keep_frac.to(f32).contiguous(), bg_load.to(f32).contiguous(),
+        bandwidth.to(f32).contiguous(), tables,
+    )
 
 
 def grid_tick_bank(

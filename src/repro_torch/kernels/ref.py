@@ -15,7 +15,7 @@ the CPU path rounds as the reference does and the CUDA kernels use
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -24,6 +24,9 @@ from repro_torch.core import prng
 __all__ = [
     "BANK_WINDOW_STATE_FIELDS",
     "grid_tick",
+    "CampaignTables",
+    "campaign_index_tables",
+    "grid_tick_indexed",
     "bank_split_draw",
     "bank_index_tables",
     "grid_tick_bank_window",
@@ -103,6 +106,20 @@ def bank_split_draw(
     return pair[..., 0, :], prng.normal(sub, (n_links,))
 
 
+def _check_one_hot(**incidences: torch.Tensor) -> None:
+    """Raise unless every row of each incidence has at most one nonzero
+    entry: the index tables keep one column per row, where a matmul would
+    sum them all. All-zero (padded) rows are allowed."""
+    for name, m in incidences.items():
+        per_row = (m != 0).sum(dim=-1)
+        if bool(torch.any(per_row > 1)):
+            row = torch.nonzero(per_row > 1)[0].tolist()
+            raise ValueError(
+                f"{name} must be one-hot per row: row {row} has "
+                f"{int(per_row[tuple(row)])} nonzero entries"
+            )
+
+
 def bank_index_tables(
     leg_proc: torch.Tensor,  # [S, T, P] one-hot
     proc_link: torch.Tensor,  # [S, P, L] one-hot
@@ -110,12 +127,130 @@ def bank_index_tables(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(proc_of_leg [S, T], link_of_leg [S, T], link_of_proc [S, P])``
     int32: the column of each one-hot row. An all-zero (padded) row maps to
-    0; every quantity gathered through it is multiplied by an inactive 0."""
+    0; every quantity gathered through it is multiplied by an inactive 0.
+    A row with more than one nonzero entry raises."""
+    _check_one_hot(leg_proc=leg_proc, proc_link=proc_link, leg_link=leg_link)
     i32 = torch.int32
     return (
         torch.argmax(leg_proc, dim=-1).to(i32),
         torch.argmax(leg_link, dim=-1).to(i32),
         torch.argmax(proc_link, dim=-1).to(i32),
+    )
+
+
+class CampaignTables(NamedTuple):
+    """One campaign's incidences as the per-campaign tick reads them.
+
+    ``proc_of_leg``, ``link_of_leg`` and ``link_of_proc`` hold the column of
+    each one-hot row (0 for an all-zero row, as :func:`bank_index_tables`).
+    The three CSR pairs list, in ascending order, the legs of each process,
+    the legs of each link and the processes of each link: the order of the
+    kernel's segment sums. An all-zero row is in no list. ``packed`` is all
+    of it in one int32 buffer, the layout the CUDA kernel stages into
+    shared memory: ``proc_of_leg | link_of_leg | proc_ptr | proc_legs |
+    link_ptr | link_legs | link_proc_ptr | link_procs``."""
+
+    proc_of_leg: torch.Tensor  # [T] i32
+    link_of_leg: torch.Tensor  # [T] i32
+    link_of_proc: torch.Tensor  # [P] i32
+    proc_ptr: torch.Tensor  # [P + 1] i32
+    proc_legs: torch.Tensor  # [nnz(leg_proc)] i32
+    link_ptr: torch.Tensor  # [L + 1] i32
+    link_legs: torch.Tensor  # [nnz(leg_link)] i32
+    link_proc_ptr: torch.Tensor  # [L + 1] i32
+    link_procs: torch.Tensor  # [nnz(proc_link)] i32
+    packed: torch.Tensor  # i32, the concatenation above
+
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        """``(T, P, L)``."""
+        return (self.proc_of_leg.shape[0], self.link_of_proc.shape[0],
+                self.link_ptr.shape[0] - 1)
+
+
+def _csr(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(ptr [C + 1], rows)`` of the nonzeros of ``m [R, C]`` by column,
+    rows ascending within each column."""
+    nz = (m != 0).t()  # [C, R]
+    counts = nz.sum(dim=1)
+    ptr = torch.zeros(nz.shape[0] + 1, dtype=torch.int64)
+    ptr[1:] = torch.cumsum(counts, 0)
+    rows = torch.nonzero(nz)[:, 1]  # row-major over [C, R]: by column, rows ascending
+    return ptr.to(torch.int32), rows.to(torch.int32)
+
+
+def campaign_index_tables(
+    leg_proc: torch.Tensor,  # [T, P] one-hot
+    proc_link: torch.Tensor,  # [P, L] one-hot
+    leg_link: torch.Tensor,  # [T, L] one-hot
+) -> CampaignTables:
+    """The :class:`CampaignTables` of one campaign, on the incidences'
+    device. A row with more than one nonzero entry raises; all-zero
+    (padded) rows are allowed."""
+    if leg_proc.dim() != 2 or proc_link.dim() != 2 or leg_link.dim() != 2:
+        raise ValueError(
+            "campaign incidences must be [T, P], [P, L], [T, L]: got "
+            f"{tuple(leg_proc.shape)}, {tuple(proc_link.shape)}, {tuple(leg_link.shape)}"
+        )
+    _check_one_hot(leg_proc=leg_proc, proc_link=proc_link, leg_link=leg_link)
+    dev = leg_proc.device
+    lp, pl, ll = (m.detach().cpu() for m in (leg_proc, proc_link, leg_link))
+    i32 = torch.int32
+    cols = [torch.argmax(lp, dim=-1).to(i32), torch.argmax(ll, dim=-1).to(i32),
+            torch.argmax(pl, dim=-1).to(i32)]
+    csr = [*_csr(lp), *_csr(ll), *_csr(pl)]
+    packed = torch.cat([cols[0], cols[1], *csr])
+    return CampaignTables(*(x.to(dev) for x in (*cols, *csr, packed)))
+
+
+def _segment_sums(v: torch.Tensor, ptr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[..., c] = sum of v[..., idx[ptr[c]:ptr[c+1]]]``, added one term
+    at a time in list order from 0.0 (the kernel's order): ``[..., X] ->
+    [..., C]``. Shorter lists are padded with a zero term, which leaves a
+    non-negative sum as it is."""
+    ptr_l = ptr.tolist()
+    n_seg = len(ptr_l) - 1
+    deg = max([b - a for a, b in zip(ptr_l[:-1], ptr_l[1:])], default=0)
+    zero = torch.zeros(v.shape[:-1] + (1,), dtype=v.dtype, device=v.device)
+    vz = torch.cat([v, zero], dim=-1)  # index X is the zero term
+    pad = torch.full((n_seg, max(deg, 1)), v.shape[-1], dtype=torch.long)
+    idx_l = idx.long().cpu()
+    for c, (a, b) in enumerate(zip(ptr_l[:-1], ptr_l[1:])):
+        pad[c, : b - a] = idx_l[a:b]
+    pad = pad.to(v.device)
+    acc = torch.zeros(v.shape[:-1] + (n_seg,), dtype=v.dtype, device=v.device)
+    for j in range(deg):
+        acc = acc + vz[..., pad[:, j]]
+    return acc
+
+
+def grid_tick_indexed(
+    active: torch.Tensor,  # [B, T] in {0, 1}
+    remaining: torch.Tensor,  # [B, T] f32 MB
+    keep_frac: torch.Tensor,  # [T] or [B, T]
+    bg_load: torch.Tensor,  # [B, L]
+    bandwidth: torch.Tensor,  # [L]
+    tables: CampaignTables,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`grid_tick` for one campaign through its index tables, every
+    sum in the CUDA kernel's order: each process's and link's segment sum
+    ascends over its CSR list, so the kernel equals this bitwise. Legs whose
+    incidence row is all zero must be inactive (they gather column 0)."""
+    f32 = torch.float32
+    a = active.to(f32)
+    threads = _segment_sums(a, tables.proc_ptr, tables.proc_legs)  # [B, P]
+    proc_active = (threads > 0).to(f32)
+    campaign = _segment_sums(proc_active, tables.link_proc_ptr, tables.link_procs)
+    denom = torch.clamp_min(campaign + torch.clamp_min(bg_load.to(f32), 0.0), 1.0)
+    per_proc_bw = bandwidth.to(f32) / denom  # [B, L]
+    per_proc_bw_leg = per_proc_bw[:, tables.link_of_leg.long()]
+    threads_leg = torch.clamp_min(threads[:, tables.proc_of_leg.long()], 1.0)
+    chunk = a * keep_frac.to(f32) * per_proc_bw_leg / threads_leg
+    xfer = torch.minimum(remaining.to(f32), chunk)
+    return (
+        xfer,
+        _segment_sums(xfer, tables.proc_ptr, tables.proc_legs),
+        _segment_sums(xfer, tables.link_ptr, tables.link_legs),
     )
 
 

@@ -438,13 +438,127 @@ def test_calibrate_not_amortized_matches_reference(fleets):
     assert float(got.accept_rate) == float(want.accept_rate)
 
 
-def test_per_campaign_paths_raise(fleets):
-    _, port = fleets
-    for fn in (pcal.presimulate, pcal.validate, pcal.simulate_coefficients):
-        with pytest.raises(NotImplementedError, match="A.7"):
-            fn(None)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        pcal.calibrate(None, port.bank, torch.zeros(3), prng.PRNGKey(0))
+# -- the per-campaign path (one compiled campaign) -----------------------------
+
+@pytest.fixture(scope="module")
+def campaign():
+    """A small campaign compiled by both packages (20 legs), its specs and
+    theta mappers."""
+    from repro.core import engine as reng
+    from repro.core import workload as rwork
+    from repro_torch.core import engine as peng
+    from repro_torch.core import workload as pwork
+
+    kw = dict(seed=0, n_observations=20, n_waves=3)
+    rt = rwork.compile_campaign(*rwork.wlcg_production_workload(**kw))
+    pt = pwork.compile_campaign(*pwork.wlcg_production_workload(**kw))
+    return dict(
+        rt=rt, pt=pt, rspec=reng.SimSpec.from_table(rt, max_ticks=3_000),
+        pspec=peng.SimSpec.from_table(pt, max_ticks=3_000, device="cpu"),
+        rmap=rcal.make_theta_mapper(rt), pmap=pcal.make_theta_mapper(pt, device="cpu"),
+    )
+
+
+def _runs(cam, params, keys, leap):
+    """The port's runs behind a set of coefficients."""
+    from repro_torch.core import engine as peng
+
+    return peng.simulate_batch(cam["pspec"], params, keys, leap=leap)
+
+
+@pytest.mark.parametrize("n_rep,leap", [(1, False), (3, True)], ids=["1-tick", "3-leap"])
+def test_simulate_coefficients_matches_reference(campaign, n_rep, leap):
+    """The coefficient triple of one campaign under one theta, single and
+    replicated (the mean of ``split(key, n)`` replicates): every run's fit
+    against the reference's, and the mean of the port's own fits."""
+    from repro.core import engine as reng
+
+    theta = np.array([0.02, 36.9, 14.4], np.float32)
+    key = jax.random.PRNGKey(42)
+    want = rcal.simulate_coefficients(campaign["rspec"], campaign["rmap"](jnp.asarray(theta)),
+                                      key, n_replicates=n_rep, leap=leap)
+    params = campaign["pmap"](torch.from_numpy(theta))
+    got = pcal.simulate_coefficients(campaign["pspec"], params, _t(key),
+                                     n_replicates=n_rep, leap=leap)
+    assert got.shape == (3,)
+    keys = jax.random.split(key, n_rep) if n_rep > 1 else key[None]
+    runs = _runs(campaign, params, _t(keys), leap)
+    per_run = pcal._eq1_coefficients(runs)
+    np.testing.assert_array_equal(got.numpy(), per_run.mean(0).numpy())
+    ref_runs = reng.simulate_batch(campaign["rspec"], campaign["rmap"](jnp.asarray(theta)),
+                                   keys, leap=leap)
+    want_per_run = np.asarray(jax.vmap(rcal._eq1_coefficients)(ref_runs))
+    _assert_fits_close(per_run.numpy(), want_per_run, runs)
+    np.testing.assert_allclose(np.asarray(want), want_per_run.mean(0), rtol=1e-6, atol=1e-7)
+
+
+def test_per_campaign_paths_raise(campaign):
+    """The per-campaign presimulation against the reference's (it raised
+    before the per-campaign engine was ported): thetas bitwise, every done
+    tick of the runs behind the tuples equal, the fits close; and the one
+    per-campaign call that still raises, an amortized calibration without
+    presimulated tuples."""
+    key = jax.random.PRNGKey(3)
+    prior = rcal.PriorBox.paper()
+    wt, wx = rcal.presimulate(campaign["rspec"], campaign["rmap"], prior, key, 7,
+                              batch=4, leap=True)
+    gt, gx = pcal.presimulate(campaign["pspec"], campaign["pmap"], pcal.PriorBox.paper(),
+                              _t(key), 7, batch=4, leap=True)
+    assert gt.shape == (7, 3) and gx.shape == (7, 3)
+    np.testing.assert_array_equal(gt.numpy(), np.asarray(wt))
+    # the runs behind the tuples: per chunk key, sub = split(key),
+    # kt, ks = split(sub), one key per theta from split(ks, batch)
+    k, keys = key, []
+    for _ in range(2):
+        k, sub = jax.random.split(k)
+        _, ks = jax.random.split(sub)
+        keys.append(np.asarray(jax.random.split(ks, 4)))
+    theta8, _ = pcal.presimulate(campaign["pspec"], campaign["pmap"], pcal.PriorBox.paper(),
+                                 _t(key), 8, batch=4, leap=True)
+    runs = _runs(campaign, campaign["pmap"](theta8), _t(np.concatenate(keys)), True)
+    x8 = pcal._eq1_coefficients(runs)
+    np.testing.assert_array_equal(x8[:7].numpy(), gx.numpy())
+    _assert_fits_close(gx.numpy(), np.asarray(wx), type(runs)(*(f[:7] for f in runs)))
+    with pytest.raises(ValueError, match="scenario_id"):
+        pcal.calibrate(campaign["pspec"], campaign["pt"], torch.zeros(3), prng.PRNGKey(0),
+                       amortized=True)
+
+
+def test_validate_matches_reference(campaign):
+    theta = np.array([0.03, 30.0, 10.0], np.float32)
+    x_true = np.array([0.06, 0.02, 0.01], np.float32)
+    key = jax.random.PRNGKey(9)
+    want = rcal.validate(campaign["rspec"], campaign["rt"], jnp.asarray(theta),
+                         jnp.asarray(x_true), key, n_sims=4, n_replicates=2)
+    got = pcal.validate(campaign["pspec"], campaign["pt"], torch.from_numpy(theta),
+                        torch.from_numpy(x_true), _t(key), n_sims=4, n_replicates=2)
+    assert got["coefficients"].shape == (4, 3)
+    np.testing.assert_allclose(got["coefficients"], want["coefficients"], rtol=1e-4, atol=1e-6)
+    c = got["coefficients"]
+    err = np.abs(x_true - c) / np.abs(x_true)
+    np.testing.assert_allclose(got["errors"], err, rtol=1e-6)
+    np.testing.assert_array_equal(got["median_coef"], np.asarray(jnp.median(jnp.asarray(c), axis=0)))
+    np.testing.assert_allclose(got["mean_abs_error"], err.mean(0), rtol=1e-6)
+    np.testing.assert_allclose(got["sum_error"], err.sum(1), rtol=1e-6)
+
+
+def test_calibrate_per_campaign_matches_reference(campaign):
+    """calibrate(presim=None) on one campaign: presimulation, training and
+    MCMC from the same key in both packages."""
+    x = np.array([0.06, 0.02, 0.01], np.float32)
+    cfg = dict(SMOKE, n_presim=16, batch_size=8, n_replicates=1)
+    want = rcal.calibrate(campaign["rspec"], campaign["rt"], jnp.asarray(x),
+                          jax.random.PRNGKey(4), rcal.CalibrationConfig(**cfg))
+    got = pcal.calibrate(campaign["pspec"], campaign["pt"], torch.from_numpy(x),
+                         prng.PRNGKey(4), pcal.CalibrationConfig(**cfg))
+    assert isinstance(got, pcal.CalibrationResult)
+    for k, v in want.classifier_params.items():
+        np.testing.assert_allclose(got.classifier_params[k].numpy(), np.asarray(v), atol=1e-4)
+    assert (np.abs(got.theta_star.numpy() - np.asarray(want.theta_star)) <= BIN * 1.001).all()
+    np.testing.assert_allclose(got.posterior_samples.numpy(),
+                               np.asarray(want.posterior_samples), rtol=1e-4, atol=1e-3)
+    assert float(got.accept_rate) == float(want.accept_rate)
+    assert np.isfinite(got.rhat.numpy()).all()
 
 
 def test_calibration_entry_points_default_to_cuda(fleets, net):

@@ -125,9 +125,13 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_paths_raise():
-    """A calibration theta now maps onto the bank; the bucketed dispatch
-    (ROADMAP A.3) and the per-campaign engine paths (A.7) still raise."""
-    from repro_torch.core import calibration
+    """A calibration theta maps onto the bank; the bucketed dispatch
+    (ROADMAP A.3) still raises. The per-campaign engine (A.7) is ported:
+    one scenario of the bank run as a campaign of its own equals the
+    reference's ``simulate_batch`` of it."""
+    import jax
+    from repro.core import engine as ref_engine
+    from repro_torch.core import engine
 
     fleet = Fleet.from_scenarios(n=4, seed=2, max_ticks=200, n_buckets=2, device="cpu")
     with pytest.raises(NotImplementedError, match="A.3"):
@@ -137,5 +141,14 @@ def test_unported_paths_raise():
     assert res.ticks.shape == (4, 1)
     with pytest.raises(TypeError, match="theta"):
         fleet.run([0.1, 2.0], bucketed=False)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        calibration.presimulate(None, None, None, None, 8)
+    ref_table = repro.Fleet.from_scenarios(n=4, seed=2, max_ticks=200).bank.scenario_table(1)
+    table = fleet.bank.scenario_table(1)
+    keys = jax.random.split(jax.random.PRNGKey(6), R)
+    want = ref_engine.simulate_batch(
+        ref_engine.SimSpec.from_table(ref_table, max_ticks=200),
+        ref_engine.make_params(ref_table, bg_mu=2.0, bg_sigma=1.5), keys, leap=True)
+    got = engine.simulate_batch(
+        engine.SimSpec.from_table(table, max_ticks=200, device="cpu"),
+        engine.make_params(table, bg_mu=2.0, bg_sigma=1.5, device="cpu"),
+        torch.from_numpy(np.asarray(keys).astype(np.int64)), leap=True)
+    _assert_matches(got, want)

@@ -22,6 +22,8 @@ leaked = sorted(
 )
 assert not leaked, leaked
 assert sys.modules["jax"] is None
+for name in ("repro_torch.launch.calibrate", "repro_torch.core.scheduler"):
+    assert name in sys.modules, name
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """
 

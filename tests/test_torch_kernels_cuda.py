@@ -1,10 +1,13 @@
-"""The CUDA grid-tick and SELU-MLP kernels against their plain PyTorch
-versions, on the card. These need an NVIDIA GPU and ``nvcc``; they carry the ``cuda`` marker
+"""The CUDA grid-tick (bank and per-campaign) and SELU-MLP kernels against
+their plain PyTorch versions, on the card. These need an NVIDIA GPU and ``nvcc``; they carry the ``cuda`` marker
 and skip elsewhere. On the card: ``python -m pytest -m cuda
 tests/test_torch_kernels_cuda.py``.
 
 Integer and bool fields are equal; float fields within rtol 1e-5, atol 1e-4
 (the kernels' ascending segment sums against the plain version's matmul).
+The per-campaign kernel sums in ``ref.grid_tick_indexed``'s order and is
+held bitwise against it, and against ``ref.grid_tick`` within that
+tolerance.
 The SELU-MLP kernel sums in the plain version's order: logits and
 pre-activations within rtol/atol 1e-5 (expm1 may round differently), its
 autograd gradients within 1e-4 of each tensor's largest entry."""
@@ -71,6 +74,56 @@ def test_fleet_window_invariance_and_cpu_parity():
             _close(f, getattr(a, f).cpu(), getattr(c, f))
 
 
+def _random_campaign(T, P, L, seed):
+    """One-hot incidences of a random campaign: every process on one link,
+    every leg in one process."""
+    g = torch.Generator().manual_seed(seed)
+    lp = torch.nn.functional.one_hot(torch.randint(0, P, (T,), generator=g), P).float()
+    pl = torch.nn.functional.one_hot(torch.randint(0, L, (P,), generator=g), L).float()
+    return lp, pl, lp @ pl
+
+
+def _section5_campaign():
+    from repro_torch.core.workload import compile_campaign, wlcg_production_workload
+
+    table = compile_campaign(*wlcg_production_workload(seed=0))
+    return tuple(torch.from_numpy(m) for m in (
+        table.leg_proc_onehot(), table.proc_link_onehot(), table.leg_link_onehot()))
+
+
+@pytest.mark.parametrize("shape", ["main", "T>128", "per-row keep"])
+def test_campaign_kernel_matches_plain(shape):
+    """The main path's shape (B = 2,048 simulations of the Section-5
+    campaign, T=106, P=11, L=1, shared keep, ``remaining = inf`` as the
+    leap calls it), a campaign past 128 legs, and one keep per row."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    if shape == "T>128":
+        B, inc = 300, _random_campaign(700, 90, 40, seed=3)
+    else:
+        B, inc = 2048, _section5_campaign()
+    lp, pl, ll = (m.to(dev) for m in inc)
+    T, P, L = lp.shape[0], lp.shape[1], pl.shape[1]
+    g = torch.Generator().manual_seed(4)
+    a = (torch.rand(B, T, generator=g) < 0.6).float().to(dev)
+    rem = (torch.rand(B, T, generator=g) * 50).to(dev)
+    if shape == "main":
+        rem = torch.full_like(rem, float("inf"))
+    keep = (0.9 + 0.1 * torch.rand((B, T) if shape == "per-row keep" else (T,), generator=g)).to(dev)
+    bg = (3 * torch.rand(B, L, generator=g)).to(dev)
+    bw = (1 + 100 * torch.rand(L, generator=g)).to(dev)
+    tables = ref.campaign_index_tables(lp, pl, ll)
+    before = grid_tick.LAUNCHES["grid_tick"]
+    got = ops.grid_tick(a, rem, keep, bg, bw, lp, pl, ll, tables=tables)
+    torch.cuda.synchronize()
+    assert grid_tick.LAUNCHES["grid_tick"] == before + 1
+    for g_, w_ in zip(got, ref.grid_tick_indexed(a, rem, keep, bg, bw, tables)):
+        assert torch.equal(g_, w_)
+    for name, g_, w_ in zip(("xfer", "proc_xfer", "link_xfer"), got,
+                            ref.grid_tick(a, rem, keep, bg, bw, lp, pl, ll)):
+        _close(name, g_, w_)
+
+
 def test_kernels_refuse_shapes_past_their_limits():
     _need_cuda()
     max_t, max_p, max_l = grid_tick.limits()
@@ -82,6 +135,12 @@ def test_kernels_refuse_shapes_past_their_limits():
         grid_tick.grid_tick_bank_cuda(
             f(S, R, T), f(S, R, T), f(S, T), f(S, R, L), f(S, L), i(S, T), i(S, T), i(S, P)
         )
+    max_t, _, max_l = grid_tick.campaign_limits()
+    assert max_t >= 1024 and max_l >= 256
+    for T, P, L in ((max_t + 1, 4, 3), (64, 8, max_l + 1)):
+        tables = ref.campaign_index_tables(*(m.to(dev) for m in _random_campaign(T, P, L, 0)))
+        with pytest.raises(ValueError, match="at most"):
+            grid_tick.grid_tick_cuda(f(2, T), f(2, T), f(T), f(2, L), f(L), tables)
 
 
 def _mlp(n, f_in, hidden=128, depth=4, seed=0):

@@ -177,3 +177,108 @@ def test_cuda_wrappers_refuse_cpu_tensors():
             x, x, torch.zeros((1, 4)), torch.zeros((1, 1, 2)), torch.zeros((1, 2)),
             idx, idx, torch.zeros((1, 3), dtype=torch.int32),
         )
+
+
+# -- the per-campaign tick ----------------------------------------------------
+
+def _campaign_inputs(per_row: bool, B=8, seed=5):
+    """One compiled campaign's incidences and a random [B, T] tick state."""
+    from repro.core.workload import compile_campaign, wlcg_production_workload
+
+    table = compile_campaign(*wlcg_production_workload(seed=0, n_observations=20, n_waves=3))
+    T, L = table.n_legs, table.n_links
+    rng = np.random.RandomState(seed)
+    active = (rng.uniform(size=(B, T)) < 0.6).astype(np.float32)
+    remaining = rng.uniform(0, 80, (B, T)).astype(np.float32)
+    keep = rng.uniform(0.9, 1.0, (B, T) if per_row else (T,)).astype(np.float32)
+    bg = rng.uniform(0, 3, (B, L)).astype(np.float32)
+    inc = (table.leg_proc_onehot(), table.proc_link_onehot(), table.leg_link_onehot())
+    return (active, remaining, keep, bg, np.asarray(table.links.bandwidth, np.float32)), inc
+
+
+@pytest.mark.parametrize("per_row", [False, True], ids=["keep[T]", "keep[B,T]"])
+@pytest.mark.parametrize("inf", [False, True], ids=["remaining", "remaining=inf"])
+def test_grid_tick_campaign_matches_pallas_interpret(per_row, inf):
+    """Plain ``grid_tick``, ``grid_tick_indexed`` and the CPU dispatch of
+    ``ops.grid_tick`` on [B, T] state with shared incidences, against the
+    reference's Pallas kernel in interpret mode (vmapped over a per-row
+    keep, as the reference's per-sim engine calls it)."""
+    import jax
+    from repro.kernels.grid_tick import grid_tick_pallas
+
+    state, inc = _campaign_inputs(per_row)
+    if inf:
+        state = (state[0], np.full_like(state[1], np.inf)) + state[2:]
+    active, remaining, keep, bg, bw = map(jnp.asarray, state)
+    lp, pl, ll = map(jnp.asarray, inc)
+    if per_row:
+        want = jax.vmap(lambda a, r, k, b: grid_tick_pallas(
+            a, r, k, b, bw, lp, pl, ll, interpret=True))(active, remaining, keep, bg)
+    else:
+        want = grid_tick_pallas(active, remaining, keep, bg, bw, lp, pl, ll, interpret=True)
+    t_state, t_inc = _torch(state), _torch(inc)
+    tables = ref.campaign_index_tables(*t_inc)
+    before = dict(grid_tick.LAUNCHES)
+    outs = {
+        "ref.grid_tick": ref.grid_tick(*t_state, *t_inc),
+        "ref.grid_tick_indexed": ref.grid_tick_indexed(*t_state, tables),
+        "ops.grid_tick": ops.grid_tick(*t_state, *t_inc),
+    }
+    assert grid_tick.LAUNCHES == before
+    for label, got in outs.items():
+        for name, g, w in zip(("xfer", "proc_xfer", "link_xfer"), got, want):
+            _close(name, g, w)  # xfer equal, the sums within RTOL/ATOL
+
+
+def test_campaign_index_tables_layout():
+    """The CSR lists hold each process's and link's legs (and each link's
+    processes) in ascending order; ``packed`` is their concatenation; the
+    per-leg columns equal the bank tables of the same incidences."""
+    _, inc = _campaign_inputs(per_row=False)
+    lp, pl, ll = _torch(inc)
+    t = ref.campaign_index_tables(lp, pl, ll)
+    T, P, L = t.shape
+    assert (T, P, L) == (lp.shape[0], lp.shape[1], pl.shape[1])
+    for ptr, idx, m in ((t.proc_ptr, t.proc_legs, lp), (t.link_ptr, t.link_legs, ll),
+                        (t.link_proc_ptr, t.link_procs, pl)):
+        for c in range(m.shape[1]):
+            members = idx[ptr[c]:ptr[c + 1]].tolist()
+            assert members == sorted(members)
+            assert members == torch.nonzero(m[:, c]).flatten().tolist()
+    bank = ref.bank_index_tables(lp[None], pl[None], ll[None])
+    for got, want in zip((t.proc_of_leg, t.link_of_leg, t.link_of_proc), bank):
+        assert torch.equal(got, want[0])
+    assert torch.equal(t.packed, torch.cat([t.proc_of_leg, t.link_of_leg, *t[3:9]]))
+
+
+def test_index_tables_refuse_rows_that_are_not_one_hot():
+    """A process on two links (a hand-made incidence) is refused by both
+    index-table functions: the gathers keep one column per row, where the
+    reference's matmul would sum both. All-zero padded rows are allowed."""
+    leg_proc = torch.tensor([[1.0, 0.0], [0.0, 1.0], [0.0, 0.0]])  # leg 2 padded
+    two_links = torch.tensor([[1.0, 0.0], [1.0, 1.0]])  # process 1 on two links
+    leg_link = leg_proc @ torch.tensor([[1.0, 0.0], [0.0, 1.0]])
+    with pytest.raises(ValueError, match="proc_link must be one-hot"):
+        ref.campaign_index_tables(leg_proc, two_links, leg_link)
+    with pytest.raises(ValueError, match="proc_link must be one-hot"):
+        ref.bank_index_tables(leg_proc[None], two_links[None], leg_link[None])
+    ok = torch.tensor([[1.0, 0.0], [0.0, 1.0]])
+    t = ref.campaign_index_tables(leg_proc, ok, leg_link)
+    assert t.proc_legs.tolist() == [0, 1] and t.link_legs.tolist() == [0, 1]
+    ref.bank_index_tables(leg_proc[None], ok[None], leg_link[None])
+
+
+def test_grid_tick_op_validates_inputs():
+    (a, r, k, b, bw), inc = _campaign_inputs(per_row=False)
+    lp, pl, ll = _torch(inc)
+    with pytest.raises(ValueError, match="per-sim state"):
+        ops.grid_tick(*_torch((a[0], r[0], k, b[0], bw)), lp, pl, ll)
+    with pytest.raises(ValueError, match="shared"):
+        ops.grid_tick(*_torch((a, r, k, b, bw)), lp[None], pl, ll)
+
+
+def test_campaign_cuda_wrapper_refuses_cpu_tensors():
+    (a, r, k, b, bw), inc = _campaign_inputs(per_row=False)
+    tables = ref.campaign_index_tables(*_torch(inc))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        grid_tick.grid_tick_cuda(*_torch((a, r, k, b, bw)), tables)
