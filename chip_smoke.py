@@ -51,7 +51,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    finite theta*, MAP and R-hat;
 11. optimize — ``optimize_profiles`` (population 32, 12 generations) on the
    congested grid of the repo's scheduler test: no worse than all-remote,
-   the same history as the CPU path.
+   the same history as the CPU path;
+12. llm_kernels — the flash-attention, decode-attention and mLSTM kernels
+   against their plain versions on small ragged cases (float32 and bf16)
+   and at hymba-1.5b's serving shapes (bf16), then timed with CUDA events
+   beside their bounds, their plain versions and, where one PyTorch call
+   computes the same function, that call;
+13. llm_serve — hymba-1.5b at full width (bf16, random weights from a seed):
+   8 prompts of 2,048 tokens through ``make_prefill_step``, then 64 greedy
+   ``make_serve_step`` steps, with tokens/s, launches per run, peak memory
+   and device time by kernel under ``torch.profiler``; decode against
+   prefill on the card, and the card against the CPU path in float32 (one
+   pattern unit of 8 layers, 2 x 1,280 tokens, 8 decode steps).
 
 Then the ``kernels`` line, the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -60,6 +71,8 @@ and prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import io
 import json
 import os
@@ -80,11 +93,16 @@ from repro_torch.core import calibration, classifier, engine, mcmc, prng  # noqa
 from repro_torch.core import scheduler, topology, workload  # noqa: E402
 from repro_torch.core.scenarios import build_bank  # noqa: E402
 from repro_torch.kernels import _build, grid_tick, ops, ref, selu_mlp  # noqa: E402
+from repro_torch.kernels import decode_attention, flash_attention, mlstm_chunk  # noqa: E402
 from repro_torch.launch import calibrate as calibrate_launcher  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.models import model as llm  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 non-tensor FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 non-tensor and
+# dense bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 # plain vs kernel: integer and bool fields equal; float fields whose sums
 # run in another order (matmul vs ascending segment sums) within these
 RTOL, ATOL = 1e-5, 1e-4
@@ -483,13 +501,21 @@ def phase_selu_mlp(dev) -> dict:
     return out
 
 
+LLM_KERNELS = (flash_attention, decode_attention, mlstm_chunk)
+
+
 def reset_counts() -> None:
     grid_tick.reset_launches()
     selu_mlp.reset_launches()
+    for k in LLM_KERNELS:
+        k.reset_launches()
 
 
 def counts() -> dict:
-    return {**grid_tick.LAUNCHES, **selu_mlp.LAUNCHES}
+    out = {**grid_tick.LAUNCHES, **selu_mlp.LAUNCHES}
+    for k in LLM_KERNELS:
+        out.update(k.LAUNCHES)
+    return out
 
 
 def phase_calibrate(dev) -> dict:
@@ -897,6 +923,408 @@ def phase_optimize(dev) -> dict:
     return card
 
 
+# ---------------------------------------------------------------------------
+# the LLM substrate's serving path (hymba-1.5b)
+# ---------------------------------------------------------------------------
+HYMBA = "hymba-1.5b"
+LLM_B, LLM_S, LLM_NEW = 8, 2048, 64
+# kernel vs plain, relative to max|plain|: both sum in float32 in another
+# order (online vs full softmax, chunked recurrence vs its plain replay);
+# in bf16 each side also rounds its output once (2^-8 a step), so two steps
+LLM_TOL = {torch.float32: 2e-5, torch.bfloat16: 8e-3}
+MLSTM_TOL_F32 = 1e-4  # the cell's exponentials amplify the sums' rounding
+# flash in bf16, each query row's error relative to that row's own max|plain|:
+# both sides' float32 sums agree far inside a bf16 step, so each output
+# rounds the same way or one step apart, at most 2^-7 of the row's largest
+# entry; two steps. (max|plain| over the whole tensor comes from early rows,
+# which average few keys; later rows are ~sqrt(1/n) as large.)
+FLASH_ROW_TOL_BF16 = 2.0 ** -6
+# float32 logits of one model by two paths (decode against prefill on the
+# card; the card against the CPU path), relative to max|logits|: the same
+# sums in other orders (cuBLAS and the kernels against MKL and the plain
+# versions, flash against decode attention) over up to 32 layers of widths
+# up to 6,400
+SERVE_F32_TOL = 2e-3
+# bf16 logits of decode against bf16 prefill, relative to max|logits|: the
+# two paths round activations to bf16 at other places, over 32 layers of
+# random weights. Set from the card's readings (5.5% and 6.2%, PERF.md); the
+# float32 check above is the one that holds the kernels to each other.
+SERVE_BF16_TOL = 0.10
+
+
+def rel_err(name, got, want, tol) -> float:
+    """``max|got - want| / max|want|``; raises past ``tol``."""
+    scale = max(float(want.double().abs().max()), 1e-30)
+    err = float((got.double() - want.double()).abs().max()) / scale
+    if not err <= tol:
+        raise AssertionError(f"{name}: max abs err {err} of max|plain| {scale}, past {tol}")
+    return err
+
+
+def row_rel_err(got, want) -> float:
+    """The largest over query rows (all but the last dim) of ``max|got -
+    want| / max|want|`` within the row; a row whose plain output is all 0
+    (it keeps no key) counts its absolute error."""
+    g, w = got.double(), want.double()
+    scale, diff = w.abs().amax(-1), (g - w).abs().amax(-1)
+    return float(torch.where(scale > 0, diff / scale.clamp_min(1e-300), diff).max())
+
+
+def flash_case(B, Sq, Skv, Hq, Hkv, D, dtype, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn((B, S, H, D), generator=g).to(dev).to(dtype)
+                 for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
+
+
+def check_flash(label, q, k, v, dtype, **kw) -> float:
+    out, lse = flash_attention.flash_attention_cuda(q, k, v, **kw)
+    want, want_lse = ref.flash_attention(q, k, v, **kw)
+    err = rel_err(f"flash {label}", out, want, LLM_TOL[dtype])
+    row_err = row_rel_err(out, want)
+    if dtype == torch.bfloat16 and not row_err <= FLASH_ROW_TOL_BF16:
+        raise AssertionError(f"flash {label}: a row's max abs err is {row_err} of its "
+                             f"max|plain|, past {FLASH_ROW_TOL_BF16}")
+    if not torch.equal(torch.isinf(lse), torch.isinf(want_lse)):
+        raise AssertionError(f"flash {label}: lse is +inf on other rows than the plain version's")
+    fin = torch.isfinite(want_lse)
+    lse_err = 0.0
+    if bool(fin.any()):
+        lse_err = float((lse[fin] - want_lse[fin]).abs().max())
+        if not lse_err <= 1e-4 * max(1.0, float(want_lse[fin].abs().max())):
+            raise AssertionError(f"flash {label}: lse max abs err {lse_err}")
+    emit("llm_kernels", kernel="flash_attention_fwd", case=label, dtype=str(dtype),
+         shape=[list(q.shape), list(k.shape)], max_rel_err=err, tol=LLM_TOL[dtype],
+         max_row_rel_err=row_err,
+         row_tol=FLASH_ROW_TOL_BF16 if dtype == torch.bfloat16 else None,
+         lse_max_abs_err=lse_err, dead_rows=int(torch.isinf(lse).sum()),
+         live_rows=int(torch.isfinite(lse).sum()), **{k_: v_ for k_, v_ in kw.items()})
+    return err
+
+
+def mlstm_case(B, S, H, Dk, Dv, normalize, dtype, seed, dev):
+    """q, k, v and float32 gates: xLSTM pre-activations, or SSD gates as
+    hymba's mamba heads make them (log dt, -dt)."""
+    g = torch.Generator().manual_seed(seed)
+    q, k = (torch.randn((B, S, H, Dk), generator=g).to(dev).to(dtype) for _ in range(2))
+    v = torch.randn((B, S, H, Dv), generator=g).to(dev).to(dtype)
+    if normalize:
+        ig = torch.randn((B, S, H), generator=g)
+        fg = torch.randn((B, S, H), generator=g) + 3.0
+    else:
+        dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=g) - 2.0)
+        ig, fg = torch.log(dt + 1e-9), -dt
+    return q, k, v, ig.to(dev), fg.to(dev)
+
+
+def check_mlstm(label, args, dtype, chunk, normalize) -> float:
+    out = mlstm_chunk.mlstm_chunk_cuda(*args, chunk=chunk, normalize=normalize)
+    want = ref.mlstm_chunk_chunked(*args, chunk=chunk, normalize=normalize)
+    tol = MLSTM_TOL_F32 if dtype == torch.float32 else LLM_TOL[dtype]
+    err = rel_err(f"mlstm {label}", out, want, tol)
+    emit("llm_kernels", kernel="mlstm_chunk", case=label, dtype=str(dtype), normalize=normalize,
+         chunk=chunk, q=list(args[0].shape), v=list(args[2].shape), max_rel_err=err, tol=tol)
+    return err
+
+
+def attention_pairs(Sq, Skv, causal, window) -> int:
+    """(query, key) pairs the masks keep, per (batch, head)."""
+    i = torch.arange(Sq, dtype=torch.int64)[:, None]
+    j = torch.arange(Skv, dtype=torch.int64)[None, :]
+    keep = torch.ones((Sq, Skv), dtype=torch.bool)
+    if causal:
+        keep &= j <= i
+    if window is not None:
+        keep &= j > i - window
+    return int(keep.sum())
+
+
+def bound(bytes_, ops_):
+    """The least ms for ``bytes_`` at the memory rate or ``ops_`` at the
+    bf16 tensor-core rate, and which of the two it is."""
+    t_b, t_o = bytes_ / PEAK_BYTES, ops_ / PEAK_BF16
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def phase_llm_kernels(dev) -> dict:
+    """The three kernels against their plain versions on small ragged cases
+    (float32 and bf16) and at hymba-1.5b's serving shapes (bf16), then timed
+    at those shapes with CUDA events."""
+    cfg = configs.get_config(HYMBA)
+    errs = {"flash_attention_fwd": 0.0, "decode_attention": 0.0, "mlstm_chunk": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        # flash: GQA, a window, a q_offset, S off the 64-row tile, non-causal,
+        # rows with no key (a window shorter than the gap q_offset leaves),
+        # alone and beside rows that keep some in one 64-row tile
+        for label, shape, kw in (
+            ("gqa", (2, 100, 100, 6, 2, 64), dict()),
+            ("window", (2, 130, 130, 4, 4, 32), dict(window=17)),
+            ("q_offset", (1, 40, 90, 6, 3, 20), dict(window=24, q_offset=50)),
+            ("non_causal", (2, 77, 50, 2, 1, 48), dict(causal=False)),
+            ("dead_rows", (1, 30, 20, 2, 2, 16), dict(window=4, q_offset=40)),
+            ("mixed_dead_rows", (1, 30, 20, 2, 2, 16), dict(window=8, q_offset=10)),
+        ):
+            errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], check_flash(
+                label, *flash_case(*shape, dtype, seed=shape[1], dev=dev), dtype, **kw))
+        # decode: ragged lengths, 1 and the full cache (and an empty one)
+        g = torch.Generator().manual_seed(7)
+        B, S, Hq, Hkv, D = 5, 300, 25, 5, 64
+        q = torch.randn((B, Hq, D), generator=g).to(dev).to(dtype)
+        kc, vc = (torch.randn((B, S, Hkv, D), generator=g).to(dev).to(dtype) for _ in range(2))
+        lengths = torch.tensor([1, S, 0, 77, 250], dtype=torch.int32, device=dev)
+        out = decode_attention.decode_attention_cuda(q, kc, vc, lengths)
+        err = rel_err("decode ragged", out, ref.decode_attention(q, kc, vc, lengths), LLM_TOL[dtype])
+        if float(out[2].abs().max()) != 0.0:
+            raise AssertionError("decode: a sequence with no valid position is not 0")
+        errs["decode_attention"] = max(errs["decode_attention"], err)
+        emit("llm_kernels", kernel="decode_attention", case="ragged", dtype=str(dtype),
+             lengths=lengths.tolist(), cache=[B, S, Hkv, D], max_rel_err=err)
+        # mLSTM: both flags, Dk != Dv, S off the chunk
+        for normalize, S_, Dk, Dv, chunk in ((True, 150, 64, 64, 128), (True, 70, 24, 40, 16),
+                                             (False, 300, 16, 128, 128), (False, 45, 8, 20, 32)):
+            args = mlstm_case(2, S_, 3, Dk, Dv, normalize, dtype, seed=S_, dev=dev)
+            errs["mlstm_chunk"] = max(errs["mlstm_chunk"], check_mlstm(
+                f"S={S_} Dk={Dk} Dv={Dv}", args, dtype, chunk, normalize))
+
+    # hymba-1.5b's serving shapes, bf16 (flash also on the same values in
+    # float32, held to the float32 limit)
+    bf = torch.bfloat16
+    B, S, Hq, Hkv, D, W = LLM_B, LLM_S, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.window
+    q, k, v = flash_case(B, S, S, Hq, Hkv, D, bf, seed=11, dev=dev)
+    res = {}
+    flash_rows = {}
+    for label, window in (("global", None), ("local", W)):
+        errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], check_flash(
+            f"main {label}", q, k, v, bf, window=window))
+        check_flash(f"main {label}", *(x.float() for x in (q, k, v)), torch.float32,
+                    window=window)
+        ms, _ = timed(lambda: flash_attention.flash_attention_cuda(q, k, v, window=window), 5)
+        plain_ms, _ = timed(lambda: ref.flash_attention(q, k, v, window=window), 2)
+        pairs = B * Hq * attention_pairs(S, S, True, window)
+        ops_ = 4 * D * pairs
+        bytes_ = nbytes(q, k, v) + nbytes(q) + 4 * B * Hq * S
+        b_ms, b_by = bound(bytes_, ops_)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if window is None:
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            i = torch.arange(S, device=dev)
+            band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - W)
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, enable_gqa=True)
+        lib_ms, _ = timed(lib, 10)
+        flash_rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=lib_ms, ops=ops_, bytes=bytes_)
+        emit("llm_kernels", kernel="flash_attention_fwd", timing=label, card=smi(),
+             shape=[B, S, Hq, Hkv, D], window=window,
+             library="F.scaled_dot_product_attention(enable_gqa=True)", **flash_rows[label])
+    res["flash_attention_fwd"] = dict(flash_rows["global"], local=flash_rows["local"])
+    del q, k, v
+
+    dec_rows = {}
+    for label, size in (("global", S + LLM_NEW), ("ring", W)):
+        g = torch.Generator().manual_seed(size)
+        qd = torch.randn((B, Hq, D), generator=g).to(dev).to(bf)
+        kc, vc = (torch.randn((B, size, Hkv, D), generator=g).to(dev).to(bf) for _ in range(2))
+        lengths = torch.full((B,), size, dtype=torch.int32, device=dev)
+        out = decode_attention.decode_attention_cuda(qd, kc, vc, lengths)
+        err = rel_err(f"decode main {label}", out,
+                      ref.decode_attention(qd, kc, vc, lengths), LLM_TOL[bf])
+        errs["decode_attention"] = max(errs["decode_attention"], err)
+        ms, _ = timed(lambda: decode_attention.decode_attention_cuda(qd, kc, vc, lengths), 50)
+        plain_ms, _ = timed(lambda: ref.decode_attention(qd, kc, vc, lengths), 5)
+        bytes_ = nbytes(qd, kc, vc, lengths) + nbytes(qd)
+        ops_ = 4 * D * B * Hq * size
+        b_ms, b_by = bound(bytes_, ops_)
+        qt, kt, vt = qd[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
+        lib_ms, _ = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True), 10)
+        dec_rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                               library_ms=lib_ms, bytes=bytes_, max_rel_err=err)
+        emit("llm_kernels", kernel="decode_attention", timing=label, card=smi(),
+             cache=[B, size, Hkv, D], blocks=B * Hkv,
+             library="F.scaled_dot_product_attention(enable_gqa=True)", **dec_rows[label])
+    res["decode_attention"] = dict(dec_rows["global"], ring=dec_rows["ring"])
+
+    H, Dk, Dv, chunk = cfg.n_heads, cfg.ssm_state, cfg.ssm_expand * cfg.d_model // cfg.n_heads, 128
+    args = mlstm_case(B, S, H, Dk, Dv, False, bf, seed=13, dev=dev)
+    errs["mlstm_chunk"] = max(errs["mlstm_chunk"], check_mlstm("main SSD", args, bf, chunk, False))
+    ms, _ = timed(lambda: mlstm_chunk.mlstm_chunk_cuda(*args, chunk=chunk, normalize=False), 5)
+    plain_ms, _ = timed(lambda: ref.mlstm_chunk_chunked(*args, chunk=chunk, normalize=False), 2)
+    n_chunks = -(-S // chunk)
+    # per chunk and (batch, head): scores and their products with v over the
+    # causal half, the inter-chunk q C, the state update k^T v
+    ops_ = B * H * n_chunks * 2 * (chunk * chunk // 2 * (Dk + Dv) + 2 * chunk * Dk * Dv)
+    bytes_ = nbytes(*args) + args[2].numel() * args[2].element_size()
+    b_ms, b_by = bound(bytes_, ops_)
+    res["mlstm_chunk"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                              library_ms=None, ops=ops_, bytes=bytes_)
+    emit("llm_kernels", kernel="mlstm_chunk", timing="main SSD", card=smi(),
+         shape=[B, S, H, Dk, Dv], chunk=chunk, blocks=B * H * -(-Dv // 64),
+         library="none: no single PyTorch call computes the chunkwise mLSTM / SSD cell",
+         **res["mlstm_chunk"])
+    for name, e in errs.items():
+        res[name]["max_abs_err"] = e
+    torch.cuda.synchronize()
+    return res
+
+
+def llm_counts() -> dict:
+    out = {}
+    for k in LLM_KERNELS:
+        out.update(k.LAUNCHES)
+    return out
+
+
+def greedy_decode(step, net, cache, logits, n: int):
+    """``n`` greedy serve steps from ``logits``; the last step's logits."""
+    for _ in range(n):
+        logits, cache = step(net, cache, logits.argmax(-1))
+    return logits, cache
+
+
+def phase_llm_serve(dev) -> dict:
+    """hymba-1.5b at full width on the card: prefill 8 x 2,048 tokens, 64
+    greedy decode steps, each run's kernel launches counted from 0; device
+    time by kernel; decode against prefill; the card against the CPU path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = configs.get_config(HYMBA)
+    B, S, N = LLM_B, LLM_S, LLM_NEW
+    t0 = time.perf_counter()
+    net = llm.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in net.parameters())
+    prefill, step = llm.make_prefill_step(cfg), llm.make_serve_step(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1),
+                           generator=torch.Generator().manual_seed(0)).to(dev)
+    batch = {"tokens": tokens[:, :S]}
+
+    # warm-up (libraries loaded, cuBLAS handles made), then the timed run
+    logits, cache = prefill(net, llm.init_cache(cfg, B, S + N, device=dev), batch)
+    greedy_decode(step, net, cache, logits, 2)
+    del cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cache = llm.init_cache(cfg, B, S + N, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(net, cache, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    by_run = {"prefill": llm_counts()}
+    first = logits.argmax(-1)
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = greedy_decode(step, net, cache, logits, N)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    by_run["decode"] = llm_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(logits.shape) != (B, cfg.vocab_size) or not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"serve logits not finite [{B}, {cfg.vocab_size}]")
+    if cache["pos"] != S + N:
+        raise AssertionError(f"cache pos {cache['pos']} after {S} + {N} tokens")
+    want = {"prefill": {"flash_attention_fwd": cfg.n_layers, "mlstm_chunk": cfg.n_layers,
+                        "decode_attention": 0},
+            "decode": {"flash_attention_fwd": 0, "mlstm_chunk": 0,
+                       "decode_attention": cfg.n_layers * N}}
+    if by_run != want:
+        raise AssertionError(f"launches {by_run}, expected {want}")
+    run = dict(layers=cfg.n_layers, params=n_params, batch=B, prompt=S, new_tokens=N,
+               init_s=init_s, prefill_s=prefill_s, prefill_tokens_per_s=B * S / prefill_s,
+               decode_s=decode_s, decode_ms_per_step=decode_s / N * 1e3,
+               decode_tokens_per_s=B * N / decode_s, peak_memory_gb=peak / 1e9,
+               launches_by_run=by_run, first_tokens=first.tolist())
+    emit("llm_serve", card=smi(), **run)
+
+    # device time by kernel of one prefill and one decode step, and the
+    # device's busy share of their unprofiled wall
+    prof = {}
+    for label, fn, wall in (
+        ("prefill", lambda: prefill(net, llm.init_cache(cfg, B, S + N, device=dev), batch),
+         prefill_s),
+        ("decode_step", lambda: step(net, cache, logits.argmax(-1)), decode_s / N),
+    ):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+            fn()
+            torch.cuda.synchronize()
+        rows = device_rows(pr)
+        dev_s = sum(r[1] for r in rows) / 1e6
+        kern = lambda tag: sum(r[1] for r in rows if tag in r[0]) / 1e6
+        prof[label] = dict(
+            device_s=dev_s, wall_s=wall, busy_share=dev_s / wall,
+            flash_s=kern("flash_fwd_kernel"), decode_attention_s=kern("decode_kernel"),
+            mlstm_s=kern("mlstm_chunk_kernel"), device_launches=sum(r[2] for r in rows),
+            top=[[k_[:70], us / 1e6, n] for k_, us, n in rows[:10]])
+        emit("llm_serve", profile=label, **prof[label])
+    run["profile"] = prof
+
+    # 1. decode against prefill on the card: prefill over S + 1 tokens
+    #    against prefill over S and one decode step of token S, 2 prompts.
+    #    In float32 (the same weights, upcast) only the sums' order differs;
+    #    in bf16 the two paths also round activations at other places
+    del cache
+    B1 = 2
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+
+    def decode_vs_prefill(n_, c_):
+        full, _ = llm.make_prefill_step(c_)(
+            n_, llm.init_cache(c_, B1, S + 1, device=dev), {"tokens": tokens[:B1]})
+        c1 = llm.init_cache(c_, B1, S + 1, device=dev)
+        _, c1 = llm.make_prefill_step(c_)(n_, c1, {"tokens": tokens[:B1, :S]})
+        stepped, _ = llm.make_serve_step(c_)(n_, c1, tokens[:B1, S])
+        return full.float(), stepped.float()
+
+    net32 = copy.deepcopy(net).float()
+    full32, step32 = decode_vs_prefill(net32, cfg32)
+    del net32
+    err32 = rel_err("decode vs prefill (float32)", step32, full32, SERVE_F32_TOL)
+    full16, step16 = decode_vs_prefill(net, cfg)
+    scale = float(full32.abs().max())
+    noise = float((full16 - full32).abs().max()) / scale
+    err16 = rel_err("decode vs prefill (bf16)", step16, full16, SERVE_BF16_TOL)
+    emit("llm_serve", check="decode vs prefill on the card", tokens=S + 1, batch=B1,
+         float32_max_rel_err=err32, float32_tol=SERVE_F32_TOL,
+         bf16_prefill_vs_float32=noise,
+         bf16_decode_vs_float32=float((step16 - full32).abs().max()) / scale,
+         bf16_decode_vs_bf16_prefill=err16, bf16_tol=SERVE_BF16_TOL,
+         argmax_agreement_bf16=float((step16.argmax(-1) == full16.argmax(-1)).float().mean()))
+    run["decode_vs_prefill"] = err32
+    run["decode_vs_prefill_bf16"] = err16
+    del net
+
+    # 2. the card against the CPU path in float32: one pattern unit (8
+    #    layers, 1 global and 7 local), 2 x 1,280 tokens (past the window),
+    #    then 8 decode steps, the same tokens on both sides
+    cfg8 = dataclasses.replace(cfg, n_layers=cfg.pattern_len, dtype="float32")
+    cpu_net = llm.init_params(1, cfg8, device="cpu")
+    card_net = copy.deepcopy(cpu_net).to(dev)
+    B2, S2, steps = 2, 1280, 8
+    toks = torch.randint(0, cfg.vocab_size, (B2, S2 + steps),
+                         generator=torch.Generator().manual_seed(2))
+    errs = []
+    nets = ((card_net, llm.init_cache(cfg8, B2, S2 + steps, device=dev)),
+            (cpu_net, llm.init_cache(cfg8, B2, S2 + steps, device="cpu")))
+    outs = [llm.make_prefill_step(cfg8)(n_, c_, {"tokens": toks[:, :S2].to(c_["layers"][0]["kv"]["k"].device)})
+            for n_, c_ in nets]
+    errs.append(rel_err("card vs CPU prefill", outs[0][0].cpu(), outs[1][0], SERVE_F32_TOL))
+    step8 = llm.make_serve_step(cfg8)
+    caches = [o[1] for o in outs]
+    for i in range(steps):
+        got, caches[0] = step8(card_net, caches[0], toks[:, S2 + i].to(dev))
+        want_, caches[1] = step8(cpu_net, caches[1], toks[:, S2 + i])
+        errs.append(rel_err(f"card vs CPU step {i}", got.cpu(), want_, SERVE_F32_TOL))
+    emit("llm_serve", check="card vs CPU path, float32", layers=cfg8.n_layers, batch=B2,
+         prompt=S2, steps=steps, max_rel_err_by_step=errs, tol=SERVE_F32_TOL)
+    run["card_vs_cpu"] = max(errs)
+    torch.cuda.synchronize()
+    return run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -906,18 +1334,28 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    phase_build()
-    errs = phase_kernels(dev)
-    main_run = phase_main(dev)
-    phase_parity(dev)
-    phase_profile(dev, main_run)
-    times = phase_timing(dev)
-    mlp = phase_selu_mlp(dev)
-    cal = phase_calibrate(dev)
-    campaign_err = phase_campaign_kernel(dev)
-    camp = phase_campaign(dev)
-    sec5 = phase_section5(dev)
-    phase_optimize(dev)
+    seconds = {}
+
+    def timed_phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    timed_phase("build", phase_build)
+    errs = timed_phase("kernels", phase_kernels, dev)
+    main_run = timed_phase("main", phase_main, dev)
+    timed_phase("parity", phase_parity, dev)
+    timed_phase("profile", phase_profile, dev, main_run)
+    times = timed_phase("timing", phase_timing, dev)
+    mlp = timed_phase("selu_mlp", phase_selu_mlp, dev)
+    cal = timed_phase("calibrate", phase_calibrate, dev)
+    campaign_err = timed_phase("campaign_kernel", phase_campaign_kernel, dev)
+    camp = timed_phase("campaign", phase_campaign, dev)
+    sec5 = timed_phase("section5", phase_section5, dev)
+    timed_phase("optimize", phase_optimize, dev)
+    llm_times = timed_phase("llm_kernels", phase_llm_kernels, dev)
+    serve = timed_phase("llm_serve", phase_llm_serve, dev)
     kernels = []
     replaces = {
         "grid_tick_bank_fused": "src/repro/kernels/grid_tick.py:477",
@@ -955,7 +1393,23 @@ def main() -> int:
         ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
         library_ms=None,
     ))
-    emit("done", seconds=time.perf_counter() - t0)
+    llm_replaces = {
+        "flash_attention_fwd": "src/repro/kernels/flash_attention.py:122",
+        "decode_attention": "src/repro/kernels/decode_attention.py:99",
+        "mlstm_chunk": "src/repro/kernels/mlstm_chunk.py:236",
+    }
+    for name, src in (("flash_attention_fwd", "flash_attention.cu"),
+                      ("decode_attention", "decode_attention.cu"),
+                      ("mlstm_chunk", "mlstm_chunk.cu")):
+        t = llm_times[name]
+        by_run = {run: n[name] for run, n in serve["launches_by_run"].items()}
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
+            replaces=llm_replaces[name], launches=sum(by_run.values()), launches_by_run=by_run,
+            max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
+        ))
+    emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """repro_torch: the GDAPS grid simulator (one campaign or a scenario bank),
-its likelihood-free calibration and the access-profile optimizer in
-PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
+its likelihood-free calibration, the access-profile optimizer and the LLM
+substrate's serving path (prefill and decode of hybrid attention / SSD
+models) in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 The port of the reference JAX package ``repro``; it imports ``torch`` and
 ``numpy`` only. Entry points run on ``cuda`` unless the caller passes
@@ -30,6 +31,8 @@ from repro_torch.core.calibration import (
 )
 from repro_torch.core.fleet import Fleet
 from repro_torch.core.workload import summary_features
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import init_cache, init_params, make_prefill_step, make_serve_step
 
 __version__ = "0.1.0"
 
@@ -54,4 +57,9 @@ __all__ = [
     "presimulate_bank",
     "validate",
     "validate_bank",
+    "ModelConfig",
+    "init_params",
+    "init_cache",
+    "make_prefill_step",
+    "make_serve_step",
 ]

@@ -1,0 +1,43 @@
+"""Architecture configs the port runs: ``get_config(arch_id)`` /
+``get_smoke_config(arch_id)`` / ``list_archs()``.
+
+The port's copies of the reference package's ``repro.configs`` modules for
+the architectures whose block kinds it supports (attention, sliding-window
+attention, mamba-style SSD heads and hymba's parallel pair). Each module
+defines ``CONFIG`` (the published numbers) and ``smoke_config()`` (a reduced
+same-family config for CPU tests). The other architectures of the reference
+need block kinds no slice has ported yet (ROADMAP A.12).
+"""
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["get_config", "get_smoke_config", "list_archs"]
+
+_ARCHS = {
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "hymba-1.5b": "hymba_1_5b",
+}
+
+
+def list_archs() -> List[str]:
+    return list(_ARCHS)
+
+
+def _module(arch: str):
+    if arch not in _ARCHS:
+        raise KeyError(
+            f"unknown or unported arch {arch!r}; the port runs {sorted(_ARCHS)}"
+        )
+    return importlib.import_module(f"repro_torch.configs.{_ARCHS[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).smoke_config()

@@ -1,0 +1,98 @@
+"""Wrapper of the hand-written CUDA chunkwise mLSTM / SSD kernel
+(``csrc/mlstm_chunk.cu``).
+
+:func:`mlstm_chunk_cuda` runs one launch of the kernel that replaces the
+reference's ``mlstm_chunk_pallas``: the matrix-memory cell, parallel inside
+chunks and recurrent across them, with ``normalize=True`` (xLSTM) or
+``False`` (SSD). It takes CUDA tensors (q, k, v in float32 or bf16, the
+gates float32), checks them, allocates its output with ``torch.empty``,
+launches on the current stream and raises if the launch is refused.
+:data:`LAUNCHES` counts its launches. The plain versions are
+:func:`repro_torch.kernels.ref.mlstm_chunk` (parallel form) and
+:func:`~repro_torch.kernels.ref.mlstm_chunk_chunked` (the kernel's own
+recurrence).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import check_tensor, dtype_code
+
+__all__ = ["LAUNCHES", "reset_launches", "limits", "mlstm_chunk_cuda"]
+
+#: Launch count of the kernel, raised by one at every launch.
+LAUNCHES: Dict[str, int] = {"mlstm_chunk": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def reset_launches() -> None:
+    LAUNCHES["mlstm_chunk"] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("mlstm_chunk")
+    if not getattr(lib, "_repro_bound", False):
+        lib.mlstm_chunk_launch.argtypes = [_P] * 6 + [_I] * 7 + [_F] * 3 + [_I, _P]
+        lib.mlstm_chunk_launch.restype = _I
+        lib.mlstm_chunk_limits.argtypes = [ctypes.POINTER(_I)] * 2
+        lib.mlstm_chunk_limits.restype = _I
+        lib._repro_bound = True
+    return lib
+
+
+def limits() -> Tuple[int, int]:
+    """The kernel's largest ``(Dk, chunk)``."""
+    vals = [_I() for _ in range(2)]
+    _lib().mlstm_chunk_limits(*(ctypes.byref(x) for x in vals))
+    return tuple(x.value for x in vals)
+
+
+def mlstm_chunk_cuda(
+    q: torch.Tensor,  # [B, S, H, Dk]
+    k: torch.Tensor,  # [B, S, H, Dk]
+    v: torch.Tensor,  # [B, S, H, Dv]
+    i_gate: torch.Tensor,  # [B, S, H] float32
+    f_gate: torch.Tensor,  # [B, S, H] float32
+    *,
+    chunk: int = 128,
+    eps: float = 1e-6,
+    normalize: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """``out [B, S, H, Dv]`` in q's dtype, on the card. The last chunk is
+    padded as the reference pads it: ``i = -1e30`` and ``f = 30``
+    (``normalize``) or 0."""
+    B, S, H, Dk = q.shape
+    Dv = v.shape[-1]
+    code = dtype_code(q)
+    f32 = torch.float32
+    ptrs = [check_tensor("q", q, (B, S, H, Dk), q.dtype),
+            check_tensor("k", k, (B, S, H, Dk), q.dtype),
+            check_tensor("v", v, (B, S, H, Dv), q.dtype),
+            check_tensor("i_gate", i_gate, (B, S, H), f32),
+            check_tensor("f_gate", f_gate, (B, S, H), f32)]
+    max_dk, max_chunk = limits()
+    if not 1 <= Dk <= max_dk or not 1 <= chunk <= max_chunk or min(B, S, H, Dv) < 1:
+        raise ValueError(
+            f"mlstm_chunk kernel takes Dk <= {max_dk} and chunks of at most "
+            f"{max_chunk}: got q {tuple(q.shape)}, v {tuple(v.shape)}, chunk {chunk}"
+        )
+    if scale is None:
+        scale = Dk ** -0.5 if normalize else 1.0
+    out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib().mlstm_chunk_launch(
+        *ptrs, out.data_ptr(), B, S, H, Dk, Dv, int(chunk), int(normalize),
+        float(scale), float(eps), 30.0 if normalize else 0.0, code, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"mlstm_chunk kernel launch failed: cudaError_t {err}")
+    LAUNCHES["mlstm_chunk"] += 1
+    return out

@@ -1,9 +1,13 @@
-"""Dispatch of the grid-tick and SELU-MLP operations by device.
+"""Dispatch of the grid-tick, SELU-MLP, attention and mLSTM operations by
+device.
 
 A CPU tensor takes the plain PyTorch version (:mod:`repro_torch.kernels.ref`)
 and a CUDA tensor takes the hand-written kernel
-(:mod:`repro_torch.kernels.grid_tick`, :mod:`repro_torch.kernels.selu_mlp`);
-there is no other switch and no fallback from one to the other. Validation
+(:mod:`repro_torch.kernels.grid_tick`, :mod:`~repro_torch.kernels.selu_mlp`,
+:mod:`~repro_torch.kernels.flash_attention`,
+:mod:`~repro_torch.kernels.decode_attention`,
+:mod:`~repro_torch.kernels.mlstm_chunk`); there is no other switch and no
+fallback from one to the other. Validation
 mirrors the reference package's ``repro.kernels.ops``.
 
 :func:`selu_mlp` is differentiable through :class:`SeluMLP`, whose forward
@@ -26,12 +30,21 @@ import torch
 
 from repro_torch.kernels import ref
 
-__all__ = ["grid_tick", "grid_tick_bank", "grid_tick_bank_fused", "selu_mlp", "SeluMLP"]
+__all__ = [
+    "grid_tick",
+    "grid_tick_bank",
+    "grid_tick_bank_fused",
+    "selu_mlp",
+    "SeluMLP",
+    "flash_attention",
+    "decode_attention",
+    "mlstm_chunk",
+]
 
 
 def _device_kind(x: torch.Tensor) -> str:
     if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"grid-tick ops run on cpu or cuda tensors, got {x.device}")
+        raise ValueError(f"the port's ops run on cpu or cuda tensors, got {x.device}")
     return x.device.type
 
 
@@ -340,3 +353,103 @@ def selu_mlp(
             f"selu_mlp: {len(weights)} weights but {len(biases)} biases"
         )
     return SeluMLP.apply(x, *weights, *biases)
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Sq, Hq, D]
+    k: torch.Tensor,  # [B, Skv, Hkv, D]
+    v: torch.Tensor,  # [B, Skv, Hkv, D]
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GQA attention with causal / sliding-window masks: ``(out [B, Sq, Hq,
+    D], lse [B, Hq, Sq])``. The plain quadratic form on a CPU tensor, the
+    flash-attention kernel on a CUDA tensor."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"flash_attention: q must be [B, Sq, Hq, D] and k, v [B, Skv, Hkv, D]: "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if _device_kind(q) == "cpu":
+        return ref.flash_attention(
+            q, k, v, causal=causal, window=window, scale=scale, q_offset=q_offset
+        )
+    from repro_torch.kernels import flash_attention as _k
+
+    return _k.flash_attention_cuda(
+        q.contiguous(), k.to(q.dtype).contiguous(), v.to(q.dtype).contiguous(),
+        causal=causal, window=window, scale=scale, q_offset=q_offset,
+    )
+
+
+def decode_attention(
+    q: torch.Tensor,  # [B, Hq, D]
+    k_cache: torch.Tensor,  # [B, S, Hkv, D]
+    v_cache: torch.Tensor,  # [B, S, Hkv, D]
+    lengths: torch.Tensor,  # [B]
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One query token per sequence against its KV cache, positions
+    ``>= lengths[b]`` masked: ``[B, Hq, D]``. The plain version on a CPU
+    tensor, the decode-attention kernel on a CUDA tensor."""
+    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(
+            f"decode_attention: q must be [B, Hq, D] and the cache [B, S, Hkv, D]: "
+            f"{tuple(q.shape)}, {tuple(k_cache.shape)}, {tuple(v_cache.shape)}"
+        )
+    if _device_kind(q) == "cpu":
+        return ref.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
+    from repro_torch.kernels import decode_attention as _k
+
+    return _k.decode_attention_cuda(
+        q.contiguous(), k_cache.to(q.dtype).contiguous(), v_cache.to(q.dtype).contiguous(),
+        lengths.to(torch.int32).contiguous(), scale=scale,
+    )
+
+
+def mlstm_chunk(
+    q: torch.Tensor,  # [B, S, H, Dk]
+    k: torch.Tensor,  # [B, S, H, Dk]
+    v: torch.Tensor,  # [B, S, H, Dv]
+    i_gate: torch.Tensor,  # [B, S, H]
+    f_gate: torch.Tensor,  # [B, S, H]
+    *,
+    chunk: int = 128,
+    eps: float = 1e-6,
+    normalize: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The chunkwise mLSTM (``normalize=True``) or SSD (``False``) cell:
+    ``[B, S, H, Dv]``. On a CPU tensor the plain version in the form the
+    reference's CPU path takes (the parallel form up to ``S = 256``, the
+    chunked recurrence above); on a CUDA tensor the mLSTM kernel."""
+    if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 or v.shape[:3] != q.shape[:3]:
+        raise ValueError(
+            f"mlstm_chunk: q, k must be [B, S, H, Dk] and v [B, S, H, Dv]: "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if i_gate.shape != q.shape[:3] or f_gate.shape != q.shape[:3]:
+        raise ValueError(
+            f"mlstm_chunk: gates must be [B, S, H] = {tuple(q.shape[:3])}: "
+            f"{tuple(i_gate.shape)}, {tuple(f_gate.shape)}"
+        )
+    if _device_kind(q) == "cpu":
+        if q.shape[1] <= 256:
+            return ref.mlstm_chunk(
+                q, k, v, i_gate, f_gate, eps=eps, normalize=normalize, scale=scale
+            )
+        return ref.mlstm_chunk_chunked(
+            q, k, v, i_gate, f_gate, chunk=chunk, eps=eps, normalize=normalize, scale=scale
+        )
+    from repro_torch.kernels import mlstm_chunk as _k
+
+    f32 = torch.float32
+    return _k.mlstm_chunk_cuda(
+        q.contiguous(), k.to(q.dtype).contiguous(), v.to(q.dtype).contiguous(),
+        i_gate.to(f32).contiguous(), f_gate.to(f32).contiguous(),
+        chunk=chunk, eps=eps, normalize=normalize, scale=scale,
+    )

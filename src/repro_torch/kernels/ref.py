@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the grid-tick and SELU-MLP kernels.
+"""Plain PyTorch versions of the grid-tick, SELU-MLP and attention / mLSTM
+kernels.
 
 Each function is the port's semantic ground truth for one CUDA kernel: the
 CPU path runs it directly, the tests hold it against the reference package's
@@ -17,6 +18,8 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional, Tuple
 
+import torch.nn.functional as F
+
 import torch
 
 from repro_torch.core import prng
@@ -34,6 +37,10 @@ __all__ = [
     "SELU_SCALE",
     "selu",
     "selu_mlp",
+    "flash_attention",
+    "decode_attention",
+    "mlstm_chunk",
+    "mlstm_chunk_chunked",
 ]
 
 Tick = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
@@ -487,3 +494,207 @@ def selu_mlp(
     if return_pre:
         return h, torch.stack(pre)
     return h
+
+
+# ---------------------------------------------------------------------------
+# the LLM substrate's kernels: flash attention (forward), decode attention,
+# chunkwise mLSTM / SSD. Each computes in float32 and returns the dtype of
+# its query, as the reference's ``repro.kernels.ref`` does.
+# ---------------------------------------------------------------------------
+_NEG = -1e30
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Sq, Hq, D]
+    k: torch.Tensor,  # [B, Skv, Hkv, D]
+    v: torch.Tensor,  # [B, Skv, Hkv, D]
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quadratic-form attention with GQA (query head ``h`` reads KV head
+    ``h // (Hq / Hkv)``), ``causal`` masking, the sliding ``window`` band
+    ``k_pos > q_pos - window`` and ``q_offset`` (absolute position of
+    ``q[:, 0]``): ``(out [B, Sq, Hq, D] in q's dtype, lse [B, Hq, Sq]
+    float32)``. ``lse`` is the log-sum-exp of the scaled scores over the
+    unmasked keys, ``+inf`` on a row with none (whose ``out`` is 0), as the
+    TPU kernel emits it for its backward."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"flash_attention: Hq={Hq} is not a multiple of Hkv={Hkv}")
+    rep = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    f32 = torch.float32
+    qf = q.to(f32) * scale
+    kf = k.to(f32).repeat_interleave(rep, dim=2)
+    vf = v.to(f32).repeat_interleave(rep, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    q_pos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    k_pos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.softmax(logits, dim=-1)
+    # fully masked rows (a window shorter than the gap q_offset leaves)
+    probs = torch.where(torch.isnan(probs), 0.0, probs)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
+    return out, torch.where(torch.isneginf(lse), float("inf"), lse)
+
+
+def decode_attention(
+    q: torch.Tensor,  # [B, Hq, D] one new token per sequence
+    k_cache: torch.Tensor,  # [B, S, Hkv, D]
+    v_cache: torch.Tensor,  # [B, S, Hkv, D]
+    lengths: torch.Tensor,  # [B] valid cache lengths
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One query token per sequence against its KV cache (GQA), masking
+    cache positions ``>= lengths[b]``: ``[B, Hq, D]`` in q's dtype (0 where
+    a sequence has no valid position)."""
+    B, Hq, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"decode_attention: Hq={Hq} is not a multiple of Hkv={Hkv}")
+    rep = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    f32 = torch.float32
+    qf = q.to(f32) * scale
+    kf = k_cache.to(f32).repeat_interleave(rep, dim=2)
+    vf = v_cache.to(f32).repeat_interleave(rep, dim=2)
+    logits = torch.einsum("bhd,bshd->bhs", qf, kf)
+    mask = torch.arange(S, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+    logits = logits.masked_fill(~mask[:, None, :], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.where(torch.isnan(probs), 0.0, probs)
+    return torch.einsum("bhs,bshd->bhd", probs, vf).to(q.dtype)
+
+
+def _mlstm_gates(i_gate, f_gate, normalize: bool):
+    """``(log input gate, log forget gate)`` in float32: xLSTM's forget gate
+    is a log-sigmoid, SSD's ``f_gate`` is already the log-decay."""
+    fg = f_gate.to(torch.float32)
+    return i_gate.to(torch.float32), F.logsigmoid(fg) if normalize else fg
+
+
+def mlstm_chunk(
+    q: torch.Tensor,  # [B, S, H, Dk]
+    k: torch.Tensor,  # [B, S, H, Dk]
+    v: torch.Tensor,  # [B, S, H, Dv]
+    i_gate: torch.Tensor,  # [B, S, H] input-gate pre-activations
+    f_gate: torch.Tensor,  # [B, S, H] forget-gate pre-activations
+    *,
+    eps: float = 1e-6,
+    normalize: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The matrix-memory cell in its fully parallel form (``O(S^2)`` memory;
+    the CPU path takes it for ``S <= 256``): ``[B, S, H, Dv]`` in q's dtype.
+
+    ``normalize=True`` is xLSTM's mLSTM (exponential input gate, sigmoid
+    forget gate in log space, stabiliser ``m`` and the ``max(|.|, e^-m)``
+    normaliser); ``normalize=False`` is mamba-2's SSD (``f_gate`` the raw
+    log-decay, ``i_gate`` the raw log-injection, no stabiliser, no
+    normaliser)."""
+    B, S, H, Dk = q.shape
+    if scale is None:
+        scale = Dk ** -0.5 if normalize else 1.0
+    f32 = torch.float32
+    qf = q.to(f32) * scale
+    kf, vf = k.to(f32), v.to(f32)
+    logi, logf = _mlstm_gates(i_gate, f_gate, normalize)
+    Fc = torch.cumsum(logf, dim=1)
+    dmat = Fc[:, :, None, :] - Fc[:, None, :, :] + logi[:, None, :, :]  # [B,S,S,H]
+    causal = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
+    dmat = dmat.masked_fill(~causal[None, :, :, None], float("-inf"))
+    if normalize:
+        m = torch.amax(dmat, dim=2, keepdim=True)  # [B,S,1,H]
+    else:
+        m = torch.zeros_like(dmat[:, :, :1, :])
+    scores = torch.einsum("bthd,bshd->btsh", qf, kf) * torch.exp(dmat - m)
+    out = torch.einsum("btsh,bshd->bthd", scores, vf)
+    if normalize:
+        norm = torch.maximum(scores.sum(dim=2).abs(), torch.exp(-m[:, :, 0, :])) + eps
+        out = out / norm[..., None]
+    return out.to(q.dtype)
+
+
+def mlstm_chunk_chunked(
+    q: torch.Tensor,  # [B, S, H, Dk]
+    k: torch.Tensor,
+    v: torch.Tensor,  # [B, S, H, Dv]
+    i_gate: torch.Tensor,  # [B, S, H]
+    f_gate: torch.Tensor,  # [B, S, H]
+    *,
+    chunk: int = 128,
+    eps: float = 1e-6,
+    normalize: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The same cell as :func:`mlstm_chunk` by the chunkwise recurrence the
+    CUDA kernel runs (the reference's ``mlstm_chunk_xla``): parallel inside
+    each chunk of ``chunk`` positions, the state ``C [Dk, Dv]``, ``n [Dk]``
+    and ``m`` carried from chunk to chunk. ``S`` is padded to a multiple of
+    ``chunk`` with ``i = -1e30`` (no contribution) and a log forget gate of
+    0 (no decay)."""
+    B, S, H, Dk = q.shape
+    Dv = v.shape[-1]
+    if scale is None:
+        scale = Dk ** -0.5 if normalize else 1.0
+    f32 = torch.float32
+    n_chunks = -(-S // chunk)
+    pad = n_chunks * chunk - S
+
+    def chunked(x, value=0.0):  # [B, S, H, *] -> [B, H, n, c, *]
+        x = F.pad(x, (0, 0, 0, 0, 0, pad), value=value) if pad else x
+        return x.transpose(1, 2).reshape(B, H, n_chunks, chunk, -1)
+
+    qf = chunked(q.to(f32) * scale)
+    kf = chunked(k.to(f32))
+    vf = chunked(v.to(f32))
+    logi, logf = _mlstm_gates(i_gate, f_gate, normalize)
+    li = chunked(logi[..., None], _NEG)[..., 0]  # [B, H, n, c]
+    lf = chunked(logf[..., None], 0.0)[..., 0]
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
+    C = torch.zeros((B, H, Dk, Dv), dtype=f32, device=q.device)
+    n = torch.zeros((B, H, Dk), dtype=f32, device=q.device)
+    m = torch.full((B, H), _NEG if normalize else 0.0, dtype=f32, device=q.device)
+    outs = []
+    for c in range(n_chunks):
+        qc, kc, vc, lic = qf[:, :, c], kf[:, :, c], vf[:, :, c], li[:, :, c]
+        Fc = torch.cumsum(lf[:, :, c], dim=-1)  # [B, H, c]
+        f_end = Fc[..., -1]
+        dmat = Fc[..., :, None] - Fc[..., None, :] + lic[..., None, :]
+        dmat = dmat.masked_fill(~causal, _NEG)
+        if normalize:
+            m_row = torch.maximum(dmat.amax(dim=-1), Fc + m[..., None])
+        else:
+            m_row = torch.zeros_like(Fc)
+        s_intra = (qc @ kc.transpose(-1, -2)) * torch.exp(dmat - m_row[..., None])
+        inter = torch.exp(Fc + m[..., None] - m_row)
+        num = s_intra @ vc + inter[..., None] * (qc @ C)
+        if normalize:
+            qn = (qc @ n[..., None])[..., 0]
+            denom = s_intra.sum(-1) + inter * qn
+            norm = torch.maximum(denom.abs(), torch.exp(-m_row)) + eps
+            outs.append(num / norm[..., None])
+        else:
+            outs.append(num)
+        w = f_end[..., None] - Fc + lic
+        m_new = torch.maximum(m + f_end, w.amax(dim=-1)) if normalize else m
+        decay = torch.exp(m + f_end - m_new)
+        kw = kc * torch.exp(w - m_new[..., None])[..., None]
+        C = decay[..., None, None] * C + kw.transpose(-1, -2) @ vc
+        n = decay[..., None] * n + kw.sum(-2)
+        m = m_new
+    out = torch.stack(outs, dim=2).reshape(B, H, n_chunks * chunk, Dv)[:, :, :S]
+    return out.transpose(1, 2).to(q.dtype)

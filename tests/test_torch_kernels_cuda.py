@@ -1,5 +1,6 @@
-"""The CUDA grid-tick (bank and per-campaign) and SELU-MLP kernels against
-their plain PyTorch versions, on the card. These need an NVIDIA GPU and ``nvcc``; they carry the ``cuda`` marker
+"""The CUDA grid-tick (bank and per-campaign), SELU-MLP, flash-attention,
+decode-attention and mLSTM kernels against their plain PyTorch versions, on
+the card. These need an NVIDIA GPU and ``nvcc``; they carry the ``cuda`` marker
 and skip elsewhere. On the card: ``python -m pytest -m cuda
 tests/test_torch_kernels_cuda.py``.
 
@@ -10,14 +11,21 @@ held bitwise against it, and against ``ref.grid_tick`` within that
 tolerance.
 The SELU-MLP kernel sums in the plain version's order: logits and
 pre-activations within rtol/atol 1e-5 (expm1 may round differently), its
-autograd gradients within 1e-4 of each tensor's largest entry."""
+autograd gradients within 1e-4 of each tensor's largest entry.
+The attention and mLSTM kernels sum in float32 in another order than their
+plain versions (online softmax against a full softmax, a chunked recurrence
+against the parallel form): their outputs within 2e-5 (attention) and 1e-4
+(mLSTM, whose exponentials amplify rounding) of the plain output's largest
+entry in float32, 8e-3 (two bf16 steps, each side rounds its output once)
+in bf16; flash's lse within 1e-5 where finite and +inf on the same rows."""
 import pytest
 import torch
 
 from repro_torch import Fleet
 from repro_torch.core import engine
 from repro_torch.core.scenarios import build_bank
-from repro_torch.kernels import grid_tick, ops, ref, selu_mlp
+from repro_torch.kernels import decode_attention, flash_attention, grid_tick, mlstm_chunk
+from repro_torch.kernels import ops, ref, selu_mlp
 
 pytestmark = pytest.mark.cuda
 
@@ -191,3 +199,108 @@ def test_selu_mlp_kernel_refuses_other_widths():
     x, ws, bs = _mlp(16, 15, hidden=40)
     with pytest.raises(ValueError, match="hidden widths"):
         selu_mlp.selu_mlp_cuda(x, ws, bs)
+
+
+_LLM_TOL = {torch.float32: 2e-5, torch.bfloat16: 8e-3}
+
+
+def _rel_err(got, want):
+    return float((got.double() - want.double()).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def _randn(g, *shape, dtype):
+    return torch.randn(shape, generator=g).to("cuda").to(dtype)
+
+
+# (B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset): GQA, a window, a
+# q_offset, S off the 64-row tile, non-causal, and rows with no key
+# (a window shorter than the gap q_offset leaves past the keys), alone and
+# beside rows that keep some in one 64-row tile (query positions >= 27)
+_FLASH_CASES = [
+    (2, 100, 100, 6, 2, 64, True, None, 0),
+    (2, 130, 130, 4, 4, 32, True, 17, 0),
+    (1, 40, 90, 6, 3, 20, True, 24, 50),
+    (2, 77, 50, 2, 1, 48, False, None, 0),
+    (1, 30, 20, 2, 2, 16, True, 4, 40),
+    (1, 30, 20, 2, 2, 16, True, 8, 10),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(case, dtype):
+    _need_cuda()
+    B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset = case
+    g = torch.Generator().manual_seed(Sq)
+    q, k, v = (_randn(g, B, S, H, D, dtype=dtype) for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
+    before = flash_attention.LAUNCHES["flash_attention_fwd"]
+    out, lse = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES["flash_attention_fwd"] == before + 1
+    want, want_lse = ref.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    assert out.dtype == dtype and _rel_err(out, want) <= _LLM_TOL[dtype]
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    fin = torch.isfinite(want_lse)
+    if bool(fin.any()):  # the fifth case's rows all keep no key: lse +inf
+        lse_err = float((lse[fin] - want_lse[fin]).abs().max())
+        assert lse_err <= 1e-5 * max(1.0, float(want_lse[fin].abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D", [(25, 5, 64), (8, 8, 20), (6, 2, 128)])
+def test_decode_attention_kernel_matches_plain(Hq, Hkv, D, dtype):
+    _need_cuda()
+    B, S = 5, 300
+    g = torch.Generator().manual_seed(D)
+    q = _randn(g, B, Hq, D, dtype=dtype)
+    kc, vc = _randn(g, B, S, Hkv, D, dtype=dtype), _randn(g, B, S, Hkv, D, dtype=dtype)
+    lengths = torch.tensor([1, S, 0, 77, 250], dtype=torch.int32, device="cuda")
+    before = decode_attention.LAUNCHES["decode_attention"]
+    out = ops.decode_attention(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    assert decode_attention.LAUNCHES["decode_attention"] == before + 1
+    want = ref.decode_attention(q, kc, vc, lengths)
+    assert out.dtype == dtype and _rel_err(out, want) <= _LLM_TOL[dtype]
+    assert float(out[2].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("normalize,S,Dk,Dv,chunk", [
+    (True, 150, 64, 64, 128), (True, 70, 24, 40, 16), (False, 300, 16, 128, 128),
+    (False, 45, 8, 20, 32),
+])
+def test_mlstm_kernel_matches_plain(normalize, S, Dk, Dv, chunk, dtype):
+    _need_cuda()
+    B, H = 2, 3
+    g = torch.Generator().manual_seed(S)
+    q, k = _randn(g, B, S, H, Dk, dtype=dtype), _randn(g, B, S, H, Dk, dtype=dtype)
+    v = _randn(g, B, S, H, Dv, dtype=dtype)
+    ig = torch.randn(B, S, H, generator=g).to("cuda")
+    if normalize:
+        fg = (torch.randn(B, S, H, generator=g) + 3.0).to("cuda")
+    else:  # SSD: raw log-decay <= 0, log-injection log(dt)
+        fg = -torch.rand(B, S, H, generator=g).to("cuda") * 0.5
+        ig = torch.log(torch.rand(B, S, H, generator=g) * 0.5 + 1e-3).to("cuda")
+    before = mlstm_chunk.LAUNCHES["mlstm_chunk"]
+    out = ops.mlstm_chunk(q, k, v, ig, fg, chunk=chunk, normalize=normalize)
+    torch.cuda.synchronize()
+    assert mlstm_chunk.LAUNCHES["mlstm_chunk"] == before + 1
+    want = ref.mlstm_chunk_chunked(q, k, v, ig, fg, chunk=chunk, normalize=normalize)
+    tol = 1e-4 if dtype == torch.float32 else _LLM_TOL[dtype]
+    assert out.dtype == dtype and _rel_err(out, want) <= tol
+    assert _rel_err(out, ref.mlstm_chunk(q, k, v, ig, fg, normalize=normalize)) <= tol
+
+
+def test_llm_kernels_refuse_shapes_past_their_limits():
+    _need_cuda()
+    assert flash_attention.limits() == 64 and mlstm_chunk.limits()[0] == 64
+    q = torch.zeros(1, 8, 2, 80, device="cuda")
+    with pytest.raises(ValueError, match="D <= 64"):
+        flash_attention.flash_attention_cuda(q, q, q)
+    g = torch.zeros(1, 8, 2, device="cuda")
+    with pytest.raises(ValueError, match="Dk <= 64"):
+        mlstm_chunk.mlstm_chunk_cuda(q, q, q, g, g)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        decode_attention.decode_attention_cuda(
+            torch.zeros(1, 18, 64, device="cuda"), torch.zeros(1, 4, 2, 64, device="cuda"),
+            torch.zeros(1, 4, 2, 64, device="cuda"), torch.ones(1, dtype=torch.int32, device="cuda"))
