@@ -62,7 +62,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ``make_serve_step`` steps, with tokens/s, launches per run, peak memory
    and device time by kernel under ``torch.profiler``; decode against
    prefill on the card, and the card against the CPU path in float32 (one
-   pattern unit of 8 layers, 2 x 1,280 tokens, 8 decode steps).
+   pattern unit of 8 layers, 2 x 1,280 tokens, 8 decode steps);
+14. llm_train_kernels — the flash-attention backward kernels (dq, dk/dv)
+   against their plain version on ragged cases (GQA groups of 1, 2 and 8, a
+   window, ``q_offset``, dead rows beside live ones; float32 and bf16) and
+   at TinyLlama-1.1B's training shapes (B 8, S 2,048, 32 / 4 heads of 64,
+   causal), then each timed with CUDA events beside its bound, the plain
+   backward and the backward of ``F.scaled_dot_product_attention``;
+15. llm_train — TinyLlama-1.1B at full width (bf16, random weights from a
+   seed): ``make_train_step`` with the trainer's AdamW on 8 x 2,048 tokens
+   a step from the port's ``TokenStream``, 1 warm-up and 5 timed steps, with
+   tokens/s, losses, grad norms, peak memory, launches per step and one
+   step under ``torch.profiler``; one float32 step at TinyLlama's widths and
+   2 layers on the card against the CPU path; the ``Trainer``'s restart
+   continuity on the card (6 steps straight against 3, a restore, 3 more).
 
 Then the ``kernels`` line, the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -97,6 +110,8 @@ from repro_torch.kernels import decode_attention, flash_attention, mlstm_chunk  
 from repro_torch.launch import calibrate as calibrate_launcher  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.models import model as llm  # noqa: E402
+from repro_torch.data.tokens import TokenStream, TokenStreamConfig  # noqa: E402
+from repro_torch.train import trainer as llm_trainer  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 non-tensor and
 # dense bf16 tensor-core FLOP/s
@@ -976,7 +991,7 @@ def flash_case(B, Sq, Skv, Hq, Hkv, D, dtype, seed, dev):
                  for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
 
 
-def check_flash(label, q, k, v, dtype, **kw) -> float:
+def check_flash(label, q, k, v, dtype, phase="llm_kernels", **kw) -> float:
     out, lse = flash_attention.flash_attention_cuda(q, k, v, **kw)
     want, want_lse = ref.flash_attention(q, k, v, **kw)
     err = rel_err(f"flash {label}", out, want, LLM_TOL[dtype])
@@ -992,7 +1007,7 @@ def check_flash(label, q, k, v, dtype, **kw) -> float:
         lse_err = float((lse[fin] - want_lse[fin]).abs().max())
         if not lse_err <= 1e-4 * max(1.0, float(want_lse[fin].abs().max())):
             raise AssertionError(f"flash {label}: lse max abs err {lse_err}")
-    emit("llm_kernels", kernel="flash_attention_fwd", case=label, dtype=str(dtype),
+    emit(phase, kernel="flash_attention_fwd", case=label, dtype=str(dtype),
          shape=[list(q.shape), list(k.shape)], max_rel_err=err, tol=LLM_TOL[dtype],
          max_row_rel_err=row_err,
          row_tol=FLASH_ROW_TOL_BF16 if dtype == torch.bfloat16 else None,
@@ -1227,12 +1242,18 @@ def phase_llm_serve(dev) -> dict:
         raise AssertionError(f"serve logits not finite [{B}, {cfg.vocab_size}]")
     if cache["pos"] != S + N:
         raise AssertionError(f"cache pos {cache['pos']} after {S} + {N} tokens")
+    no_bwd = {"flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
     want = {"prefill": {"flash_attention_fwd": cfg.n_layers, "mlstm_chunk": cfg.n_layers,
-                        "decode_attention": 0},
+                        "decode_attention": 0, **no_bwd},
             "decode": {"flash_attention_fwd": 0, "mlstm_chunk": 0,
-                       "decode_attention": cfg.n_layers * N}}
+                       "decode_attention": cfg.n_layers * N, **no_bwd}}
     if by_run != want:
         raise AssertionError(f"launches {by_run}, expected {want}")
+    # the parameters require grad; serving must record no autograd graph
+    graph = [t for t in (logits, *(x for c in cache["layers"] for d in c.values()
+                                   for x in d.values())) if t.requires_grad]
+    if not all(p.requires_grad for p in net.parameters()) or graph:
+        raise AssertionError(f"serving recorded an autograd graph on {len(graph)} outputs")
     run = dict(layers=cfg.n_layers, params=n_params, batch=B, prompt=S, new_tokens=N,
                init_s=init_s, prefill_s=prefill_s, prefill_tokens_per_s=B * S / prefill_s,
                decode_s=decode_s, decode_ms_per_step=decode_s / N * 1e3,
@@ -1325,6 +1346,296 @@ def phase_llm_serve(dev) -> dict:
     return run
 
 
+# ---------------------------------------------------------------------------
+# the LLM substrate's training path (tinyllama-1.1b)
+# ---------------------------------------------------------------------------
+TINYLLAMA = "tinyllama-1.1b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2048, 5
+# flash backward, kernel vs plain in float32, relative to each gradient's
+# max|plain|: the same sums in another order, where dp - delta cancels
+BWD_TOL_F32 = 1e-4
+# and row by row (all but the last dim): each row within BWD_ROW_TOL_F32 of
+# its own max|plain| plus BWD_FLOOR_F32 of the gradient's max|plain|, the
+# floor for rows whose sums cancel to about 0. The plain version's own
+# float32 roundoff (against float64, B 1 x 1,024 tokens, 8/1 heads, bf16
+# values) is up to 1.6e-6 of a row's max and 5.6e-7 of the gradient's.
+BWD_ROW_TOL_F32, BWD_FLOOR_F32 = 1e-4, 1e-5
+# one float32 train step, the card against the CPU path (cuBLAS and the
+# kernels against MKL and the plain versions, 2 layers of TinyLlama's
+# widths): the loss within 1e-5 of itself, the grad norm within 1e-4, each
+# gradient within 1e-4 of its own max|CPU|
+TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4, 1e-4
+
+
+def bwd_row_limit(want32) -> torch.Tensor:
+    """Each row's float32 limit: BWD_ROW_TOL_F32 of the row's max|plain|
+    plus BWD_FLOOR_F32 of the tensor's; set from the plain values alone."""
+    w = want32.double().abs()
+    return BWD_ROW_TOL_F32 * w.amax(-1) + BWD_FLOOR_F32 * w.max()
+
+
+def row_share(got, want, limit) -> float:
+    """The largest over rows of ``max|got - want|`` as a share of ``limit``
+    (a tensor of the rows' shape); <= 1 when every row holds."""
+    diff = (got.double() - want.double()).abs().amax(-1)
+    zero = torch.where(diff > 0, float("inf"), 0.0)
+    return float(torch.where(limit > 0, diff / limit.clamp_min(1e-300), zero).max())
+
+
+def bf16_step(want) -> torch.Tensor:
+    """One bf16 step (2^-7 of the binade) of each row's max|want|; 0 on rows
+    that are all 0."""
+    top = want.double().abs().amax(-1)
+    return torch.where(top > 0, torch.exp2(torch.floor(torch.log2(top.clamp_min(1e-300))) - 7), 0.0)
+
+
+def check_flash_bwd(label, q, k, v, dout, dtype, **kw) -> float:
+    """dq, dk, dv of the two kernels against ``ref.flash_attention_bwd`` on
+    the forward kernel's out and lse, in float32 on the whole tensor and row
+    by row. bf16 inputs are also run in float32 on the same values: those
+    results meet the float32 limits, and each bf16 row lies within one bf16
+    step of its max|plain| plus its float32 row limit (both sides round the
+    float32 sums once). No limit is read from the kernel's own output."""
+    out, lse = flash_attention.flash_attention_cuda(q, k, v, **kw)
+    got = flash_attention.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    want = ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    if dtype == torch.float32:
+        got32, want32 = got, want
+    else:
+        up = [x.float() for x in (q, k, v, out)]
+        got32 = flash_attention.flash_attention_bwd_cuda(*up, lse, dout.float(), **kw)
+        want32 = ref.flash_attention_bwd(*up, lse, dout.float(), **kw)
+    errs, f32_share, bf16_share = [], [], []
+    for name, a, b, a32, b32 in zip("qkv", got, want, got32, want32):
+        errs.append(rel_err(f"flash bwd {label} d{name} (float32)", a32, b32, BWD_TOL_F32))
+        limit = bwd_row_limit(b32)
+        f32_share.append(row_share(a32, b32, limit))
+        if not f32_share[-1] <= 1.0:
+            raise AssertionError(f"flash bwd {label} d{name}: a float32 row's error is "
+                                 f"{f32_share[-1]} of its row limit")
+        if dtype == torch.bfloat16:
+            bf16_share.append(row_share(a, b, bf16_step(b) + limit))
+            if not bf16_share[-1] <= 1.0:
+                raise AssertionError(f"flash bwd {label} d{name}: a bf16 row's error is "
+                                     f"{bf16_share[-1]} of one step of its max|plain| plus "
+                                     "its float32 row limit")
+    emit("llm_train_kernels", kernels="flash_attention_bwd_dq+dkv", case=label, dtype=str(dtype),
+         shape=[list(q.shape), list(k.shape)], max_rel_err_dq_dk_dv=errs, tol=BWD_TOL_F32,
+         f32_row_share_of_limit_dq_dk_dv=f32_share, row_tol=BWD_ROW_TOL_F32, floor=BWD_FLOOR_F32,
+         bf16_row_share_of_limit_dq_dk_dv=bf16_share or None, dead_rows=int(torch.isinf(lse).sum()),
+         live_rows=int(torch.isfinite(lse).sum()), **{k_: v_ for k_, v_ in kw.items()})
+    return max(errs)
+
+
+def phase_llm_train_kernels(dev) -> dict:
+    """The dq and dk/dv kernels against the plain backward on ragged cases
+    and at TinyLlama's training shapes, then timed there with CUDA events."""
+    cfg = configs.get_config(TINYLLAMA)
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, shape, kw in (
+            ("gqa8", (2, 150, 150, 16, 2, 64), dict()),
+            ("gqa2_window", (2, 130, 130, 4, 2, 32), dict(window=17)),
+            ("q_offset", (1, 40, 90, 6, 3, 20), dict(window=24, q_offset=50)),
+            ("non_causal", (2, 77, 50, 2, 1, 48), dict(causal=False)),
+            ("dead_rows", (1, 30, 20, 2, 2, 16), dict(window=4, q_offset=40)),
+            ("mixed_dead_rows", (1, 30, 20, 2, 2, 16), dict(window=8, q_offset=10)),
+        ):
+            q, k, v = flash_case(*shape, dtype, seed=shape[1] + 1, dev=dev)
+            dout = flash_case(shape[0], shape[1], 1, shape[3], 1, shape[5], dtype,
+                              seed=shape[1] + 2, dev=dev)[0]
+            err = max(err, check_flash_bwd(label, q, k, v, dout, dtype, **kw))
+
+    # TinyLlama's shapes, bf16 (float32 on the same values inside the check)
+    bf = torch.bfloat16
+    B, S, Hq, Hkv, D = TRAIN_B, TRAIN_S, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = flash_case(B, S, S, Hq, Hkv, D, bf, seed=21, dev=dev)
+    dout = flash_case(B, S, 1, Hq, 1, D, bf, seed=22, dev=dev)[0]
+    err = max(err, check_flash_bwd("main", q, k, v, dout, bf))
+    # the forward kernel at these shapes too (8 query heads a KV head), with
+    # the bf16 and float32 limits phase_llm_kernels applies
+    fwd_err = max(check_flash("train main", q, k, v, bf, phase="llm_train_kernels"),
+                  check_flash("train main", *(x.float() for x in (q, k, v)), torch.float32,
+                              phase="llm_train_kernels"))
+    out, lse = flash_attention.flash_attention_cuda(q, k, v)
+    dq_ms, (_, delta) = timed(
+        lambda: flash_attention.flash_attention_bwd_dq_cuda(q, k, v, out, lse, dout), 5)
+    dkv_ms, _ = timed(
+        lambda: flash_attention.flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, dout), 5)
+    plain_ms, _ = timed(lambda: ref.flash_attention_bwd(q, k, v, out, lse, dout), 2)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                            enable_gqa=True)
+    dout_t = dout.transpose(1, 2)
+    lib_ms, _ = timed(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dout_t, retain_graph=True), 10)
+    pairs = B * Hq * attention_pairs(S, S, True, None)
+    product = 2 * D * pairs  # one [pairs x D] product
+    rows = 4 * B * Hq * S  # one float32 [B, Hq, S] row vector
+    res = {}
+    for name, ms, n_products, bytes_ in (
+        # dq: s, dp, dq; reads q, k, v, out, dout, lse; writes dq, delta
+        ("flash_attention_bwd_dq", dq_ms, 3, nbytes(q, k, v, out, dout, q) + 2 * rows),
+        # dk/dv: s, dp, dk, dv; reads q, k, v, dout, lse, delta; writes dk, dv
+        ("flash_attention_bwd_dkv", dkv_ms, 4, nbytes(q, k, v, dout, k, v) + 2 * rows),
+    ):
+        b_ms, b_by = bound(bytes_, n_products * product)
+        res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                         ops=n_products * product, bytes=bytes_, max_abs_err=err)
+        emit("llm_train_kernels", kernel=name, timing="main", card=smi(),
+             shape=[B, S, Hq, Hkv, D], causal=True,
+             plain="ref.flash_attention_bwd (dq, dk and dv)",
+             library="backward of F.scaled_dot_product_attention(is_causal=True, "
+                     "enable_gqa=True) (dq, dk and dv)", **res[name])
+    fused_ms, _ = bound(0, 5 * product)
+    emit("llm_train_kernels", timing="main, whole backward", kernels_ms=dq_ms + dkv_ms,
+         bound_ms_fused_5_products=fused_ms, plain_ms=plain_ms, library_ms=lib_ms)
+    del q, k, v, out, lse, dout, qt, kt, vt, sdpa
+    torch.cuda.synchronize()
+    res["flash_attention_fwd"] = dict(max_abs_err=fwd_err)
+    return res
+
+
+def token_batch(stream, dev) -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
+
+
+def phase_llm_train(dev) -> dict:
+    """TinyLlama-1.1B at full width on the card: the trainer's AdamW through
+    ``make_train_step``, 1 warm-up and 5 timed steps on 8 x 2,048 tokens,
+    each step's launches counted from 0; device time by kernel of one step;
+    one float32 step of 2 layers against the CPU path; the Trainer's
+    restart continuity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = configs.get_config(TINYLLAMA)
+    B, S = TRAIN_B, TRAIN_S
+    tcfg = llm_trainer.TrainerConfig(total_steps=TRAIN_STEPS + 2)
+    opt = llm_trainer.adamw_config(tcfg)
+    stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                           global_batch=B, seed=tcfg.seed))
+    t0 = time.perf_counter()
+    net = llm.init_params(tcfg.seed, cfg, device=dev)
+    state = llm.init_train_state(net, opt)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in net.parameters())
+    step = llm.make_train_step(cfg, opt)
+
+    state, metrics = step(state, token_batch(stream, dev))  # warm-up
+    losses, gnorms, walls, launches = [float(metrics["loss"])], [float(metrics["grad_norm"])], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_STEPS):
+        batch = token_batch(stream, dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches.append(dict(flash_attention.LAUNCHES))
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+        raise AssertionError(f"train losses {losses} / grad norms {gnorms} not finite")
+    if int(state["step"]) != TRAIN_STEPS + 1:
+        raise AssertionError(f"train state step {int(state['step'])}")
+    L = cfg.n_layers
+    want = {"flash_attention_fwd": (2 if cfg.remat else 1) * L,
+            "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L}
+    if any(n != want for n in launches):
+        raise AssertionError(f"launches a step {launches}, expected {want}")
+    step_s = sum(walls) / len(walls)
+    run = dict(layers=L, params=n_params, batch=B, seq=S, remat=cfg.remat, init_s=init_s,
+               step_s_each=walls, step_s=step_s, tokens_per_s=B * S / step_s,
+               losses=losses, grad_norms=gnorms, peak_memory_gb=peak / 1e9,
+               launches_per_step=launches[0], launches_total={k: sum(n[k] for n in launches)
+                                                              for k in want})
+    emit("llm_train", card=smi(), **run)
+
+    # device time by kernel of one step, and the device's busy share of the
+    # unprofiled step wall
+    batch = token_batch(stream, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    rows = device_rows(pr)
+    dev_s = sum(r[1] for r in rows) / 1e6
+    kern = lambda tag: sum(r[1] for r in rows if tag in r[0]) / 1e6
+    run["profile"] = dict(
+        device_s=dev_s, wall_s=step_s, busy_share=dev_s / step_s,
+        flash_fwd_s=kern("flash_fwd_kernel"), flash_bwd_dq_s=kern("flash_bwd_dq_kernel"),
+        flash_bwd_dkv_s=kern("flash_bwd_dkv_kernel"), device_launches=sum(r[2] for r in rows),
+        top=[[k_[:70], us / 1e6, n] for k_, us, n in rows[:12]])
+    emit("llm_train", profile="train_step", **run["profile"])
+    del net, state, step, metrics, batch
+    torch.cuda.empty_cache()
+
+    # 1. one float32 train step, the card against the CPU path: TinyLlama's
+    #    widths, 2 layers, 2 x 256 tokens; gradients, then the step's loss
+    #    and grad norm
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    cpu_net = llm.init_params(1, cfg2, device="cpu")
+    card_net = copy.deepcopy(cpu_net).to(dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 256), generator=torch.Generator().manual_seed(3))
+    on = lambda net_: {"tokens": toks.to(net_.embed.device)}
+    card = llm.loss_and_grads(card_net, on(card_net), cfg2)
+    cpu = llm.loss_and_grads(cpu_net, on(cpu_net), cfg2)
+    loss_err = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
+    grad_errs = {n: rel_err(f"card vs CPU grad {n}", card[2][n].cpu(), g, TRAIN_GRAD_TOL)
+                 for n, g in cpu[2].items()}
+    del card, cpu
+    outs = []
+    for net_ in (card_net, cpu_net):
+        st = llm.init_train_state(net_, opt)
+        _, m = llm.make_train_step(cfg2, opt)(st, on(net_))
+        outs.append((float(m["loss"]), float(m["grad_norm"])))
+    step_loss_err = abs(outs[0][0] - outs[1][0]) / abs(outs[1][0])
+    gnorm_err = abs(outs[0][1] - outs[1][1]) / abs(outs[1][1])
+    if not (loss_err <= TRAIN_LOSS_TOL and step_loss_err <= TRAIN_LOSS_TOL
+            and gnorm_err <= TRAIN_GNORM_TOL):
+        raise AssertionError(f"card vs CPU train step: loss {loss_err}, {step_loss_err}, "
+                             f"grad norm {gnorm_err}")
+    worst = max(grad_errs, key=grad_errs.get)
+    emit("llm_train", check="card vs CPU path, one float32 train step", layers=2, batch=2,
+         seq=256, loss_rel_err=max(loss_err, step_loss_err), loss_tol=TRAIN_LOSS_TOL,
+         grad_norm_rel_err=gnorm_err, grad_norm_tol=TRAIN_GNORM_TOL,
+         max_grad_rel_err=grad_errs[worst], worst_grad=worst, grad_tol=TRAIN_GRAD_TOL,
+         grads=len(grad_errs), loss=outs[1][0], grad_norm=outs[1][1])
+    run["card_vs_cpu"] = dict(loss=max(loss_err, step_loss_err), grad_norm=gnorm_err,
+                              grad=grad_errs[worst])
+    del card_net, cpu_net
+
+    # 2. the Trainer on the card at the smoke config: 6 steps straight
+    #    against 3 steps, a checkpoint, a new trainer that restores it, and 3
+    #    more. The same ops on the same values (the checkpoint is bitwise,
+    #    the flash kernels use no atomics), so the losses and weights are
+    #    equal bit for bit
+    import shutil
+    small = configs.get_smoke_config(TINYLLAMA)
+    root = os.path.join(ROOT, "build", "train_check")
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(seq_len=64, global_batch=2, device=dev)
+    mk = lambda d: llm_trainer.TrainerConfig(total_steps=6, checkpoint_every=3, warmup_steps=2,
+                                             checkpoint_dir=os.path.join(root, d))
+    straight = llm_trainer.Trainer(small, mk("a"), **kw).run()
+    first = llm_trainer.Trainer(small, mk("b"), **kw).run(steps=3)
+    second = llm_trainer.Trainer(small, mk("b"), **kw).run()
+    resumed = first["losses"] + second["losses"]
+    weights_equal = all(torch.equal(p, q_) for p, q_ in zip(
+        straight["state"]["params"].parameters(), second["state"]["params"].parameters()))
+    if resumed != straight["losses"] or second["final_step"] != 6 or not weights_equal:
+        raise AssertionError(f"restart: {resumed} against {straight['losses']}, "
+                             f"weights equal {weights_equal}")
+    emit("llm_train", check="Trainer restart on the card", losses_straight=straight["losses"],
+         losses_resumed=resumed, bitwise_losses=True, bitwise_weights=True)
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    return run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1356,6 +1667,8 @@ def main() -> int:
     timed_phase("optimize", phase_optimize, dev)
     llm_times = timed_phase("llm_kernels", phase_llm_kernels, dev)
     serve = timed_phase("llm_serve", phase_llm_serve, dev)
+    train_times = timed_phase("llm_train_kernels", phase_llm_train_kernels, dev)
+    train = timed_phase("llm_train", phase_llm_train, dev)
     kernels = []
     replaces = {
         "grid_tick_bank_fused": "src/repro/kernels/grid_tick.py:477",
@@ -1403,9 +1716,22 @@ def main() -> int:
                       ("mlstm_chunk", "mlstm_chunk.cu")):
         t = llm_times[name]
         by_run = {run: n[name] for run, n in serve["launches_by_run"].items()}
+        if name == "flash_attention_fwd":
+            by_run["train_5_steps"] = train["launches_total"][name]
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=llm_replaces[name], launches=sum(by_run.values()), launches_by_run=by_run,
+            max_abs_err=max(t["max_abs_err"], train_times.get(name, t)["max_abs_err"]),
+            ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
+        ))
+    for name, line in (("flash_attention_bwd_dq", 287), ("flash_attention_bwd_dkv", 329)):
+        t = train_times[name]
+        kernels.append(dict(
+            name=name, route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces=f"src/repro/kernels/flash_attention.py:{line}",
+            launches=train["launches_total"][name],
+            launches_by_run={"train_step": train["launches_per_step"][name]},
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
         ))

@@ -1,7 +1,8 @@
 """repro_torch: the GDAPS grid simulator (one campaign or a scenario bank),
-its likelihood-free calibration, the access-profile optimizer and the LLM
+its likelihood-free calibration, the access-profile optimizer, and the LLM
 substrate's serving path (prefill and decode of hybrid attention / SSD
-models) in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
+models) and training path (loss, gradients, AdamW, the trainer) in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 The port of the reference JAX package ``repro``; it imports ``torch`` and
 ``numpy`` only. Entry points run on ``cuda`` unless the caller passes
@@ -32,7 +33,15 @@ from repro_torch.core.calibration import (
 from repro_torch.core.fleet import Fleet
 from repro_torch.core.workload import summary_features
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import init_cache, init_params, make_prefill_step, make_serve_step
+from repro_torch.models.model import (
+    init_cache,
+    init_params,
+    init_train_state,
+    loss_fn,
+    make_prefill_step,
+    make_serve_step,
+    make_train_step,
+)
 
 __version__ = "0.1.0"
 
@@ -62,4 +71,7 @@ __all__ = [
     "init_cache",
     "make_prefill_step",
     "make_serve_step",
+    "loss_fn",
+    "init_train_state",
+    "make_train_step",
 ]

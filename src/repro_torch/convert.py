@@ -20,7 +20,10 @@ The LLM substrate's weights and caches cross the same way: the reference
 stacks each pattern position's parameters ``[n_units, ...]`` (``units/b{i}``)
 and keeps leftover layers under ``tail/t{i}``; the port unrolls them into
 layer ``u * pattern_len + i`` (the tail after). Its cache carries ``pos`` as
-a Python int and one dict per layer.
+a Python int and one dict per layer. Any tree shaped like the parameters
+(gradients, AdamW moments) crosses as a dict keyed by the port's parameter
+names (:func:`named_from_reference`); :func:`model_params_to_reference`
+takes the port's weights back into the reference's layout.
 """
 from __future__ import annotations
 
@@ -45,6 +48,8 @@ __all__ = [
     "classifier_from_reference",
     "classifier_to_reference",
     "model_params_from_reference",
+    "named_from_reference",
+    "model_params_to_reference",
     "cache_from_reference",
     "cache_to_reference",
 ]
@@ -113,6 +118,22 @@ def _tensor(a: Any, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.array(a)).to(dev)
 
 
+def named_from_reference(
+    tree: Mapping[str, Any], cfg: ModelConfig, device: DeviceLike = None
+) -> Dict[str, torch.Tensor]:
+    """A tree shaped like the reference's parameters (the parameters, their
+    gradients, AdamW's ``mu`` or ``nu``) as tensors on ``device`` keyed by the
+    port's parameter names (``embed``, ``layers.{l}.attn.wq``, ...)."""
+    dev = resolve_device(device)
+    named = {}
+    for path, arr in _leaves(tree):
+        if path[0] != "decoder":
+            named[".".join(path)] = _tensor(arr, dev)
+    for layer, path, arr in _unstack(tree["decoder"], cfg):
+        named[".".join(("layers", str(layer)) + path)] = _tensor(arr, dev)
+    return named
+
+
 def model_params_from_reference(
     params: Mapping[str, Any], cfg: ModelConfig, device: DeviceLike = None
 ) -> Transformer:
@@ -122,14 +143,39 @@ def model_params_from_reference(
     ``u * pattern_len + i``."""
     dev = resolve_device(device)
     model = Transformer(cfg, device=dev)
-    state = {}
-    for path, arr in _leaves(params):
-        if path[0] != "decoder":
-            state[".".join(path)] = _tensor(arr, dev)
-    for layer, path, arr in _unstack(params["decoder"], cfg):
-        state[".".join(("layers", str(layer)) + path)] = _tensor(arr, dev)
-    model.load_state_dict(state, strict=True)
+    model.load_state_dict(named_from_reference(params, cfg, dev), strict=True)
     return model
+
+
+def model_params_to_reference(net: Transformer, cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's weights in the reference's parameter layout, as numpy
+    arrays (bf16 as float32): ``decoder/units/b{i}/...`` stacked ``[n_units,
+    ...]``, ``decoder/tail/t{i}/...``, the rest at the top."""
+    P, U = cfg.pattern_len, cfg.n_units
+    out: Dict[str, Any] = {}
+    layers: Dict[int, Dict[str, Any]] = {}
+    for name, p in net.named_parameters():
+        arr = p.detach().to(torch.float32).cpu().numpy()
+        path = name.split(".")
+        if path[0] == "layers":
+            node = layers.setdefault(int(path[1]), {})
+            path = path[2:]
+        else:
+            node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+
+    def stack(members):
+        if isinstance(members[0], dict):
+            return {k: stack([m[k] for m in members]) for k in members[0]}
+        return np.stack(members)
+
+    units = {f"b{i}": stack([layers[u * P + i] for u in range(U)]) for i in range(P if U else 0)}
+    out["decoder"] = {"units": units}
+    if cfg.n_layers > U * P:
+        out["decoder"]["tail"] = {f"t{i}": layers[U * P + i] for i in range(cfg.n_layers - U * P)}
+    return out
 
 
 def cache_from_reference(cache: Mapping[str, Any], cfg: ModelConfig,

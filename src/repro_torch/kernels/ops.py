@@ -10,6 +10,15 @@ and a CUDA tensor takes the hand-written kernel
 fallback from one to the other. Validation
 mirrors the reference package's ``repro.kernels.ops``.
 
+:func:`flash_attention` is differentiable through :class:`FlashAttention`:
+its forward is the dispatch above and saves ``(q, k, v, out, lse)``, its
+backward the plain :func:`ref.flash_attention_bwd` on a CPU tensor and the
+dq and dk/dv kernels on a CUDA tensor, as the reference's custom VJP
+``flash_attention_pallas`` runs its two Pallas backward kernels.
+:func:`decode_attention` and :func:`mlstm_chunk` have no backward kernel yet
+(ROADMAP A.12): on a CUDA tensor they raise when grad mode is on and an input
+requires grad, rather than return an output cut from the graph.
+
 :func:`selu_mlp` is differentiable through :class:`SeluMLP`, whose forward
 is that dispatch and whose backward is written in torch ops (``torch.matmul``
 for the products, SELU's derivative from the saved pre-activations). The
@@ -37,6 +46,7 @@ __all__ = [
     "selu_mlp",
     "SeluMLP",
     "flash_attention",
+    "FlashAttention",
     "decode_attention",
     "mlstm_chunk",
 ]
@@ -355,6 +365,42 @@ def selu_mlp(
     return SeluMLP.apply(x, *weights, *biases)
 
 
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with a backward: inputs ``(q, k, v, causal,
+    window, scale, q_offset)``, outputs ``(out, lse)``, ``lse`` not
+    differentiable. Gradients come back in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_offset):
+        kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
+        if _device_kind(q) == "cpu":
+            out, lse = ref.flash_attention(q, k, v, **kw)
+        else:
+            from repro_torch.kernels import flash_attention as _k
+
+            q, k, v = q.contiguous(), k.to(q.dtype).contiguous(), v.to(q.dtype).contiguous()
+            out, lse = _k.flash_attention_cuda(q, k, v, **kw)
+        ctx.mark_non_differentiable(lse)
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.kw = kw
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if _device_kind(q) == "cpu":
+            dq, dk, dv = ref.flash_attention_bwd(q, k, v, out, lse, dout, **ctx.kw)
+        else:
+            from repro_torch.kernels import flash_attention as _k
+
+            dq, dk, dv = _k.flash_attention_bwd_cuda(
+                q, k, v, out, lse, dout.to(q.dtype).contiguous(), **ctx.kw)
+        want = ctx.needs_input_grad
+        return (dq if want[0] else None, dk if want[1] else None, dv if want[2] else None,
+                None, None, None, None)
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, Sq, Hq, D]
     k: torch.Tensor,  # [B, Skv, Hkv, D]
@@ -367,22 +413,25 @@ def flash_attention(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """GQA attention with causal / sliding-window masks: ``(out [B, Sq, Hq,
     D], lse [B, Hq, Sq])``. The plain quadratic form on a CPU tensor, the
-    flash-attention kernel on a CUDA tensor."""
+    flash-attention kernel on a CUDA tensor; differentiable in ``q``, ``k``
+    and ``v`` through :class:`FlashAttention` either way."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape != v.shape:
         raise ValueError(
             f"flash_attention: q must be [B, Sq, Hq, D] and k, v [B, Skv, Hkv, D]: "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if _device_kind(q) == "cpu":
-        return ref.flash_attention(
-            q, k, v, causal=causal, window=window, scale=scale, q_offset=q_offset
-        )
-    from repro_torch.kernels import flash_attention as _k
+    return FlashAttention.apply(q, k, v, causal, window, scale, q_offset)
 
-    return _k.flash_attention_cuda(
-        q.contiguous(), k.to(q.dtype).contiguous(), v.to(q.dtype).contiguous(),
-        causal=causal, window=window, scale=scale, q_offset=q_offset,
-    )
+
+def _no_backward(name: str, *xs: torch.Tensor) -> None:
+    """Raise if a kernel without a backward would cut an input that
+    requires grad out of the graph."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward yet (ROADMAP A.12: the "
+            "SSD / mLSTM and decode training paths); run it under torch.no_grad() "
+            "or on inputs that do not require grad"
+        )
 
 
 def decode_attention(
@@ -403,6 +452,7 @@ def decode_attention(
         )
     if _device_kind(q) == "cpu":
         return ref.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
+    _no_backward("decode_attention", q, k_cache, v_cache)
     from repro_torch.kernels import decode_attention as _k
 
     return _k.decode_attention_cuda(
@@ -445,6 +495,7 @@ def mlstm_chunk(
         return ref.mlstm_chunk_chunked(
             q, k, v, i_gate, f_gate, chunk=chunk, eps=eps, normalize=normalize, scale=scale
         )
+    _no_backward("mlstm_chunk", q, k, v, i_gate, f_gate)
     from repro_torch.kernels import mlstm_chunk as _k
 
     f32 = torch.float32

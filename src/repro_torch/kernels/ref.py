@@ -38,6 +38,7 @@ __all__ = [
     "selu",
     "selu_mlp",
     "flash_attention",
+    "flash_attention_bwd",
     "decode_attention",
     "mlstm_chunk",
     "mlstm_chunk_chunked",
@@ -504,6 +505,20 @@ def selu_mlp(
 _NEG = -1e30
 
 
+def _attention_mask(Sq: int, Skv: int, causal: bool, window: Optional[int], q_offset: int,
+                    device) -> torch.Tensor:
+    """``[Sq, Skv]`` True where query ``i`` (at position ``i + q_offset``)
+    keeps key ``j``."""
+    q_pos = torch.arange(Sq, device=device)[:, None] + q_offset
+    k_pos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, Sq, Hq, D]
     k: torch.Tensor,  # [B, Skv, Hkv, D]
@@ -533,13 +548,7 @@ def flash_attention(
     kf = k.to(f32).repeat_interleave(rep, dim=2)
     vf = v.to(f32).repeat_interleave(rep, dim=2)
     logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
-    q_pos = torch.arange(Sq, device=q.device)[:, None] + q_offset
-    k_pos = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window is not None:
-        mask &= k_pos > q_pos - window
+    mask = _attention_mask(Sq, Skv, causal, window, q_offset, q.device)
     logits = logits.masked_fill(~mask, float("-inf"))
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.softmax(logits, dim=-1)
@@ -547,6 +556,55 @@ def flash_attention(
     probs = torch.where(torch.isnan(probs), 0.0, probs)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
     return out, torch.where(torch.isneginf(lse), float("inf"), lse)
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,  # [B, Sq, Hq, D]
+    k: torch.Tensor,  # [B, Skv, Hkv, D]
+    v: torch.Tensor,  # [B, Skv, Hkv, D]
+    out: torch.Tensor,  # [B, Sq, Hq, D] forward output
+    lse: torch.Tensor,  # [B, Hq, Sq] forward log-sum-exp (+inf on dead rows)
+    dout: torch.Tensor,  # [B, Sq, Hq, D]
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`flash_attention`'s ``out`` in the reference
+    kernels' formula (``flash_attention_bwd_pallas``): ``delta = sum_d dout
+    out``, ``p = exp(scale q k - lse)`` where the masks keep the pair (0
+    elsewhere and on dead rows, whose ``lse`` is ``+inf``), ``ds = p (dout
+    v^T - delta)``, ``dq = scale ds k``, ``dk = scale ds^T q``, ``dv = p^T
+    dout``; a KV head's gradients sum its ``Hq / Hkv`` query heads. Quadratic,
+    in float32; ``(dq, dk, dv)`` in the inputs' dtypes."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"flash_attention_bwd: Hq={Hq} is not a multiple of Hkv={Hkv}")
+    rep = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    f32 = torch.float32
+    qf = q.to(f32) * scale
+    kf = k.to(f32).repeat_interleave(rep, dim=2)
+    vf = v.to(f32).repeat_interleave(rep, dim=2)
+    dof = dout.to(f32)
+    delta = torch.einsum("bqhd,bqhd->bhq", dof, out.to(f32))
+    mask = _attention_mask(Sq, Skv, causal, window, q_offset, q.device)
+    # [B, Hq, Sq, Skv] scores -> p and dp -> ds in place: two such tensors
+    # live at a time
+    p = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    p.sub_(lse.to(f32)[..., None]).exp_().masked_fill_(~mask, 0.0)
+    ds = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds.sub_(delta[..., None]).mul_(p)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    del ds
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(B, Skv, Hkv, rep, D).sum(3)
+    dv = dv.reshape(B, Skv, Hkv, rep, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention(

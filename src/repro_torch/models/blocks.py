@@ -7,6 +7,10 @@ The port of the attention, MLP and SSD parts of the reference package's
 carry the reference's names (``wq``, ``w_gate``, ``w_in``, ...), so
 :mod:`repro_torch.convert` maps the reference's pytree onto it.
 
+Every parameter is trainable (``requires_grad``), as every leaf of the
+reference's parameter tree is differentiated by its train step; the serving
+steps run under ``torch.no_grad()``.
+
 Conventions, as in the reference:
 
 - full-sequence forwards take ``x [B, S, d]``, decode steps ``x [B, d]``
@@ -56,17 +60,15 @@ def unported(what: str) -> NotImplementedError:
 
 
 def _new(g: Optional[torch.Generator], shape, dtype, device, fan_in=None) -> nn.Parameter:
-    """A frozen parameter: :func:`dense_init` from ``g``, or uninitialised
+    """A trainable parameter: :func:`dense_init` from ``g``, or uninitialised
     storage when ``g`` is None (a caller that loads weights next)."""
     t = torch.empty(shape, dtype=dtype, device=device) if g is None else dense_init(
         g, shape, dtype, fan_in)
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
-def _const(shape, value: float, device) -> nn.Parameter:
-    return nn.Parameter(
-        torch.full(shape, value, dtype=torch.float32, device=device), requires_grad=False
-    )
+def _const(shape, value: float, device, dtype=torch.float32) -> nn.Parameter:
+    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device))
 
 
 # ===========================================================================
@@ -87,9 +89,9 @@ class Attention(nn.Module):
         self.wo = _new(g, (H * hd, d), dt, device)
         if cfg.qkv_bias:
             dev = self.wq.device
-            self.bq = nn.Parameter(torch.zeros(H * hd, dtype=dt, device=dev), requires_grad=False)
-            self.bk = nn.Parameter(torch.zeros(Hkv * hd, dtype=dt, device=dev), requires_grad=False)
-            self.bv = nn.Parameter(torch.zeros(Hkv * hd, dtype=dt, device=dev), requires_grad=False)
+            self.bq = _const((H * hd,), 0.0, dev, dt)
+            self.bk = _const((Hkv * hd,), 0.0, dev, dt)
+            self.bv = _const((Hkv * hd,), 0.0, dev, dt)
 
     def qkv(self, x: torch.Tensor):
         """``x [B, S, d]`` -> q ``[B, S, H, hd]``, k, v ``[B, S, Hkv, hd]``."""

@@ -1,7 +1,8 @@
-"""Shared model building blocks: RMS norm, rotary embeddings, initialisers.
+"""Shared model building blocks: RMS norm, rotary embeddings, initialisers
+and the cross-entropy loss.
 
 The port of the reference package's ``repro.models.common``, for the
-serving path. Parameters are drawn from an explicit ``torch.Generator``;
+serving and training paths. Parameters are drawn from an explicit ``torch.Generator``;
 the same seed gives other numbers than ``jax.random``, so tests carry the
 reference's weights across with :mod:`repro_torch.convert`.
 """
@@ -12,7 +13,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["DTYPES", "rms_norm", "rope_inv_freq", "rope", "apply_rope", "dense_init"]
+__all__ = [
+    "DTYPES", "rms_norm", "rope_inv_freq", "rope", "apply_rope", "dense_init",
+    "cross_entropy_loss",
+]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -61,3 +65,20 @@ def dense_init(
     fan_in = fan_in if fan_in is not None else shape[0]
     w = torch.randn(shape, generator=generator, dtype=torch.float32, device=generator.device)
     return (w * fan_in ** -0.5).to(dtype)
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor,  # [B, S, V] (any float dtype; upcast here)
+    targets: torch.Tensor,  # [B, S] int
+    mask: Optional[torch.Tensor] = None,  # [B, S]
+) -> torch.Tensor:
+    """Mean next-token negative log-likelihood in float32 (``logsumexp``
+    minus the target's logit), over the positions ``mask`` keeps when given."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        m = mask.to(torch.float32)
+        return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.mean(nll)

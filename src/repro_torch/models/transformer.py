@@ -1,5 +1,5 @@
-"""Transformer stack of the serving path: pattern-cycled layers, the KV /
-SSD caches, prefill and one-token decode.
+"""Transformer stack: pattern-cycled layers, the full-sequence forward of
+training, the KV / SSD caches, prefill and one-token decode.
 
 The port of the reference package's ``repro.models.transformer`` for block
 kinds ``ATTN``, ``ATTN_LOCAL``, ``MAMBA``, ``HYMBA`` and ``HYMBA_LOCAL``.
@@ -17,6 +17,12 @@ decode step need no copy from the device. :func:`prefill` and
 :func:`decode_step` update the cache in place (KV slots written into the
 cache tensors, SSD states replaced in the dict, ``pos`` advanced) and
 return it.
+
+:func:`forward` is the training forward, ``(logits [B, S, V], aux)``; under
+``cfg.remat`` each layer runs inside ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` of its scanned unit, whose unit is one layer
+for the single-kind patterns the port trains), so its activations are
+recomputed in the backward instead of kept.
 """
 from __future__ import annotations
 
@@ -24,12 +30,13 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks as B
 from repro_torch.models.common import DTYPES, rms_norm, rope, rope_inv_freq
 from repro_torch.models.config import BlockKind, ModelConfig
 
-__all__ = ["Layer", "Transformer", "init_cache", "prefill", "decode_step"]
+__all__ = ["Layer", "Transformer", "forward", "init_cache", "prefill", "decode_step"]
 
 Cache = Dict[str, Any]
 
@@ -67,9 +74,7 @@ class Layer(nn.Module):
         self.kind = kind
         self.window = _window(cfg, kind)
         d = cfg.d_model
-        zeros = lambda: nn.Parameter(
-            torch.zeros(d, dtype=torch.float32, device=device if g is None else g.device),
-            requires_grad=False)
+        zeros = lambda: B._const((d,), 0.0, device if g is None else g.device)
         self.norm1 = zeros()
         if kind in _ATTN_KINDS:
             self.attn = B.Attention(cfg, g, device)
@@ -98,8 +103,7 @@ class Transformer(nn.Module):
         dev = device if g is None else g.device
         dt = DTYPES[cfg.dtype]
         self.embed = B._new(g, (cfg.vocab_size, cfg.d_model), dt, dev, fan_in=cfg.d_model)
-        self.final_norm = nn.Parameter(
-            torch.zeros(cfg.d_model, dtype=torch.float32, device=dev), requires_grad=False)
+        self.final_norm = B._const((cfg.d_model,), 0.0, dev)
         if not cfg.tie_embeddings:
             self.lm_head = B._new(g, (cfg.d_model, cfg.vocab_size), dt, dev)
         self.layers = nn.ModuleList(Layer(cfg, kind, g, dev) for kind in cfg.layer_kinds)
@@ -158,19 +162,44 @@ def _write_kv(cache: Cache, k: torch.Tensor, v: torch.Tensor) -> None:
         cache["v"].copy_(torch.roll(v[:, S - size:], shifts=shift, dims=1))
 
 
-def _block_prefill(layer: Layer, x: torch.Tensor, c: Cache, tables) -> torch.Tensor:
+def _block(layer: Layer, x: torch.Tensor, tables, c: Optional[Cache] = None) -> torch.Tensor:
+    """One layer over a whole sequence; with a cache ``c`` (prefill) its
+    keys, values and SSD state go there."""
     cfg = layer.cfg
     h = rms_norm(x, layer.norm1, cfg.norm_eps)
     if layer.kind in _ATTN_KINDS:
         a, k, v = layer.attn(h, tables[_local_theta(cfg, layer.window)], window=layer.window)
-        _write_kv(c["kv"], k, v)
+        if c is not None:
+            _write_kv(c["kv"], k, v)
         if layer.kind in _HYMBA:
-            s_out, c["ssm"] = layer.mamba(h)
+            s_out, state = layer.mamba(h)
             a = 0.5 * (a + s_out)
     else:  # MAMBA
-        a, c["ssm"] = layer.mamba(h)
+        a, state = layer.mamba(h)
+    if c is not None and layer.kind in _HYMBA + (BlockKind.MAMBA,):
+        c["ssm"] = state
     x = x + a
     return x + layer.mlp(rms_norm(x, layer.norm2, cfg.norm_eps))
+
+
+# ===========================================================================
+# training forward
+# ===========================================================================
+def forward(params: Transformer, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward of ``batch["tokens"] [B, S]``: ``(logits [B, S,
+    V], aux)``. ``aux`` is the MoE load-balancing loss, 0 for the block
+    kinds the port runs."""
+    tokens = batch["tokens"].to(params.embed.device)
+    S = tokens.shape[1]
+    x = params.embed[tokens]
+    tables = params.rope_tables(torch.arange(S, device=x.device))
+    remat = cfg.remat and torch.is_grad_enabled()
+    for layer in params.layers:
+        x = checkpoint(_block, layer, x, tables, use_reentrant=False) if remat \
+            else _block(layer, x, tables)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    return x @ params.head, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def prefill(params: Transformer, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -182,7 +211,7 @@ def prefill(params: Transformer, batch: Dict[str, torch.Tensor], cfg: ModelConfi
     x = params.embed[tokens]
     tables = params.rope_tables(torch.arange(S, device=x.device))
     for layer, c in zip(params.layers, cache["layers"]):
-        x = _block_prefill(layer, x, c, tables)
+        x = _block(layer, x, tables, c)
     cache["pos"] = S
     x = rms_norm(x[:, -1], params.final_norm, cfg.norm_eps)
     return x @ params.head, cache

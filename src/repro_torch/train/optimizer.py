@@ -5,8 +5,8 @@ update is functional (new parameter and state dicts come back, the inputs
 are left as they are) and follows the reference's formula, ``mhat /
 (sqrt(vhat) + eps)`` with bias corrections taken from the float32 step
 count. ``torch.optim.AdamW`` adds ``eps`` at another place and would not
-match. The bf16 gradient-compression helpers belong to the LLM substrate
-and are not ported yet.
+match. :func:`compress_grads` / :func:`decompress_grads` are the bf16
+gradient compression with float32 error feedback of the LLM train step.
 """
 from __future__ import annotations
 
@@ -24,6 +24,8 @@ __all__ = [
     "clip_by_global_norm",
     "warmup_cosine",
     "constant_lr",
+    "compress_grads",
+    "decompress_grads",
 ]
 
 Params = Dict[str, torch.Tensor]
@@ -121,3 +123,21 @@ def warmup_cosine(
 
 def constant_lr(lr: float) -> Schedule:
     return lambda step: torch.tensor(lr, dtype=torch.float32, device=step.device)
+
+
+# -- gradient compression ----------------------------------------------------
+
+def compress_grads(grads: Params, error: Optional[Params]) -> Tuple[Params, Params]:
+    """Round ``grads + error`` to bf16 and carry the residual to the next
+    step (float32 error feedback), so the compressed gradients stay unbiased
+    over steps: ``(bf16 grads, new error)``."""
+    f32 = torch.float32
+    if error is None:
+        error = {k: torch.zeros_like(g, dtype=f32) for k, g in grads.items()}
+    full = {k: g.to(f32) + error[k] for k, g in grads.items()}
+    q = {k: x.to(torch.bfloat16) for k, x in full.items()}
+    return q, {k: full[k] - q[k].to(f32) for k in grads}
+
+
+def decompress_grads(grads: Params, dtype: Any = torch.float32) -> Params:
+    return {k: g.to(dtype) for k, g in grads.items()}

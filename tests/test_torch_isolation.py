@@ -23,7 +23,9 @@ leaked = sorted(
 assert not leaked, leaked
 assert sys.modules["jax"] is None
 for name in ("repro_torch.launch.calibrate", "repro_torch.core.scheduler",
-             "repro_torch.models.model", "repro_torch.configs"):
+             "repro_torch.models.model", "repro_torch.configs",
+             "repro_torch.launch.train", "repro_torch.train.trainer",
+             "repro_torch.data.tokens", "repro_torch.checkpoint.store"):
     assert name in sys.modules, name
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """

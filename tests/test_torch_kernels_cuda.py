@@ -17,7 +17,18 @@ plain versions (online softmax against a full softmax, a chunked recurrence
 against the parallel form): their outputs within 2e-5 (attention) and 1e-4
 (mLSTM, whose exponentials amplify rounding) of the plain output's largest
 entry in float32, 8e-3 (two bf16 steps, each side rounds its output once)
-in bf16; flash's lse within 1e-5 where finite and +inf on the same rows."""
+in bf16; flash's lse within 1e-5 where finite and +inf on the same rows.
+The flash backward kernels (dq, dk/dv) against ``ref.flash_attention_bwd``:
+within 1e-4 of each gradient's largest entry in float32 (the differences
+``dp - delta`` cancel, so the sums' rounding shows against a smaller
+result). In bf16 both sides compute in float32 from the same values and
+round once, so each row lies within one bf16 step of its own largest plain
+entry beyond the two sides' float32 disagreement on that row (the same
+kernel and plain version run in float32 on the bf16 values upcast): a row
+whose gradient cancels to rounding noise (a query that keeps one key has
+``dp = delta``) is held to that noise, not to a step of itself.
+The decode and mLSTM kernels have no backward: on the card they raise when
+an input requires grad."""
 import pytest
 import torch
 
@@ -304,3 +315,86 @@ def test_llm_kernels_refuse_shapes_past_their_limits():
         decode_attention.decode_attention_cuda(
             torch.zeros(1, 18, 64, device="cuda"), torch.zeros(1, 4, 2, 64, device="cuda"),
             torch.zeros(1, 4, 2, 64, device="cuda"), torch.ones(1, dtype=torch.int32, device="cuda"))
+
+
+_BWD_TOL_F32 = 1e-4
+# and row by row (all but the last dim): each row within 1e-4 of its own
+# max|plain| plus 1e-5 of the gradient's, the floor for rows whose sums
+# cancel to about 0 (the plain version's own float32 roundoff against
+# float64 is up to 1.6e-6 of a row's max)
+_BWD_ROW_TOL_F32, _BWD_FLOOR_F32 = 1e-4, 1e-5
+
+
+def _bwd_row_limit(want32):
+    """Each row's float32 limit, from the plain values alone."""
+    w = want32.double().abs()
+    return _BWD_ROW_TOL_F32 * w.amax(-1) + _BWD_FLOOR_F32 * w.max()
+
+
+def _rows_within(got, want, limit) -> bool:
+    return bool(((got.double() - want.double()).abs().amax(-1) <= limit).all())
+
+
+def _bf16_step(want):
+    """One bf16 step (2^-7 of the binade) of each row's max|want|."""
+    top = want.double().abs().amax(-1)
+    return torch.where(top > 0, torch.exp2(torch.floor(torch.log2(top.clamp_min(1e-300))) - 7), 0.0)
+
+
+# the forward's cases plus TinyLlama's group of 8 query heads per KV head
+_BWD_CASES = _FLASH_CASES + [(2, 150, 150, 16, 2, 64, True, None, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _BWD_CASES)
+def test_flash_bwd_kernels_match_plain(case, dtype):
+    _need_cuda()
+    B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset = case
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    g = torch.Generator().manual_seed(Sq + 1)
+    q, k, v = (_randn(g, B, S, H, D, dtype=dtype) for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
+    dout = _randn(g, B, Sq, Hq, D, dtype=dtype)
+    out, lse = flash_attention.flash_attention_cuda(q, k, v, **kw)
+    before = dict(flash_attention.LAUNCHES)
+    got = flash_attention.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"] + 1
+    assert flash_attention.LAUNCHES["flash_attention_bwd_dkv"] == before["flash_attention_bwd_dkv"] + 1
+    want = ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    got32, want32 = got, want
+    if dtype == torch.bfloat16:
+        up = [x.float() for x in (q, k, v, out)]
+        got32 = flash_attention.flash_attention_bwd_cuda(*up, lse, dout.float(), **kw)
+        want32 = ref.flash_attention_bwd(*up, lse, dout.float(), **kw)
+    for name, a, b, a32, b32 in zip("qkv", got, want, got32, want32):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert _rel_err(a32, b32) <= _BWD_TOL_F32, name
+        limit = _bwd_row_limit(b32)
+        assert _rows_within(a32, b32, limit), name
+        if dtype == torch.bfloat16:
+            # both sides round the float32 sums once: one bf16 step of the
+            # row's max|plain| plus its float32 row limit
+            assert _rows_within(a, b, _bf16_step(b) + limit), name
+    # the same kernels from autograd through ops.flash_attention: bitwise
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out2, _ = ops.flash_attention(*leaves, **kw)
+    assert torch.equal(out2.detach(), out)
+    for name, a, b in zip("qkv", torch.autograd.grad(out2, leaves, dout), got):
+        assert torch.equal(a, b), name
+
+
+def test_kernels_without_backward_raise_under_grad():
+    _need_cuda()
+    g = torch.Generator().manual_seed(0)
+    q = _randn(g, 2, 4, 16, dtype=torch.float32).requires_grad_()
+    kc = _randn(g, 2, 8, 2, 16, dtype=torch.float32)
+    lengths = torch.full((2,), 8, dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="A.12"):
+        ops.decode_attention(q, kc, kc, lengths)
+    with torch.no_grad():
+        ops.decode_attention(q, kc, kc, lengths)
+    x = _randn(g, 1, 16, 2, 8, dtype=torch.float32)
+    gates = _randn(g, 1, 16, 2, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="A.12"):
+        ops.mlstm_chunk(x, x, x.clone().requires_grad_(), gates, gates, normalize=False)
+    ops.mlstm_chunk(x, x, x, gates, gates, normalize=False)
