@@ -53,10 +53,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    congested grid of the repo's scheduler test: no worse than all-remote,
    the same history as the CPU path;
 12. llm_kernels — the flash-attention, decode-attention and mLSTM kernels
-   against their plain versions on small ragged cases (float32 and bf16)
-   and at hymba-1.5b's serving shapes (bf16), then timed with CUDA events
-   beside their bounds, their plain versions and, where one PyTorch call
-   computes the same function, that call;
+   against their plain versions on small ragged cases (float32 and bf16;
+   flash also at an odd head dim and on pointers off 16 bytes) and at
+   hymba-1.5b's serving shapes (bf16), then timed with CUDA events beside
+   their bounds, their plain versions and, where one PyTorch call computes
+   the same function, that call (bf16 flash runs the tensor-core forward,
+   float32 the CUDA-core one);
 13. llm_serve — hymba-1.5b at full width (bf16, random weights from a seed):
    8 prompts of 2,048 tokens through ``make_prefill_step``, then 64 greedy
    ``make_serve_step`` steps, with tokens/s, launches per run, peak memory
@@ -65,10 +67,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    pattern unit of 8 layers, 2 x 1,280 tokens, 8 decode steps);
 14. llm_train_kernels — the flash-attention backward kernels (dq, dk/dv)
    against their plain version on ragged cases (GQA groups of 1, 2 and 8, a
-   window, ``q_offset``, dead rows beside live ones; float32 and bf16) and
-   at TinyLlama-1.1B's training shapes (B 8, S 2,048, 32 / 4 heads of 64,
-   causal), then each timed with CUDA events beside its bound, the plain
-   backward and the backward of ``F.scaled_dot_product_attention``;
+   window, ``q_offset``, dead rows beside live ones, an odd head dim,
+   pointers off 16 bytes; float32 and bf16) and at TinyLlama-1.1B's
+   training shapes (B 8, S 2,048, 32 / 4 heads of 64, causal; three seeds),
+   bf16 rows held to a rounding model of plain values; the forward there
+   too; then each timed with CUDA events beside its bound, the plain
+   version and ``F.scaled_dot_product_attention``'s forward and backward;
 15. llm_train — TinyLlama-1.1B at full width (bf16, random weights from a
    seed): ``make_train_step`` with the trainer's AdamW on 8 x 2,048 tokens
    a step from the port's ``TokenStream``, 1 warm-up and 5 timed steps, with
@@ -89,6 +93,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -196,9 +201,22 @@ def phase_build() -> dict:
     emit("build", seconds=time.perf_counter() - t0, sources=_build.sources(),
          built=sorted(built), max_legs_procs_links=list(limits),
          selu_mlp_max_hidden_in_out_depth=list(selu_mlp.limits()), card=smi(),
-         ptxas={k: [ln for ln in v.splitlines() if "Used" in ln]
-                for k, v in _build.build_logs.items()})
+         ptxas={k: ptxas_by_kernel(v) for k, v in _build.build_logs.items()},
+         flash_mma_blocks_per_sm=flash_attention.mma_occupancy())
     return {"seconds": time.perf_counter() - t0}
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """``-Xptxas -v`` lines by kernel: its registers and shared memory
+    ("Used ...") and its stack and spills."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for \S*?([A-Za-z_]+kernel)(I\w*?EE)?", ln)
+        if m:
+            name = m.group(1) + (m.group(2) or "")
+        elif name and ("spill" in ln or "Used" in ln):
+            out.setdefault(name, []).append(ln.strip())
+    return out
 
 
 def phase_kernels(dev) -> dict:
@@ -965,6 +983,11 @@ SERVE_F32_TOL = 2e-3
 # random weights. Set from the card's readings (5.5% and 6.2%, PERF.md); the
 # float32 check above is the one that holds the kernels to each other.
 SERVE_BF16_TOL = 0.10
+# the bf16 prefill's drift from float32 (max|logits| share) measured with
+# the float32 CUDA-core forward kernel on bf16 values (PERF.md),
+# printed beside this run's: the tensor-core forward rounds p to bf16
+# before P V
+BF16_PREFILL_DRIFT_CUDA_CORE = 0.127
 
 
 def rel_err(name, got, want, tol) -> float:
@@ -989,6 +1012,15 @@ def flash_case(B, Sq, Skv, Hq, Hkv, D, dtype, seed, dev):
     g = torch.Generator().manual_seed(seed)
     return tuple(torch.randn((B, S, H, D), generator=g).to(dev).to(dtype)
                  for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
+
+
+def unaligned(x):
+    """``x`` copied into a contiguous view 2 or 4 bytes past a 16-byte
+    boundary (a head dim's pointers off cp.async's alignment)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
 
 
 def check_flash(label, q, k, v, dtype, phase="llm_kernels", **kw) -> float:
@@ -1077,9 +1109,14 @@ def phase_llm_kernels(dev) -> dict:
             ("non_causal", (2, 77, 50, 2, 1, 48), dict(causal=False)),
             ("dead_rows", (1, 30, 20, 2, 2, 16), dict(window=4, q_offset=40)),
             ("mixed_dead_rows", (1, 30, 20, 2, 2, 16), dict(window=8, q_offset=10)),
+            ("odd_d", (2, 70, 70, 4, 2, 17), dict()),
         ):
             errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], check_flash(
                 label, *flash_case(*shape, dtype, seed=shape[1], dev=dev), dtype, **kw))
+        # pointers off 16 bytes: the bf16 kernel stages its tiles by plain loads
+        errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], check_flash(
+            "unaligned", *(unaligned(x) for x in flash_case(2, 100, 100, 6, 2, 64, dtype, seed=3,
+                                                              dev=dev)), dtype))
         # decode: ragged lengths, 1 and the full cache (and an empty one)
         g = torch.Generator().manual_seed(7)
         B, S, Hq, Hkv, D = 5, 300, 25, 5, 64
@@ -1278,7 +1315,7 @@ def phase_llm_serve(dev) -> dict:
         kern = lambda tag: sum(r[1] for r in rows if tag in r[0]) / 1e6
         prof[label] = dict(
             device_s=dev_s, wall_s=wall, busy_share=dev_s / wall,
-            flash_s=kern("flash_fwd_kernel"), decode_attention_s=kern("decode_kernel"),
+            flash_s=kern("flash_fwd"), decode_attention_s=kern("decode_kernel"),
             mlstm_s=kern("mlstm_chunk_kernel"), device_launches=sum(r[2] for r in rows),
             top=[[k_[:70], us / 1e6, n] for k_, us, n in rows[:10]])
         emit("llm_serve", profile=label, **prof[label])
@@ -1311,6 +1348,7 @@ def phase_llm_serve(dev) -> dict:
     emit("llm_serve", check="decode vs prefill on the card", tokens=S + 1, batch=B1,
          float32_max_rel_err=err32, float32_tol=SERVE_F32_TOL,
          bf16_prefill_vs_float32=noise,
+         bf16_prefill_vs_float32_cuda_core_forward=BF16_PREFILL_DRIFT_CUDA_CORE,
          bf16_decode_vs_float32=float((step16 - full32).abs().max()) / scale,
          bf16_decode_vs_bf16_prefill=err16, bf16_tol=SERVE_BF16_TOL,
          argmax_agreement_bf16=float((step16.argmax(-1) == full16.argmax(-1)).float().mean()))
@@ -1365,6 +1403,10 @@ BWD_ROW_TOL_F32, BWD_FLOOR_F32 = 1e-4, 1e-5
 # widths): the loss within 1e-5 of itself, the grad norm within 1e-4, each
 # gradient within 1e-4 of its own max|CPU|
 TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4, 1e-4
+# bf16's unit roundoff: round-to-nearest moves x by at most 2^-8 |x|
+BF16_U = 2.0 ** -8
+# seeds (q/k/v, dout) of the backward check at TinyLlama's shapes
+TRAIN_BWD_SEEDS = ((21, 22), (31, 32), (41, 42))
 
 
 def bwd_row_limit(want32) -> torch.Tensor:
@@ -1382,31 +1424,49 @@ def row_share(got, want, limit) -> float:
     return float(torch.where(limit > 0, diff / limit.clamp_min(1e-300), zero).max())
 
 
-def bf16_step(want) -> torch.Tensor:
-    """One bf16 step (2^-7 of the binade) of each row's max|want|; 0 on rows
-    that are all 0."""
-    top = want.double().abs().amax(-1)
+def bf16_step(top) -> torch.Tensor:
+    """One bf16 step (2^-7 of the binade) at each row's ``top``; 0 where
+    ``top`` is 0."""
     return torch.where(top > 0, torch.exp2(torch.floor(torch.log2(top.clamp_min(1e-300))) - 7), 0.0)
 
 
-def check_flash_bwd(label, q, k, v, dout, dtype, **kw) -> float:
+def bf16_bwd_row_limit(want32, magnitude=None) -> torch.Tensor:
+    """Each bf16 row's limit, from the plain values alone (a rounding
+    model): the float32 row limit (the sums' order), plus BF16_U of the
+    row's largest magnitude sum where the kernel rounds operands to bf16
+    before a product (dv: |P|^T |dout|, dk: scale |dS|^T |Q|, summed over
+    the GQA group, from ``ref.flash_attention_bwd_magnitudes``; dq rounds
+    none), plus one bf16 step at the binade of the row's max|plain| widened
+    by both: each side rounds its float32 result to nearest, half a step of
+    the binade the value lands in."""
+    lim = bwd_row_limit(want32)
+    if magnitude is not None:
+        lim = lim + BF16_U * magnitude.double().amax(-1)
+    return lim + bf16_step(want32.double().abs().amax(-1) + lim)
+
+
+def check_flash_bwd(label, q, k, v, dout, dtype, **kw) -> dict:
     """dq, dk, dv of the two kernels against ``ref.flash_attention_bwd`` on
     the forward kernel's out and lse, in float32 on the whole tensor and row
-    by row. bf16 inputs are also run in float32 on the same values: those
-    results meet the float32 limits, and each bf16 row lies within one bf16
-    step of its max|plain| plus its float32 row limit (both sides round the
-    float32 sums once). No limit is read from the kernel's own output."""
+    by row. bf16 inputs are also run in float32 on the same values (the
+    float32 kernels): those results meet the float32 limits, and each bf16
+    row meets :func:`bf16_bwd_row_limit`. No limit is read from the
+    kernel's own output. Returns the largest float32 error and each
+    gradient's bf16 row share of its limit and of the old "one step of the
+    row's max|plain| plus its float32 limit"."""
     out, lse = flash_attention.flash_attention_cuda(q, k, v, **kw)
     got = flash_attention.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
     want = ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    mags = (None, None)
     if dtype == torch.float32:
         got32, want32 = got, want
     else:
         up = [x.float() for x in (q, k, v, out)]
         got32 = flash_attention.flash_attention_bwd_cuda(*up, lse, dout.float(), **kw)
         want32 = ref.flash_attention_bwd(*up, lse, dout.float(), **kw)
-    errs, f32_share, bf16_share = [], [], []
-    for name, a, b, a32, b32 in zip("qkv", got, want, got32, want32):
+        mags = ref.flash_attention_bwd_magnitudes(q, k, v, out, lse, dout, **kw)
+    errs, f32_share, bf16_share, old_share = [], [], [], []
+    for name, a, b, a32, b32, mag in zip("qkv", got, want, got32, want32, (None, *mags)):
         errs.append(rel_err(f"flash bwd {label} d{name} (float32)", a32, b32, BWD_TOL_F32))
         limit = bwd_row_limit(b32)
         f32_share.append(row_share(a32, b32, limit))
@@ -1414,22 +1474,26 @@ def check_flash_bwd(label, q, k, v, dout, dtype, **kw) -> float:
             raise AssertionError(f"flash bwd {label} d{name}: a float32 row's error is "
                                  f"{f32_share[-1]} of its row limit")
         if dtype == torch.bfloat16:
-            bf16_share.append(row_share(a, b, bf16_step(b) + limit))
+            bf16_share.append(row_share(a, b, bf16_bwd_row_limit(b32, mag)))
+            old_share.append(row_share(a, b, bf16_step(b.double().abs().amax(-1)) + limit))
             if not bf16_share[-1] <= 1.0:
                 raise AssertionError(f"flash bwd {label} d{name}: a bf16 row's error is "
-                                     f"{bf16_share[-1]} of one step of its max|plain| plus "
-                                     "its float32 row limit")
+                                     f"{bf16_share[-1]} of its rounding-model limit")
     emit("llm_train_kernels", kernels="flash_attention_bwd_dq+dkv", case=label, dtype=str(dtype),
          shape=[list(q.shape), list(k.shape)], max_rel_err_dq_dk_dv=errs, tol=BWD_TOL_F32,
          f32_row_share_of_limit_dq_dk_dv=f32_share, row_tol=BWD_ROW_TOL_F32, floor=BWD_FLOOR_F32,
-         bf16_row_share_of_limit_dq_dk_dv=bf16_share or None, dead_rows=int(torch.isinf(lse).sum()),
+         bf16_row_share_of_limit_dq_dk_dv=bf16_share or None,
+         bf16_row_share_of_old_limit_dq_dk_dv=old_share or None,
+         dead_rows=int(torch.isinf(lse).sum()),
          live_rows=int(torch.isfinite(lse).sum()), **{k_: v_ for k_, v_ in kw.items()})
-    return max(errs)
+    return dict(err=max(errs), bf16_share=bf16_share, old_share=old_share)
 
 
 def phase_llm_train_kernels(dev) -> dict:
     """The dq and dk/dv kernels against the plain backward on ragged cases
-    and at TinyLlama's training shapes, then timed there with CUDA events."""
+    and at TinyLlama's training shapes (three seeds), the forward there
+    too; then each timed with CUDA events beside its bound, the plain
+    version and SDPA's forward and backward."""
     cfg = configs.get_config(TINYLLAMA)
     err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -1440,37 +1504,55 @@ def phase_llm_train_kernels(dev) -> dict:
             ("non_causal", (2, 77, 50, 2, 1, 48), dict(causal=False)),
             ("dead_rows", (1, 30, 20, 2, 2, 16), dict(window=4, q_offset=40)),
             ("mixed_dead_rows", (1, 30, 20, 2, 2, 16), dict(window=8, q_offset=10)),
+            ("odd_d", (2, 70, 70, 4, 2, 17), dict()),
+            ("unaligned", (2, 130, 200, 4, 2, 64), dict(causal=False)),
         ):
             q, k, v = flash_case(*shape, dtype, seed=shape[1] + 1, dev=dev)
             dout = flash_case(shape[0], shape[1], 1, shape[3], 1, shape[5], dtype,
                               seed=shape[1] + 2, dev=dev)[0]
-            err = max(err, check_flash_bwd(label, q, k, v, dout, dtype, **kw))
+            if label == "unaligned":
+                q, k, v, dout = (unaligned(x) for x in (q, k, v, dout))
+            err = max(err, check_flash_bwd(label, q, k, v, dout, dtype, **kw)["err"])
 
-    # TinyLlama's shapes, bf16 (float32 on the same values inside the check)
+    # TinyLlama's shapes, bf16 (float32 on the same values inside the
+    # check), three seeds: each gradient's bf16 row shares of the rounding
+    # model's limit and of the old limit
     bf = torch.bfloat16
     B, S, Hq, Hkv, D = TRAIN_B, TRAIN_S, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, k, v = flash_case(B, S, S, Hq, Hkv, D, bf, seed=21, dev=dev)
-    dout = flash_case(B, S, 1, Hq, 1, D, bf, seed=22, dev=dev)[0]
-    err = max(err, check_flash_bwd("main", q, k, v, dout, bf))
+    shares = []
+    for seed, seed_dout in TRAIN_BWD_SEEDS:
+        q, k, v = flash_case(B, S, S, Hq, Hkv, D, bf, seed=seed, dev=dev)
+        dout = flash_case(B, S, 1, Hq, 1, D, bf, seed=seed_dout, dev=dev)[0]
+        r = check_flash_bwd(f"main seed {seed}", q, k, v, dout, bf)
+        err = max(err, r["err"])
+        shares.append(dict(seed=seed, bf16_share_dq_dk_dv=r["bf16_share"],
+                           old_share_dq_dk_dv=r["old_share"]))
+    emit("llm_train_kernels", check="bf16 backward row shares at the main shapes", seeds=shares)
     # the forward kernel at these shapes too (8 query heads a KV head), with
     # the bf16 and float32 limits phase_llm_kernels applies
     fwd_err = max(check_flash("train main", q, k, v, bf, phase="llm_train_kernels"),
                   check_flash("train main", *(x.float() for x in (q, k, v)), torch.float32,
                               phase="llm_train_kernels"))
-    out, lse = flash_attention.flash_attention_cuda(q, k, v)
+    fwd_ms, (out, lse) = timed(lambda: flash_attention.flash_attention_cuda(q, k, v), 10)
     dq_ms, (_, delta) = timed(
         lambda: flash_attention.flash_attention_bwd_dq_cuda(q, k, v, out, lse, dout), 5)
     dkv_ms, _ = timed(
-        lambda: flash_attention.flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, dout), 5)
+        lambda: flash_attention.flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, dout), 10)
+    fwd_plain_ms, _ = timed(lambda: ref.flash_attention(q, k, v), 2)
     plain_ms, _ = timed(lambda: ref.flash_attention_bwd(q, k, v, out, lse, dout), 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                            enable_gqa=True)
     dout_t = dout.transpose(1, 2)
-    lib_ms, _ = timed(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dout_t, retain_graph=True), 10)
+    with torch.no_grad():
+        sdpa_fwd_ms, _ = timed(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    graph = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_ms, _ = timed(lambda: torch.autograd.grad(graph, (qt, kt, vt), dout_t, retain_graph=True), 10)
+    sdpa_fwd_bwd_ms, _ = timed(lambda: torch.autograd.grad(
+        sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), (qt, kt, vt), dout_t), 10)
     pairs = B * Hq * attention_pairs(S, S, True, None)
     product = 2 * D * pairs  # one [pairs x D] product
     rows = 4 * B * Hq * S  # one float32 [B, Hq, S] row vector
+    fwd_bound, fwd_by = bound(nbytes(q, k, v, q) + rows, 2 * product)
     res = {}
     for name, ms, n_products, bytes_ in (
         # dq: s, dp, dq; reads q, k, v, out, dout, lse; writes dq, delta
@@ -1486,12 +1568,20 @@ def phase_llm_train_kernels(dev) -> dict:
              plain="ref.flash_attention_bwd (dq, dk and dv)",
              library="backward of F.scaled_dot_product_attention(is_causal=True, "
                      "enable_gqa=True) (dq, dk and dv)", **res[name])
+    train_fwd = dict(ms=fwd_ms, plain_ms=fwd_plain_ms, bound_ms=fwd_bound, bound_by=fwd_by,
+                     library_ms=sdpa_fwd_ms, ops=2 * product)
+    emit("llm_train_kernels", kernel="flash_attention_fwd", timing="main (training shapes)",
+         card=smi(), shape=[B, S, Hq, Hkv, D], causal=True,
+         library="F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)", **train_fwd)
     fused_ms, _ = bound(0, 5 * product)
-    emit("llm_train_kernels", timing="main, whole backward", kernels_ms=dq_ms + dkv_ms,
-         bound_ms_fused_5_products=fused_ms, plain_ms=plain_ms, library_ms=lib_ms)
-    del q, k, v, out, lse, dout, qt, kt, vt, sdpa
+    emit("llm_train_kernels", timing="main, whole backward and forward + backward",
+         kernels_bwd_ms=dq_ms + dkv_ms, dq_ms=dq_ms, dkv_ms=dkv_ms,
+         bound_ms_fused_5_products=fused_ms, plain_ms=plain_ms, library_bwd_ms=lib_ms,
+         kernels_fwd_bwd_ms=fwd_ms + dq_ms + dkv_ms, library_fwd_ms=sdpa_fwd_ms,
+         library_fwd_bwd_ms=sdpa_fwd_bwd_ms)
+    del q, k, v, out, lse, dout, qt, kt, vt, graph
     torch.cuda.synchronize()
-    res["flash_attention_fwd"] = dict(max_abs_err=fwd_err)
+    res["flash_attention_fwd"] = dict(max_abs_err=fwd_err, train=train_fwd)
     return res
 
 
@@ -1566,8 +1656,8 @@ def phase_llm_train(dev) -> dict:
     kern = lambda tag: sum(r[1] for r in rows if tag in r[0]) / 1e6
     run["profile"] = dict(
         device_s=dev_s, wall_s=step_s, busy_share=dev_s / step_s,
-        flash_fwd_s=kern("flash_fwd_kernel"), flash_bwd_dq_s=kern("flash_bwd_dq_kernel"),
-        flash_bwd_dkv_s=kern("flash_bwd_dkv_kernel"), device_launches=sum(r[2] for r in rows),
+        flash_fwd_s=kern("flash_fwd"), flash_bwd_dq_s=kern("flash_bwd_dq"),
+        flash_bwd_dkv_s=kern("flash_bwd_dkv"), device_launches=sum(r[2] for r in rows),
         top=[[k_[:70], us / 1e6, n] for k_, us, n in rows[:12]])
     emit("llm_train", profile="train_step", **run["profile"])
     del net, state, step, metrics, batch
@@ -1716,14 +1806,17 @@ def main() -> int:
                       ("mlstm_chunk", "mlstm_chunk.cu")):
         t = llm_times[name]
         by_run = {run: n[name] for run, n in serve["launches_by_run"].items()}
+        extra = {}
         if name == "flash_attention_fwd":
             by_run["train_5_steps"] = train["launches_total"][name]
+            extra = {f"{k_}_training_shapes": v_ for k_, v_ in train_times[name]["train"].items()
+                     if k_ in ("ms", "bound_ms", "library_ms")}
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=llm_replaces[name], launches=sum(by_run.values()), launches_by_run=by_run,
             max_abs_err=max(t["max_abs_err"], train_times.get(name, t)["max_abs_err"]),
             ms=t["ms"], plain_ms=t["plain_ms"],
-            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"], **extra,
         ))
     for name, line in (("flash_attention_bwd_dq", 287), ("flash_attention_bwd_dkv", 329)):
         t = train_times[name]

@@ -16,11 +16,14 @@
 // operations against 2 x 42 MB of q/k/v/out: operations, ~0.11 ms at the
 // bf16 tensor-core peak.
 //
-// What the design does about it. This first kernel is the simple one: no
-// tensor cores (wgmma or mma.sync come in a later change), float32 fused
-// multiply-adds on the CUDA cores, so it runs near the 67 TFLOP/s fp32 rate
-// at best. A block owns 64 query rows of one (batch, head), one thread per
-// row; the row's scaled query and its float32 accumulator sit in registers.
+// Two kernels compute it. bf16 inputs, the serving and training paths',
+// run flash_fwd_mma_kernel on the tensor cores (mma.sync, ldmatrix,
+// cp.async; its note is further down, with the dk/dv kernel of the same
+// design). float32 inputs run flash_fwd_kernel, described here: float32
+// fused multiply-adds on the CUDA cores (TF32 stays off), so it runs near
+// the 67 TFLOP/s fp32 rate at best. A block owns 64 query rows of one
+// (batch, head), one thread per row; the row's scaled query and its
+// float32 accumulator sit in registers.
 // The block walks the key tiles of 32 that the causal and window band can
 // reach (tiles wholly outside it contribute p = 0 and are skipped, which is
 // exact and cuts a sliding-window layer's work by about a quarter at S =
@@ -198,9 +201,11 @@ int launch(const FlashArgs& a, int batch, cudaStream_t stream) {
 // operations, ~0.35 ms for the 5 products a fused backward needs at the bf16
 // tensor-core peak.
 //
-// What the design does about it. These first kernels are the simple kind,
-// float32 fused multiply-adds on the CUDA cores (no tensor cores yet), so
-// the 67 TFLOP/s fp32 rate is their ceiling. A row carries three (dq) or four
+// What the design does about it. These kernels are the simple kind,
+// float32 fused multiply-adds on the CUDA cores, so the 67 TFLOP/s fp32
+// rate is their ceiling. dq runs here in both types; dk/dv runs here for
+// float32 inputs, and for bf16 inputs on the tensor cores
+// (flash_bwd_dkv_mma_kernel, below). A row carries three (dq) or four
 // (dk/dv) head-dim vectors; one thread a row, as the forward has, would take
 // ~200 registers for them alone and spill. So four neighbouring threads share
 // a row, each holding 16 of its 64 dims, and the dot products s and dp are
@@ -437,6 +442,572 @@ __global__ void __launch_bounds__(kBwdKeys * kParts) flash_bwd_dkv_kernel(BwdArg
   }
 }
 
+// ===========================================================================
+// bf16 on the tensor cores: the forward (flash_fwd_mma_kernel) and dk/dv
+// (flash_bwd_dkv_mma_kernel) for bf16 inputs. The float32 kernels above stay
+// for float32 inputs (no TF32); dq runs flash_bwd_dq_kernel in both types.
+//
+// What bounds them. Both are bound by operations at the bf16 tensor-core
+// rate: at TinyLlama's shapes the forward does 2 products of 2 B Hq D
+// (S^2 / 2) operations (S = Q K^T, O = P V), 1.4e11, ~0.14 ms at 989
+// TFLOP/s, against ~0.1 GB of inputs and outputs (0.03 ms); dk/dv does 4
+// (S^T, dP^T, dV, dK), 2.8e11, ~0.28 ms. At D = 64 the exponentials come
+// close behind: one a (row, key) pair against 256 product operations, and
+// the card's 16 exponentials a clock an SM match its tensor rate there.
+//
+// What the design does about it. Every product runs on
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32: bf16 operands, float32 sums.
+// A warp owns a 16-row slab of its block's rows (the forward: 4 warps, 64
+// query rows of one (batch, head); dk/dv: 4 warps, 64 keys of one (batch,
+// KV head)), whose operand (Q, or K and V) it keeps in registers as A
+// fragments for the whole block; dk/dv takes each staged tile in passes of
+// 16 query rows, which keeps it at 164 registers and three blocks an SM. The other side streams through shared
+// memory in tiles of 64 rows (keys and values; or queries, output
+// gradients, lse and delta), copied with cp.async (16 B a thread,
+// zero-filled past the sequence's end) into two stages, so the next tile's
+// copy runs under this tile's products. A staged row is the head dim
+// zero-filled to 64 (128 B); its eight 16-B chunks are stored XOR-swizzled
+// by the row's low three bits, so the eight rows that one ldmatrix reads
+// hit eight different bank groups. Operands come out of shared memory by
+// ldmatrix (.trans where the staged rows are the product's k dimension: V
+// in P V, dout and Q in dV and dK). Products that follow a softmax take
+// their A operand from the accumulator fragments of the product before,
+// rounded to bf16 in registers (the m16n8 C layout of two neighbouring
+// 8-column tiles is the m16k16 A layout): P in P V; P^T and dS^T in dV and
+// dK. Sums, the softmax and lse stay in float32: scale multiplies the
+// float32 scores (folded with log2 e into one FMA before each ex2), l sums
+// the float32 p, and dK takes scale in its float32 epilogue. A head dim
+// below 64 runs D = 64's four k-steps over its zero fill: one unrolled
+// body a kernel, and D < 64 is off the main path. Per-lane ldmatrix and
+// cp.async addresses are worked out once, outside the tile loop. Where D
+// is not a multiple of 8 or a pointer is not 16-B aligned,
+// the tiles are staged with plain loads instead (the kVec flag);
+// everything else is shared. Tiles outside the causal or window band are
+// skipped exactly, and tiles wholly inside it skip the mask. Blocks run
+// heaviest first under a causal mask. dk/dv keeps the float32 kernel's GQA
+// design: a block walks every query head of its KV head's group and writes
+// dk and dv once, with no atomics, so the result repeats bit for bit.
+// ===========================================================================
+constexpr int kFwdWarps = 4;                 // forward: query rows a block, 16 a warp
+constexpr int kFwdRows = 16 * kFwdWarps;
+constexpr int kFwdThreads = 32 * kFwdWarps;
+constexpr int kDkvKeys = 64;                  // dk/dv: keys a block, 16 a warp
+constexpr int kDkvThreads = 2 * kDkvKeys;
+constexpr int kDkvSub = 16;                   // dk/dv: staged query rows a pass over the registers
+constexpr int kMmaTile = 64;                  // rows a staged tile holds (keys or query rows)
+constexpr int kLd = kMaxD;                    // a staged row: 64 bf16, 8 chunks of 16 B
+constexpr int kNk = kMaxD / 16;               // k-steps of 16 over the zero-filled head dim
+constexpr int kRowBytes = 2 * kLd;
+constexpr int kTileBytes = kMmaTile * kRowBytes;
+constexpr float kLog2e = 1.4426950408889634f;
+
+typedef __nv_bfloat16 bf16;
+
+// element offset of 16-B chunk c (8 bf16) of staged row r, swizzled
+__device__ __forceinline__ int swz(int r, int c) { return r * kLd + ((c ^ (r & 7)) << 3); }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a b: a 16x16 bf16 A fragment (4 registers), b a 16x8 B fragment
+// (2 registers), c a 16x8 float32 C fragment
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16 in one register, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A fragments of k-step kk from C fragments c[2 kk], c[2 kk + 1] (two
+// neighbouring 8-column tiles), rounded to bf16
+__device__ __forceinline__ void c_to_a(float (*c)[4], int kk, uint32_t* a) {
+  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// ex2.approx with subnormal results flushed to 0 (one MUFU op); such p are
+// far below any sum they join
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// This lane's byte offsets into a staged tile for the two ldmatrix
+// patterns. Chunk c of row r sits at r * 128 + ((c ^ (r & 7)) << 4); each
+// pattern starts at a row that is a multiple of 8, so r & 7 is the lane's
+// l7, and a k-step's chunk 2 kk + bit enters as (32 kk) ^ ((bit ^ l7) << 4).
+//  - rows: lane rows l7 + 8 l16, chunk 2 kk + l8 (B, k = head dim);
+//  - cols: lane rows l7 + 8 l8, chunk 2 j + l16 (A; B with k = staged rows).
+struct Lanes {
+  uint32_t rows, xrows, cols, xcols;
+};
+
+__device__ __forceinline__ Lanes lanes() {
+  const uint32_t lane = threadIdx.x & 31, l7 = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
+  return Lanes{(l7 + 8 * l16) * kRowBytes, (l8 ^ l7) << 4, (l7 + 8 * l8) * kRowBytes,
+               (l16 ^ l7) << 4};
+}
+
+// A fragments of the 16 staged rows from row0, every k-step
+__device__ __forceinline__ void load_a(uint32_t tile, int row0, const Lanes& ln,
+                                       uint32_t (*a)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < kNk; ++kk) {
+    ldsm_x4(tile + row0 * kRowBytes + ln.cols + ((32 * kk) ^ ln.xcols), a[kk]);
+  }
+}
+
+// B fragments, k = head dim (k-step kk), n = staged rows n0 .. n0 + 15 (K
+// in Q K^T; Q and dout in K Q^T and V dout^T): b[0..1] for rows n0..,
+// b[2..3] for n0 + 8..
+__device__ __forceinline__ void load_b_rows(uint32_t tile, int n0, int kk, const Lanes& ln,
+                                            uint32_t* b) {
+  ldsm_x4(tile + n0 * kRowBytes + ln.rows + ((32 * kk) ^ ln.xrows), b);
+}
+
+// B fragments, k = staged rows k0 .. k0 + 15, n = head dims 16 jp ..
+// 16 jp + 15 (V in P V; dout and Q in dV and dK): b[0..1] for dims 16 jp..,
+// b[2..3] for 16 jp + 8..
+__device__ __forceinline__ void load_b_cols(uint32_t tile, int k0, int jp, const Lanes& ln,
+                                            uint32_t* b) {
+  ldsm_x4_t(tile + k0 * kRowBytes + ln.cols + ((32 * jp) ^ ln.xcols), b);
+}
+
+// Stage rows r0 .. r0 + kRows - 1 of a [rows, stride] bf16 slice (row r at
+// g + r stride) into a swizzled tile: the first d of each row's 64 columns,
+// rows at or past n_rows zero. kVec (d % 8 == 0, 16-B aligned rows): each
+// thread copies chunk tid % 8 of every (kThreads / 8)-th row by cp.async,
+// the padding chunks past d / 8 zeroed once by zero_pad; else plain loads
+// of every column, zeros past d.
+template <bool kVec, int kRows, int kThreads>
+__device__ __forceinline__ void stage_tile(bf16* tile, const bf16* g, int r0, int n_rows,
+                                           size_t stride, int d) {
+  if (kVec) {
+    const int c = threadIdx.x & 7;
+    if (c < (d >> 3)) {
+      const uint32_t base = smem_addr(tile);
+#pragma unroll
+      for (int i = 0; i < kRows * 8 / kThreads; ++i) {
+        const int r = (threadIdx.x >> 3) + i * (kThreads / 8);
+        const bool ok = r0 + r < n_rows;
+        cp_async16(base + r * kRowBytes + ((c ^ (r & 7)) << 4),
+                   ok ? g + (size_t)(r0 + r) * stride + 8 * c : g, ok);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * kLd; i += kThreads) {
+      const int r = i / kLd, col = i % kLd;
+      const bool ok = r0 + r < n_rows && col < d;
+      tile[swz(r, col >> 3) + (col & 7)] =
+          ok ? g[(size_t)(r0 + r) * stride + col] : __float2bfloat16(0.0f);
+    }
+  }
+}
+
+// zero the chunks past d / 8 of n_rows consecutive staged rows
+__device__ __forceinline__ void zero_pad(bf16* rows, int n_rows, int d) {
+  const int cpr = d >> 3, pad = 8 - cpr;
+  if (pad == 0) return;
+  for (int i = threadIdx.x; i < n_rows * pad; i += blockDim.x) {
+    const int r = i / pad, c = cpr + i % pad;
+    *reinterpret_cast<uint4*>(rows + swz(r, c)) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// store a warp's 16 x 64 float32 C fragments (times mul) as bf16 rows
+// row0 .. of a [rows, stride] slice, rows < n_rows, columns < d
+template <bool kVec>
+__device__ __forceinline__ void store_rows(bf16* g, float (*c)[4], int row0, int n_rows,
+                                           size_t stride, int d, float mul0, float mul1) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2 * kNk; ++j) {
+    const int col = 8 * j + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + gr + 8 * half;
+      const float mul = half ? mul1 : mul0;
+      const float x0 = __fmul_rn(c[j][2 * half], mul), x1 = __fmul_rn(c[j][2 * half + 1], mul);
+      if (row >= n_rows || col >= d) continue;
+      bf16* p = g + (size_t)row * stride + col;
+      if (kVec) {
+        *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        p[0] = __float2bfloat16(x0);
+        if (col + 1 < d) p[1] = __float2bfloat16(x1);
+      }
+    }
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kFwdThreads) flash_fwd_mma_kernel(FlashArgs a) {
+  __shared__ __align__(128) bf16 qs[kFwdRows * kLd];
+  __shared__ __align__(128) bf16 ks[2][kMmaTile * kLd];
+  __shared__ __align__(128) bf16 vs[2][kMmaTile * kLd];
+  const int b = blockIdx.x / a.hq, h = blockIdx.x % a.hq;
+  const int hk = h / (a.hq / a.hkv);
+  const int tile = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
+  const bf16* qg = static_cast<const bf16*>(a.q) + ((size_t)b * a.sq * a.hq + h) * a.d;
+  const bf16* kg = static_cast<const bf16*>(a.k) + ((size_t)b * a.skv * a.hkv + hk) * a.d;
+  const bf16* vg = static_cast<const bf16*>(a.v) + ((size_t)b * a.skv * a.hkv + hk) * a.d;
+  const size_t q_stride = (size_t)a.hq * a.d, kv_stride = (size_t)a.hkv * a.d;
+  const Lanes ln = lanes();
+  const uint32_t ks_a = smem_addr(ks), vs_a = smem_addr(vs);
+
+  // the key range any row of this tile can keep
+  const int row_lo = tile * kFwdRows;
+  const int pos_lo = row_lo + a.q_offset;
+  const int pos_hi = min(row_lo + kFwdRows, a.sq) - 1 + a.q_offset;
+  const int k_lo = a.window >= 0 ? max(0, pos_lo - a.window + 1) : 0;
+  const int k_hi = a.causal ? min(a.skv, pos_hi + 1) : a.skv;
+  const int k_first = (k_lo / kMmaTile) * kMmaTile;
+  const int n_tiles = k_hi > k_first ? (k_hi - k_first + kMmaTile - 1) / kMmaTile : 0;
+
+  if (kVec) {
+    zero_pad(qs, kFwdRows, a.d);
+    zero_pad(&ks[0][0], 2 * kMmaTile, a.d);
+    zero_pad(&vs[0][0], 2 * kMmaTile, a.d);
+  }
+  stage_tile<kVec, kFwdRows, kFwdThreads>(qs, qg, row_lo, a.sq, q_stride, a.d);
+  if (n_tiles > 0) {
+    stage_tile<kVec, kMmaTile, kFwdThreads>(ks[0], kg, k_first, a.skv, kv_stride, a.d);
+    stage_tile<kVec, kMmaTile, kFwdThreads>(vs[0], vg, k_first, a.skv, kv_stride, a.d);
+  }
+  cp_async_commit();
+
+  // rows gr and gr + 8 of this warp's slab: positions, running max of the
+  // raw scores, this lane's share of l, accumulator
+  const int r0 = row_lo + warp * 16 + gr;
+  const int qpos0 = r0 + a.q_offset, qpos1 = qpos0 + 8;
+  const float scale2 = __fmul_rn(a.scale, kLog2e);  // p = 2^(scale2 (s - m))
+  float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;
+  float o[2 * kNk][4];
+#pragma unroll
+  for (int j = 0; j < 2 * kNk; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  uint32_t qa[kNk][4];
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_first + it * kMmaTile;
+    if (it + 1 < n_tiles) {
+      const int st = (it + 1) & 1;
+      stage_tile<kVec, kMmaTile, kFwdThreads>(ks[st], kg, k0 + kMmaTile, a.skv, kv_stride, a.d);
+      stage_tile<kVec, kMmaTile, kFwdThreads>(vs[st], vg, k0 + kMmaTile, a.skv, kv_stride, a.d);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (it == 0) load_a(smem_addr(qs), warp * 16, ln, qa);
+    const uint32_t kt = ks_a + (it & 1) * kTileBytes, vt = vs_a + (it & 1) * kTileBytes;
+
+    // S = Q K^T: 16 rows x 64 keys, float32
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kNk; ++kk) {
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t bb[4];
+        load_b_rows(kt, 16 * jp, kk, ln, bb);
+        mma16816(s[2 * jp], qa[kk], bb[0], bb[1]);
+        mma16816(s[2 * jp + 1], qa[kk], bb[2], bb[3]);
+      }
+    }
+    // masked scores are -1e30, unless the tile is inside the band for
+    // every row of the block
+    const bool full = k0 + kMmaTile <= a.skv && (!a.causal || k0 + kMmaTile - 1 <= pos_lo) &&
+                      (a.window < 0 || k0 > pos_hi - a.window);
+    if (!full) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + 8 * j + 2 * t + (e & 1);
+          const int qpos = e < 2 ? qpos0 : qpos1;
+          const bool keep = kp < a.skv && (!a.causal || kp <= qpos) &&
+                            (a.window < 0 || kp > qpos - a.window);
+          s[j][e] = keep ? s[j][e] : kNeg;
+        }
+      }
+    }
+    float mx0 = kNeg, mx1 = kNeg;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = ex2(__fmul_rn(__fsub_rn(m0, mn0), scale2));
+    const float al1 = ex2(__fmul_rn(__fsub_rn(m1, mn1), scale2));
+    // p is 0 while the row's max is -1e30 (no key kept yet)
+    const float off0 = mn0 > 0.5f * kNeg ? -__fmul_rn(mn0, scale2) : -INFINITY;
+    const float off1 = mn1 > 0.5f * kNeg ? -__fmul_rn(mn1, scale2) : -INFINITY;
+    float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = ex2(__fmaf_rn(s[j][0], scale2, off0));
+      s[j][1] = ex2(__fmaf_rn(s[j][1], scale2, off0));
+      s[j][2] = ex2(__fmaf_rn(s[j][2], scale2, off1));
+      s[j][3] = ex2(__fmaf_rn(s[j][3], scale2, off1));
+      ps0 = __fadd_rn(ps0, __fadd_rn(s[j][0], s[j][1]));
+      ps1 = __fadd_rn(ps1, __fadd_rn(s[j][2], s[j][3]));
+    }
+    // l sums the float32 p; only P V takes p in bf16
+    l0 = __fmaf_rn(l0, al0, ps0);
+    l1 = __fmaf_rn(l1, al1, ps1);
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int j = 0; j < 2 * kNk; ++j) {
+      o[j][0] = __fmul_rn(o[j][0], al0);
+      o[j][1] = __fmul_rn(o[j][1], al0);
+      o[j][2] = __fmul_rn(o[j][2], al1);
+      o[j][3] = __fmul_rn(o[j][3], al1);
+    }
+    // O += P V: P from the score fragments, V by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pa[4];
+      c_to_a(s, kk, pa);
+#pragma unroll
+      for (int jp = 0; jp < kNk; ++jp) {
+        uint32_t bb[4];
+        load_b_cols(vt, 16 * kk, jp, ln, bb);
+        mma16816(o[2 * jp], pa, bb[0], bb[1]);
+        mma16816(o[2 * jp + 1], pa, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it is refilled
+  }
+  cp_async_wait<0>();
+
+  // l over the row's quad; out = acc / l (0 where l = 0), lse = +inf there
+  l0 = __fadd_rn(l0, __shfl_xor_sync(kFull, l0, 1));
+  l0 = __fadd_rn(l0, __shfl_xor_sync(kFull, l0, 2));
+  l1 = __fadd_rn(l1, __shfl_xor_sync(kFull, l1, 1));
+  l1 = __fadd_rn(l1, __shfl_xor_sync(kFull, l1, 2));
+  const float inv0 = l0 > 0.0f ? __fdiv_rn(1.0f, l0) : 0.0f;
+  const float inv1 = l1 > 0.0f ? __fdiv_rn(1.0f, l1) : 0.0f;
+  store_rows<kVec>(static_cast<bf16*>(a.out) + ((size_t)b * a.sq * a.hq + h) * a.d, o,
+                        row_lo + warp * 16, a.sq, q_stride, a.d, inv0, inv1);
+  if (t == 0) {
+    float* lse = a.lse + ((size_t)b * a.hq + h) * a.sq;
+    if (r0 < a.sq) lse[r0] = l0 > 0.0f ? __fmaf_rn(m0, a.scale, logf(l0)) : INFINITY;
+    if (r0 + 8 < a.sq) lse[r0 + 8] = l1 > 0.0f ? __fmaf_rn(m1, a.scale, logf(l1)) : INFINITY;
+  }
+}
+
+// dk/dv: stage query rows i0 .. i0 + 63 of head h (q, dout, lse, delta);
+// lse and delta are 0 past Sq, where the mask keeps nothing
+template <bool kVec>
+__device__ __forceinline__ void stage_rows(const BwdArgs& a, bf16* qt, bf16* dt, float* lt,
+                                           float* det, int b, int h, int i0) {
+  const size_t q_off = ((size_t)b * a.sq * a.hq + h) * a.d, q_stride = (size_t)a.hq * a.d;
+  stage_tile<kVec, kMmaTile, kDkvThreads>(qt, static_cast<const bf16*>(a.q) + q_off, i0, a.sq,
+                                          q_stride, a.d);
+  stage_tile<kVec, kMmaTile, kDkvThreads>(dt, static_cast<const bf16*>(a.dout) + q_off, i0,
+                                          a.sq, q_stride, a.d);
+  if (threadIdx.x < kMmaTile) {
+    const int row = i0 + threadIdx.x;
+    const bool ok = row < a.sq;
+    const size_t at = ok ? ((size_t)b * a.hq + h) * a.sq + row : 0;
+    cp_async4(smem_addr(lt + threadIdx.x), a.lse + at, ok);
+    cp_async4(smem_addr(det + threadIdx.x), a.delta + at, ok);
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kDkvThreads) flash_bwd_dkv_mma_kernel(BwdArgs a) {
+  __shared__ __align__(128) bf16 qs[2][kMmaTile * kLd];
+  __shared__ __align__(128) bf16 dos[2][kMmaTile * kLd];
+  __shared__ __align__(16) float lses[2][kMmaTile];
+  __shared__ __align__(16) float dels[2][kMmaTile];
+  const int b = blockIdx.x / a.hkv, hk = blockIdx.x % a.hkv;
+  const int group = a.hq / a.hkv;
+  const int tile = blockIdx.y;  // under a causal mask the first key tiles see the most rows
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
+  const size_t kv_stride = (size_t)a.hkv * a.d;
+  const size_t kv_off = ((size_t)b * a.skv * a.hkv + hk) * a.d;
+  const Lanes ln = lanes();
+  const uint32_t qs_a = smem_addr(qs), dos_a = smem_addr(dos);
+
+  // the query rows that can keep any key of this tile
+  const int j_lo = tile * kDkvKeys;
+  const int j_hi = min(j_lo + kDkvKeys, a.skv) - 1;
+  const int i_lo = a.causal ? max(0, j_lo - a.q_offset) : 0;
+  const int i_hi = a.window >= 0 ? min(a.sq, j_hi + a.window - a.q_offset) : a.sq;
+  const int i_first = (i_lo / kMmaTile) * kMmaTile;
+  const int n_qt = i_hi > i_first ? (i_hi - i_first + kMmaTile - 1) / kMmaTile : 0;
+  const int n_it = group * n_qt;
+
+  if (kVec) {
+    zero_pad(&qs[0][0], 2 * kMmaTile, a.d);
+    zero_pad(&dos[0][0], 2 * kMmaTile, a.d);
+  }
+  // K and V of the block's keys through stage 0, into registers as A
+  // fragments for the whole block
+  stage_tile<kVec, kMmaTile, kDkvThreads>(qs[0], static_cast<const bf16*>(a.k) + kv_off, j_lo,
+                                          a.skv, kv_stride, a.d);
+  stage_tile<kVec, kMmaTile, kDkvThreads>(dos[0], static_cast<const bf16*>(a.v) + kv_off, j_lo,
+                                          a.skv, kv_stride, a.d);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t ka[kNk][4], va[kNk][4];
+  load_a(qs_a, warp * 16, ln, ka);
+  load_a(dos_a, warp * 16, ln, va);
+  __syncthreads();
+
+  float dk[2 * kNk][4], dv[2 * kNk][4];
+#pragma unroll
+  for (int j = 0; j < 2 * kNk; ++j) {
+    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.0f;
+    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.0f;
+  }
+  const float scale2 = __fmul_rn(a.scale, kLog2e);
+  const int key0 = j_lo + warp * 16 + gr;  // this lane's keys: key0, key0 + 8
+
+  if (n_it > 0) stage_rows<kVec>(a, qs[0], dos[0], lses[0], dels[0], b, hk * group, i_first);
+  cp_async_commit();
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_it) {
+      stage_rows<kVec>(a, qs[st ^ 1], dos[st ^ 1], lses[st ^ 1], dels[st ^ 1], b,
+                       hk * group + (it + 1) / n_qt, i_first + ((it + 1) % n_qt) * kMmaTile);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int i0 = i_first + (it % n_qt) * kMmaTile;
+    // every pair of the block's keys and the tile's rows is kept: no mask
+    const bool full = i0 + kMmaTile <= a.sq && j_hi == j_lo + kDkvKeys - 1 &&
+                      (!a.causal || j_hi <= i0 + a.q_offset) &&
+                      (a.window < 0 || j_lo > i0 + kMmaTile - 1 + a.q_offset - a.window);
+    const uint32_t qt = qs_a + st * kTileBytes, dt = dos_a + st * kTileBytes;
+    // the tile's rows in passes of kDkvSub
+#pragma unroll
+    for (int pass = 0; pass < kMmaTile / kDkvSub; ++pass) {
+      const int c0 = kDkvSub * pass;  // first staged row of this pass
+      // S^T = K Q^T and dP^T = V dout^T: 16 keys x kDkvSub rows, float32
+      float s[kDkvSub / 8][4], dp[kDkvSub / 8][4];
+#pragma unroll
+      for (int j = 0; j < kDkvSub / 8; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kNk; ++kk) {
+#pragma unroll
+        for (int jp = 0; jp < kDkvSub / 16; ++jp) {
+          uint32_t bb[4];
+          load_b_rows(qt, c0 + 16 * jp, kk, ln, bb);
+          mma16816(s[2 * jp], ka[kk], bb[0], bb[1]);
+          mma16816(s[2 * jp + 1], ka[kk], bb[2], bb[3]);
+          load_b_rows(dt, c0 + 16 * jp, kk, ln, bb);
+          mma16816(dp[2 * jp], va[kk], bb[0], bb[1]);
+          mma16816(dp[2 * jp + 1], va[kk], bb[2], bb[3]);
+        }
+      }
+      // P^T = exp(scale S^T - lse) where kept, dS^T = P^T (dP^T - delta)
+#pragma unroll
+      for (int j = 0; j < kDkvSub / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = c0 + 8 * j + 2 * t + c;
+          const float lse2 = __fmul_rn(lses[st][col], kLog2e), del = dels[st][col];
+          const int row = i0 + col, qpos = row + a.q_offset;
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int e = 2 * rr + c, key = key0 + 8 * rr;
+            float p = ex2(__fmaf_rn(s[j][e], scale2, -lse2));
+            if (!full) {
+              const bool keep = row < a.sq && key < a.skv && (!a.causal || key <= qpos) &&
+                                (a.window < 0 || key > qpos - a.window);
+              p = keep ? p : 0.0f;
+            }
+            s[j][e] = p;
+            dp[j][e] = __fmul_rn(p, __fsub_rn(dp[j][e], del));
+          }
+        }
+      }
+      // dV += P^T dout and dK += dS^T Q, P^T and dS^T rounded to bf16
+#pragma unroll
+      for (int kq = 0; kq < kDkvSub / 16; ++kq) {
+        uint32_t pa[4], da[4];
+        c_to_a(s, kq, pa);
+        c_to_a(dp, kq, da);
+#pragma unroll
+        for (int jp = 0; jp < kNk; ++jp) {
+          uint32_t bb[4];
+          load_b_cols(dt, c0 + 16 * kq, jp, ln, bb);
+          mma16816(dv[2 * jp], pa, bb[0], bb[1]);
+          mma16816(dv[2 * jp + 1], pa, bb[2], bb[3]);
+          load_b_cols(qt, c0 + 16 * kq, jp, ln, bb);
+          mma16816(dk[2 * jp], da, bb[0], bb[1]);
+          mma16816(dk[2 * jp + 1], da, bb[2], bb[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it is refilled
+  }
+  cp_async_wait<0>();
+
+  // dk takes scale in float32; both written once, in bf16
+  store_rows<kVec>(static_cast<bf16*>(a.dk) + kv_off, dk, j_lo + warp * 16, a.skv,
+                        kv_stride, a.d, a.scale, a.scale);
+  store_rows<kVec>(static_cast<bf16*>(a.dv) + kv_off, dv, j_lo + warp * 16, a.skv,
+                        kv_stride, a.d, 1.0f, 1.0f);
+}
+
+// cp.async and the paired stores need d % 8 == 0 and 16-B aligned bases
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 bool bwd_shape_ok(int batch, int sq, int skv, int hq, int hkv, int d, int dtype) {
   return batch >= 1 && sq >= 1 && skv >= 1 && hkv >= 1 && hq % hkv == 0 && d >= 1 &&
          d <= kMaxD && (dtype == 0 || dtype == 1) && (long long)batch * hq <= 0x7fffffffLL &&
@@ -453,7 +1024,18 @@ int flash_attention_limits(int* max_d) {
   return 0;
 }
 
-// dtype: 0 float32, 1 bfloat16. window < 0: none. Returns a cudaError_t.
+// Blocks an SM holds of the bf16 tensor-core kernels (cp.async builds):
+// forward, dk/dv. Returns a cudaError_t.
+int flash_attention_mma_occupancy(int* fwd, int* dkv) {
+  int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      fwd, flash_fwd_mma_kernel<true>, kFwdThreads, 0);
+  if (err != 0) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      dkv, flash_bwd_dkv_mma_kernel<true>, kDkvThreads, 0);
+}
+
+// dtype: 0 float32 (flash_fwd_kernel), 1 bfloat16 (flash_fwd_mma_kernel).
+// window < 0: none. Returns a cudaError_t.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v, void* out,
                                float* lse, int batch, int sq, int skv, int hq, int hkv,
                                int d, int causal, int window, int q_offset, float scale,
@@ -464,7 +1046,17 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v, void
   }
   FlashArgs a{q, k, v, out, lse, sq, skv, hq, hkv, d, causal, window, q_offset, scale};
   cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 0 ? launch<float, kMaxD>(a, batch, s) : launch<__nv_bfloat16, kMaxD>(a, batch, s);
+  if (dtype == 0) return launch<float, kMaxD>(a, batch, s);
+  if ((long long)batch * hq > 0x7fffffffLL || (sq + kFwdRows - 1) / kFwdRows > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid(batch * hq, (sq + kFwdRows - 1) / kFwdRows);
+  if (d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out)) {
+    flash_fwd_mma_kernel<true><<<grid, kFwdThreads, 0, s>>>(a);
+  } else {
+    flash_fwd_mma_kernel<false><<<grid, kFwdThreads, 0, s>>>(a);
+  }
+  return (int)cudaGetLastError();
 }
 
 // The backward's first kernel: dq, and delta for the second. dtype: 0
@@ -488,7 +1080,9 @@ int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
 }
 
 // The backward's second kernel: dk and dv from delta, which the dq kernel
-// wrote; launch it after that one on the same stream. Returns a cudaError_t.
+// wrote; launch it after that one on the same stream. dtype: 0 float32
+// (flash_bwd_dkv_kernel), 1 bfloat16 (flash_bwd_dkv_mma_kernel). Returns a
+// cudaError_t.
 int flash_attention_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                    const void* dout, const float* lse, const float* delta,
                                    void* dk, void* dv, int batch, int sq, int skv, int hq,
@@ -497,12 +1091,18 @@ int flash_attention_bwd_dkv_launch(const void* q, const void* k, const void* v,
   if (!bwd_shape_ok(batch, sq, skv, hq, hkv, d, dtype)) return (int)cudaErrorInvalidValue;
   BwdArgs a{q, k, v, nullptr, dout, lse, const_cast<float*>(delta), nullptr, dk, dv,
             sq, skv, hq, hkv, d, causal, window, q_offset, scale};
-  const dim3 grid(batch * hkv, (skv + kBwdKeys - 1) / kBwdKeys);
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
+    const dim3 grid(batch * hkv, (skv + kBwdKeys - 1) / kBwdKeys);
     flash_bwd_dkv_kernel<float><<<grid, kBwdKeys * kParts, 0, s>>>(a);
   } else {
-    flash_bwd_dkv_kernel<__nv_bfloat16><<<grid, kBwdKeys * kParts, 0, s>>>(a);
+    const dim3 grid(batch * hkv, (skv + kDkvKeys - 1) / kDkvKeys);
+    if (d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) &&
+        aligned16(dk) && aligned16(dv)) {
+      flash_bwd_dkv_mma_kernel<true><<<grid, kDkvThreads, 0, s>>>(a);
+    } else {
+      flash_bwd_dkv_mma_kernel<false><<<grid, kDkvThreads, 0, s>>>(a);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,11 @@ lse)``. :func:`flash_attention_bwd_cuda` runs the two backward kernels that
 replace ``flash_attention_bwd_pallas``: :func:`flash_attention_bwd_dq_cuda`
 (dq, and ``delta`` for the next one), then
 :func:`flash_attention_bwd_dkv_cuda` (dk and dv, a KV head's query heads
-summed in the kernel). Each takes CUDA tensors in float32 or bf16, checks
+summed in the kernel). bf16 inputs run the forward and dk/dv on the tensor
+cores (``flash_fwd_mma_kernel``, ``flash_bwd_dkv_mma_kernel``: bf16
+operands, float32 sums, p and ds rounded to bf16 before their products);
+float32 inputs, and dq in both types, run float32 CUDA-core kernels. Each
+takes CUDA tensors in float32 or bf16, checks
 their device, dtype, shape and contiguity, allocates its outputs with
 ``torch.empty``, launches on the current stream and raises if the launch is
 refused. :data:`LAUNCHES` counts each kernel's launches. The plain versions
@@ -27,7 +31,8 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = [
-    "LAUNCHES", "reset_launches", "dtype_code", "check_tensor", "limits", "flash_attention_cuda",
+    "LAUNCHES", "reset_launches", "dtype_code", "check_tensor", "limits", "mma_occupancy",
+    "flash_attention_cuda",
     "flash_attention_bwd_dq_cuda", "flash_attention_bwd_dkv_cuda", "flash_attention_bwd_cuda",
 ]
 
@@ -78,6 +83,8 @@ def _lib() -> ctypes.CDLL:
             getattr(lib, name).restype = _I
         lib.flash_attention_limits.argtypes = [ctypes.POINTER(_I)]
         lib.flash_attention_limits.restype = _I
+        lib.flash_attention_mma_occupancy.argtypes = [ctypes.POINTER(_I)] * 2
+        lib.flash_attention_mma_occupancy.restype = _I
         lib._repro_bound = True
     return lib
 
@@ -87,6 +94,16 @@ def limits() -> int:
     d = _I()
     _lib().flash_attention_limits(ctypes.byref(d))
     return d.value
+
+
+def mma_occupancy() -> Dict[str, int]:
+    """Blocks an SM holds of the bf16 tensor-core kernels (forward, dk/dv),
+    from the CUDA occupancy calculator."""
+    fwd, dkv = _I(), _I()
+    err = _lib().flash_attention_mma_occupancy(ctypes.byref(fwd), ctypes.byref(dkv))
+    if err != 0:
+        raise RuntimeError(f"flash_attention occupancy query failed: cudaError_t {err}")
+    return {"flash_attention_fwd": fwd.value, "flash_attention_bwd_dkv": dkv.value}
 
 
 def _shapes(q: torch.Tensor, k: torch.Tensor, window: Optional[int], what: str):

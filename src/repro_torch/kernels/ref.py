@@ -39,6 +39,7 @@ __all__ = [
     "selu_mlp",
     "flash_attention",
     "flash_attention_bwd",
+    "flash_attention_bwd_magnitudes",
     "decode_attention",
     "mlstm_chunk",
     "mlstm_chunk_chunked",
@@ -605,6 +606,49 @@ def flash_attention_bwd(
     dk = dk.reshape(B, Skv, Hkv, rep, D).sum(3)
     dv = dv.reshape(B, Skv, Hkv, rep, D).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_magnitudes(
+    q: torch.Tensor,  # [B, Sq, Hq, D]
+    k: torch.Tensor,  # [B, Skv, Hkv, D]
+    v: torch.Tensor,  # [B, Skv, Hkv, D]
+    out: torch.Tensor,  # [B, Sq, Hq, D] forward output
+    lse: torch.Tensor,  # [B, Hq, Sq] forward log-sum-exp (+inf on dead rows)
+    dout: torch.Tensor,  # [B, Sq, Hq, D]
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(scale |ds|^T |q|, |p|^T |dout|)``, float32 ``[B, Skv, Hkv, D]``
+    summed over each KV head's query heads, with ``p`` and ``ds`` as
+    :func:`flash_attention_bwd` forms them: the sums of magnitudes behind dk
+    and dv. A kernel that rounds ``ds`` or ``p`` to a type with unit
+    roundoff ``u`` before those products moves each entry of dk or dv by at
+    most ``u`` times the entry here."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"flash_attention_bwd_magnitudes: Hq={Hq} is not a multiple of Hkv={Hkv}")
+    rep = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    f32 = torch.float32
+    qf = q.to(f32) * scale
+    kf = k.to(f32).repeat_interleave(rep, dim=2)
+    vf = v.to(f32).repeat_interleave(rep, dim=2)
+    dof = dout.to(f32)
+    delta = torch.einsum("bqhd,bqhd->bhq", dof, out.to(f32))
+    mask = _attention_mask(Sq, Skv, causal, window, q_offset, q.device)
+    p = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    p.sub_(lse.to(f32)[..., None]).exp_().masked_fill_(~mask, 0.0)
+    ds = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds.sub_(delta[..., None]).mul_(p).abs_()
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf.abs())
+    del ds
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof.abs())
+    return dk.reshape(B, Skv, Hkv, rep, D).sum(3), dv.reshape(B, Skv, Hkv, rep, D).sum(3)
 
 
 def decode_attention(

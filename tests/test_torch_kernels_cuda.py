@@ -18,15 +18,21 @@ against the parallel form): their outputs within 2e-5 (attention) and 1e-4
 (mLSTM, whose exponentials amplify rounding) of the plain output's largest
 entry in float32, 8e-3 (two bf16 steps, each side rounds its output once)
 in bf16; flash's lse within 1e-5 where finite and +inf on the same rows.
+bf16 inputs run the forward and dk/dv on the tensor cores (p and ds
+rounded to bf16 before their products); the forward keeps the limits
+above, on 64-aligned and on unaligned inputs (a head dim off a multiple of
+8, a pointer off 16 bytes: tiles staged by plain loads).
 The flash backward kernels (dq, dk/dv) against ``ref.flash_attention_bwd``:
 within 1e-4 of each gradient's largest entry in float32 (the differences
 ``dp - delta`` cancel, so the sums' rounding shows against a smaller
-result). In bf16 both sides compute in float32 from the same values and
-round once, so each row lies within one bf16 step of its own largest plain
-entry beyond the two sides' float32 disagreement on that row (the same
-kernel and plain version run in float32 on the bf16 values upcast): a row
-whose gradient cancels to rounding noise (a query that keeps one key has
-``dp = delta``) is held to that noise, not to a step of itself.
+result), and row by row within 1e-4 of the row's max|plain| plus 1e-5 of
+the gradient's (the float32 row limit). A bf16 row is held to a rounding
+model computed from plain values alone: the float32 row limit, plus 2^-8
+of the row's largest magnitude sum where the kernel rounds an operand to
+bf16 (dv: |P|^T |dout|, dk: scale |dS|^T |Q|, from
+``ref.flash_attention_bwd_magnitudes``; dq none), plus one bf16 step at the
+binade of the row's max|plain| widened by both (each side rounds its
+float32 result once, to nearest).
 The decode and mLSTM kernels have no backward: on the card they raise when
 an input requires grad."""
 import pytest
@@ -335,10 +341,17 @@ def _rows_within(got, want, limit) -> bool:
     return bool(((got.double() - want.double()).abs().amax(-1) <= limit).all())
 
 
-def _bf16_step(want):
-    """One bf16 step (2^-7 of the binade) of each row's max|want|."""
-    top = want.double().abs().amax(-1)
+def _bf16_step(top):
+    """One bf16 step (2^-7 of the binade) at each row's ``top``."""
     return torch.where(top > 0, torch.exp2(torch.floor(torch.log2(top.clamp_min(1e-300))) - 7), 0.0)
+
+
+def _bf16_bwd_row_limit(want32, magnitude=None):
+    """Each bf16 row's rounding-model limit, from the plain values alone."""
+    lim = _bwd_row_limit(want32)
+    if magnitude is not None:
+        lim = lim + 2.0 ** -8 * magnitude.double().amax(-1)
+    return lim + _bf16_step(want32.double().abs().amax(-1) + lim)
 
 
 # the forward's cases plus TinyLlama's group of 8 query heads per KV head
@@ -361,26 +374,66 @@ def test_flash_bwd_kernels_match_plain(case, dtype):
     assert flash_attention.LAUNCHES["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"] + 1
     assert flash_attention.LAUNCHES["flash_attention_bwd_dkv"] == before["flash_attention_bwd_dkv"] + 1
     want = ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-    got32, want32 = got, want
+    got32, want32, mags = got, want, (None, None)
     if dtype == torch.bfloat16:
         up = [x.float() for x in (q, k, v, out)]
         got32 = flash_attention.flash_attention_bwd_cuda(*up, lse, dout.float(), **kw)
         want32 = ref.flash_attention_bwd(*up, lse, dout.float(), **kw)
-    for name, a, b, a32, b32 in zip("qkv", got, want, got32, want32):
+        mags = ref.flash_attention_bwd_magnitudes(q, k, v, out, lse, dout, **kw)
+    for name, a, b, a32, b32, mag in zip("qkv", got, want, got32, want32, (None, *mags)):
         assert a.dtype == dtype and a.shape == b.shape, name
         assert _rel_err(a32, b32) <= _BWD_TOL_F32, name
-        limit = _bwd_row_limit(b32)
-        assert _rows_within(a32, b32, limit), name
+        assert _rows_within(a32, b32, _bwd_row_limit(b32)), name
         if dtype == torch.bfloat16:
-            # both sides round the float32 sums once: one bf16 step of the
-            # row's max|plain| plus its float32 row limit
-            assert _rows_within(a, b, _bf16_step(b) + limit), name
+            assert _rows_within(a, b, _bf16_bwd_row_limit(b32, mag)), name
     # the same kernels from autograd through ops.flash_attention: bitwise
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     out2, _ = ops.flash_attention(*leaves, **kw)
     assert torch.equal(out2.detach(), out)
     for name, a, b in zip("qkv", torch.autograd.grad(out2, leaves, dout), got):
         assert torch.equal(a, b), name
+
+
+def _unaligned(x):
+    """``x`` copied into a contiguous view 2 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("case,shift", [
+    ((2, 70, 70, 4, 2, 17, True, None, 0), False),
+    ((2, 100, 100, 6, 2, 64, True, None, 0), True),
+    ((2, 130, 200, 4, 2, 64, False, None, 0), True),
+])
+def test_flash_mma_kernels_take_unaligned_inputs(case, shift):
+    """The bf16 tensor-core kernels where cp.async cannot stage the tiles
+    (D % 8 != 0, or pointers off 16 bytes): the forward within its bf16
+    limits and dk/dv within the rounding-model row limit."""
+    _need_cuda()
+    B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset = case
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    g = torch.Generator().manual_seed(Sq + 3)
+    q, k, v = (_randn(g, B, S, H, D, dtype=torch.bfloat16) for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
+    dout = _randn(g, B, Sq, Hq, D, dtype=torch.bfloat16)
+    if shift:
+        q, k, v, dout = (_unaligned(x) for x in (q, k, v, dout))
+    out, lse = flash_attention.flash_attention_cuda(q, k, v, **kw)
+    want, want_lse = ref.flash_attention(q, k, v, **kw)
+    assert _rel_err(out, want) <= _LLM_TOL[torch.bfloat16]
+    fin = torch.isfinite(want_lse)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    assert float((lse[fin] - want_lse[fin]).abs().max()) <= 1e-5 * max(1.0, float(want_lse[fin].abs().max()))
+    _, delta = flash_attention.flash_attention_bwd_dq_cuda(q, k, v, out, lse, dout, **kw)
+    got = flash_attention.flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, dout, **kw)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)[1:]
+    up = [x.float() for x in (q, k, v, out)]
+    want32 = ref.flash_attention_bwd(*up, lse, dout.float(), **kw)[1:]
+    mags = ref.flash_attention_bwd_magnitudes(q, k, v, out, lse, dout, **kw)
+    for name, a, b, b32, mag in zip(("dk", "dv"), got, want, want32, mags):
+        assert _rows_within(a, b, _bf16_bwd_row_limit(b32, mag)), name
 
 
 def test_kernels_without_backward_raise_under_grad():

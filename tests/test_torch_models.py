@@ -208,3 +208,44 @@ def test_linear_cell_step_matches_reference(normalize):
     assert _max_err(out, ref_out) <= ATOL
     for n in ("C", "n", "m"):
         assert _max_err(new[n], ref_new[n]) <= ATOL
+
+
+def test_bf16_prefill_drift_matches_reference():
+    """bf16 prefill against float32 prefill in each package, on the same
+    weights (the reference's bf16 draw; float32 holds its values upcast).
+    The packages round activations to bf16 at their own places, so each
+    bf16 run drifts from its float32 run by ~2% of max|logits| at the smoke
+    config (random weights); both float32 runs agree within 1e-4. A drift
+    of the port's own shows as a port drift past 1.5x the reference's, or
+    as bf16 logits of the two packages further apart than 2x the
+    reference's drift (independent roundings of one size give ~1.4x)."""
+    cfg16_ref = dataclasses.replace(ref_smoke_config("hymba-1.5b"), dtype="bfloat16")
+    cfg32_ref = dataclasses.replace(cfg16_ref, dtype="float32")
+    cfg16 = dataclasses.replace(configs.get_smoke_config("hymba-1.5b"), dtype="bfloat16")
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    params16 = ref_model.init_params(jax.random.PRNGKey(0), cfg16_ref)
+    params32 = jax.tree.map(lambda a: a.astype(jnp.float32), params16)
+    arrays = jax.tree.map(np.asarray, params32)
+    tokens = np.random.default_rng(1).integers(0, cfg16.vocab_size, (B, S)).astype(np.int32)
+
+    def ref_prefill(cfg, params):
+        logits, _ = ref_model.make_prefill_step(cfg)(
+            params, ref_model.init_cache(cfg, B, MAX_LEN), {"tokens": jnp.asarray(tokens)})
+        return np.asarray(logits.astype(jnp.float32), np.float64)
+
+    def port_prefill(cfg):
+        net = convert.model_params_from_reference(arrays, cfg, device="cpu")
+        logits, _ = model.make_prefill_step(cfg)(
+            net, model.init_cache(cfg, B, MAX_LEN, device="cpu"),
+            {"tokens": torch.from_numpy(tokens).long()})
+        return logits.double().numpy()
+
+    ref16, ref32 = ref_prefill(cfg16_ref, params16), ref_prefill(cfg32_ref, params32)
+    port16, port32 = port_prefill(cfg16), port_prefill(cfg32)
+    scale = float(np.abs(ref32).max())
+    assert _max_err(port32, ref32) <= ATOL
+    ref_drift = _max_err(ref16, ref32) / scale
+    port_drift = _max_err(port16, port32) / scale
+    assert 0.0 < ref_drift < 0.1
+    assert port_drift <= 1.5 * ref_drift, (port_drift, ref_drift)
+    assert _max_err(port16, ref16) / scale <= 2.0 * ref_drift
