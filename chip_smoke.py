@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. build   — compile every CUDA source under ``src/repro_torch/kernels/csrc``
-   with ``nvcc`` (all at once) and load it;
+   with ``nvcc`` (all at once) and load it; ptxas registers and spills by
+   kernel, the bf16 tensor-core kernels' blocks an SM;
 2. kernels — each kernel against its plain PyTorch version on the card, on a
    7-family bank (bank-wide and per-replica keep/mu/sigma);
 3. main    — ``Fleet.from_scenarios(n=1024).run(replicas=64)`` (65,536
@@ -54,11 +55,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    the same history as the CPU path;
 12. llm_kernels — the flash-attention, decode-attention and mLSTM kernels
    against their plain versions on small ragged cases (float32 and bf16;
-   flash also at an odd head dim and on pointers off 16 bytes) and at
-   hymba-1.5b's serving shapes (bf16), then timed with CUDA events beside
-   their bounds, their plain versions and, where one PyTorch call computes
-   the same function, that call (bf16 flash runs the tensor-core forward,
-   float32 the CUDA-core one);
+   flash also at an odd head dim and on pointers off 16 bytes; decode also
+   on a 2,112-slot cache with ragged lengths, every decode call repeated
+   and held bitwise to the first) and at hymba-1.5b's serving shapes
+   (bf16), then timed beside their bounds, their plain versions and,
+   where one PyTorch call computes the same function, that call (CUDA
+   events; decode, faster than its host call, by device time under
+   ``torch.profiler`` on an L2-cold cache; bf16 flash runs the tensor-core
+   forward, float32 the CUDA-core one; decode reports its splits of the
+   cache and blocks);
 13. llm_serve — hymba-1.5b at full width (bf16, random weights from a seed):
    8 prompts of 2,048 tokens through ``make_prefill_step``, then 64 greedy
    ``make_serve_step`` steps, with tokens/s, launches per run, peak memory
@@ -70,9 +75,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    window, ``q_offset``, dead rows beside live ones, an odd head dim,
    pointers off 16 bytes; float32 and bf16) and at TinyLlama-1.1B's
    training shapes (B 8, S 2,048, 32 / 4 heads of 64, causal; three seeds),
-   bf16 rows held to a rounding model of plain values; the forward there
-   too; then each timed with CUDA events beside its bound, the plain
-   version and ``F.scaled_dot_product_attention``'s forward and backward;
+   bf16 rows (dq and dk/dv on the tensor cores) held to a rounding model
+   of plain values, their shares of it and of the old limit reported; the
+   forward there too; then each timed with CUDA events beside its bound,
+   the plain version and ``F.scaled_dot_product_attention``'s forward and
+   backward;
 15. llm_train — TinyLlama-1.1B at full width (bf16, random weights from a
    seed): ``make_train_step`` with the trainer's AdamW on 8 x 2,048 tokens
    a step from the port's ``TokenStream``, 1 warm-up and 5 timed steps, with
@@ -91,6 +98,7 @@ import contextlib
 import copy
 import dataclasses
 import io
+import itertools
 import json
 import os
 import re
@@ -198,11 +206,17 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     built = _build.build()
     limits = grid_tick.limits()
+    occupancy = flash_attention.mma_occupancy()
     emit("build", seconds=time.perf_counter() - t0, sources=_build.sources(),
          built=sorted(built), max_legs_procs_links=list(limits),
          selu_mlp_max_hidden_in_out_depth=list(selu_mlp.limits()), card=smi(),
          ptxas={k: ptxas_by_kernel(v) for k, v in _build.build_logs.items()},
-         flash_mma_blocks_per_sm=flash_attention.mma_occupancy())
+         flash_mma_blocks_per_sm=occupancy)
+    # the bf16 dq kernel's registers, spills and blocks an SM on their own line
+    dq_ptxas = {k: v for k, v in ptxas_by_kernel(_build.build_logs.get("flash_attention", "")).items()
+                if k.startswith("flash_bwd_dq_mma_kernel")}
+    emit("build", kernel="flash_bwd_dq_mma_kernel", ptxas=dq_ptxas,
+         blocks_per_sm=occupancy["flash_attention_bwd_dq"])
     return {"seconds": time.perf_counter() - t0}
 
 
@@ -405,6 +419,26 @@ def timed(fn, reps: int):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps, out
+
+
+def device_ms(fn, reps: int, tag=None) -> float:
+    """The mean device ms a call of ``fn`` over ``reps`` calls after a
+    warm-up call: the kernels' time under ``torch.profiler`` (those whose
+    name holds ``tag``, or all), without the host's time between launches.
+    For a kernel faster than its host call, where CUDA events around a
+    loop of calls time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    if not rows:
+        raise AssertionError("torch.profiler recorded no device time")
+    return sum(r[1] for r in rows if tag is None or tag in r[0]) / 1e3 / reps
 
 
 def nbytes(*xs) -> int:
@@ -1092,6 +1126,14 @@ def bound(bytes_, ops_):
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
+def check_decode_repeats(label, out, q, kc, vc, lengths) -> None:
+    """A second call of the decode kernel on the same inputs gives the same
+    bits (its splits merge in split order)."""
+    again = decode_attention.decode_attention_cuda(q, kc, vc, lengths)
+    if not torch.equal(again, out):
+        raise AssertionError(f"decode {label}: a second call differs from the first")
+
+
 def phase_llm_kernels(dev) -> dict:
     """The three kernels against their plain versions on small ragged cases
     (float32 and bf16) and at hymba-1.5b's serving shapes (bf16), then timed
@@ -1127,9 +1169,25 @@ def phase_llm_kernels(dev) -> dict:
         err = rel_err("decode ragged", out, ref.decode_attention(q, kc, vc, lengths), LLM_TOL[dtype])
         if float(out[2].abs().max()) != 0.0:
             raise AssertionError("decode: a sequence with no valid position is not 0")
+        check_decode_repeats("ragged", out, q, kc, vc, lengths)
         errs["decode_attention"] = max(errs["decode_attention"], err)
         emit("llm_kernels", kernel="decode_attention", case="ragged", dtype=str(dtype),
-             lengths=lengths.tolist(), cache=[B, S, Hkv, D], max_rel_err=err)
+             lengths=lengths.tolist(), cache=[B, S, Hkv, D], max_rel_err=err,
+             splits=decode_attention.splits(B, S, Hq, Hkv, D, dtype), repeats_bitwise=True)
+        # hymba's 2,112-slot cache with ragged lengths: splits wholly past a length
+        size = LLM_S + LLM_NEW
+        kc, vc = (torch.randn((B, size, Hkv, D), generator=g).to(dev).to(dtype) for _ in range(2))
+        lengths = torch.tensor([0, 1, 63, 64, size], dtype=torch.int32, device=dev)
+        out = decode_attention.decode_attention_cuda(q, kc, vc, lengths)
+        err = rel_err("decode ragged 2,112", out, ref.decode_attention(q, kc, vc, lengths),
+                      LLM_TOL[dtype])
+        if float(out[0].abs().max()) != 0.0:
+            raise AssertionError("decode: a sequence with no valid position is not 0")
+        check_decode_repeats("ragged 2,112", out, q, kc, vc, lengths)
+        errs["decode_attention"] = max(errs["decode_attention"], err)
+        emit("llm_kernels", kernel="decode_attention", case="ragged 2,112", dtype=str(dtype),
+             lengths=lengths.tolist(), cache=[B, size, Hkv, D], max_rel_err=err,
+             splits=decode_attention.splits(B, size, Hq, Hkv, D, dtype), repeats_bitwise=True)
         # mLSTM: both flags, Dk != Dv, S off the chunk
         for normalize, S_, Dk, Dv, chunk in ((True, 150, 64, 64, 128), (True, 70, 24, 40, 16),
                                              (False, 300, 16, 128, 128), (False, 45, 8, 20, 32)):
@@ -1182,19 +1240,42 @@ def phase_llm_kernels(dev) -> dict:
         out = decode_attention.decode_attention_cuda(qd, kc, vc, lengths)
         err = rel_err(f"decode main {label}", out,
                       ref.decode_attention(qd, kc, vc, lengths), LLM_TOL[bf])
+        check_decode_repeats(f"main {label}", out, qd, kc, vc, lengths)
         errs["decode_attention"] = max(errs["decode_attention"], err)
-        ms, _ = timed(lambda: decode_attention.decode_attention_cuda(qd, kc, vc, lengths), 50)
-        plain_ms, _ = timed(lambda: ref.decode_attention(qd, kc, vc, lengths), 5)
+        # the kernel (~0.02 ms) is faster than its host call: its time and
+        # SDPA's are device time under the profiler, the calls' own wall per
+        # call (CUDA events over a loop) beside them. A decode step reads
+        # each layer's cache once, cold: the timed calls cycle through
+        # copies of the cache that together pass the 50 MB L2 (the same
+        # cache again, L2-warm, beside it)
+        n_copies = -(-128 * 2 ** 20 // nbytes(kc, vc))
+        copies = itertools.cycle([(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(n_copies)])
+        kernel = lambda: decode_attention.decode_attention_cuda(qd, *next(copies), lengths)
+        ms = device_ms(kernel, 200, "decode_kernel")
+        warm_ms = device_ms(lambda: decode_attention.decode_attention_cuda(qd, kc, vc, lengths), 200,
+                            "decode_kernel")
+        call_ms, _ = timed(kernel, 200)
+        plain_ms = device_ms(lambda: ref.decode_attention(qd, kc, vc, lengths), 5)
         bytes_ = nbytes(qd, kc, vc, lengths) + nbytes(qd)
         ops_ = 4 * D * B * Hq * size
         b_ms, b_by = bound(bytes_, ops_)
-        qt, kt, vt = qd[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
-        lib_ms, _ = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, enable_gqa=True), 10)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = lambda: sdpa(qd[:, :, None, :], *(x.transpose(1, 2) for x in next(copies)),
+                           enable_gqa=True)
+        lib_ms = device_ms(lib, 200)
+        lib_warm_ms = device_ms(lambda: sdpa(qd[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2),
+                                             enable_gqa=True), 200)
+        lib_call_ms, _ = timed(lib, 200)
+        del copies
         dec_rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                               library_ms=lib_ms, bytes=bytes_, max_rel_err=err)
+                               library_ms=lib_ms, bytes=bytes_, max_rel_err=err,
+                               ms_l2_warm=warm_ms, library_ms_l2_warm=lib_warm_ms,
+                               call_ms=call_ms, library_call_ms=lib_call_ms,
+                               clock="device time (torch.profiler), cache cold in L2")
+        splits = decode_attention.splits(B, size, Hq, Hkv, D, bf)
         emit("llm_kernels", kernel="decode_attention", timing=label, card=smi(),
-             cache=[B, size, Hkv, D], blocks=B * Hkv,
+             cache=[B, size, Hkv, D], splits=splits, blocks=B * Hkv * splits,
+             repeats_bitwise=True,
              library="F.scaled_dot_product_attention(enable_gqa=True)", **dec_rows[label])
     res["decode_attention"] = dict(dec_rows["global"], ring=dec_rows["ring"])
 
@@ -1435,10 +1516,11 @@ def bf16_bwd_row_limit(want32, magnitude=None) -> torch.Tensor:
     model): the float32 row limit (the sums' order), plus BF16_U of the
     row's largest magnitude sum where the kernel rounds operands to bf16
     before a product (dv: |P|^T |dout|, dk: scale |dS|^T |Q|, summed over
-    the GQA group, from ``ref.flash_attention_bwd_magnitudes``; dq rounds
-    none), plus one bf16 step at the binade of the row's max|plain| widened
-    by both: each side rounds its float32 result to nearest, half a step of
-    the binade the value lands in."""
+    the GQA group; dq: scale |dS| |K|; from
+    ``ref.flash_attention_bwd_magnitudes``), plus one bf16 step at the
+    binade of the row's max|plain| widened by both: each side rounds its
+    float32 result to nearest, half a step of the binade the value lands
+    in."""
     lim = bwd_row_limit(want32)
     if magnitude is not None:
         lim = lim + BF16_U * magnitude.double().amax(-1)
@@ -1457,7 +1539,7 @@ def check_flash_bwd(label, q, k, v, dout, dtype, **kw) -> dict:
     out, lse = flash_attention.flash_attention_cuda(q, k, v, **kw)
     got = flash_attention.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
     want = ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-    mags = (None, None)
+    mags = (None, None, None)
     if dtype == torch.float32:
         got32, want32 = got, want
     else:
@@ -1466,7 +1548,7 @@ def check_flash_bwd(label, q, k, v, dout, dtype, **kw) -> dict:
         want32 = ref.flash_attention_bwd(*up, lse, dout.float(), **kw)
         mags = ref.flash_attention_bwd_magnitudes(q, k, v, out, lse, dout, **kw)
     errs, f32_share, bf16_share, old_share = [], [], [], []
-    for name, a, b, a32, b32, mag in zip("qkv", got, want, got32, want32, (None, *mags)):
+    for name, a, b, a32, b32, mag in zip("qkv", got, want, got32, want32, mags):
         errs.append(rel_err(f"flash bwd {label} d{name} (float32)", a32, b32, BWD_TOL_F32))
         limit = bwd_row_limit(b32)
         f32_share.append(row_share(a32, b32, limit))
@@ -1527,7 +1609,9 @@ def phase_llm_train_kernels(dev) -> dict:
         err = max(err, r["err"])
         shares.append(dict(seed=seed, bf16_share_dq_dk_dv=r["bf16_share"],
                            old_share_dq_dk_dv=r["old_share"]))
-    emit("llm_train_kernels", check="bf16 backward row shares at the main shapes", seeds=shares)
+    emit("llm_train_kernels", check="bf16 backward row shares at the main shapes", seeds=shares,
+         dq_share_of_limit=[x["bf16_share_dq_dk_dv"][0] for x in shares],
+         dq_share_of_old_limit=[x["old_share_dq_dk_dv"][0] for x in shares])
     # the forward kernel at these shapes too (8 query heads a KV head), with
     # the bf16 and float32 limits phase_llm_kernels applies
     fwd_err = max(check_flash("train main", q, k, v, bf, phase="llm_train_kernels"),

@@ -203,9 +203,9 @@ int launch(const FlashArgs& a, int batch, cudaStream_t stream) {
 //
 // What the design does about it. These kernels are the simple kind,
 // float32 fused multiply-adds on the CUDA cores, so the 67 TFLOP/s fp32
-// rate is their ceiling. dq runs here in both types; dk/dv runs here for
-// float32 inputs, and for bf16 inputs on the tensor cores
-// (flash_bwd_dkv_mma_kernel, below). A row carries three (dq) or four
+// rate is their ceiling. They run for float32 inputs; bf16 inputs run dq
+// and dk/dv on the tensor cores (flash_bwd_dq_mma_kernel,
+// flash_bwd_dkv_mma_kernel, below). A row carries three (dq) or four
 // (dk/dv) head-dim vectors; one thread a row, as the forward has, would take
 // ~200 registers for them alone and spill. So four neighbouring threads share
 // a row, each holding 16 of its 64 dims, and the dot products s and dp are
@@ -443,52 +443,55 @@ __global__ void __launch_bounds__(kBwdKeys * kParts) flash_bwd_dkv_kernel(BwdArg
 }
 
 // ===========================================================================
-// bf16 on the tensor cores: the forward (flash_fwd_mma_kernel) and dk/dv
-// (flash_bwd_dkv_mma_kernel) for bf16 inputs. The float32 kernels above stay
-// for float32 inputs (no TF32); dq runs flash_bwd_dq_kernel in both types.
+// bf16 on the tensor cores: the forward (flash_fwd_mma_kernel), dq
+// (flash_bwd_dq_mma_kernel) and dk/dv (flash_bwd_dkv_mma_kernel) for bf16
+// inputs. The float32 kernels above stay for float32 inputs (no TF32).
 //
-// What bounds them. Both are bound by operations at the bf16 tensor-core
-// rate: at TinyLlama's shapes the forward does 2 products of 2 B Hq D
-// (S^2 / 2) operations (S = Q K^T, O = P V), 1.4e11, ~0.14 ms at 989
-// TFLOP/s, against ~0.1 GB of inputs and outputs (0.03 ms); dk/dv does 4
-// (S^T, dP^T, dV, dK), 2.8e11, ~0.28 ms. At D = 64 the exponentials come
+// What bounds them. All three are bound by operations at the bf16
+// tensor-core rate: at TinyLlama's shapes the forward does 2 products of
+// 2 B Hq D (S^2 / 2) operations (S = Q K^T, O = P V), 1.4e11, ~0.14 ms at
+// 989 TFLOP/s, against ~0.1 GB of inputs and outputs (0.03 ms); dq does 3
+// (S, dP, dQ), 2.1e11, ~0.21 ms; dk/dv 4 (S^T, dP^T, dV, dK), 2.8e11,
+// ~0.28 ms. At D = 64 the exponentials come
 // close behind: one a (row, key) pair against 256 product operations, and
 // the card's 16 exponentials a clock an SM match its tensor rate there.
 //
 // What the design does about it. Every product runs on
 // mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32: bf16 operands, float32 sums.
-// A warp owns a 16-row slab of its block's rows (the forward: 4 warps, 64
-// query rows of one (batch, head); dk/dv: 4 warps, 64 keys of one (batch,
-// KV head)), whose operand (Q, or K and V) it keeps in registers as A
-// fragments for the whole block; dk/dv takes each staged tile in passes of
-// 16 query rows, which keeps it at 164 registers and three blocks an SM. The other side streams through shared
-// memory in tiles of 64 rows (keys and values; or queries, output
-// gradients, lse and delta), copied with cp.async (16 B a thread,
-// zero-filled past the sequence's end) into two stages, so the next tile's
-// copy runs under this tile's products. A staged row is the head dim
-// zero-filled to 64 (128 B); its eight 16-B chunks are stored XOR-swizzled
-// by the row's low three bits, so the eight rows that one ldmatrix reads
-// hit eight different bank groups. Operands come out of shared memory by
-// ldmatrix (.trans where the staged rows are the product's k dimension: V
-// in P V, dout and Q in dV and dK). Products that follow a softmax take
-// their A operand from the accumulator fragments of the product before,
-// rounded to bf16 in registers (the m16n8 C layout of two neighbouring
-// 8-column tiles is the m16k16 A layout): P in P V; P^T and dS^T in dV and
-// dK. Sums, the softmax and lse stay in float32: scale multiplies the
-// float32 scores (folded with log2 e into one FMA before each ex2), l sums
-// the float32 p, and dK takes scale in its float32 epilogue. A head dim
-// below 64 runs D = 64's four k-steps over its zero fill: one unrolled
+// A warp owns a 16-row slab of its block's rows (the forward and dq: 4
+// warps, 64 query rows of one (batch, head); dk/dv: 4 warps, 64 keys of one
+// (batch, KV head)), whose operand (Q; Q and dout; or K and V) it keeps in
+// registers as A fragments for the whole block; dk/dv takes each staged
+// tile in passes of 16 query rows, which keeps it at 164 registers and
+// three blocks an SM. The other side streams through shared memory in tiles
+// of 64 rows (keys and values; or queries, output gradients, lse and
+// delta), copied with cp.async (16 B a thread, zero-filled past the
+// sequence's end) into two stages, so the next tile's copy runs under this
+// tile's products. A staged row is the head dim zero-filled to 64 (128 B);
+// its eight 16-B chunks are stored XOR-swizzled by the row's low three
+// bits, so the eight rows that one ldmatrix reads hit eight different bank
+// groups. Operands come out of shared memory by ldmatrix (.trans where the
+// staged rows are the product's k dimension: V in P V, K in dS K, dout and
+// Q in dV and dK). Products that follow a softmax take their A operand from
+// the accumulator fragments of the product before, rounded to bf16 in
+// registers (the m16n8 C layout of two neighbouring 8-column tiles is the
+// m16k16 A layout): P in P V; P^T and dS^T in dV and dK; dS in dQ = dS K. Sums, the softmax and lse stay in float32: scale
+// multiplies the float32 scores (folded with log2 e into one FMA before
+// each ex2), l sums the float32 p, and dQ and dK take scale in their
+// float32 epilogues. dq computes delta (out . dout, float32) in its
+// prologue, under the first tiles' copies, and writes it for dk/dv. A head
+// dim below 64 runs D = 64's four k-steps over its zero fill: one unrolled
 // body a kernel, and D < 64 is off the main path. Per-lane ldmatrix and
 // cp.async addresses are worked out once, outside the tile loop. Where D
-// is not a multiple of 8 or a pointer is not 16-B aligned,
-// the tiles are staged with plain loads instead (the kVec flag);
-// everything else is shared. Tiles outside the causal or window band are
+// is not a multiple of 8 or a pointer is not 16-B aligned, the tiles are
+// staged with plain loads instead (the kVec flag); everything else is
+// shared. Tiles outside the causal or window band are
 // skipped exactly, and tiles wholly inside it skip the mask. Blocks run
 // heaviest first under a causal mask. dk/dv keeps the float32 kernel's GQA
 // design: a block walks every query head of its KV head's group and writes
 // dk and dv once, with no atomics, so the result repeats bit for bit.
 // ===========================================================================
-constexpr int kFwdWarps = 4;                 // forward: query rows a block, 16 a warp
+constexpr int kFwdWarps = 4;                 // forward and dq: query rows a block, 16 a warp
 constexpr int kFwdRows = 16 * kFwdWarps;
 constexpr int kFwdThreads = 32 * kFwdWarps;
 constexpr int kDkvKeys = 64;                  // dk/dv: keys a block, 16 a warp
@@ -1005,6 +1008,166 @@ __global__ void __launch_bounds__(kDkvThreads) flash_bwd_dkv_mma_kernel(BwdArgs 
                         kv_stride, a.d, 1.0f, 1.0f);
 }
 
+// dq: a block per (batch, query head, 64 query rows), a warp per 16 rows.
+// Q and dout are staged once through the second K/V stage and kept as A
+// fragments; delta (out . dout in float32) is written for dk/dv; K and V
+// stream through the two stages. Per tile: S = Q K^T and dP = dout V^T,
+// P = ex2(scale log2e S - log2e lse) where kept, dS = P (dP - delta) in
+// float32, then dQ += dS K with dS rounded to bf16 from its C fragments.
+template <bool kVec>
+__global__ void __launch_bounds__(kFwdThreads) flash_bwd_dq_mma_kernel(BwdArgs a) {
+  __shared__ __align__(128) bf16 ks[2][kMmaTile * kLd];
+  __shared__ __align__(128) bf16 vs[2][kMmaTile * kLd];
+  __shared__ float dels[kFwdRows];
+  const int b = blockIdx.x / a.hq, h = blockIdx.x % a.hq;
+  const int hk = h / (a.hq / a.hkv);
+  const int tile = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
+  const size_t q_off = ((size_t)b * a.sq * a.hq + h) * a.d, q_stride = (size_t)a.hq * a.d;
+  const bf16* kg = static_cast<const bf16*>(a.k) + ((size_t)b * a.skv * a.hkv + hk) * a.d;
+  const bf16* vg = static_cast<const bf16*>(a.v) + ((size_t)b * a.skv * a.hkv + hk) * a.d;
+  const size_t kv_stride = (size_t)a.hkv * a.d;
+  const Lanes ln = lanes();
+  const uint32_t ks_a = smem_addr(ks), vs_a = smem_addr(vs);
+
+  // the key range any row of this tile can keep
+  const int row_lo = tile * kFwdRows;
+  const int pos_lo = row_lo + a.q_offset;
+  const int pos_hi = min(row_lo + kFwdRows, a.sq) - 1 + a.q_offset;
+  const int k_lo = a.window >= 0 ? max(0, pos_lo - a.window + 1) : 0;
+  const int k_hi = a.causal ? min(a.skv, pos_hi + 1) : a.skv;
+  const int k_first = (k_lo / kMmaTile) * kMmaTile;
+  const int n_tiles = k_hi > k_first ? (k_hi - k_first + kMmaTile - 1) / kMmaTile : 0;
+
+  if (kVec) {
+    zero_pad(&ks[0][0], 2 * kMmaTile, a.d);
+    zero_pad(&vs[0][0], 2 * kMmaTile, a.d);
+  }
+  // Q and dout through stage 1, the first K/V tile into stage 0
+  stage_tile<kVec, kFwdRows, kFwdThreads>(ks[1], static_cast<const bf16*>(a.q) + q_off, row_lo,
+                                          a.sq, q_stride, a.d);
+  stage_tile<kVec, kFwdRows, kFwdThreads>(vs[1], static_cast<const bf16*>(a.dout) + q_off, row_lo,
+                                          a.sq, q_stride, a.d);
+  if (n_tiles > 0) {
+    stage_tile<kVec, kMmaTile, kFwdThreads>(ks[0], kg, k_first, a.skv, kv_stride, a.d);
+    stage_tile<kVec, kMmaTile, kFwdThreads>(vs[0], vg, k_first, a.skv, kv_stride, a.d);
+  }
+  cp_async_commit();
+
+  // delta of row threadIdx / 2 over half its dims, under the copies
+  {
+    const int r = threadIdx.x >> 1, half = threadIdx.x & 1, row = row_lo + r;
+    float dsum = 0.0f;
+    if (row < a.sq) {
+      const size_t off = q_off + (size_t)row * q_stride;
+      const bf16* o = static_cast<const bf16*>(a.out) + off;
+      const bf16* dout = static_cast<const bf16*>(a.dout) + off;
+#pragma unroll 8
+      for (int c = 32 * half; c < min(32 * half + 32, a.d); ++c) {
+        dsum = __fmaf_rn(__bfloat162float(o[c]), __bfloat162float(dout[c]), dsum);
+      }
+    }
+    dsum = __fadd_rn(dsum, __shfl_xor_sync(kFull, dsum, 1));
+    if (half == 0) {
+      dels[r] = dsum;
+      if (row < a.sq) a.delta[((size_t)b * a.hq + h) * a.sq + row] = dsum;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[kNk][4], da[kNk][4];
+  load_a(smem_addr(ks[1]), warp * 16, ln, qa);
+  load_a(smem_addr(vs[1]), warp * 16, ln, da);
+
+  // rows r0 and r0 + 8 of this warp's slab: positions, lse and delta (rows
+  // past Sq: lse +inf, so p = 0)
+  const int r0 = row_lo + warp * 16 + gr;
+  const int qpos0 = r0 + a.q_offset, qpos1 = qpos0 + 8;
+  const float* lse = a.lse + ((size_t)b * a.hq + h) * a.sq;
+  const float nl0 = r0 < a.sq ? -__fmul_rn(lse[r0], kLog2e) : -INFINITY;
+  const float nl1 = r0 + 8 < a.sq ? -__fmul_rn(lse[r0 + 8], kLog2e) : -INFINITY;
+  const float del0 = dels[warp * 16 + gr], del1 = dels[warp * 16 + gr + 8];
+  const float scale2 = __fmul_rn(a.scale, kLog2e);
+  float dq[2 * kNk][4];
+#pragma unroll
+  for (int j = 0; j < 2 * kNk; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.0f;
+  __syncthreads();  // stage 1 is free for the next tile
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_first + it * kMmaTile;
+    if (it + 1 < n_tiles) {
+      const int st = (it + 1) & 1;
+      stage_tile<kVec, kMmaTile, kFwdThreads>(ks[st], kg, k0 + kMmaTile, a.skv, kv_stride, a.d);
+      stage_tile<kVec, kMmaTile, kFwdThreads>(vs[st], vg, k0 + kMmaTile, a.skv, kv_stride, a.d);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const uint32_t kt = ks_a + (it & 1) * kTileBytes, vt = vs_a + (it & 1) * kTileBytes;
+
+    // S = Q K^T and dP = dout V^T: 16 rows x 64 keys, float32
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kNk; ++kk) {
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t bb[4];
+        load_b_rows(kt, 16 * jp, kk, ln, bb);
+        mma16816(s[2 * jp], qa[kk], bb[0], bb[1]);
+        mma16816(s[2 * jp + 1], qa[kk], bb[2], bb[3]);
+        load_b_rows(vt, 16 * jp, kk, ln, bb);
+        mma16816(dp[2 * jp], da[kk], bb[0], bb[1]);
+        mma16816(dp[2 * jp + 1], da[kk], bb[2], bb[3]);
+      }
+    }
+    // P = exp(scale S - lse) where kept (the mask only where the tile is not
+    // inside the band for every row), dS = P (dP - delta)
+    const bool full = k0 + kMmaTile <= a.skv && (!a.causal || k0 + kMmaTile - 1 <= pos_lo) &&
+                      (a.window < 0 || k0 > pos_hi - a.window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool hi = e >= 2;
+        float p = ex2(__fmaf_rn(s[j][e], scale2, hi ? nl1 : nl0));
+        if (!full) {
+          const int kp = k0 + 8 * j + 2 * t + (e & 1);
+          const int qpos = hi ? qpos1 : qpos0;
+          const bool keep = kp < a.skv && (!a.causal || kp <= qpos) &&
+                            (a.window < 0 || kp > qpos - a.window);
+          p = keep ? p : 0.0f;
+        }
+        s[j][e] = __fmul_rn(p, __fsub_rn(dp[j][e], hi ? del1 : del0));
+      }
+    }
+    // dQ += dS K: dS rounded to bf16 from the score fragments, K by
+    // ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t dsa[4];
+      c_to_a(s, kk, dsa);
+#pragma unroll
+      for (int jp = 0; jp < kNk; ++jp) {
+        uint32_t bb[4];
+        load_b_cols(kt, 16 * kk, jp, ln, bb);
+        mma16816(dq[2 * jp], dsa, bb[0], bb[1]);
+        mma16816(dq[2 * jp + 1], dsa, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it is refilled
+  }
+  cp_async_wait<0>();
+
+  // dq takes scale in float32, written once in bf16
+  store_rows<kVec>(static_cast<bf16*>(a.dq) + q_off, dq, row_lo + warp * 16, a.sq, q_stride,
+                   a.d, a.scale, a.scale);
+}
+
 // cp.async and the paired stores need d % 8 == 0 and 16-B aligned bases
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
@@ -1025,10 +1188,13 @@ int flash_attention_limits(int* max_d) {
 }
 
 // Blocks an SM holds of the bf16 tensor-core kernels (cp.async builds):
-// forward, dk/dv. Returns a cudaError_t.
-int flash_attention_mma_occupancy(int* fwd, int* dkv) {
+// forward, dq, dk/dv. Returns a cudaError_t.
+int flash_attention_mma_occupancy(int* fwd, int* dq, int* dkv) {
   int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       fwd, flash_fwd_mma_kernel<true>, kFwdThreads, 0);
+  if (err != 0) return err;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      dq, flash_bwd_dq_mma_kernel<true>, kFwdThreads, 0);
   if (err != 0) return err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       dkv, flash_bwd_dkv_mma_kernel<true>, kDkvThreads, 0);
@@ -1060,7 +1226,8 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v, void
 }
 
 // The backward's first kernel: dq, and delta for the second. dtype: 0
-// float32, 1 bfloat16. window < 0: none. Returns a cudaError_t.
+// float32 (flash_bwd_dq_kernel), 1 bfloat16 (flash_bwd_dq_mma_kernel).
+// window < 0: none. Returns a cudaError_t.
 int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
                                   const void* out, const void* dout, const float* lse,
                                   float* delta, void* dq, int batch, int sq, int skv, int hq,
@@ -1069,12 +1236,18 @@ int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
   if (!bwd_shape_ok(batch, sq, skv, hq, hkv, d, dtype)) return (int)cudaErrorInvalidValue;
   BwdArgs a{q, k, v, out, dout, lse, delta, dq, nullptr, nullptr,
             sq, skv, hq, hkv, d, causal, window, q_offset, scale};
-  const dim3 grid(batch * hq, (sq + kBwdRows - 1) / kBwdRows);
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
+    const dim3 grid(batch * hq, (sq + kBwdRows - 1) / kBwdRows);
     flash_bwd_dq_kernel<float><<<grid, kBwdRows * kParts, 0, s>>>(a);
   } else {
-    flash_bwd_dq_kernel<__nv_bfloat16><<<grid, kBwdRows * kParts, 0, s>>>(a);
+    const dim3 grid(batch * hq, (sq + kFwdRows - 1) / kFwdRows);
+    if (d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) &&
+        aligned16(dq)) {
+      flash_bwd_dq_mma_kernel<true><<<grid, kFwdThreads, 0, s>>>(a);
+    } else {
+      flash_bwd_dq_mma_kernel<false><<<grid, kFwdThreads, 0, s>>>(a);
+    }
   }
   return (int)cudaGetLastError();
 }

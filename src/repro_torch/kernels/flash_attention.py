@@ -8,10 +8,11 @@ lse)``. :func:`flash_attention_bwd_cuda` runs the two backward kernels that
 replace ``flash_attention_bwd_pallas``: :func:`flash_attention_bwd_dq_cuda`
 (dq, and ``delta`` for the next one), then
 :func:`flash_attention_bwd_dkv_cuda` (dk and dv, a KV head's query heads
-summed in the kernel). bf16 inputs run the forward and dk/dv on the tensor
-cores (``flash_fwd_mma_kernel``, ``flash_bwd_dkv_mma_kernel``: bf16
-operands, float32 sums, p and ds rounded to bf16 before their products);
-float32 inputs, and dq in both types, run float32 CUDA-core kernels. Each
+summed in the kernel). bf16 inputs run all three on the tensor cores
+(``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``,
+``flash_bwd_dkv_mma_kernel``: bf16 operands, float32 sums, p and ds rounded
+to bf16 before their products); float32 inputs run float32 CUDA-core
+kernels. Each
 takes CUDA tensors in float32 or bf16, checks
 their device, dtype, shape and contiguity, allocates its outputs with
 ``torch.empty``, launches on the current stream and raises if the launch is
@@ -83,7 +84,7 @@ def _lib() -> ctypes.CDLL:
             getattr(lib, name).restype = _I
         lib.flash_attention_limits.argtypes = [ctypes.POINTER(_I)]
         lib.flash_attention_limits.restype = _I
-        lib.flash_attention_mma_occupancy.argtypes = [ctypes.POINTER(_I)] * 2
+        lib.flash_attention_mma_occupancy.argtypes = [ctypes.POINTER(_I)] * 3
         lib.flash_attention_mma_occupancy.restype = _I
         lib._repro_bound = True
     return lib
@@ -97,13 +98,14 @@ def limits() -> int:
 
 
 def mma_occupancy() -> Dict[str, int]:
-    """Blocks an SM holds of the bf16 tensor-core kernels (forward, dk/dv),
-    from the CUDA occupancy calculator."""
-    fwd, dkv = _I(), _I()
-    err = _lib().flash_attention_mma_occupancy(ctypes.byref(fwd), ctypes.byref(dkv))
+    """Blocks an SM holds of the bf16 tensor-core kernels (forward, dq,
+    dk/dv), from the CUDA occupancy calculator."""
+    vals = [_I() for _ in range(3)]
+    err = _lib().flash_attention_mma_occupancy(*(ctypes.byref(x) for x in vals))
     if err != 0:
         raise RuntimeError(f"flash_attention occupancy query failed: cudaError_t {err}")
-    return {"flash_attention_fwd": fwd.value, "flash_attention_bwd_dkv": dkv.value}
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    return {n: x.value for n, x in zip(names, vals)}
 
 
 def _shapes(q: torch.Tensor, k: torch.Tensor, window: Optional[int], what: str):

@@ -620,13 +620,14 @@ def flash_attention_bwd_magnitudes(
     window: Optional[int] = None,
     scale: Optional[float] = None,
     q_offset: int = 0,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(scale |ds|^T |q|, |p|^T |dout|)``, float32 ``[B, Skv, Hkv, D]``
-    summed over each KV head's query heads, with ``p`` and ``ds`` as
-    :func:`flash_attention_bwd` forms them: the sums of magnitudes behind dk
-    and dv. A kernel that rounds ``ds`` or ``p`` to a type with unit
-    roundoff ``u`` before those products moves each entry of dk or dv by at
-    most ``u`` times the entry here."""
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(scale |ds| |k|, scale |ds|^T |q|, |p|^T |dout|)`` in float32: the
+    first ``[B, Sq, Hq, D]``, the other two ``[B, Skv, Hkv, D]`` summed over
+    each KV head's query heads, with ``p`` and ``ds`` as
+    :func:`flash_attention_bwd` forms them: the sums of magnitudes behind dq,
+    dk and dv. A kernel that rounds ``ds`` or ``p`` to a type with unit
+    roundoff ``u`` before those products moves each entry of dq, dk or dv by
+    at most ``u`` times the entry here."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if Hq % Hkv:
@@ -645,10 +646,11 @@ def flash_attention_bwd_magnitudes(
     p.sub_(lse.to(f32)[..., None]).exp_().masked_fill_(~mask, 0.0)
     ds = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds.sub_(delta[..., None]).mul_(p).abs_()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf.abs()) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf.abs())
     del ds
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof.abs())
-    return dk.reshape(B, Skv, Hkv, rep, D).sum(3), dv.reshape(B, Skv, Hkv, rep, D).sum(3)
+    return dq, dk.reshape(B, Skv, Hkv, rep, D).sum(3), dv.reshape(B, Skv, Hkv, rep, D).sum(3)
 
 
 def decode_attention(

@@ -1,25 +1,26 @@
 """The bf16 tensor-core flash kernels' rounding, emulated in plain torch on
 the CPU, against the limits the card checks hold them to.
 
-The kernels (``csrc/flash_attention.cu`` ``flash_fwd_mma_kernel`` and
-``flash_bwd_dkv_mma_kernel``) sum in float32 but round two kinds of operand
-to bf16 before a tensor-core product: the forward's p before ``P V`` (l
-sums the float32 p), and dk/dv's ``P^T`` and ``dS^T`` before ``dV = P^T
-dout`` and ``dK = dS^T Q``. ``scale`` multiplies the float32 scores. The
-emulation below rounds at those points and nowhere else (the forward over
-64-key tiles with the kernel's online softmax). At the card checks' ragged
-shapes, bf16 inputs from a numpy seed:
+The kernels (``csrc/flash_attention.cu`` ``flash_fwd_mma_kernel``,
+``flash_bwd_dq_mma_kernel`` and ``flash_bwd_dkv_mma_kernel``) sum in
+float32 but round two kinds of operand to bf16 before a tensor-core product:
+the forward's p before ``P V`` (l sums the float32 p), dq's ``dS`` before
+``dQ = dS K``, and dk/dv's ``P^T`` and ``dS^T`` before ``dV = P^T dout``
+and ``dK = dS^T Q``. ``scale`` multiplies the float32 scores. The emulation
+below rounds at those points and nowhere else (the forward over 64-key
+tiles with the kernel's online softmax). At the card checks' ragged shapes,
+bf16 inputs from a numpy seed:
 
 - the emulated forward meets the forward's unchanged bf16 limits: 8e-3 of
   max|plain|, 2^-6 of each row's max|plain|, lse within 1e-5 and +inf on
   exactly the plain version's dead rows;
-- the emulated dk and dv meet the bf16 backward's rounding-model row limit
-  (:func:`bf16_bwd_row_limit`), and faults planted in the emulation fail it
-  (the limit is not vacuous);
+- the emulated dq, dk and dv meet the bf16 backward's rounding-model row
+  limit (:func:`bf16_bwd_row_limit`), and faults planted in the emulation
+  fail it (the limit is not vacuous);
 - without the bf16 rounding (float32 inputs) the emulation agrees with the
   reference's ``repro.kernels.ref.flash_attention`` and its ``jax.vjp``
   within the float32 limits (2e-5 of max|plain| forward, 1e-5 of each
-  gradient's largest entry backward).
+  gradient's largest entry backward: dq, dk and dv).
 """
 import jax
 import jax.numpy as jnp
@@ -137,6 +138,34 @@ def emulate_dkv(q, k, v, out, lse, dout, *, causal, window, q_offset, round_to=B
     return fold(dk), fold(dv)
 
 
+def emulate_dq(q, k, v, out, lse, dout, *, causal, window, q_offset, round_to=BF,
+               fault=None):
+    """The dq kernel's arithmetic: ``P = exp(scale S - lse)`` where kept,
+    ``dS = P (dP - delta)`` in float32, ``dQ = scale dS K`` from dS rounded
+    to ``round_to`` (K's values are exact in float32), scale in float32
+    after the product; dq in q's dtype. ``fault`` plants a defect a kernel
+    could have: ``"diagonal"`` drops the causal diagonal, ``"delta"`` delta
+    itself, ``"scale"`` the epilogue's scale."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    rep = Hq // Hkv
+    scale = D ** -0.5
+    kf = k.float().repeat_interleave(rep, 2)
+    vf = v.float().repeat_interleave(rep, 2)
+    qf, dof = q.float(), dout.float()
+    delta = torch.einsum("bqhd,bqhd->bhq", dof, out.float())
+    if fault == "delta":
+        delta = torch.zeros_like(delta)
+    mask = ref._attention_mask(Sq, k.shape[1], causal, window, q_offset, q.device)
+    if fault == "diagonal":
+        mask &= ~ref._attention_mask(Sq, k.shape[1], False, 1, q_offset, q.device)
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse[..., None])
+    p = p.masked_fill(~mask, 0.0)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", _round(ds, round_to), kf)
+    return (dq if fault == "scale" else dq * scale).to(q.dtype)
+
+
 def f32_row_limit(want32):
     """The float32 row limit (``chip_smoke.bwd_row_limit``): 1e-4 of the
     row's max|plain| plus 1e-5 of the gradient's."""
@@ -153,9 +182,9 @@ def bf16_bwd_row_limit(want32, magnitude=None):
     """The bf16 backward's row limit from plain values alone: the float32
     row limit, plus ``2^-8`` of the row's largest magnitude sum (the
     operands the kernel rounds: ``|P|^T |dout|`` for dv, ``scale |dS|^T
-    |Q|`` for dk; none for dq), plus one bf16 step at the binade of the
-    row's max|plain| widened by both (the two sides' outputs round to
-    nearest, each at most half a step of the binade it lands in)."""
+    |Q|`` for dk, ``scale |dS| |K|`` for dq), plus one bf16 step at the
+    binade of the row's max|plain| widened by both (the two sides' outputs
+    round to nearest, each at most half a step of the binade it lands in)."""
     lim = f32_row_limit(want32)
     if magnitude is not None:
         lim = lim + BF16_U * magnitude.double().amax(-1)
@@ -176,7 +205,8 @@ def _rel(got, want) -> float:
 
 def _plain_bwd(q, k, v, dout, kw):
     """The plain backward on bf16 values: ``(out, lse, grads in bf16,
-    grads of the same values in float32, (|dS| |Q| scale, |P| |dout|))``."""
+    grads of the same values in float32, (scale |dS| |K|, scale |dS|^T |Q|,
+    |P|^T |dout|))``."""
     out, lse = ref.flash_attention(q, k, v, **kw)
     want = ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     up = [x.float() for x in (q, k, v, out)]
@@ -208,7 +238,7 @@ def test_forward_emulation_meets_bf16_limits(case):
 def test_backward_emulation_meets_rounding_model(case):
     q, k, v, dout = _inputs(case, seed=case[1] + 1, dtype=BF)
     kw = _kw(case)
-    out, lse, want, want32, (dk_mag, dv_mag) = _plain_bwd(q, k, v, dout, kw)
+    out, lse, want, want32, (_, dk_mag, dv_mag) = _plain_bwd(q, k, v, dout, kw)
     got = emulate_dkv(q, k, v, out, lse, dout, **kw)
     for name, g, w, w32, mag in (("dk", got[0], want[1], want32[1], dk_mag),
                                  ("dv", got[1], want[2], want32[2], dv_mag)):
@@ -226,9 +256,34 @@ def test_rounding_model_rejects_planted_faults(case, fault):
     out, lse, want, want32, mags = _plain_bwd(q, k, v, dout, kw)
     got = emulate_dkv(q, k, v, out, lse, dout, fault=fault, **kw)
     shares = [row_share(g, w, bf16_bwd_row_limit(w32, mag))
-              for g, w, w32, mag in zip(got, want[1:], want32[1:], mags)]
+              for g, w, w32, mag in zip(got, want[1:], want32[1:], mags[1:])]
     # dropping delta leaves dv as it was; dk must fail
     assert max(shares) > 1.0, (fault, shares)
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_dq_emulation_meets_rounding_model(case):
+    """dq rounds dS to bf16 before ``dS K``: its rows meet the limit with
+    the term ``2^-8 scale |dS| |K|``."""
+    q, k, v, dout = _inputs(case, seed=case[1] + 1, dtype=BF)
+    kw = _kw(case)
+    out, lse, want, want32, mags = _plain_bwd(q, k, v, dout, kw)
+    got = emulate_dq(q, k, v, out, lse, dout, **kw)
+    assert got.dtype == BF and got.shape == want[0].shape
+    assert row_share(got, want[0], bf16_bwd_row_limit(want32[0], mags[0])) <= 1.0
+
+
+@pytest.mark.parametrize("fault", ["diagonal", "delta", "scale"])
+@pytest.mark.parametrize("case", [BWD_CASES[0], BWD_CASES[1], BWD_CASES[-1]])
+def test_dq_rounding_model_rejects_planted_faults(case, fault):
+    """dq's limit is not vacuous: a kernel that drops the causal diagonal,
+    delta or the epilogue's scale fails it on some row."""
+    q, k, v, dout = _inputs(case, seed=case[1] + 1, dtype=BF)
+    kw = _kw(case)
+    out, lse, want, want32, mags = _plain_bwd(q, k, v, dout, kw)
+    got = emulate_dq(q, k, v, out, lse, dout, fault=fault, **kw)
+    share = row_share(got, want[0], bf16_bwd_row_limit(want32[0], mags[0]))
+    assert share > 1.0, (fault, share)
 
 
 @pytest.mark.parametrize("case", BWD_CASES)
@@ -241,7 +296,7 @@ def test_rounding_model_against_the_old_limit(case):
     q, k, v, dout = _inputs(case, seed=case[1] + 1, dtype=BF)
     kw = _kw(case)
     _, _, want, want32, mags = _plain_bwd(q, k, v, dout, kw)
-    for name, w, w32, mag in zip(("dk", "dv"), want[1:], want32[1:], mags):
+    for name, w, w32, mag in zip(("dq", "dk", "dv"), want, want32, mags):
         old = f32_row_limit(w32) + bf16_step(w.double().abs().amax(-1))
         new = bf16_bwd_row_limit(w32, mag)
         top = w32.double().abs().amax(-1)
@@ -256,7 +311,7 @@ def test_rounding_model_against_the_old_limit(case):
 def test_emulation_without_rounding_matches_reference(case):
     """The emulated algorithm itself (tiles, online softmax, scale on the
     scores, masks, the GQA sum) against the reference in float32: the
-    forward against ``repro.kernels.ref.flash_attention``, dk and dv
+    forward against ``repro.kernels.ref.flash_attention``, dq, dk and dv
     against its ``jax.vjp``."""
     q, k, v, dout = _inputs(case, seed=case[1] + 2, dtype=torch.float32)
     kw = _kw(case)
@@ -270,11 +325,12 @@ def test_emulation_without_rounding_matches_reference(case):
     if bool(fin.any()):
         assert float((lse[fin] - want_lse[fin]).abs().max()) <= LSE_TOL * max(
             1.0, float(want_lse[fin].abs().max()))
+    dq = emulate_dq(q, k, v, out, lse, dout, round_to=None, **kw)
     dk, dv = emulate_dkv(q, k, v, out, lse, dout, round_to=None, **kw)
     _, vjp = jax.vjp(lambda a, b, c: jref.flash_attention(a, b, c, **kw),
                      *(jnp.asarray(x.numpy()) for x in (q, k, v)))
-    _, jdk, jdv = vjp(jnp.asarray(dout.numpy()))
-    for name, g, w in (("dk", dk, jdk), ("dv", dv, jdv)):
+    jdq, jdk, jdv = vjp(jnp.asarray(dout.numpy()))
+    for name, g, w in (("dq", dq, jdq), ("dk", dk, jdk), ("dv", dv, jdv)):
         w = np.asarray(w)
         if not np.abs(w).max():  # every row dead: exactly 0
             assert not g.abs().max(), name

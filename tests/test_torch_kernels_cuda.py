@@ -18,7 +18,7 @@ against the parallel form): their outputs within 2e-5 (attention) and 1e-4
 (mLSTM, whose exponentials amplify rounding) of the plain output's largest
 entry in float32, 8e-3 (two bf16 steps, each side rounds its output once)
 in bf16; flash's lse within 1e-5 where finite and +inf on the same rows.
-bf16 inputs run the forward and dk/dv on the tensor cores (p and ds
+bf16 inputs run the forward, dq and dk/dv on the tensor cores (p and ds
 rounded to bf16 before their products); the forward keeps the limits
 above, on 64-aligned and on unaligned inputs (a head dim off a multiple of
 8, a pointer off 16 bytes: tiles staged by plain loads).
@@ -29,12 +29,14 @@ result), and row by row within 1e-4 of the row's max|plain| plus 1e-5 of
 the gradient's (the float32 row limit). A bf16 row is held to a rounding
 model computed from plain values alone: the float32 row limit, plus 2^-8
 of the row's largest magnitude sum where the kernel rounds an operand to
-bf16 (dv: |P|^T |dout|, dk: scale |dS|^T |Q|, from
-``ref.flash_attention_bwd_magnitudes``; dq none), plus one bf16 step at the
+bf16 (dv: |P|^T |dout|, dk: scale |dS|^T |Q|, dq: scale |dS| |K|, from
+``ref.flash_attention_bwd_magnitudes``), plus one bf16 step at the
 binade of the row's max|plain| widened by both (each side rounds its
 float32 result once, to nearest).
-The decode and mLSTM kernels have no backward: on the card they raise when
-an input requires grad."""
+The decode kernel splits the cache over blocks and merges their partials
+in split order in the same launch: one launch a call, the same bits from
+call to call. The decode and mLSTM kernels have no backward: on the card
+they raise when an input requires grad."""
 import pytest
 import torch
 
@@ -265,20 +267,32 @@ def test_flash_attention_kernel_matches_plain(case, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,D", [(25, 5, 64), (8, 8, 20), (6, 2, 128)])
-def test_decode_attention_kernel_matches_plain(Hq, Hkv, D, dtype):
+@pytest.mark.parametrize("S,lengths", [
+    (300, [1, 300, 0, 77, 250]),
+    # hymba's 2,112-slot cache: empty, one position, around the 64-position
+    # step, full; splits wholly past a length
+    (2112, [0, 1, 63, 64, 2112]),
+])
+def test_decode_attention_kernel_matches_plain(Hq, Hkv, D, dtype, S, lengths):
     _need_cuda()
-    B, S = 5, 300
+    B = len(lengths)
     g = torch.Generator().manual_seed(D)
     q = _randn(g, B, Hq, D, dtype=dtype)
     kc, vc = _randn(g, B, S, Hkv, D, dtype=dtype), _randn(g, B, S, Hkv, D, dtype=dtype)
-    lengths = torch.tensor([1, S, 0, 77, 250], dtype=torch.int32, device="cuda")
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     before = decode_attention.LAUNCHES["decode_attention"]
     out = ops.decode_attention(q, kc, vc, lengths)
     torch.cuda.synchronize()
     assert decode_attention.LAUNCHES["decode_attention"] == before + 1
     want = ref.decode_attention(q, kc, vc, lengths)
     assert out.dtype == dtype and _rel_err(out, want) <= _LLM_TOL[dtype]
-    assert float(out[2].abs().max()) == 0.0
+    for b in range(B):
+        if int(lengths[b]) == 0:
+            assert float(out[b].abs().max()) == 0.0
+    again = ops.decode_attention(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    assert decode_attention.LAUNCHES["decode_attention"] == before + 2
+    assert torch.equal(again, out)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -374,13 +388,13 @@ def test_flash_bwd_kernels_match_plain(case, dtype):
     assert flash_attention.LAUNCHES["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"] + 1
     assert flash_attention.LAUNCHES["flash_attention_bwd_dkv"] == before["flash_attention_bwd_dkv"] + 1
     want = ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-    got32, want32, mags = got, want, (None, None)
+    got32, want32, mags = got, want, (None, None, None)
     if dtype == torch.bfloat16:
         up = [x.float() for x in (q, k, v, out)]
         got32 = flash_attention.flash_attention_bwd_cuda(*up, lse, dout.float(), **kw)
         want32 = ref.flash_attention_bwd(*up, lse, dout.float(), **kw)
         mags = ref.flash_attention_bwd_magnitudes(q, k, v, out, lse, dout, **kw)
-    for name, a, b, a32, b32, mag in zip("qkv", got, want, got32, want32, (None, *mags)):
+    for name, a, b, a32, b32, mag in zip("qkv", got, want, got32, want32, mags):
         assert a.dtype == dtype and a.shape == b.shape, name
         assert _rel_err(a32, b32) <= _BWD_TOL_F32, name
         assert _rows_within(a32, b32, _bwd_row_limit(b32)), name
@@ -410,7 +424,7 @@ def _unaligned(x):
 def test_flash_mma_kernels_take_unaligned_inputs(case, shift):
     """The bf16 tensor-core kernels where cp.async cannot stage the tiles
     (D % 8 != 0, or pointers off 16 bytes): the forward within its bf16
-    limits and dk/dv within the rounding-model row limit."""
+    limits, dq and dk/dv within the rounding-model row limit."""
     _need_cuda()
     B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset = case
     kw = dict(causal=causal, window=window, q_offset=q_offset)
@@ -425,14 +439,14 @@ def test_flash_mma_kernels_take_unaligned_inputs(case, shift):
     fin = torch.isfinite(want_lse)
     assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
     assert float((lse[fin] - want_lse[fin]).abs().max()) <= 1e-5 * max(1.0, float(want_lse[fin].abs().max()))
-    _, delta = flash_attention.flash_attention_bwd_dq_cuda(q, k, v, out, lse, dout, **kw)
-    got = flash_attention.flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, dout, **kw)
+    dq, delta = flash_attention.flash_attention_bwd_dq_cuda(q, k, v, out, lse, dout, **kw)
+    got = (dq, *flash_attention.flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, dout, **kw))
     torch.cuda.synchronize()
-    want = ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)[1:]
+    want = ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     up = [x.float() for x in (q, k, v, out)]
-    want32 = ref.flash_attention_bwd(*up, lse, dout.float(), **kw)[1:]
+    want32 = ref.flash_attention_bwd(*up, lse, dout.float(), **kw)
     mags = ref.flash_attention_bwd_magnitudes(q, k, v, out, lse, dout, **kw)
-    for name, a, b, b32, mag in zip(("dk", "dv"), got, want, want32, mags):
+    for name, a, b, b32, mag in zip(("dq", "dk", "dv"), got, want, want32, mags):
         assert _rows_within(a, b, _bf16_bwd_row_limit(b32, mag)), name
 
 
