@@ -25,8 +25,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    path's shapes: the outputs held against each other, the times taken
    with CUDA events, beside the least time the card could take;
 7. calibrate — the SELU-MLP kernel against its plain version at the
-   calibration path's shapes (forward and backward), timed beside its
-   bound; then the amortized calibration path at full width,
+   calibration path's shapes (forward and backward; N = 8,192, 4,096, the
+   Section-5 chains' N = 4 and a ragged 37; each bitwise equal),
+   timed by CUDA events and by profiler device time beside its bound and
+   its bound without FMA; then the amortized calibration path at full width,
    ``Fleet.from_scenarios(n=1024).calibrate(x_true, key,
    CalibrationConfig(), amortized=True)`` (65,536 presimulated tuples, 30
    epochs of the 4x128 classifier at batch 4,096), ``theta_star_all`` over
@@ -63,7 +65,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    events; decode, faster than its host call, by device time under
    ``torch.profiler`` on an L2-cold cache; bf16 flash runs the tensor-core
    forward, float32 the CUDA-core one; decode reports its splits of the
-   cache and blocks);
+   cache and blocks; bf16 SSD runs the tensor-core mLSTM kernel, held also
+   to its rounding model ``ref.mlstm_chunk_tc``, with its blocks, waves,
+   registers and shared memory);
 13. llm_serve — hymba-1.5b at full width (bf16, random weights from a seed):
    8 prompts of 2,048 tokens through ``make_prefill_step``, then 64 greedy
    ``make_serve_step`` steps, with tokens/s, launches per run, peak memory
@@ -426,19 +430,35 @@ def device_ms(fn, reps: int, tag=None) -> float:
     warm-up call: the kernels' time under ``torch.profiler`` (those whose
     name holds ``tag``, or all), without the host's time between launches.
     For a kernel faster than its host call, where CUDA events around a
-    loop of calls time the host."""
-    from torch.profiler import ProfilerActivity, profile
+    loop of calls time the host. The profiler misses the first device
+    events of a trace (on an H100 a few to a few dozen launches, at times
+    every launch of a short loop), so the ``reps`` calls are traced once
+    as a warm-up step that is thrown away and again as the step that is
+    read. A read step with no device event, or with a
+    count of ``tag``'s kernels that is not a multiple of ``reps`` (each
+    call launches the tagged kernel the same number of times), is taken
+    again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = device_rows(prof)
-    if not rows:
-        raise AssertionError("torch.profiler recorded no device time")
-    return sum(r[1] for r in rows if tag is None or tag in r[0]) / 1e3 / reps
+    for _ in range(3):
+        read = []  # the read step's rows: the profiler clears a step's events when it ends
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: read.append(device_rows(p))) as prof:
+            for _step in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        rows = read[0] if read else []
+        tagged = [r for r in rows if tag is None or tag in r[0]]
+        launches = sum(r[2] for r in tagged)
+        if rows and (tag is None or (launches and launches % reps == 0)):
+            return sum(r[1] for r in tagged) / 1e3 / reps
+    raise AssertionError(f"torch.profiler recorded no device time, or not every launch of "
+                         f"{tag!r}, in three profiles")
 
 
 def nbytes(*xs) -> int:
@@ -532,35 +552,49 @@ def mlp_grads(fn, x, ws, bs):
 
 def phase_selu_mlp(dev) -> dict:
     """The SELU-MLP kernel against its plain version at the calibration
-    path's shapes: N = 8,192 (every scenario's chains in one MCMC step) and
-    N = 4,096 (a training batch), F_in = 15. Forward outputs and
+    path's shapes: N = 8,192 (every scenario's chains in one MCMC step),
+    N = 4,096 (a training batch), N = 4 (the Section-5 launcher's chains in
+    one MCMC step) and a ragged N = 37, F_in = 15. Forward outputs and
     pre-activations within rtol/atol 1e-5 (the same ascending sums; expm1
-    may round differently); the autograd gradients of the BCE loss within
-    1e-4 of each tensor's largest entry (sums over the batch in torch
-    matmuls, from slightly different forwards). The forward is timed at
-    both sizes; the kernel line carries the MCMC shape."""
+    may round differently), and bitwise equal (the kernel keeps the plain
+    version's order of rounded operations, and the card-vs-CPU chain rests
+    on it: a differing bit fails the phase); the autograd gradients of the BCE loss within 1e-4 of each tensor's largest
+    entry (sums over the batch in torch matmuls, from slightly different
+    forwards). The forward is timed at every N with CUDA events and as
+    device time under ``torch.profiler`` (at small N the events time the
+    host's launch); the kernel line carries the MCMC shape."""
     out = {}
-    for n in (8192, 4096):
+    for n in (8192, 4096, 37, 4):
         x, ws, bs = mlp_net(n, MLP_IN, dev, seed=n)
         got, pre = selu_mlp.selu_mlp_cuda(x, ws, bs, save_pre=True)
         want, want_pre = ref.selu_mlp(x, ws, bs, return_pre=True)
         err = max(compare(f"selu_mlp N={n} out", got, want, False, 1e-5, 1e-5),
                   compare(f"selu_mlp N={n} pre", pre, want_pre, False, 1e-5, 1e-5))
+        bitwise = bool(torch.equal(got, want) and torch.equal(pre, want_pre))
+        if not bitwise:
+            raise AssertionError(f"selu_mlp N={n}: the kernel is not bitwise the plain version")
         g_k = mlp_grads(ops.selu_mlp, x, ws, bs)
         g_p = mlp_grads(lambda a, w, b: ref.selu_mlp(a, w, b), x, ws, bs)
         grad_rel = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(g_k, g_p))
         if grad_rel > 1e-4:
             raise AssertionError(f"selu_mlp N={n} gradients differ: {grad_rel} of the largest entry")
-        ms, _ = timed(lambda: selu_mlp.selu_mlp_cuda(x, ws, bs), 200)
+        kernel = lambda: selu_mlp.selu_mlp_cuda(x, ws, bs)
+        ms, _ = timed(kernel, 200)
+        dev_ms = device_ms(kernel, 200, "selu_mlp_kernel")
         plain_ms, _ = timed(lambda: ref.selu_mlp(x, ws, bs), 3)
         # operations: a multiply and an add per weight per row; bytes: the
-        # input rows and weights read once, the logits written once
+        # input rows and weights read once, the logits written once. The
+        # kernel keeps the plain version's rounded multiply, rounded add
+        # (no FMA), so its own floor executes both: twice the FMA bound
         ops_ = 2 * n * (MLP_IN * MLP_HIDDEN + (MLP_DEPTH - 1) * MLP_HIDDEN ** 2 + MLP_HIDDEN)
         bytes_ = nbytes(x, *ws, *bs) + 4 * n
         bound = max(bytes_ / PEAK_BYTES, ops_ / PEAK_FP32) * 1e3
-        out[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        out[n] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                      bound_ms_no_fma=max(bytes_ / PEAK_BYTES, 2 * ops_ / PEAK_FP32) * 1e3,
                       bound_by="bytes" if bytes_ / PEAK_BYTES >= ops_ / PEAK_FP32 else "operations",
-                      ops=ops_, bytes=bytes_, max_abs_err=err, grad_max_rel_err=grad_rel)
+                      ops=ops_, bytes=bytes_, max_abs_err=err, bitwise=bitwise,
+                      grad_max_rel_err=grad_rel,
+                      tile=list(selu_mlp.tile(n, MLP_IN, MLP_HIDDEN)))
         emit("calibrate", check="selu_mlp kernel vs plain", N=n, F_in=MLP_IN, card=smi(),
              library_ms=None, library="none: no single PyTorch call computes the SELU MLP",
              **out[n])
@@ -1097,13 +1131,33 @@ def mlstm_case(B, S, H, Dk, Dv, normalize, dtype, seed, dev):
     return q, k, v, ig.to(dev), fg.to(dev)
 
 
+def mlstm_model_share(out, model) -> float:
+    """The largest share of the tensor-core SSD kernel's limit against its
+    rounding model (``ref.mlstm_chunk_tc``): elementwise, one bf16 step of
+    the element (2^-7 of it: each side rounds its float32 result once, and
+    a rounded S_intra, kw or C may land one step apart where the two
+    float32 values straddle a rounding boundary) plus 2^-10 of max|model|
+    (the float32 sums in another order, through such steps)."""
+    g, m = out.double(), model.double()
+    limit = 2.0 ** -7 * m.abs() + 2.0 ** -10 * float(m.abs().max())
+    return float(((g - m).abs() / limit).max())
+
+
 def check_mlstm(label, args, dtype, chunk, normalize) -> float:
     out = mlstm_chunk.mlstm_chunk_cuda(*args, chunk=chunk, normalize=normalize)
     want = ref.mlstm_chunk_chunked(*args, chunk=chunk, normalize=normalize)
     tol = MLSTM_TOL_F32 if dtype == torch.float32 else LLM_TOL[dtype]
     err = rel_err(f"mlstm {label}", out, want, tol)
+    mma = mlstm_chunk.uses_mma(dtype, normalize, chunk)
+    extra = {}
+    if mma:
+        share = mlstm_model_share(out, ref.mlstm_chunk_tc(*args, chunk=chunk))
+        if not share <= 1.0:
+            raise AssertionError(f"mlstm {label}: {share} of the rounding model's limit")
+        extra = dict(model_limit_share=share)
     emit("llm_kernels", kernel="mlstm_chunk", case=label, dtype=str(dtype), normalize=normalize,
-         chunk=chunk, q=list(args[0].shape), v=list(args[2].shape), max_rel_err=err, tol=tol)
+         chunk=chunk, q=list(args[0].shape), v=list(args[2].shape), max_rel_err=err, tol=tol,
+         tensor_cores=mma, **extra)
     return err
 
 
@@ -1282,7 +1336,9 @@ def phase_llm_kernels(dev) -> dict:
     H, Dk, Dv, chunk = cfg.n_heads, cfg.ssm_state, cfg.ssm_expand * cfg.d_model // cfg.n_heads, 128
     args = mlstm_case(B, S, H, Dk, Dv, False, bf, seed=13, dev=dev)
     errs["mlstm_chunk"] = max(errs["mlstm_chunk"], check_mlstm("main SSD", args, bf, chunk, False))
-    ms, _ = timed(lambda: mlstm_chunk.mlstm_chunk_cuda(*args, chunk=chunk, normalize=False), 5)
+    ssd = lambda: mlstm_chunk.mlstm_chunk_cuda(*args, chunk=chunk, normalize=False)
+    ms, _ = timed(ssd, 20)
+    dev_ms = device_ms(ssd, 20, "mlstm")
     plain_ms, _ = timed(lambda: ref.mlstm_chunk_chunked(*args, chunk=chunk, normalize=False), 2)
     n_chunks = -(-S // chunk)
     # per chunk and (batch, head): scores and their products with v over the
@@ -1290,10 +1346,20 @@ def phase_llm_kernels(dev) -> dict:
     ops_ = B * H * n_chunks * 2 * (chunk * chunk // 2 * (Dk + Dv) + 2 * chunk * Dk * Dv)
     bytes_ = nbytes(*args) + args[2].numel() * args[2].element_size()
     b_ms, b_by = bound(bytes_, ops_)
-    res["mlstm_chunk"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                              library_ms=None, ops=ops_, bytes=bytes_)
+    res["mlstm_chunk"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=None, ops=ops_, bytes=bytes_)
+    # the tensor-core kernel's grid: a block of 8 warps per (batch, head,
+    # 128-wide Dv slice), its resident blocks an SM, waves, ptxas' registers
+    occ = mlstm_chunk.mma_occupancy(Dk)
+    blocks = B * H * -(-Dv // 128)
+    slots = torch.cuda.get_device_properties(dev).multi_processor_count * occ["blocks_per_sm"]
+    ptxas = {k_: v_ for k_, v_ in ptxas_by_kernel(_build.build_logs.get("mlstm_chunk", "")).items()
+             if k_.startswith("mlstm_ssd_mma_kernel")}
     emit("llm_kernels", kernel="mlstm_chunk", timing="main SSD", card=smi(),
-         shape=[B, S, H, Dk, Dv], chunk=chunk, blocks=B * H * -(-Dv // 64),
+         shape=[B, S, H, Dk, Dv], chunk=chunk, kernel_name="mlstm_ssd_mma_kernel",
+         tensor_cores=mlstm_chunk.uses_mma(bf, False, chunk), blocks=blocks, threads=256,
+         blocks_per_sm=occ["blocks_per_sm"], smem_bytes=occ["smem_bytes"],
+         waves=-(-blocks // slots), ptxas=ptxas,
          library="none: no single PyTorch call computes the chunkwise mLSTM / SSD cell",
          **res["mlstm_chunk"])
     for name, e in errs.items():
@@ -1314,6 +1380,19 @@ def greedy_decode(step, net, cache, logits, n: int):
     for _ in range(n):
         logits, cache = step(net, cache, logits.argmax(-1))
     return logits, cache
+
+
+def decode_vs_prefill(cfg, net, tokens, s: int, dev):
+    """The float32 logits of position ``s`` two ways: a prefill over the
+    ``s + 1`` tokens, and a prefill over the first ``s`` then one decode
+    step of token ``s``."""
+    b = tokens.shape[0]
+    full, _ = llm.make_prefill_step(cfg)(
+        net, llm.init_cache(cfg, b, s + 1, device=dev), {"tokens": tokens})
+    cache = llm.init_cache(cfg, b, s + 1, device=dev)
+    _, cache = llm.make_prefill_step(cfg)(net, cache, {"tokens": tokens[:, :s]})
+    stepped, _ = llm.make_serve_step(cfg)(net, cache, tokens[:, s])
+    return full.float(), stepped.float()
 
 
 def phase_llm_serve(dev) -> dict:
@@ -1397,7 +1476,8 @@ def phase_llm_serve(dev) -> dict:
         prof[label] = dict(
             device_s=dev_s, wall_s=wall, busy_share=dev_s / wall,
             flash_s=kern("flash_fwd"), decode_attention_s=kern("decode_kernel"),
-            mlstm_s=kern("mlstm_chunk_kernel"), device_launches=sum(r[2] for r in rows),
+            mlstm_s=kern("mlstm"), mlstm_share=kern("mlstm") / dev_s,
+            device_launches=sum(r[2] for r in rows),
             top=[[k_[:70], us / 1e6, n] for k_, us, n in rows[:10]])
         emit("llm_serve", profile=label, **prof[label])
     run["profile"] = prof
@@ -1410,19 +1490,11 @@ def phase_llm_serve(dev) -> dict:
     B1 = 2
     cfg32 = dataclasses.replace(cfg, dtype="float32")
 
-    def decode_vs_prefill(n_, c_):
-        full, _ = llm.make_prefill_step(c_)(
-            n_, llm.init_cache(c_, B1, S + 1, device=dev), {"tokens": tokens[:B1]})
-        c1 = llm.init_cache(c_, B1, S + 1, device=dev)
-        _, c1 = llm.make_prefill_step(c_)(n_, c1, {"tokens": tokens[:B1, :S]})
-        stepped, _ = llm.make_serve_step(c_)(n_, c1, tokens[:B1, S])
-        return full.float(), stepped.float()
-
     net32 = copy.deepcopy(net).float()
-    full32, step32 = decode_vs_prefill(net32, cfg32)
+    full32, step32 = decode_vs_prefill(cfg32, net32, tokens[:B1], S, dev)
     del net32
     err32 = rel_err("decode vs prefill (float32)", step32, full32, SERVE_F32_TOL)
-    full16, step16 = decode_vs_prefill(net, cfg)
+    full16, step16 = decode_vs_prefill(cfg, net, tokens[:B1], S, dev)
     scale = float(full32.abs().max())
     noise = float((full16 - full32).abs().max()) / scale
     err16 = rel_err("decode vs prefill (bf16)", step16, full16, SERVE_BF16_TOL)
@@ -1878,7 +1950,8 @@ def main() -> int:
         launches_by_run=by_stage,
         max_abs_err=max(v["max_abs_err"] for v in mlp.values()),
         ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
-        library_ms=None,
+        library_ms=None, bound_ms_no_fma=m["bound_ms_no_fma"], device_ms=m["device_ms"],
+        section5_shape={k_: mlp[4][k_] for k_ in ("ms", "device_ms", "bound_ms", "bound_ms_no_fma")},
     ))
     llm_replaces = {
         "flash_attention_fwd": "src/repro/kernels/flash_attention.py:122",

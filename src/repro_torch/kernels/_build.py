@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface and loaded with :mod:`ctypes` (no PyTorch headers, so a
-build takes seconds). The library's file name carries a hash of its source
-and flags, so an edited source builds anew and an unchanged one is reused.
+build takes seconds); ``csrc/*.cuh`` are headers the sources share. The
+library's file name carries a hash of its source, the headers and the
+flags, so an edited source or header builds anew and an unchanged one is
+reused.
 Libraries go to ``build/repro_torch/`` at the root of the checkout.
 
 Run ``python -m repro_torch.kernels._build`` to build every source, all
@@ -56,8 +58,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    # the source, the headers beside it (any source may include them) and
+    # the flags: a change to any of them builds anew
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

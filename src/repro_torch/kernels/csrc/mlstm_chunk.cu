@@ -17,26 +17,28 @@
 //
 // What bounds it on this card. At the serving path's SSD shapes (B 8, S
 // 2,048, H 25, Dk 16, Dv 128) the pass moves ~240 MB (q, k, v, gates in,
-// out) for ~4 GFLOP of products: bytes, ~0.07 ms at 3.35 TB/s.
+// out) for ~11 GFLOP of products: bytes, ~0.07 ms at 3.35 TB/s.
 //
-// What the design does about it. This first kernel is simple: no tensor
-// cores, float32 fused multiply-adds on the CUDA cores, one (batch, head,
-// 64-wide slice of Dv) per block walking its chunks in order, as the TPU
-// grid walks them; the slices of one head recompute the [c, c] scores
+// Two kernels. bf16 SSD (normalize = 0, chunks a multiple of 16) runs
+// mlstm_ssd_mma_kernel on the tensor cores (below); float32 inputs, the
+// mLSTM (normalize = 1) and other chunk sizes run mlstm_chunk_kernel, the
+// first, simple CUDA-core design: float32 fused multiply-adds, one (batch,
+// head, 64-wide slice of Dv) per block walking its chunks in order, as the
+// TPU grid walks them; the slices of one head recompute the [c, c] scores
 // (cheap at Dk 16) so that the state C [Dk, 64] fits in shared memory
-// beside the chunk's q, k, v and scores, and B H Dv / 64 = 400 blocks fill
-// the card at the serving shapes. Per chunk: the gates' inclusive cumsum
-// (one thread, in order), the scores and row quantities with two threads
-// per row, the [c, 64] output tile with a 4 x 8 register tile per thread
-// (the scores times v plus the inter-chunk term q C), then the state
-// update. The loads of a chunk are not overlapped with its compute
-// (cp.async / TMA double buffering come later). Dk up to 64 and chunks up
-// to 128 positions; xLSTM's Dk = 512 needs the state tiled over Dk too.
+// beside the chunk's q, k, v and scores. Per chunk: the gates' inclusive
+// cumsum (one thread, in order), the scores and row quantities with two
+// threads per row, the [c, 64] output tile with a 4 x 8 register tile per
+// thread (the scores times v plus the inter-chunk term q C), then the
+// state update. Dk up to 64 and chunks up to 128 positions in both; xLSTM's
+// Dk = 512 needs the state tiled over Dk too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "device_helpers.cuh"
 
 namespace {
 
@@ -319,6 +321,397 @@ int launch_dk(const MlstmArgs& a, int batch, cudaStream_t stream) {
   return launch<T, kMaxDk>(a, batch, stream);
 }
 
+// ===========================================================================
+// bf16 SSD on the tensor cores: mlstm_ssd_mma_kernel
+//
+// One block of 8 warps owns one (batch, head, 128-wide slice of Dv) and
+// walks its chunks in order (B H ceil(Dv / 128) blocks: 200 at hymba's
+// shapes, all resident at once at 2 blocks an SM on 132 SMs, one wave).
+// Chunk c + 1's q, k, v and gates are copied by cp.async into the second
+// of two stages while chunk c computes. Per chunk:
+//  - warp 0 scans the log decays (an inclusive scan of the warp, 4
+//    positions a lane) and writes, by position, F log2 e, (i - F) log2 e,
+//    exp(F), exp(f_end - F + i), and exp(f_end);
+//  - every thread writes kw = k exp(f_end - F + i), rounded to bf16;
+//  - warp (p, h) computes the output rows of the 16-row strips p and
+//    7 - p (equal causal work) and the Dv columns 64 h .. 64 h + 63: first
+//    scale exp(F_j) (q C) with C rounded to bf16 (mma, k = Dk), then for
+//    every 16-key tile up to the diagonal S = scale q k^T (mma, k = Dk),
+//    times exp2(F_j log2 e + (i_s - F_s) log2 e) where s <= j, rounded to
+//    bf16 from the accumulator fragments and multiplied into V (mma, k =
+//    16 keys), and writes the rows in bf16;
+//  - warp w moves columns 16 w .. 16 w + 15 of the state: C = exp(f_end) C
+//    + kw^T V (mma, A = kw^T by ldmatrix.trans, k = the chunk's keys), C in
+//    float32 fragments in registers from chunk to chunk, then rounded to
+//    bf16 into shared memory for the next chunk's q C.
+// So the operands rounded to bf16 are the float32 values S_intra, kw and
+// C, each only as an input to a product (repro_torch/kernels/ref.py
+// mlstm_chunk_tc rounds at the same points); the carried state stays
+// float32. Staged rows are XOR-swizzled by 16-B chunk, so the eight rows
+// an ldmatrix reads hit eight different bank groups. Dk up to 64 (DKP 16
+// or 64, zero-filled); chunks a multiple of 16 up to 128.
+// ===========================================================================
+constexpr int kTcWarps = 8;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcDv = 128;          // Dv columns a block
+constexpr int kTcVRow = 2 * kTcDv;  // bytes of a staged v (or C) row: 16 chunks of 16 B
+
+typedef __nv_bfloat16 bf16;
+
+template <int DKP>
+struct TcSmem {
+  static constexpr int kRow = 2 * DKP;                        // bytes of a q, k or kw row
+  static constexpr int kQ = kMaxC * kRow;                     // a q (or k, kw) tile
+  static constexpr int kV = kMaxC * kTcVRow;                  // a v tile
+  static constexpr int kStage = 2 * kQ + kV + 2 * 4 * kMaxC;  // q, k, v, i, f
+  static constexpr int kCs = DKP * kTcVRow;                   // C in bf16
+  static constexpr int kTotal = 2 * kStage + kQ + kCs + 4 * 4 * kMaxC + 16;
+};
+
+// byte offset of 16-B chunk c of staged q / k / kw row r (DKP / 8 chunks a
+// row), swizzled so that any 8 consecutive rows at one chunk hit 8 groups
+template <int DKP>
+__device__ __forceinline__ uint32_t qk_off(int r, int c) {
+  constexpr int cpr = DKP / 8, sh = cpr == 2 ? 2 : cpr == 4 ? 1 : 0;
+  return r * (2 * DKP) + ((c ^ ((r >> sh) & (cpr - 1))) << 4);
+}
+
+// byte offset of 16-B chunk c of staged v / C row r
+__device__ __forceinline__ uint32_t v_off(int r, int c) { return r * kTcVRow + ((c ^ (r & 7)) << 4); }
+
+struct SsdArgs {
+  const bf16* q;    // [B, S, H, Dk]
+  const bf16* k;    // [B, S, H, Dk]
+  const bf16* v;    // [B, S, H, Dv]
+  const float* ig;  // [B, S, H]
+  const float* fg;  // [B, S, H]
+  bf16* out;        // [B, S, H, Dv]
+  int s, h, dk, dv, chunk;
+  float scale, f_pad;
+  int vec;          // Dk, Dv multiples of 8 and q, k, v, out 16-B aligned
+};
+
+// Stage chunk positions c0 .. c0 + chunk - 1 of q, k, v (the block's Dv
+// slice) and the gates into one stage: rows past S and columns past Dk or
+// the slice zero; the gates as they are (the scan pads them).
+template <int DKP>
+__device__ __forceinline__ void ssd_stage(const SsdArgs& a, char* stage, int b, int h,
+                                          int dv0, int dvt, int c0) {
+  using L = TcSmem<DKP>;
+  const int t = threadIdx.x, C = a.chunk;
+  const uint32_t qs = smem_addr(stage), ks = qs + L::kQ, vs = ks + L::kQ;
+  float* gs = reinterpret_cast<float*>(stage + 2 * L::kQ + L::kV);
+  const size_t row_qk = (size_t)a.h * a.dk, row_v = (size_t)a.h * a.dv;
+  const bf16* qg = a.q + ((size_t)b * a.s * a.h + h) * a.dk;
+  const bf16* kg = a.k + ((size_t)b * a.s * a.h + h) * a.dk;
+  const bf16* vg = a.v + ((size_t)b * a.s * a.h + h) * a.dv + dv0;
+  if (a.vec) {
+    constexpr int cpr = DKP / 8;
+    for (int i = t; i < C * cpr; i += kTcThreads) {
+      const int r = i / cpr, c = i - r * cpr, pos = c0 + r;
+      const bool ok = pos < a.s && 8 * c < a.dk;
+      const size_t off = ok ? (size_t)pos * row_qk + 8 * c : 0;
+      cp_async16(qs + qk_off<DKP>(r, c), qg + off, ok);
+      cp_async16(ks + qk_off<DKP>(r, c), kg + off, ok);
+    }
+    for (int i = t; i < C * 16; i += kTcThreads) {
+      const int r = i >> 4, c = i & 15, pos = c0 + r;
+      const bool ok = pos < a.s && 8 * c < dvt;
+      cp_async16(vs + v_off(r, c), vg + (ok ? (size_t)pos * row_v + 8 * c : 0), ok);
+    }
+  } else {
+    for (int i = t; i < C * DKP; i += kTcThreads) {
+      const int r = i / DKP, d = i - r * DKP, pos = c0 + r;
+      const bool ok = pos < a.s && d < a.dk;
+      const uint32_t o = qk_off<DKP>(r, d >> 3) + 2 * (d & 7);
+      *reinterpret_cast<bf16*>(stage + o) = ok ? qg[(size_t)pos * row_qk + d] : __float2bfloat16(0.0f);
+      *reinterpret_cast<bf16*>(stage + L::kQ + o) =
+          ok ? kg[(size_t)pos * row_qk + d] : __float2bfloat16(0.0f);
+    }
+    for (int i = t; i < C * kTcDv; i += kTcThreads) {
+      const int r = i / kTcDv, col = i - r * kTcDv, pos = c0 + r;
+      const bool ok = pos < a.s && col < dvt;
+      *reinterpret_cast<bf16*>(stage + 2 * L::kQ + v_off(r, col >> 3) + 2 * (col & 7)) =
+          ok ? vg[(size_t)pos * row_v + col] : __float2bfloat16(0.0f);
+    }
+  }
+  for (int i = t; i < 2 * C; i += kTcThreads) {
+    const int r = i % C, pos = c0 + r;
+    const bool ok = pos < a.s;
+    const float* g = i < C ? a.ig : a.fg;
+    cp_async4(smem_addr(gs + i), g + (ok ? ((size_t)b * a.s + pos) * a.h + h : 0), ok);
+  }
+}
+
+template <int DKP>
+__global__ void __launch_bounds__(kTcThreads, DKP == 16 ? 2 : 1)
+    mlstm_ssd_mma_kernel(SsdArgs a) {
+  using L = TcSmem<DKP>;
+  constexpr int NK = DKP / 16;  // k-steps over the padded Dk; m-tiles of the state
+  extern __shared__ __align__(128) char ssm[];
+  char* kw = ssm + 2 * L::kStage;
+  char* cs = kw + L::kQ;
+  float* f2 = reinterpret_cast<float*>(cs + L::kCs);  // F log2 e
+  float* a2 = f2 + kMaxC;                             // (i - F) log2 e
+  float* inter = a2 + kMaxC;                          // exp(F)
+  float* ew = inter + kMaxC;                          // exp(f_end - F + i)
+  float* decay = ew + kMaxC;                          // [0] exp(f_end)
+
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31, gr = lane >> 2, tq = lane & 3;
+  const int l7 = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
+  const int dv0 = blockIdx.x * kTcDv, h = blockIdx.y, b = blockIdx.z;
+  const int dvt = min(kTcDv, a.dv - dv0);
+  const int C = a.chunk, n_str = C >> 4;
+  const int n_chunks = (a.s + C - 1) / C;
+  const uint32_t kw_a = smem_addr(kw), cs_a = smem_addr(cs);
+
+  // the state: this warp's 16 columns, every Dk row, float32 fragments
+  float cst[NK][2][4];
+#pragma unroll
+  for (int m = 0; m < NK; ++m) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cst[m][n][e] = 0.0f;
+    }
+  }
+  for (int i = t; i < L::kCs / 16; i += kTcThreads) {
+    reinterpret_cast<uint4*>(cs)[i] = make_uint4(0, 0, 0, 0);
+  }
+
+  ssd_stage<DKP>(a, ssm, b, h, dv0, dvt, 0);
+  cp_async_commit();
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    const int c0 = ci * C;
+    char* st = ssm + (ci & 1) * L::kStage;
+    if (ci + 1 < n_chunks) ssd_stage<DKP>(a, ssm + ((ci + 1) & 1) * L::kStage, b, h, dv0, dvt, c0 + C);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // chunk ci staged
+    const uint32_t qs = smem_addr(st), ks = qs + L::kQ, vs = ks + L::kQ;
+    const float* gs = reinterpret_cast<const float*>(st + 2 * L::kQ + L::kV);
+
+    // ---- the gates: inclusive scan of the log decays, 4 positions a lane ----
+    if (warp == 0) {
+      float lf[4], li[4], p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * lane + e;
+        const bool ok = j < C && c0 + j < a.s;
+        lf[e] = j < C ? (ok ? gs[C + j] : a.f_pad) : 0.0f;
+        li[e] = ok ? gs[j] : kNeg;
+        p[e] = e == 0 ? lf[0] : __fadd_rn(p[e - 1], lf[e]);
+      }
+      float x = p[3];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x = __fadd_rn(x, y);
+      }
+      float excl = __shfl_up_sync(0xffffffffu, x, 1);
+      if (lane == 0) excl = 0.0f;
+      const float f_end = __shfl_sync(0xffffffffu, __fadd_rn(excl, p[3]), (C >> 2) - 1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * lane + e;
+        if (j >= C) continue;
+        const float F = __fadd_rn(excl, p[e]);
+        f2[j] = __fmul_rn(F, kLog2e);
+        a2[j] = __fmul_rn(__fsub_rn(li[e], F), kLog2e);
+        inter[j] = expf(F);
+        ew[j] = expf(__fadd_rn(__fsub_rn(f_end, F), li[e]));
+      }
+      if (lane == 0) decay[0] = expf(f_end);
+    }
+    __syncthreads();
+
+    // ---- kw = k exp(f_end - F + i), rounded to bf16, in k's layout ----
+    for (int i = t; i < C * (DKP / 8); i += kTcThreads) {
+      const int r = i / (DKP / 8), c = i - r * (DKP / 8);
+      const uint32_t o = qk_off<DKP>(r, c);
+      const uint4 raw = *reinterpret_cast<const uint4*>(st + L::kQ + o);
+      const __nv_bfloat162* kv = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      const float w = ew[r];
+      uint4 res;
+      uint32_t* rp = reinterpret_cast<uint32_t*>(&res);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(kv[e]);
+        rp[e] = pack_bf16(__fmul_rn(f.x, w), __fmul_rn(f.y, w));
+      }
+      *reinterpret_cast<uint4*>(kw + o) = res;
+    }
+
+    // ---- output rows: strips p and n_str - 1 - p, columns 64 hh .. ----
+    {
+      const int p = warp & 3, hh = warp >> 2;
+      for (int si = 0; si < 2; ++si) {
+        const int strip = si == 0 ? p : n_str - 1 - p;
+        if (strip >= n_str || (si == 1 && strip <= p)) continue;
+        const int m0 = 16 * strip;
+        uint32_t qa[NK][4];
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+          ldsm_x4(qs + qk_off<DKP>(m0 + l7 + 8 * l8, 2 * kk + l16), qa[kk]);
+        }
+        float acc[8][4];
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+        }
+        // the inter-chunk term: q C, C in bf16
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+#pragma unroll
+          for (int jp = 0; jp < 4; ++jp) {
+            uint32_t bb[4];
+            ldsm_x4_t(cs_a + v_off(16 * kk + l7 + 8 * l8, 2 * (4 * hh + jp) + l16), bb);
+            mma16816(acc[2 * jp], qa[kk], bb[0], bb[1]);
+            mma16816(acc[2 * jp + 1], qa[kk], bb[2], bb[3]);
+          }
+        }
+        const int r_lo = m0 + gr, r_hi = r_lo + 8;
+        const float s_lo = __fmul_rn(a.scale, inter[r_lo]), s_hi = __fmul_rn(a.scale, inter[r_hi]);
+        const float f_lo = f2[r_lo], f_hi = f2[r_hi];
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          acc[n][0] = __fmul_rn(acc[n][0], s_lo);
+          acc[n][1] = __fmul_rn(acc[n][1], s_lo);
+          acc[n][2] = __fmul_rn(acc[n][2], s_hi);
+          acc[n][3] = __fmul_rn(acc[n][3], s_hi);
+        }
+        // the intra-chunk term, 16 keys a step up to the diagonal
+        for (int kt = 0; kt <= strip; ++kt) {
+          float sc[2][4];
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[n][e] = 0.0f;
+          }
+#pragma unroll
+          for (int kk = 0; kk < NK; ++kk) {
+            uint32_t bb[4];
+            ldsm_x4(ks + qk_off<DKP>(16 * kt + l7 + 8 * l16, 2 * kk + l8), bb);
+            mma16816(sc[0], qa[kk], bb[0], bb[1]);
+            mma16816(sc[1], qa[kk], bb[2], bb[3]);
+          }
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int s_ = 16 * kt + 8 * n + 2 * tq + (e & 1);
+              const int j = e < 2 ? r_lo : r_hi;
+              const float x = __fmul_rn(sc[n][e], a.scale);
+              sc[n][e] = s_ <= j ? __fmul_rn(x, ex2(__fadd_rn(e < 2 ? f_lo : f_hi, a2[s_]))) : 0.0f;
+            }
+          }
+          uint32_t sa[4];
+          c_to_a(sc, 0, sa);
+#pragma unroll
+          for (int jp = 0; jp < 4; ++jp) {
+            uint32_t bb[4];
+            ldsm_x4_t(vs + v_off(16 * kt + l7 + 8 * l8, 2 * (4 * hh + jp) + l16), bb);
+            mma16816(acc[2 * jp], sa, bb[0], bb[1]);
+            mma16816(acc[2 * jp + 1], sa, bb[2], bb[3]);
+          }
+        }
+        // the rows, in bf16
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int col = 64 * hh + 8 * n + 2 * tq;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int pos = c0 + (half ? r_hi : r_lo);
+            if (pos >= a.s || col >= dvt) continue;
+            bf16* o = a.out + (((size_t)b * a.s + pos) * a.h + h) * a.dv + dv0 + col;
+            if (a.vec) {
+              *reinterpret_cast<uint32_t*>(o) = pack_bf16(acc[n][2 * half], acc[n][2 * half + 1]);
+            } else {
+              o[0] = __float2bfloat16(acc[n][2 * half]);
+              if (col + 1 < dvt) o[1] = __float2bfloat16(acc[n][2 * half + 1]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // kw written; every read of C (bf16) done
+
+    // ---- the state to the chunk's end: C = exp(f_end) C + kw^T V ----
+    {
+      const float dc = decay[0];
+#pragma unroll
+      for (int m = 0; m < NK; ++m) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) cst[m][n][e] = __fmul_rn(cst[m][n][e], dc);
+        }
+      }
+      for (int kt = 0; kt < n_str; ++kt) {
+        uint32_t bb[4];
+        ldsm_x4_t(vs + v_off(16 * kt + l7 + 8 * l8, 2 * warp + l16), bb);
+#pragma unroll
+        for (int m = 0; m < NK; ++m) {
+          uint32_t aa[4];
+          ldsm_x4_t(kw_a + qk_off<DKP>(16 * kt + l7 + 8 * l16, 2 * m + l8), aa);
+          mma16816(cst[m][0], aa, bb[0], bb[1]);
+          mma16816(cst[m][1], aa, bb[2], bb[3]);
+        }
+      }
+      // C in bf16 for the next chunk's q C: rows d, columns 16 warp ..
+#pragma unroll
+      for (int m = 0; m < NK; ++m) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int col = 16 * warp + 8 * n + 2 * tq;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int d = 16 * m + gr + 8 * half;
+            *reinterpret_cast<uint32_t*>(cs + v_off(d, col >> 3) + 2 * (col & 7)) =
+                pack_bf16(cst[m][n][2 * half], cst[m][n][2 * half + 1]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // C complete; this stage free for chunk ci + 2
+  }
+  cp_async_wait<0>();
+}
+
+template <int DKP>
+int ssd_prepare(size_t* bytes) {
+  *bytes = TcSmem<DKP>::kTotal;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mlstm_ssd_mma_kernel<DKP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  return 0;
+}
+
+template <int DKP>
+int launch_ssd(const SsdArgs& a, int batch, cudaStream_t stream) {
+  size_t bytes;
+  int err = ssd_prepare<DKP>(&bytes);
+  if (err) return err;
+  const dim3 grid((a.dv + kTcDv - 1) / kTcDv, a.h, batch);
+  mlstm_ssd_mma_kernel<DKP><<<grid, kTcThreads, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int DKP>
+int ssd_occupancy(int* blocks_per_sm, int* smem_bytes) {
+  size_t bytes;
+  int err = ssd_prepare<DKP>(&bytes);
+  if (err) return err;
+  *smem_bytes = (int)bytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, mlstm_ssd_mma_kernel<DKP>, kTcThreads, bytes);
+}
+
 }  // namespace
 
 extern "C" {
@@ -330,6 +723,20 @@ int mlstm_chunk_limits(int* max_dk, int* max_chunk) {
   return 0;
 }
 
+// Whether a call runs the tensor-core SSD kernel: bf16, normalize = 0 and a
+// chunk that is a multiple of 16.
+int mlstm_chunk_uses_mma(int dtype, int normalize, int chunk) {
+  return dtype == 1 && normalize == 0 && chunk % 16 == 0;
+}
+
+// The tensor-core SSD kernel's resident blocks an SM and shared memory a
+// block at this Dk.
+int mlstm_chunk_mma_occupancy(int dk, int* blocks_per_sm, int* smem_bytes) {
+  if (dk < 1 || dk > kMaxDk) return (int)cudaErrorInvalidValue;
+  return dk <= 16 ? ssd_occupancy<16>(blocks_per_sm, smem_bytes)
+                  : ssd_occupancy<kMaxDk>(blocks_per_sm, smem_bytes);
+}
+
 // dtype: 0 float32, 1 bfloat16. Returns a cudaError_t.
 int mlstm_chunk_launch(const void* q, const void* k, const void* v, const float* ig,
                        const float* fg, void* out, int batch, int s, int h, int dk, int dv,
@@ -339,8 +746,15 @@ int mlstm_chunk_launch(const void* q, const void* k, const void* v, const float*
       dv < 1 || chunk < 1 || chunk > kMaxC || (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  MlstmArgs a{q, k, v, ig, fg, out, s, h, dk, dv, chunk, normalize, scale, eps, f_pad};
   cudaStream_t st = (cudaStream_t)stream;
+  if (mlstm_chunk_uses_mma(dtype, normalize, chunk)) {
+    const bool aligned = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 == 0;
+    SsdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+              static_cast<const bf16*>(v), ig, fg, static_cast<bf16*>(out),
+              s, h, dk, dv, chunk, scale, f_pad, aligned && dk % 8 == 0 && dv % 8 == 0};
+    return dk <= 16 ? launch_ssd<16>(a, batch, st) : launch_ssd<kMaxDk>(a, batch, st);
+  }
+  MlstmArgs a{q, k, v, ig, fg, out, s, h, dk, dv, chunk, normalize, scale, eps, f_pad};
   return dtype == 0 ? launch_dk<float>(a, batch, st) : launch_dk<__nv_bfloat16>(a, batch, st);
 }
 

@@ -6,7 +6,11 @@ reference's ``mlstm_chunk_pallas``: the matrix-memory cell, parallel inside
 chunks and recurrent across them, with ``normalize=True`` (xLSTM) or
 ``False`` (SSD). It takes CUDA tensors (q, k, v in float32 or bf16, the
 gates float32), checks them, allocates its output with ``torch.empty``,
-launches on the current stream and raises if the launch is refused.
+launches on the current stream and raises if the launch is refused. bf16
+SSD calls (``normalize=False``, chunks a multiple of 16) run the
+tensor-core kernel ``mlstm_ssd_mma_kernel`` (:func:`uses_mma`), whose
+bf16 rounding :func:`repro_torch.kernels.ref.mlstm_chunk_tc` models; the
+others run the CUDA-core ``mlstm_chunk_kernel``.
 :data:`LAUNCHES` counts its launches. The plain versions are
 :func:`repro_torch.kernels.ref.mlstm_chunk` (parallel form) and
 :func:`~repro_torch.kernels.ref.mlstm_chunk_chunked` (the kernel's own
@@ -22,7 +26,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import check_tensor, dtype_code
 
-__all__ = ["LAUNCHES", "reset_launches", "limits", "mlstm_chunk_cuda"]
+__all__ = ["LAUNCHES", "reset_launches", "limits", "uses_mma", "mma_occupancy",
+           "mlstm_chunk_cuda"]
 
 #: Launch count of the kernel, raised by one at every launch.
 LAUNCHES: Dict[str, int] = {"mlstm_chunk": 0}
@@ -43,6 +48,10 @@ def _lib() -> ctypes.CDLL:
         lib.mlstm_chunk_launch.restype = _I
         lib.mlstm_chunk_limits.argtypes = [ctypes.POINTER(_I)] * 2
         lib.mlstm_chunk_limits.restype = _I
+        lib.mlstm_chunk_uses_mma.argtypes = [_I] * 3
+        lib.mlstm_chunk_uses_mma.restype = _I
+        lib.mlstm_chunk_mma_occupancy.argtypes = [_I] + [ctypes.POINTER(_I)] * 2
+        lib.mlstm_chunk_mma_occupancy.restype = _I
         lib._repro_bound = True
     return lib
 
@@ -52,6 +61,22 @@ def limits() -> Tuple[int, int]:
     vals = [_I() for _ in range(2)]
     _lib().mlstm_chunk_limits(*(ctypes.byref(x) for x in vals))
     return tuple(x.value for x in vals)
+
+
+def uses_mma(dtype: torch.dtype, normalize: bool, chunk: int) -> bool:
+    """Whether a call with these arguments runs the tensor-core kernel."""
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    return bool(_lib().mlstm_chunk_uses_mma(code, int(normalize), int(chunk)))
+
+
+def mma_occupancy(dk: int) -> Dict[str, int]:
+    """The tensor-core kernel's resident blocks an SM and dynamic shared
+    memory a block at this ``Dk`` (on the current device)."""
+    blocks, smem = _I(), _I()
+    err = _lib().mlstm_chunk_mma_occupancy(int(dk), ctypes.byref(blocks), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"mlstm_chunk occupancy query failed: cudaError_t {err}")
+    return {"blocks_per_sm": blocks.value, "smem_bytes": smem.value}
 
 
 def mlstm_chunk_cuda(

@@ -43,6 +43,7 @@ __all__ = [
     "decode_attention",
     "mlstm_chunk",
     "mlstm_chunk_chunked",
+    "mlstm_chunk_tc",
 ]
 
 Tick = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
@@ -750,6 +751,32 @@ def mlstm_chunk_chunked(
     and ``m`` carried from chunk to chunk. ``S`` is padded to a multiple of
     ``chunk`` with ``i = -1e30`` (no contribution) and a log forget gate of
     0 (no decay)."""
+    return _mlstm_chunked(q, k, v, i_gate, f_gate, chunk=chunk, eps=eps,
+                          normalize=normalize, scale=scale, round_to=None)
+
+
+def mlstm_chunk_tc(
+    q: torch.Tensor,  # [B, S, H, Dk]
+    k: torch.Tensor,
+    v: torch.Tensor,  # [B, S, H, Dv]
+    i_gate: torch.Tensor,  # [B, S, H]
+    f_gate: torch.Tensor,  # [B, S, H]
+    *,
+    chunk: int = 128,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The rounding model of the bf16 SSD tensor-core kernel
+    (``csrc/mlstm_chunk.cu`` ``mlstm_ssd_mma_kernel``; ``normalize=False``):
+    :func:`mlstm_chunk_chunked` with the three float32 operands that the
+    kernel rounds to bf16 before a product rounded the same way, and
+    nowhere else: the intra-chunk scores ``S_intra`` before ``S_intra V``,
+    ``kw = k exp(w)`` before ``kw^T V`` and the carried state ``C`` before
+    ``q C`` (``C`` itself stays float32 from chunk to chunk)."""
+    return _mlstm_chunked(q, k, v, i_gate, f_gate, chunk=chunk, eps=0.0,
+                          normalize=False, scale=scale, round_to=torch.bfloat16)
+
+
+def _mlstm_chunked(q, k, v, i_gate, f_gate, *, chunk, eps, normalize, scale, round_to):
     B, S, H, Dk = q.shape
     Dv = v.shape[-1]
     if scale is None:
@@ -761,6 +788,9 @@ def mlstm_chunk_chunked(
     def chunked(x, value=0.0):  # [B, S, H, *] -> [B, H, n, c, *]
         x = F.pad(x, (0, 0, 0, 0, 0, pad), value=value) if pad else x
         return x.transpose(1, 2).reshape(B, H, n_chunks, chunk, -1)
+
+    def rnd(x):  # an operand as the kernel rounds it before a product
+        return x if round_to is None else x.to(round_to).to(f32)
 
     qf = chunked(q.to(f32) * scale)
     kf = chunked(k.to(f32))
@@ -785,7 +815,7 @@ def mlstm_chunk_chunked(
             m_row = torch.zeros_like(Fc)
         s_intra = (qc @ kc.transpose(-1, -2)) * torch.exp(dmat - m_row[..., None])
         inter = torch.exp(Fc + m[..., None] - m_row)
-        num = s_intra @ vc + inter[..., None] * (qc @ C)
+        num = rnd(s_intra) @ vc + inter[..., None] * (qc @ rnd(C))
         if normalize:
             qn = (qc @ n[..., None])[..., 0]
             denom = s_intra.sum(-1) + inter * qn
@@ -796,7 +826,7 @@ def mlstm_chunk_chunked(
         w = f_end[..., None] - Fc + lic
         m_new = torch.maximum(m + f_end, w.amax(dim=-1)) if normalize else m
         decay = torch.exp(m + f_end - m_new)
-        kw = kc * torch.exp(w - m_new[..., None])[..., None]
+        kw = rnd(kc * torch.exp(w - m_new[..., None])[..., None])
         C = decay[..., None, None] * C + kw.transpose(-1, -2) @ vc
         n = decay[..., None] * n + kw.sum(-2)
         m = m_new

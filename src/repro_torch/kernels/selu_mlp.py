@@ -9,6 +9,11 @@ checks their device, dtype, shape and contiguity, allocates its outputs with
 refused. :data:`LAUNCHES` counts its launches. The plain version lives in
 :mod:`repro_torch.kernels.ref` and :mod:`repro_torch.kernels.ops` dispatches
 between them by device.
+
+A block of the kernel owns ``row_groups x rows_per_thread`` rows (the
+tile); the launch picks it from N, the widths and the card's SM count, and
+:func:`tile` reports its choice. The tile changes no bit of the result:
+every output is one ascending sum.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["LAUNCHES", "reset_launches", "limits", "selu_mlp_cuda"]
+__all__ = ["LAUNCHES", "reset_launches", "limits", "tile", "selu_mlp_cuda"]
 
 #: Launch count of the kernel, raised by one at every launch.
 LAUNCHES: Dict[str, int] = {"selu_mlp": 0}
@@ -37,6 +42,8 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_repro_bound", False):
         lib.selu_mlp_launch.argtypes = [_P, _P, _P, _P, _P] + [_I] * 5 + [_P]
         lib.selu_mlp_launch.restype = _I
+        lib.selu_mlp_tile.argtypes = [_I] * 3 + [ctypes.POINTER(_I)] * 2
+        lib.selu_mlp_tile.restype = _I
         lib.selu_mlp_limits.argtypes = [ctypes.POINTER(_I)] * 4
         lib.selu_mlp_limits.restype = _I
         lib._repro_bound = True
@@ -49,6 +56,18 @@ def limits() -> Tuple[int, int, int, int]:
     vals = [_I() for _ in range(4)]
     _lib().selu_mlp_limits(*(ctypes.byref(v) for v in vals))
     return tuple(v.value for v in vals)
+
+
+def tile(n: int, f_in: int, hidden: int) -> Tuple[int, int]:
+    """The tile ``(row_groups, rows_per_thread)`` that the kernel takes for
+    ``n`` rows of ``f_in`` inputs and hidden width ``hidden`` on the current
+    device: the largest that still gives every SM a block, else the
+    smallest."""
+    rg, rpt = _I(), _I()
+    err = _lib().selu_mlp_tile(n, f_in, hidden, ctypes.byref(rg), ctypes.byref(rpt))
+    if err != 0:
+        raise ValueError(f"selu_mlp kernel takes no N={n}, F_in={f_in}, hidden={hidden}")
+    return rg.value, rpt.value
 
 
 def _check(name: str, x: torch.Tensor, shape: Tuple[int, ...]) -> int:

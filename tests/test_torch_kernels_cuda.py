@@ -11,13 +11,19 @@ held bitwise against it, and against ``ref.grid_tick`` within that
 tolerance.
 The SELU-MLP kernel sums in the plain version's order: logits and
 pre-activations within rtol/atol 1e-5 (expm1 may round differently), its
-autograd gradients within 1e-4 of each tensor's largest entry.
+autograd gradients within 1e-4 of each tensor's largest entry; at the
+tiles of small and ragged N (1, 4, 33, 8,197) bitwise equal to the plain
+version, and bitwise at N chosen so that the launch takes each of its
+tiles.
 The attention and mLSTM kernels sum in float32 in another order than their
 plain versions (online softmax against a full softmax, a chunked recurrence
 against the parallel form): their outputs within 2e-5 (attention) and 1e-4
 (mLSTM, whose exponentials amplify rounding) of the plain output's largest
 entry in float32, 8e-3 (two bf16 steps, each side rounds its output once)
 in bf16; flash's lse within 1e-5 where finite and +inf on the same rows.
+bf16 SSD (``normalize=False``) runs the tensor-core mLSTM kernel, held
+also to its rounding model ``ref.mlstm_chunk_tc`` elementwise: one bf16
+step of the element (2^-7 of it) plus 2^-10 of max|model|.
 bf16 inputs run the forward, dq and dk/dv on the tensor cores (p and ds
 rounded to bf16 before their products); the forward keeps the limits
 above, on 64-aligned and on unaligned inputs (a head dim off a multiple of
@@ -209,6 +215,64 @@ def test_selu_mlp_backward_matches_plain():
         assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
 
+def _bce_grads(fn, x, ws, bs):
+    labels = (torch.arange(x.shape[0], device=x.device) < x.shape[0] // 2).float()
+    leaves = [p.clone().requires_grad_() for p in ws + bs]
+    logits = fn(x, leaves[:len(ws)], leaves[len(ws):])[:, 0]
+    loss = (logits.clamp(min=0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))).mean()
+    return torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("n", [1, 4, 33, 8197])
+def test_selu_mlp_kernel_bitwise_at_small_and_ragged_n(n):
+    _need_cuda()
+    x, ws, bs = _mlp(n, 15, seed=n)
+    before = selu_mlp.LAUNCHES["selu_mlp"]
+    out, pre = selu_mlp.selu_mlp_cuda(x, ws, bs, save_pre=True)
+    torch.cuda.synchronize()
+    assert selu_mlp.LAUNCHES["selu_mlp"] == before + 1
+    want, want_pre = ref.selu_mlp(x, ws, bs, return_pre=True)
+    assert torch.equal(out, want) and torch.equal(pre, want_pre)
+    got = _bce_grads(ops.selu_mlp, x, ws, bs)
+    plain = _bce_grads(lambda a, w, b: ref.selu_mlp(a, w, b), x, ws, bs)
+    for g, w in zip(got, plain):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_selu_mlp_tiles_give_the_same_bits():
+    # N from the card's SM count, so that each tile is the launch's choice
+    # once: rows a block x SMs + 3 fills the card with that tile and not
+    # with the next larger one; 4 rows fill it with none
+    _need_cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    seen = set()
+    for n in (4, 8 * sms + 3, 16 * sms + 3, 32 * sms + 3, 64 * sms + 3):
+        x, ws, bs = _mlp(n, 15, seed=n)
+        tile = selu_mlp.tile(n, 15, 128)
+        seen.add(tile)
+        out, pre = selu_mlp.selu_mlp_cuda(x, ws, bs, save_pre=True)
+        want, want_pre = ref.selu_mlp(x, ws, bs, return_pre=True)
+        assert torch.equal(out, want) and torch.equal(pre, want_pre), (n, tile)
+    assert seen == {(8, 8), (8, 4), (8, 2), (8, 1), (4, 1)}, seen
+
+
+def test_selu_mlp_kernel_takes_weights_off_16_bytes():
+    _need_cuda()
+    x, ws, bs = _mlp(37, 15, seed=3)
+    # each weight matrix copied to a contiguous view one float past a
+    # 16-byte boundary: the kernel stages it by 4-byte copies
+    moved = []
+    for w in ws:
+        buf = torch.empty(w.numel() + 1, device=w.device)
+        view = buf[1:].view(w.shape)
+        view.copy_(w)
+        moved.append(view)
+    assert all(w.data_ptr() % 16 for w in moved)
+    out, pre = selu_mlp.selu_mlp_cuda(x, moved, bs, save_pre=True)
+    want, want_pre = ref.selu_mlp(x, ws, bs, return_pre=True)
+    assert torch.equal(out, want) and torch.equal(pre, want_pre)
+
+
 def test_selu_mlp_kernel_refuses_other_widths():
     _need_cuda()
     x, ws, bs = _mlp(16, 15, hidden=96)
@@ -320,6 +384,36 @@ def test_mlstm_kernel_matches_plain(normalize, S, Dk, Dv, chunk, dtype):
     tol = 1e-4 if dtype == torch.float32 else _LLM_TOL[dtype]
     assert out.dtype == dtype and _rel_err(out, want) <= tol
     assert _rel_err(out, ref.mlstm_chunk(q, k, v, ig, fg, normalize=normalize)) <= tol
+
+
+def _model_share(got, model):
+    g, m = got.double(), model.double()
+    return float(((g - m).abs() / (2.0 ** -7 * m.abs() + 2.0 ** -10 * float(m.abs().max()))).max())
+
+
+# (B, S, H, Dk, Dv, chunk): hymba's SSD shape; S off the chunk; Dk 8, Dv 20
+# (element staging: Dv off 8) with S off a 32-chunk; Dk 12 with a 48-chunk;
+# Dv 200 over two 128-wide slices
+@pytest.mark.parametrize("B,S,H,Dk,Dv,chunk", [
+    (8, 2048, 25, 16, 128, 128), (2, 300, 3, 16, 128, 128), (2, 45, 3, 8, 20, 32),
+    (2, 130, 3, 12, 40, 48), (1, 200, 2, 16, 200, 64),
+])
+def test_ssd_mma_kernel_matches_model_and_plain(B, S, H, Dk, Dv, chunk):
+    _need_cuda()
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(S + Dv)
+    q, k, v = (_randn(g, B, S, H, d, dtype=bf) for d in (Dk, Dk, Dv))
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g) - 2.0)
+    ig, fg = torch.log(dt + 1e-9).to("cuda"), (-dt).to("cuda")
+    assert mlstm_chunk.uses_mma(bf, False, chunk)
+    before = mlstm_chunk.LAUNCHES["mlstm_chunk"]
+    out = ops.mlstm_chunk(q, k, v, ig, fg, chunk=chunk, normalize=False)
+    torch.cuda.synchronize()
+    assert mlstm_chunk.LAUNCHES["mlstm_chunk"] == before + 1
+    assert out.dtype == bf and bool(torch.isfinite(out.float()).all())
+    assert _model_share(out, ref.mlstm_chunk_tc(q, k, v, ig, fg, chunk=chunk)) <= 1.0
+    want = ref.mlstm_chunk_chunked(q, k, v, ig, fg, chunk=chunk, normalize=False)
+    assert _rel_err(out, want) <= _LLM_TOL[bf]
 
 
 def test_llm_kernels_refuse_shapes_past_their_limits():
