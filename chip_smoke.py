@@ -8,9 +8,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. build   — compile every CUDA source under ``src/repro_torch/kernels/csrc``
    with ``nvcc`` (all at once) and load it; ptxas registers and spills by
-   kernel, the bf16 tensor-core kernels' blocks an SM;
-2. kernels — each kernel against its plain PyTorch version on the card, on a
-   7-family bank (bank-wide and per-replica keep/mu/sigma);
+   kernel, the bf16 tensor-core kernels' and the bank kernels' blocks an SM;
+2. kernels — each bank kernel against its plain PyTorch version on the
+   card, on a 7-family bank (bank-wide and per-replica keep/mu/sigma):
+   bitwise, since both take every sum in the order of the bank's segment
+   lists (the one tick also within RTOL/ATOL of the one-hot matmul);
 3. main    — ``Fleet.from_scenarios(n=1024).run(replicas=64)`` (65,536
    elements) in tick and leap mode, default and stochastic params, with the
    kernels' launch counts of each timed run (counts set to 0 just before
@@ -18,11 +20,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 4. parity  — bitwise window invariance (K=1 vs K=64) on 64 scenarios x 4
    replicas; the card's normals bitwise against the CPU path's (200,000
    keys x 11); the card's ``Fleet.run`` against the CPU path on a small
-   bank, default and stochastic (``bg_mu=2, bg_sigma=1.5``) params;
+   bank, default and stochastic (``bg_mu=2, bg_sigma=1.5``) params; the
+   calibration test fixture's run (theta (0.05, 40, 20), 2 replicas, key
+   42, leap) with ConPr exactly 0 at the same legs on both, Eq.-1 fits
+   within rtol 1e-4;
 5. profile — device time by kernel of one tick and one leap main-path run
    under ``torch.profiler``, and the device's busy share;
-6. timing  — each grid-tick kernel and its plain version at the main
-   path's shapes: the outputs held against each other, the times taken
+6. timing  — each bank kernel and its plain version at the main path's
+   shapes: the outputs held bitwise against each other, the times taken
    with CUDA events, beside the least time the card could take;
 7. calibrate — the SELU-MLP kernel against its plain version at the
    calibration path's shapes (forward and backward; N = 8,192, 4,096, the
@@ -135,12 +140,13 @@ from repro_torch.train import trainer as llm_trainer  # noqa: E402
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
-# plain vs kernel: integer and bool fields equal; float fields whose sums
-# run in another order (matmul vs ascending segment sums) within these
+# kernel vs a plain version whose sums run in another order (a one-hot
+# matmul, or the CPU path's regression solve): integer and bool fields
+# equal, float fields within these
 RTOL, ATOL = 1e-5, 1e-4
 
 N_SCEN, N_REP = 1024, 64
-BANK_KERNELS = ("grid_tick_bank_fused", "grid_tick_bank")
+BANK_KERNELS = ("grid_tick_bank_fused", "grid_tick_bank", "grid_tick_bank_sums")
 # the paper's Section-5 campaign as the calibration launcher compiles it
 # (T=106 legs, P=11 processes, L=1 link), the batch of one presimulation
 # chunk (512 thetas x 4 replicates) and the launcher's ground truth
@@ -200,10 +206,32 @@ def window_inputs(bank, R, K, dev, per_replica: bool, seed: int = 0):
              c.t_start, c.t_end, c.conth, c.conpr, c.bg)
     for _ in range(3):
         warm = torch.randn((K, S, R, L), generator=g).to(dev)
-        state = ref.grid_tick_bank_window(state, mu, sigma, *consts, leap=False, noise=warm)
+        state = ref.grid_tick_bank_window(state, mu, sigma, *consts, leap=False, noise=warm,
+                                          tables=spec.bank_tables)
         state = (state[0], torch.zeros_like(state[1])) + tuple(state[2:])
     noise = torch.randn((K, S, R, L), generator=g).to(dev)
-    return state, mu, sigma, consts, noise
+    return state, mu, sigma, consts, noise, spec.bank_tables
+
+
+def check_bank_tick(label, active, remaining, keep, bg, consts, tables) -> dict:
+    """The one-tick kernel against its plain version: bitwise against
+    ``ref.grid_tick_bank_indexed`` (the kernel's sum order), and within
+    RTOL/ATOL against the one-hot matmul of ``ref.grid_tick``; then the sums
+    kernel on the tick's transfers, bitwise against ``ref.bank_sums``. Max
+    abs errors against the former (0) by output."""
+    lp, pl, ll = consts[6], consts[7], consts[8]
+    got = ops.grid_tick_bank(active, remaining, keep, bg, consts[5], lp, pl, ll, tables=tables)
+    want = ref.grid_tick_bank_indexed(active, remaining, keep, bg, consts[5], lp, pl, tables)
+    keep3 = keep if keep.dim() == 3 else keep[:, None]
+    dense = ref.grid_tick(active, remaining, keep3, bg, consts[5][:, None],
+                          lp[:, None], pl[:, None], ll[:, None])
+    errs = {}
+    for n, g_, w_, d_ in zip(("xfer", "proc_xfer", "link_xfer"), got, want, dense):
+        errs[n] = compare(f"tick {label} {n}", g_, w_, exact=True)
+        compare(f"tick {label} {n} vs one-hot matmul", g_, d_, exact=False)
+    for n, g_, w_ in zip(("proc", "link"), ops.grid_tick_bank_sums(want[0], tables), want[1:]):
+        errs[f"sums_{n}"] = compare(f"sums {label} {n}", g_, w_, exact=True)
+    return errs
 
 
 def phase_build() -> dict:
@@ -216,6 +244,11 @@ def phase_build() -> dict:
          selu_mlp_max_hidden_in_out_depth=list(selu_mlp.limits()), card=smi(),
          ptxas={k: ptxas_by_kernel(v) for k, v in _build.build_logs.items()},
          flash_mma_blocks_per_sm=occupancy)
+    # the bank kernels' registers, spills and blocks an SM on their own line
+    bank_ptxas = {k: v for k, v in ptxas_by_kernel(_build.build_logs.get("grid_tick", "")).items()
+                  if "bank_" in k}
+    emit("build", kernel="bank_fused_kernel, bank_tick_kernel", ptxas=bank_ptxas,
+         blocks_per_sm=grid_tick.bank_occupancy())
     # the bf16 dq kernel's registers, spills and blocks an SM on their own line
     dq_ptxas = {k: v for k, v in ptxas_by_kernel(_build.build_logs.get("flash_attention", "")).items()
                 if k.startswith("flash_bwd_dq_mma_kernel")}
@@ -238,18 +271,24 @@ def ptxas_by_kernel(log: str) -> dict:
 
 
 def phase_kernels(dev) -> dict:
+    """The bank kernels against their plain versions on a 64-scenario bank:
+    the fused window bitwise on every carry field, the one tick bitwise on
+    its three outputs (``remaining`` finite, and ``inf`` as the leap scan
+    calls it), and the sums kernel bitwise on the tick's transfers."""
     bank = build_bank(n=64, seed=0)
     R, K = 8, 16
-    errs = {"grid_tick_bank_fused": 0.0, "grid_tick_bank": 0.0}
+    errs = {"grid_tick_bank_fused": 0.0, "grid_tick_bank": 0.0, "grid_tick_bank_sums": 0.0}
     for per_replica in (False, True):
-        state, mu, sigma, consts, noise = window_inputs(bank, R, K, dev, per_replica)
-        want = ref.grid_tick_bank_window(state, mu, sigma, *consts, leap=False, noise=noise)
-        got = ops.grid_tick_bank_fused(state, mu, sigma, *consts, window=K, noise=noise)
+        state, mu, sigma, consts, noise, tables = window_inputs(bank, R, K, dev, per_replica)
+        want = ref.grid_tick_bank_window(state, mu, sigma, *consts, leap=False, noise=noise,
+                                         tables=tables)
+        got = ops.grid_tick_bank_fused(state, mu, sigma, *consts, window=K, noise=noise,
+                                       tables=tables)
         fields = {}
         for name, g_, w_ in zip(ref.BANK_WINDOW_STATE_FIELDS, got, want):
-            fields[name] = compare(f"fused {name}", g_, w_, exact=False)
+            fields[name] = compare(f"fused {name}", g_, w_, exact=True)
         errs["grid_tick_bank_fused"] = max(errs["grid_tick_bank_fused"], *fields.values())
-        emit("kernels", kernel="grid_tick_bank_fused", per_replica=per_replica,
+        emit("kernels", kernel="grid_tick_bank_fused", per_replica=per_replica, bitwise=True,
              S=bank.n_scenarios, R=R, K=K, max_abs_err=fields,
              alive_steps=int(got[1].sum()))
 
@@ -257,17 +296,14 @@ def phase_kernels(dev) -> dict:
         g = torch.Generator(device="cpu").manual_seed(1)
         done, remaining, bg = state[3], state[2], state[9]
         active = ((torch.rand(done.shape, generator=g).to(dev) < 0.7) & ~done).float()
-        keep = consts[4]
-        lp, pl, ll = consts[6], consts[7], consts[8]
-        keep3 = keep if keep.dim() == 3 else keep[:, None]
-        want = ref.grid_tick(active, remaining, keep3, bg, consts[5][:, None],
-                             lp[:, None], pl[:, None], ll[:, None])
-        got = ops.grid_tick_bank(active, remaining, keep, bg, consts[5], lp, pl, ll)
-        fields = {n: compare(f"tick {n}", g_, w_, exact=False)
-                  for n, g_, w_ in zip(("xfer", "proc_xfer", "link_xfer"), got, want)}
-        errs["grid_tick_bank"] = max(errs["grid_tick_bank"], *fields.values())
-        emit("kernels", kernel="grid_tick_bank", per_replica=per_replica,
-             S=bank.n_scenarios, R=R, max_abs_err=fields)
+        for label, rem in (("remaining", remaining), ("inf", torch.full_like(remaining, float("inf")))):
+            fields = check_bank_tick(label, active, rem, consts[4], bg, consts, tables)
+            errs["grid_tick_bank"] = max(errs["grid_tick_bank"], fields["xfer"],
+                                         fields["proc_xfer"], fields["link_xfer"])
+            errs["grid_tick_bank_sums"] = max(errs["grid_tick_bank_sums"], fields["sums_proc"],
+                                              fields["sums_link"])
+            emit("kernels", kernel="grid_tick_bank", per_replica=per_replica, remaining=label,
+                 bitwise=True, S=bank.n_scenarios, R=R, max_abs_err=fields)
     torch.cuda.synchronize()
     return errs
 
@@ -347,6 +383,25 @@ def phase_parity(dev) -> None:
                                   getattr(c, f), exact=False)
             emit("parity", check="card vs CPU path", params=label, leap=leap, scenarios=7,
                  replicas=2, max_abs_err=errs)
+    # the calibration fixture's run (theta (0.05, 40, 20), 2 replicas, key
+    # 42, leap): ConPr is exactly 0 at the same legs on the card as on the
+    # CPU (a link that carries one process adds exact zeros), and the Eq.-1
+    # fits agree
+    runs = {}
+    for where in (dev, "cpu"):
+        fleet = Fleet.from_scenarios(n=7, seed=0, max_ticks=2000, leap=True, device=where)
+        runs[str(where)] = fleet.run(torch.tensor(THETA_TRUE), replicas=2, key=prng.PRNGKey(42))
+    g, c = runs[str(dev)], runs["cpu"]
+    zeros_g, zeros_c = (g.conpr_mb == 0).cpu(), c.conpr_mb == 0
+    differ = int((zeros_g != zeros_c).sum())
+    coef_g = calibration._eq1_coefficients(g).cpu()
+    coef_c = calibration._eq1_coefficients(c)
+    emit("parity", check="conpr exact zeros card vs CPU", theta=list(THETA_TRUE), replicas=2,
+         key=42, leap=True, zeros_card=int(zeros_g.sum()), zeros_cpu=int(zeros_c.sum()),
+         differ=differ, eq1_max_abs_diff=float((coef_g - coef_c).abs().max()))
+    if differ:
+        raise AssertionError(f"conpr_mb is exactly 0 at {differ} legs on one side only")
+    compare("Eq.-1 coefficients card vs CPU", coef_g, coef_c, exact=False, rtol=1e-4, atol=1e-6)
 
 
 def device_rows(prof):
@@ -399,10 +454,11 @@ def phase_profile(dev, main_run: dict) -> dict:
         wall = walls[(mode, "default")]
         fused = sum(r[1] for r in rows if "bank_fused_kernel" in r[0]) / 1e6
         tick = sum(r[1] for r in rows if "bank_tick_kernel" in r[0]) / 1e6
+        sums = sum(r[1] for r in rows if "bank_sums_kernel" in r[0]) / 1e6
         out[mode] = dict(
             device_s=total_s, wall_s=wall,
             busy_share=total_s / wall if total_s else None,
-            grid_tick_kernels_s=fused + tick,
+            grid_tick_kernels_s=fused + tick + sums, bank_sums_kernel_s=sums,
             device_kernels=len(rows),
             device_launches=sum(r[2] for r in rows),
             top=[[k[:70], us / 1e6, n] for k, us, n in rows[:8]],
@@ -437,12 +493,14 @@ def device_ms(fn, reps: int, tag=None) -> float:
     read. A read step with no device event, or with a
     count of ``tag``'s kernels that is not a multiple of ``reps`` (each
     call launches the tagged kernel the same number of times), is taken
-    again, up to three times."""
+    again, up to six times (a read step missed launches in three profiles
+    running on an H100 in a row once)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    seen = []
+    for _ in range(6):
         read = []  # the read step's rows: the profiler clears a step's events when it ends
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1),
@@ -457,8 +515,9 @@ def device_ms(fn, reps: int, tag=None) -> float:
         launches = sum(r[2] for r in tagged)
         if rows and (tag is None or (launches and launches % reps == 0)):
             return sum(r[1] for r in tagged) / 1e3 / reps
+        seen.append(launches)
     raise AssertionError(f"torch.profiler recorded no device time, or not every launch of "
-                         f"{tag!r}, in three profiles")
+                         f"{tag!r} ({reps} calls), in six profiles: {seen} launches")
 
 
 def nbytes(*xs) -> int:
@@ -469,7 +528,8 @@ def phase_timing(dev) -> dict:
     """Each kernel and its plain version on the main path's inputs: the
     fused kernel over one K=32 window of the stochastic tick run's first
     carry, the one-tick kernel with ``remaining = inf`` as the leap scan
-    calls it. The outputs are held against each other, then timed."""
+    calls it, the sums kernel on that tick's transfers. The outputs are
+    held against each other, then timed."""
     bank = build_bank(n=N_SCEN, seed=0)
     S, R, K = N_SCEN, N_REP, 32
     T, P, L = bank.pad_legs, bank.pad_procs, bank.pad_links
@@ -483,17 +543,17 @@ def phase_timing(dev) -> dict:
              c.t_start, c.t_end, c.conth, c.conpr, c.bg)
     noise = torch.randn((K, S, R, L), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(0))
-    tables = spec.index_tables
+    tables = spec.bank_tables
     f32 = torch.float32
-    args = (state, noise, mu.contiguous(), sigma.contiguous(), *consts[:5], consts[5], *tables)
+    args = (state, noise, mu.contiguous(), sigma.contiguous(), *consts[:5], consts[5], tables)
     fused_ms, got = timed(lambda: grid_tick.grid_tick_bank_fused_cuda(*args), 20)
     alive_steps = int(got[1].sum())
     plain_fused_ms, want = timed(lambda: ref.grid_tick_bank_window(
-        state, mu, sigma, *consts, leap=False, noise=noise), 2)
-    fused_errs = {name: compare(f"fused {name} at main shapes", g_, w_, exact=False)
+        state, mu, sigma, *consts, leap=False, noise=noise, tables=tables), 2)
+    fused_errs = {name: compare(f"fused {name} at main shapes", g_, w_, exact=True)
                   for name, g_, w_ in zip(ref.BANK_WINDOW_STATE_FIELDS, got, want)}
     # bytes: carry in and out once, the window's noise, the scenario tables
-    fused_bytes = 2 * nbytes(*state) + nbytes(noise, mu, sigma, *consts[:6], *tables)
+    fused_bytes = 2 * nbytes(*state) + nbytes(noise, mu, sigma, *consts[:6], tables.packed)
     # fp32 operations per alive element-tick: ~14 per leg (share, sums,
     # accumulators) and ~5 per link (resample, fair-share denominator)
     fused_ops = alive_steps * (14 * T + 5 * L)
@@ -505,18 +565,33 @@ def phase_timing(dev) -> dict:
     remaining = torch.full((S, R, T), float("inf"), dtype=f32, device=dev)
     bg = torch.rand((S, R, L), generator=g).to(dev)
     keep = p.keep_frac.contiguous()
-    targs = (active, remaining, keep, bg, spec.bandwidth.to(f32), *tables)
+    targs = (active, remaining, keep, bg, spec.bandwidth.to(f32), tables)
     tick_ms, got = timed(lambda: grid_tick.grid_tick_bank_cuda(*targs), 50)
-    keep3 = keep[:, None]
-    plain_tick_ms, want = timed(lambda: ref.grid_tick(
-        active, remaining, keep3, bg, spec.bandwidth[:, None], spec.leg_proc[:, None],
-        spec.proc_link[:, None], spec.leg_link[:, None]), 5)
-    tick_errs = {n: compare(f"tick {n} at main shapes", g_, w_, exact=False)
+    plain_tick_ms, want = timed(lambda: ref.grid_tick_bank_indexed(
+        active, remaining, keep, bg, spec.bandwidth, spec.leg_proc, spec.proc_link, tables), 5)
+    tick_errs = {n: compare(f"tick {n} at main shapes", g_, w_, exact=True)
                  for n, g_, w_ in zip(("xfer", "proc_xfer", "link_xfer"), got, want)}
-    tick_bytes = nbytes(active, remaining, keep, bg, spec.bandwidth, *tables) + 4 * S * R * (T + P + L)
+    tick_bytes = nbytes(active, remaining, keep, bg, spec.bandwidth, tables.packed) + 4 * S * R * (T + P + L)
     tick_ops = S * R * (14 * T + 5 * L)
     tick_bound = max(tick_bytes / PEAK_BYTES, tick_ops / PEAK_FP32) * 1e3
     tick_by = "bytes" if tick_bytes / PEAK_BYTES >= tick_ops / PEAK_FP32 else "operations"
+
+    # the sums kernel on the tick's transfers, as the leap step calls it;
+    # device time (a launch is shorter than its host call). Library: one
+    # bmm against the legs' process and link columns (a link over its legs)
+    v = got[0]
+    sums_ms = device_ms(lambda: grid_tick.grid_tick_bank_sums_cuda(v, tables), 50, "bank_sums_kernel")
+    sums_events_ms, got_s = timed(lambda: grid_tick.grid_tick_bank_sums_cuda(v, tables), 50)
+    plain_sums_ms, want_s = timed(lambda: ref.bank_sums(v, tables), 5)
+    sums_errs = {n: compare(f"sums {n} at main shapes", g_, w_, exact=True)
+                 for n, g_, w_ in zip(("proc", "link"), got_s, want_s)}
+    columns = torch.cat([spec.leg_proc, spec.leg_link], dim=2).to(f32).contiguous()
+    lib_sums_ms, lib_out = timed(lambda: torch.bmm(v, columns), 50)
+    compare("sums vs bmm", lib_out, torch.cat(want_s, dim=2), exact=False)
+    sums_bytes = nbytes(v, tables.packed) + 4 * S * R * (P + L)
+    sums_ops = R * int(tables.proc_ptr[:, -1].sum() + tables.link_proc_ptr[:, -1].sum())
+    sums_bound = max(sums_bytes / PEAK_BYTES, sums_ops / PEAK_FP32) * 1e3
+    sums_by = "bytes" if sums_bytes / PEAK_BYTES >= sums_ops / PEAK_FP32 else "operations"
     res = {
         "grid_tick_bank_fused": dict(ms=fused_ms, plain_ms=plain_fused_ms, bound_ms=fused_bound,
                                      bound_by=fused_by, bytes=fused_bytes, ops=fused_ops,
@@ -525,6 +600,10 @@ def phase_timing(dev) -> dict:
         "grid_tick_bank": dict(ms=tick_ms, plain_ms=plain_tick_ms, bound_ms=tick_bound,
                                bound_by=tick_by, bytes=tick_bytes, ops=tick_ops,
                                shape=[S, R, T, P, L], max_abs_err=tick_errs),
+        "grid_tick_bank_sums": dict(ms=sums_ms, events_ms=sums_events_ms, plain_ms=plain_sums_ms,
+                                    bound_ms=sums_bound, bound_by=sums_by, bytes=sums_bytes,
+                                    ops=sums_ops, library_ms=lib_sums_ms,
+                                    shape=[S, R, T, P, L], max_abs_err=sums_errs),
     }
     emit("timing", card=smi(), **res)
     return res
@@ -661,8 +740,8 @@ def phase_calibrate(dev) -> dict:
     finite = float(np.isfinite(val["coefficients"]).all(-1).mean())
     if val["coefficients"].shape != (N_SCEN, 64, 3) or finite < 0.99:
         raise AssertionError(f"validation: {val['coefficients'].shape}, finite share {finite}")
-    for name, want in (("calibrate", ("selu_mlp", "grid_tick_bank")), ("mcmc", ("selu_mlp",)),
-                       ("validate", ("grid_tick_bank",))):
+    for name, want in (("calibrate", ("selu_mlp", "grid_tick_bank", "grid_tick_bank_sums")),
+                       ("mcmc", ("selu_mlp",)), ("validate", ("grid_tick_bank", "grid_tick_bank_sums"))):
         for k in want:
             if stages[name]["launches"][k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched in stage {name}")
@@ -1919,6 +1998,9 @@ def main() -> int:
     replaces = {
         "grid_tick_bank_fused": "src/repro/kernels/grid_tick.py:477",
         "grid_tick_bank": "src/repro/kernels/grid_tick.py:242",
+        # no Pallas kernel: the reference's leap step takes these sums as
+        # one-hot dots (scatter_pl)
+        "grid_tick_bank_sums": "src/repro/kernels/ref.py:307",
     }
     for name in BANK_KERNELS:
         t = times[name]
@@ -1928,7 +2010,7 @@ def main() -> int:
             launches_by_run=main_run["by_run"][name],
             max_abs_err=max(errs[name], *t["max_abs_err"].values()),
             ms=t["ms"], plain_ms=t["plain_ms"],
-            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t.get("library_ms"),
         ))
     t = camp["timing"]
     by_run = {f"campaign_{k}": n for k, n in camp["launches_by_run"].items()}

@@ -64,9 +64,9 @@ class SimSpec(NamedTuple):
 
     The index-table fields are the one-hot incidences as the kernels read
     them, filled by :func:`with_index_tables`: ``proc_of_leg``,
-    ``link_of_leg`` and ``link_of_proc`` (``ref.bank_index_tables`` on a
-    bank), and for one campaign also ``campaign_tables``
-    (``ref.campaign_index_tables``)."""
+    ``link_of_leg`` and ``link_of_proc``, and beside them all of a bank's
+    ``bank_tables`` (``ref.bank_index_tables``) or one campaign's
+    ``campaign_tables`` (``ref.campaign_index_tables``)."""
 
     size_mb: torch.Tensor  # [N, T] f32
     release: torch.Tensor  # [N, T] i32
@@ -84,10 +84,7 @@ class SimSpec(NamedTuple):
     link_of_leg: Optional[torch.Tensor] = None  # [N, T] i32
     link_of_proc: Optional[torch.Tensor] = None  # [N, P] i32
     campaign_tables: Optional[ref.CampaignTables] = None  # unstacked only
-
-    @property
-    def index_tables(self):
-        return (self.proc_of_leg, self.link_of_leg, self.link_of_proc)
+    bank_tables: Optional[ref.BankTables] = None  # stacked only
 
     @property
     def device(self) -> torch.device:
@@ -180,7 +177,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 #: The :class:`SimSpec` fields that :func:`with_index_tables` derives.
-INDEX_TABLE_FIELDS = ("proc_of_leg", "link_of_leg", "link_of_proc", "campaign_tables")
+INDEX_TABLE_FIELDS = (
+    "proc_of_leg", "link_of_leg", "link_of_proc", "campaign_tables", "bank_tables",
+)
 
 
 def with_index_tables(spec: SimSpec) -> SimSpec:
@@ -193,8 +192,9 @@ def with_index_tables(spec: SimSpec) -> SimSpec:
         ct = ref.campaign_index_tables(spec.leg_proc, spec.proc_link, spec.leg_link)
         return spec._replace(proc_of_leg=ct.proc_of_leg, link_of_leg=ct.link_of_leg,
                              link_of_proc=ct.link_of_proc, campaign_tables=ct)
-    tables = ref.bank_index_tables(spec.leg_proc, spec.proc_link, spec.leg_link)
-    return spec._replace(**dict(zip(INDEX_TABLE_FIELDS, tables)))
+    bt = ref.bank_index_tables(spec.leg_proc, spec.proc_link, spec.leg_link)
+    return spec._replace(proc_of_leg=bt.proc_of_leg, link_of_leg=bt.link_of_leg,
+                         link_of_proc=bt.link_of_proc, bank_tables=bt)
 
 
 def make_params(
@@ -346,7 +346,7 @@ def _bank_window_body(
         params.keep_frac, spec.bandwidth,
         spec.leg_proc, spec.proc_link, spec.leg_link,
         window=window, leap=leap, key=c.key,
-        tables=spec.index_tables, draw=draw,
+        tables=spec.bank_tables, draw=draw,
     )
     return _Carry(
         t=t, remaining=remaining, done=done, started=started,

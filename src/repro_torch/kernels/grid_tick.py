@@ -6,13 +6,17 @@
   (replaces the reference's ``grid_tick_bank_pallas``);
 - :func:`grid_tick_bank_fused_cuda` — ``K`` ticks of a scenario bank per
   launch, the carry resident on chip (replaces
-  ``grid_tick_bank_fused_pallas``).
+  ``grid_tick_bank_fused_pallas``);
+- :func:`grid_tick_bank_sums_cuda` — the per-process and per-link sums of a
+  per-leg bank tensor, as the leap step takes them (the reference takes
+  them as one-hot dots, not as a Pallas kernel).
 
 Each wrapper takes CUDA tensors only, checks their device, dtype, shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on the
 current stream and raises if the launch is refused. :data:`LAUNCHES` counts
 the launches of each kernel. The kernels take the one-hot incidences as
-index tables (``ref.bank_index_tables``, ``ref.campaign_index_tables``);
+index tables (``ref.bank_index_tables``, ``ref.campaign_index_tables``,
+each packed into one int32 buffer);
 the plain versions live in :mod:`repro_torch.kernels.ref`, and
 :mod:`repro_torch.kernels.ops` dispatches between them by device.
 """
@@ -24,28 +28,33 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import CampaignTables
+from repro_torch.kernels.ref import BankTables, CampaignTables
 
 __all__ = [
     "LAUNCHES",
     "reset_launches",
     "limits",
+    "bank_occupancy",
     "campaign_limits",
     "grid_tick_cuda",
     "grid_tick_bank_cuda",
     "grid_tick_bank_fused_cuda",
+    "grid_tick_bank_sums_cuda",
 ]
 
 #: Launch counts per kernel, raised by one at every launch.
-LAUNCHES: Dict[str, int] = {"grid_tick": 0, "grid_tick_bank": 0, "grid_tick_bank_fused": 0}
+LAUNCHES: Dict[str, int] = {
+    "grid_tick": 0, "grid_tick_bank": 0, "grid_tick_bank_fused": 0, "grid_tick_bank_sums": 0,
+}
 
 _WARPS_PER_BLOCK = 4
 _MAX_GRID_Y = 65535
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_FUSED_ARGTYPES = [_P] * 13 + [_I] + [_P] * 5 + [_I] + [_P] * 14 + [_I] * 6 + [_P]
-_TICK_ARGTYPES = [_P] * 3 + [_I] + [_P] * 8 + [_I] * 5 + [_P]
+_FUSED_ARGTYPES = [_P] * 13 + [_I] + [_P] * 5 + [_I] + [_P] * 12 + [_I] * 6 + [_P]
+_TICK_ARGTYPES = [_P] * 3 + [_I] + [_P] * 6 + [_I] * 5 + [_P]
+_SUMS_ARGTYPES = [_P] * 4 + [_I] * 5 + [_P]
 _CAMPAIGN_ARGTYPES = [_P] * 3 + [_I] + [_P] * 3 + [_I] + [_P] * 3 + [_I] * 4 + [_P]
 
 
@@ -61,11 +70,15 @@ def _lib() -> ctypes.CDLL:
         lib.grid_tick_bank_fused_launch.restype = _I
         lib.grid_tick_bank_launch.argtypes = _TICK_ARGTYPES
         lib.grid_tick_bank_launch.restype = _I
+        lib.grid_tick_bank_sums_launch.argtypes = _SUMS_ARGTYPES
+        lib.grid_tick_bank_sums_launch.restype = _I
         lib.grid_tick_campaign_launch.argtypes = _CAMPAIGN_ARGTYPES
         lib.grid_tick_campaign_launch.restype = _I
         for fn in (lib.grid_tick_limits, lib.grid_tick_campaign_limits):
             fn.argtypes = [ctypes.POINTER(_I)] * 3
             fn.restype = _I
+        lib.grid_tick_bank_occupancy.argtypes = [_I] + [ctypes.POINTER(_I)] * 3
+        lib.grid_tick_bank_occupancy.restype = _I
         lib._repro_bound = True
     return lib
 
@@ -79,6 +92,23 @@ def _limits(fn) -> Tuple[int, int, int]:
 def limits() -> Tuple[int, int, int]:
     """The bank kernels' largest ``(legs, processes, links)`` per scenario."""
     return _limits(_lib().grid_tick_limits)
+
+
+def bank_occupancy() -> Dict[str, object]:
+    """Blocks of each bank kernel resident on one SM of the current card, by
+    the legs a scenario pads to (the kernels are built for 1-4 slots of 32
+    legs a lane), and the warps (elements) a block holds."""
+    out: Dict[str, object] = {"fused": {}, "tick": {}}
+    for legs in (32, 64, 96, 128):
+        fused, tick, warps = _I(), _I(), _I()
+        err = _lib().grid_tick_bank_occupancy(
+            legs, ctypes.byref(fused), ctypes.byref(tick), ctypes.byref(warps))
+        if err != 0:
+            raise RuntimeError(f"grid_tick_bank_occupancy failed: cudaError_t {err}")
+        out["fused"][f"T<={legs}"] = fused.value
+        out["tick"][f"T<={legs}"] = tick.value
+        out["warps_per_block"] = warps.value
+    return out
 
 
 def campaign_limits() -> Tuple[int, int, int]:
@@ -96,6 +126,12 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: Tuple[int, ...
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     return x.data_ptr()
+
+
+def _check_tables(tables: BankTables, S: int, T: int, P: int, L: int) -> int:
+    if tables.shape != (S, T, P, L):
+        raise ValueError(f"tables are for (S, T, P, L) = {tables.shape}, got {(S, T, P, L)}")
+    return _check("tables", tables.packed, torch.int32, (S, 3 * T + 2 * P + L + 2))
 
 
 def _check_dims(S: int, R: int, T: int, P: int, L: int) -> None:
@@ -174,15 +210,13 @@ def grid_tick_bank_cuda(
     keep_frac: torch.Tensor,  # [S, T], [S, 1, T] or [S, R, T] f32
     bg_load: torch.Tensor,  # [S, R, L] f32
     bandwidth: torch.Tensor,  # [S, L] f32
-    proc_of_leg: torch.Tensor,  # [S, T] i32
-    link_of_leg: torch.Tensor,  # [S, T] i32
-    link_of_proc: torch.Tensor,  # [S, P] i32
+    tables: BankTables,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One fair-share tick of a bank on the card: ``(xfer [S, R, T],
     proc_xfer [S, R, P], link_xfer [S, R, L])``."""
     S, R, T = active.shape
     L = bandwidth.shape[-1]
-    P = link_of_proc.shape[-1]
+    P = tables.link_of_proc.shape[-1]
     ptrs = [
         _check("active", active, torch.float32, (S, R, T)),
         _check("remaining", remaining, torch.float32, (S, R, T)),
@@ -192,9 +226,7 @@ def grid_tick_bank_cuda(
     ptrs2 = [
         _check("bg_load", bg_load, torch.float32, (S, R, L)),
         _check("bandwidth", bandwidth, torch.float32, (S, L)),
-        _check("proc_of_leg", proc_of_leg, torch.int32, (S, T)),
-        _check("link_of_leg", link_of_leg, torch.int32, (S, T)),
-        _check("link_of_proc", link_of_proc, torch.int32, (S, P)),
+        _check_tables(tables, S, T, P, L),
     ]
     _check_dims(S, R, T, P, L)
     dev = active.device
@@ -233,9 +265,7 @@ def grid_tick_bank_fused_cuda(
     max_ticks: torch.Tensor,  # [S] i32
     keep_frac: torch.Tensor,  # [S, T] or [S, R, T] f32
     bandwidth: torch.Tensor,  # [S, L] f32
-    proc_of_leg: torch.Tensor,  # [S, T] i32
-    link_of_leg: torch.Tensor,  # [S, T] i32
-    link_of_proc: torch.Tensor,  # [S, P] i32
+    tables: BankTables,
 ) -> Tuple[torch.Tensor, ...]:
     """``K = noise.shape[0]`` fair-share ticks of a bank in one launch; the
     returned carry follows ``ref.BANK_WINDOW_STATE_FIELDS``. ``bg_mu`` and
@@ -243,7 +273,7 @@ def grid_tick_bank_fused_cuda(
     pair)."""
     K, S, R, L = noise.shape
     T = state[2].shape[-1]
-    P = link_of_proc.shape[-1]
+    P = tables.link_of_proc.shape[-1]
     shapes = {2: (S, R), 3: (S, R, T), -1: (S, R, L)}
     carry = [
         _check(name, x, dt, shapes[rank])
@@ -259,11 +289,9 @@ def grid_tick_bank_fused_cuda(
         _check("bg_period", bg_period, torch.int32, (S, L)),
         _check("max_ticks", max_ticks, torch.int32, (S,)),
     ]
-    tables = [
+    table_ptrs = [
         _check("bandwidth", bandwidth, torch.float32, (S, L)),
-        _check("proc_of_leg", proc_of_leg, torch.int32, (S, T)),
-        _check("link_of_leg", link_of_leg, torch.int32, (S, T)),
-        _check("link_of_proc", link_of_proc, torch.int32, (S, P)),
+        _check_tables(tables, S, T, P, L),
     ]
     _check_dims(S, R, T, P, L)
     dev = noise.device
@@ -276,7 +304,7 @@ def grid_tick_bank_fused_cuda(
         *carry,
         _check("noise", noise, torch.float32, (K, S, R, L)),
         bg_mu.data_ptr(), bg_sigma.data_ptr(), bg_rs,
-        *consts, keep_frac.data_ptr(), keep_rs, *tables,
+        *consts, keep_frac.data_ptr(), keep_rs, *table_ptrs,
         *(o.data_ptr() for o in out),
         S, R, T, P, L, K, stream,
     )
@@ -286,3 +314,27 @@ def grid_tick_bank_fused_cuda(
         )
     LAUNCHES["grid_tick_bank_fused"] += 1
     return out
+
+
+def grid_tick_bank_sums_cuda(
+    v: torch.Tensor,  # [S, R, T] f32
+    tables: BankTables,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(proc [S, R, P], link [S, R, L])``: each process's sum of ``v`` over
+    its legs and each link's over its processes' sums, in the order of the
+    tables' lists, in one launch."""
+    S, R, T = v.shape
+    P = tables.link_of_proc.shape[-1]
+    L = tables.link_proc_ptr.shape[-1] - 1
+    ptrs = [_check("v", v, torch.float32, (S, R, T)), _check_tables(tables, S, T, P, L)]
+    _check_dims(S, R, T, P, L)
+    proc = torch.empty((S, R, P), dtype=torch.float32, device=v.device)
+    link = torch.empty((S, R, L), dtype=torch.float32, device=v.device)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    err = _lib().grid_tick_bank_sums_launch(
+        *ptrs, proc.data_ptr(), link.data_ptr(), S, R, T, P, L, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"grid_tick_bank_sums kernel launch failed: cudaError_t {err}")
+    LAUNCHES["grid_tick_bank_sums"] += 1
+    return proc, link

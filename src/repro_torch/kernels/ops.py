@@ -43,6 +43,7 @@ __all__ = [
     "grid_tick",
     "grid_tick_bank",
     "grid_tick_bank_fused",
+    "grid_tick_bank_sums",
     "selu_mlp",
     "SeluMLP",
     "flash_attention",
@@ -121,14 +122,15 @@ def grid_tick_bank(
     proc_link: torch.Tensor,  # [S, P, L]
     leg_link: torch.Tensor,  # [S, T, L]
     *,
-    tables: Optional[Tuple[torch.Tensor, ...]] = None,  # ref.bank_index_tables
+    tables: Optional[ref.BankTables] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Scenario-bank fair-share tick with per-scenario incidences:
     ``(xfer [S, R, T], proc_xfer [S, R, P], link_xfer [S, R, L])``.
 
     Per-sim state must carry the replica dim; ``keep_frac`` may be bank-wide
-    ``[S, T]`` or per replica ``[S, R, T]``. The kernel reads the
-    incidences as ``tables``, derived from them when ``None``.
+    ``[S, T]`` or per replica ``[S, R, T]``. Both versions read the
+    incidences as ``tables`` (:func:`ref.bank_index_tables`), derived from
+    them when ``None``, and take every sum in the order of its lists.
     """
     if active.dim() != 3 or remaining.dim() != 3 or bg_load.dim() != 3:
         raise ValueError(
@@ -161,22 +163,39 @@ def grid_tick_bank(
             raise ValueError(
                 f"grid_tick_bank: {name} scenario dim {arr.shape[0]} != {s}"
             )
+    if tables is None:
+        tables = ref.bank_index_tables(leg_proc, proc_link, leg_link)
     if _device_kind(active) == "cpu":
-        keep3 = keep_frac if keep_frac.dim() == 3 else keep_frac[:, None]
-        return ref.grid_tick(
-            active, remaining, keep3, bg_load, bandwidth[:, None],
-            leg_proc[:, None], proc_link[:, None], leg_link[:, None],
+        return ref.grid_tick_bank_indexed(
+            active, remaining, keep_frac, bg_load, bandwidth, leg_proc, proc_link, tables,
         )
     from repro_torch.kernels import grid_tick as _k
 
-    if tables is None:
-        tables = ref.bank_index_tables(leg_proc, proc_link, leg_link)
     f32 = torch.float32
     return _k.grid_tick_bank_cuda(
         active.to(f32).contiguous(), remaining.to(f32).contiguous(),
         keep_frac.to(f32).contiguous(), bg_load.to(f32).contiguous(),
-        bandwidth.to(f32).contiguous(), *tables,
+        bandwidth.to(f32).contiguous(), tables,
     )
+
+
+def grid_tick_bank_sums(
+    v: torch.Tensor,  # [S, R, T]
+    tables: ref.BankTables,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(proc [S, R, P], link [S, R, L])``: each process's sum of ``v`` over
+    its legs and each link's over its processes' sums, in the order of the
+    tables' lists (:func:`ref.bank_sums`), as the leap step takes them."""
+    if v.dim() != 3 or tables.shape[:2] != (v.shape[0], v.shape[2]):
+        raise ValueError(
+            f"grid_tick_bank_sums: v must be [S, R, T] with (S, T) = "
+            f"{tables.shape[:2]}: got {tuple(v.shape)}"
+        )
+    if _device_kind(v) == "cpu":
+        return ref.bank_sums(v, tables)
+    from repro_torch.kernels import grid_tick as _k
+
+    return _k.grid_tick_bank_sums_cuda(v.to(torch.float32).contiguous(), tables)
 
 
 def _bank_noise_chain(
@@ -215,7 +234,7 @@ def grid_tick_bank_fused(
     leap: bool = False,
     key: Optional[torch.Tensor] = None,  # [S, R, 2] carried keys
     noise: Optional[torch.Tensor] = None,  # [K, S, R, L] predrawn normals
-    tables: Optional[Tuple[torch.Tensor, ...]] = None,  # ref.bank_index_tables
+    tables: Optional[ref.BankTables] = None,
     draw: Optional[bool] = None,  # any bg_sigma > 0 (key= mode)
 ):
     """``window`` fused simulation ticks (event leaps under ``leap``) of a
@@ -224,11 +243,12 @@ def grid_tick_bank_fused(
     With ``key=`` the keys ride along and ``(state, key)`` returns; with
     ``noise=`` the pre-drawn rows are consumed and ``state`` returns.
 
-    On CPU tensors this is the plain scan with its index-based tick. On CUDA
+    On CPU tensors this is the plain scan with its indexed tick. On CUDA
     tensors, tick mode is one launch of the fused kernel (the key chain and
     its noise drawn ahead, each element's key then resynchronised from its
     alive-step count); leap mode is the plain scan driving the one-tick
-    kernel once per event step, as the reference's kernel path does.
+    kernel once per event step, as the reference's kernel path does, and
+    the sums kernel once per event step for the sums of its last tick.
 
     ``tables`` (the incidences as index tables) and ``draw`` (whether any
     ``sigma`` is positive) are fixed for a bank: a caller that runs many
@@ -262,12 +282,15 @@ def grid_tick_bank_fused(
         draw = bool(torch.any(bg_sigma > 0))
     on_cpu = _device_kind(state[2]) == "cpu"
     if on_cpu or leap:
-        tick = None if on_cpu else functools.partial(grid_tick_bank, tables=tables)
+        tick = sums = None
+        if not on_cpu:
+            tick = functools.partial(grid_tick_bank, tables=tables)
+            sums = functools.partial(grid_tick_bank_sums, tables=tables)
         return ref.grid_tick_bank_window(
             state, bg_mu, bg_sigma, release, dep, bg_period, max_ticks,
             keep_frac, bandwidth, leg_proc, proc_link, leg_link,
             leap=leap, tick=tick, key=key, noise=noise, window=window,
-            tables=tables, draw=draw,
+            tables=tables, draw=draw, sums=sums,
         )
     from repro_torch.kernels import grid_tick as _k
 
@@ -290,7 +313,7 @@ def grid_tick_bank_fused(
     out = _k.grid_tick_bank_fused_cuda(
         state, c(noise, f32), c(bg_mu, f32), c(bg_sigma, f32),
         c(release, i32), c(dep, i32), c(bg_period, i32), c(max_ticks, i32),
-        c(keep_frac, f32), c(bandwidth, f32), *tables,
+        c(keep_frac, f32), c(bandwidth, f32), tables,
     )
     if chain is None:
         return out

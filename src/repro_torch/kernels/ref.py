@@ -31,7 +31,10 @@ __all__ = [
     "campaign_index_tables",
     "grid_tick_indexed",
     "bank_split_draw",
+    "SegmentPlan",
+    "BankTables",
     "bank_index_tables",
+    "grid_tick_bank_indexed",
     "grid_tick_bank_window",
     "SELU_ALPHA",
     "SELU_SCALE",
@@ -130,22 +133,141 @@ def _check_one_hot(**incidences: torch.Tensor) -> None:
             )
 
 
+class SegmentPlan(NamedTuple):
+    """A batch of segment sums, ``out[s, :, c]`` the sum of ``v[s, :, m]``
+    over the members ``m`` of segment ``(s, c)`` added one term at a time in
+    list order from 0.0, as gathers and adds with no host sync.
+
+    Segments are ranked longest first (``pos`` holds the rank of each flat
+    segment ``s * C + c``), so step ``j`` adds the ``j``-th member of the
+    first ``steps[j]`` ranked segments; ``src`` lists, step by step and in
+    rank order, the flat source row ``s * X + m`` of each such member."""
+
+    src: torch.Tensor  # [nnz] i64
+    pos: torch.Tensor  # [S * C] i64
+    steps: Tuple[int, ...]
+    n_segments: int  # C
+
+    def to(self, device) -> "SegmentPlan":
+        return self._replace(src=self.src.to(device), pos=self.pos.to(device))
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        """``[S, R, X] -> [S, R, C]``."""
+        S, R, X = v.shape
+        C = self.n_segments
+        rows = v.transpose(1, 2).reshape(S * X, R).index_select(0, self.src)
+        acc = v.new_zeros((S * C, R))
+        start = 0
+        for n in self.steps:
+            acc[:n].add_(rows[start:start + n])
+            start += n
+        return acc.index_select(0, self.pos).view(S, C, R).transpose(1, 2).contiguous()
+
+
+class BankTables(NamedTuple):
+    """A bank's incidences as the banked kernels and the plain window read
+    them.
+
+    ``proc_of_leg``, ``link_of_leg`` and ``link_of_proc`` hold the column of
+    each one-hot row (0 for an all-zero, padded row). Two segment lists,
+    each a ``[S, C + 1]`` pointer row beside a member row padded with 0
+    past ``ptr[s, C]``, give per scenario, in ascending order, the legs of
+    each process (``proc_ptr``, ``proc_legs``) and the processes of each
+    link (``link_proc_ptr``, ``link_procs``). A padded row is in no list.
+
+    The float sums of a tick follow the lists, one term at a time from 0.0:
+    a process's over its legs, a link's over its processes' sums. So a link
+    that carries one process sums to exactly that process's sum.
+    ``proc_sums`` and ``link_sums`` are those two sums as
+    :class:`SegmentPlan` s; ``packed`` ``[S, 3T + 2P + L + 2]`` is what the
+    CUDA kernels stage, ``proc_of_leg | link_of_leg | proc_ptr | proc_legs
+    | link_proc_ptr | link_procs`` of each scenario."""
+
+    proc_of_leg: torch.Tensor  # [S, T] i32
+    link_of_leg: torch.Tensor  # [S, T] i32
+    link_of_proc: torch.Tensor  # [S, P] i32
+    proc_ptr: torch.Tensor  # [S, P + 1] i32
+    proc_legs: torch.Tensor  # [S, T] i32
+    link_proc_ptr: torch.Tensor  # [S, L + 1] i32
+    link_procs: torch.Tensor  # [S, P] i32
+    packed: torch.Tensor  # [S, 3T + 2P + L + 2] i32
+    proc_sums: SegmentPlan  # legs -> processes
+    link_sums: SegmentPlan  # processes -> links
+
+    @property
+    def shape(self) -> Tuple[int, int, int, int]:
+        """``(S, T, P, L)``."""
+        S, T = self.proc_of_leg.shape
+        return (S, T, self.link_of_proc.shape[1], self.link_proc_ptr.shape[1] - 1)
+
+    def to(self, device) -> "BankTables":
+        return BankTables(*(x.to(device) for x in self))
+
+
+def bank_sums(v: torch.Tensor, tables: BankTables) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(proc [S, R, P], link [S, R, L])`` of ``v [S, R, T]``: each
+    process's sum over its legs, each link's over its processes' sums, in
+    the order of the tables' lists."""
+    proc = tables.proc_sums(v)
+    return proc, tables.link_sums(proc)
+
+
+def _segment_lists(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(ptr [S, C + 1], members [S, X])`` i32 of the nonzeros of ``m [S,
+    X, C]`` by column, members ascending within a column, each member row
+    padded with 0 past ``ptr[s, C]``."""
+    nz = (m != 0).transpose(1, 2)  # [S, C, X]
+    S, C, X = nz.shape
+    counts = nz.sum(dim=2)  # [S, C]
+    ptr = torch.zeros((S, C + 1), dtype=torch.int64)
+    ptr[:, 1:] = torch.cumsum(counts, dim=1)
+    s, _, x = torch.nonzero(nz, as_tuple=True)  # by scenario, column, member
+    first = torch.cumsum(ptr[:, C], 0) - ptr[:, C]  # each scenario's first nonzero
+    members = torch.zeros((S, X), dtype=torch.int64)
+    members[s, torch.arange(s.numel()) - first[s]] = x
+    return ptr.to(torch.int32), members.to(torch.int32)
+
+
+def _segment_plan(ptr: torch.Tensor, members: torch.Tensor, n_src: int) -> SegmentPlan:
+    """The :class:`SegmentPlan` of the lists ``(ptr, members)`` (as
+    :func:`_segment_lists` gives them) over sources of width ``n_src``."""
+    S, C = ptr.shape[0], ptr.shape[1] - 1
+    ptr, members = ptr.long(), members.long()
+    deg = (ptr[:, 1:] - ptr[:, :-1]).reshape(-1)  # [S * C]
+    rank = torch.sort(-deg, stable=True).indices
+    pos = torch.empty_like(rank)
+    pos[rank] = torch.arange(S * C)
+    seg = torch.repeat_interleave(torch.arange(S * C), deg)  # each entry's segment
+    j = torch.arange(seg.numel()) - torch.repeat_interleave(torch.cumsum(deg, 0) - deg, deg)
+    s = seg // C
+    m = members[s, ptr[:, :-1].reshape(-1)[seg] + j]
+    by_step = torch.sort(j * (S * C) + pos[seg]).indices
+    return SegmentPlan(src=(s * n_src + m)[by_step], pos=pos,
+                       steps=tuple(torch.bincount(j).tolist()), n_segments=C)
+
+
 def bank_index_tables(
     leg_proc: torch.Tensor,  # [S, T, P] one-hot
     proc_link: torch.Tensor,  # [S, P, L] one-hot
     leg_link: torch.Tensor,  # [S, T, L] one-hot
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(proc_of_leg [S, T], link_of_leg [S, T], link_of_proc [S, P])``
-    int32: the column of each one-hot row. An all-zero (padded) row maps to
-    0; every quantity gathered through it is multiplied by an inactive 0.
-    A row with more than one nonzero entry raises."""
+) -> BankTables:
+    """The :class:`BankTables` of a bank, on the incidences' device. A row
+    with more than one nonzero entry raises; all-zero (padded) rows are
+    allowed."""
     _check_one_hot(leg_proc=leg_proc, proc_link=proc_link, leg_link=leg_link)
+    lp, pl, ll = (m.detach().cpu() for m in (leg_proc, proc_link, leg_link))
+    T, P = lp.shape[1], lp.shape[2]
     i32 = torch.int32
-    return (
-        torch.argmax(leg_proc, dim=-1).to(i32),
-        torch.argmax(leg_link, dim=-1).to(i32),
-        torch.argmax(proc_link, dim=-1).to(i32),
-    )
+    cols = [torch.argmax(lp, dim=-1).to(i32), torch.argmax(ll, dim=-1).to(i32),
+            torch.argmax(pl, dim=-1).to(i32)]
+    proc_ptr, proc_legs = _segment_lists(lp)
+    link_proc_ptr, link_procs = _segment_lists(pl)
+    packed = torch.cat(
+        [cols[0], cols[1], proc_ptr, proc_legs, link_proc_ptr, link_procs], dim=1)
+    return BankTables(
+        *cols, proc_ptr, proc_legs, link_proc_ptr, link_procs, packed,
+        _segment_plan(proc_ptr, proc_legs, T), _segment_plan(link_proc_ptr, link_procs, P),
+    ).to(leg_proc.device)
 
 
 class CampaignTables(NamedTuple):
@@ -271,6 +393,37 @@ def _to_legs(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(v, 2, full)
 
 
+def grid_tick_bank_indexed(
+    active: torch.Tensor,  # [S, R, T] in {0, 1}
+    remaining: torch.Tensor,  # [S, R, T] f32 MB
+    keep_frac: torch.Tensor,  # [S, T], [S, 1, T] or [S, R, T]
+    bg_load: torch.Tensor,  # [S, R, L]
+    bandwidth: torch.Tensor,  # [S, L]
+    leg_proc: torch.Tensor,  # [S, T, P] one-hot
+    proc_link: torch.Tensor,  # [S, P, L] one-hot
+    tables: BankTables,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`grid_tick` of a bank through its :class:`BankTables`:
+    ``(xfer [S, R, T], proc_xfer [S, R, P], link_xfer [S, R, L])``, the
+    float sums in the order of the tables' lists, as the CUDA kernels take
+    them, so the kernels equal this bitwise. The counts (active legs per
+    process, active processes per link) are exact integers in any order and
+    stay one-hot products. Legs whose incidence row is all zero must be
+    inactive (they gather column 0)."""
+    f32 = torch.float32
+    a = active.to(f32)
+    threads = torch.bmm(a, leg_proc.to(f32))  # [S, R, P]
+    proc_active = (threads > 0).to(f32)
+    campaign = torch.bmm(proc_active, proc_link.to(f32))  # [S, R, L]
+    denom = torch.clamp_min(campaign + torch.clamp_min(bg_load.to(f32), 0.0), 1.0)
+    per_proc_bw = bandwidth.to(f32)[:, None, :] / denom
+    keep3 = keep_frac if keep_frac.dim() == 3 else keep_frac[:, None]
+    threads_leg = torch.clamp_min(_to_legs(threads, tables.proc_of_leg), 1.0)
+    chunk = a * keep3.to(f32) * _to_legs(per_proc_bw, tables.link_of_leg) / threads_leg
+    xfer = torch.minimum(remaining.to(f32), chunk)
+    return (xfer, *bank_sums(xfer, tables))
+
+
 def grid_tick_bank_window(
     state: Tuple[torch.Tensor, ...],  # see BANK_WINDOW_STATE_FIELDS
     bg_mu: torch.Tensor,  # [S, 1, L] or [S, R, L]
@@ -290,8 +443,9 @@ def grid_tick_bank_window(
     key: Optional[torch.Tensor] = None,  # [S, R, 2] carried keys
     noise: Optional[torch.Tensor] = None,  # [K, S, R, L] predrawn normals
     window: Optional[int] = None,  # required with key=
-    tables: Optional[Tuple[torch.Tensor, ...]] = None,  # bank_index_tables
+    tables: Optional[BankTables] = None,
     draw: Optional[bool] = None,
+    sums: Optional[Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]] = None,
 ):
     """``K`` simulation ticks (event leaps under ``leap``) of a whole bank,
     element for element those of ``K`` per-tick iterations under the alive
@@ -305,8 +459,13 @@ def grid_tick_bank_window(
     chain advanced).
 
     ``tick`` is the bank fair-share tick to drive, with the signature of
-    ``ops.grid_tick_bank``; ``None`` runs the built-in index-based tick (the
-    one-hot gathers as index gathers, bitwise equal).
+    ``ops.grid_tick_bank``; ``None`` runs :func:`grid_tick_bank_indexed`.
+    ``sums`` takes the leap step's per-process and per-link sums of its
+    last tick (``v -> (proc, link)``, as ``ops.grid_tick_bank_sums``);
+    ``None`` runs :func:`bank_sums`.
+    Every per-process and per-link sum, the leap step's too, runs in the
+    order of the tables' lists, so the result does not depend on how a
+    library would block a product (nor on the CPU's thread count).
 
     ``tables`` are the bank's :func:`bank_index_tables`, computed here when
     ``None``; ``draw`` says whether any ``sigma`` is positive (``key=`` mode
@@ -323,33 +482,16 @@ def grid_tick_bank_window(
     if key is not None and window is None:
         raise ValueError("grid_tick_bank_window: key= mode requires window=")
     n_links = bg_mu.shape[-1]
-    n_procs = leg_proc.shape[-1]
     if tables is None:
         tables = bank_index_tables(leg_proc, proc_link, leg_link)
-    proc_of_leg, link_of_leg, _ = tables
-    m_cat = torch.cat([leg_proc, leg_link], dim=-1).to(f32)  # [S, T, P + L]
-    keep3 = keep_frac if keep_frac.dim() == 3 else keep_frac[:, None]
-    leg_from_proc = lambda v: _to_legs(v, proc_of_leg)
-    leg_from_link = lambda v: _to_legs(v, link_of_leg)
-
-    def scatter_pl(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Per-process and per-link sums of a per-leg quantity, as one
-        batched matmul against the concatenated one-hot incidences."""
-        both = torch.bmm(v, m_cat)
-        return both[..., :n_procs], both[..., n_procs:]
+    leg_from_proc = lambda v: _to_legs(v, tables.proc_of_leg)
+    leg_from_link = lambda v: _to_legs(v, tables.link_of_leg)
 
     if tick is None:
-        def tick(a, remaining, _keep, bg, bandwidth_, lp, pl, _ll):
-            threads = torch.bmm(a, lp)
-            proc_active = (threads > 0).to(f32)
-            campaign = torch.bmm(proc_active, pl)
-            denom = torch.clamp_min(campaign + torch.clamp_min(bg, 0.0), 1.0)
-            per_proc_bw = bandwidth_[:, None, :] / denom
-            threads_leg = torch.clamp_min(leg_from_proc(threads), 1.0)
-            chunk = a * keep3 * leg_from_link(per_proc_bw) / threads_leg
-            xfer = torch.minimum(remaining, chunk)
-            proc_xfer, link_xfer = scatter_pl(xfer)
-            return xfer, proc_xfer, link_xfer
+        def tick(a, remaining, keep, bg, bandwidth_, lp, pl, _ll):
+            return grid_tick_bank_indexed(a, remaining, keep, bg, bandwidth_, lp, pl, tables)
+    if sums is None:
+        sums = lambda v: bank_sums(v, tables)
 
     mt = max_ticks[:, None]
     release3 = release[:, None, :]
@@ -425,7 +567,7 @@ def grid_tick_bank_window(
 
             rem_mid = prng.fma(-(a * rate), dt1.expand_as(rate), remaining)
             xfer_f = torch.minimum(rem_mid, rate) * a
-            proc_xfer_f, link_xfer_f = scatter_pl(xfer_f)
+            proc_xfer_f, link_xfer_f = sums(xfer_f)
             remaining = rem_mid - xfer_f
 
             own_proc_rate = leg_from_proc(proc_rate)

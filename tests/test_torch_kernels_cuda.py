@@ -4,8 +4,13 @@ the card. These need an NVIDIA GPU and ``nvcc``; they carry the ``cuda`` marker
 and skip elsewhere. On the card: ``python -m pytest -m cuda
 tests/test_torch_kernels_cuda.py``.
 
-Integer and bool fields are equal; float fields within rtol 1e-5, atol 1e-4
-(the kernels' ascending segment sums against the plain version's matmul).
+The bank kernels sum in the order of the bank's segment lists
+(``ref.BankTables``), as the plain window and ``ref.grid_tick_bank_indexed``
+do: the fused window is bitwise on every carry field and the one tick on
+its three outputs, at K = 1, 7 and 32, with bank-wide and per-replica keep,
+and on single-link families with up to 125 processes or one process of 119
+legs on the link; the one tick also within rtol 1e-5, atol 1e-4 of the
+one-hot matmul of ``ref.grid_tick`` (sums in another order).
 The per-campaign kernel sums in ``ref.grid_tick_indexed``'s order and is
 held bitwise against it, and against ``ref.grid_tick`` within that
 tolerance.
@@ -67,12 +72,11 @@ def _close(name, got, want):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4, msg=name)
 
 
-@pytest.mark.parametrize("per_replica", [False, True])
-def test_fused_kernel_matches_plain(per_replica):
-    _need_cuda()
-    dev = torch.device("cuda")
-    bank = build_bank(n=14, seed=0)
-    S, R, K, L = bank.n_scenarios, 4, 8, bank.pad_links
+def _bank_case(bank, R, K, per_replica, dev, seed=0):
+    """A carry of ``bank`` x ``R`` replicas five plain ticks in, the
+    window's constants (bank-wide or per-replica keep and mu), ``K`` noise
+    rows and the bank's tables, on ``dev``."""
+    S, L = bank.n_scenarios, bank.pad_links
     spec = engine.bank_spec(bank, dev)
     p = engine.make_bank_params(bank, bg_mu=2.0, bg_sigma=1.0, device=dev)
     keep, mu, sigma = p.keep_frac, p.bg_mu[:, None], p.bg_sigma[:, None]
@@ -84,13 +88,101 @@ def test_fused_kernel_matches_plain(per_replica):
     c = engine._banked_init_carry(spec, p, torch.zeros((S, R, 2), dtype=torch.int64, device=dev))
     state = (c.t, torch.zeros_like(c.t), c.remaining, c.done, c.started,
              c.t_start, c.t_end, c.conth, c.conpr, c.bg)
-    noise = torch.randn((K, S, R, L), device=dev, generator=torch.Generator(dev).manual_seed(0))
-    before = grid_tick.LAUNCHES["grid_tick_bank_fused"]
-    got = ops.grid_tick_bank_fused(state, mu, sigma, *consts, window=K, noise=noise)
-    assert grid_tick.LAUNCHES["grid_tick_bank_fused"] == before + 1
-    want = ref.grid_tick_bank_window(state, mu, sigma, *consts, leap=False, noise=noise)
+    g = torch.Generator(dev).manual_seed(seed)
+    warm = torch.randn((5, S, R, L), device=dev, generator=g)
+    state = ref.grid_tick_bank_window(state, mu, sigma, *consts, leap=False, noise=warm,
+                                      tables=spec.bank_tables)
+    state = (state[0], torch.zeros_like(state[1])) + tuple(state[2:])
+    noise = torch.randn((K, S, R, L), device=dev, generator=g)
+    return state, mu, sigma, consts, noise, spec.bank_tables
+
+
+def _check_bank_kernels(bank, R, K, per_replica, dev="cuda"):
+    """One fused window, one tick (finite and infinite ``remaining``) and
+    the sums of its transfers, bitwise against the plain versions; one
+    launch each."""
+    state, mu, sigma, consts, noise, tables = _bank_case(bank, R, K, per_replica,
+                                                         torch.device(dev))
+    before = dict(grid_tick.LAUNCHES)
+    got = ops.grid_tick_bank_fused(state, mu, sigma, *consts, window=K, noise=noise, tables=tables)
+    torch.cuda.synchronize()
+    assert grid_tick.LAUNCHES["grid_tick_bank_fused"] == before["grid_tick_bank_fused"] + 1
+    want = ref.grid_tick_bank_window(state, mu, sigma, *consts, leap=False, noise=noise,
+                                     tables=tables)
+    assert int(want[1].sum()) > 0, "the window must advance"
     for name, g, w in zip(ref.BANK_WINDOW_STATE_FIELDS, got, want):
-        _close(name, g, w)
+        assert torch.equal(g, w), name
+    gen = torch.Generator().manual_seed(1)
+    active = ((torch.rand(state[3].shape, generator=gen).to(dev) < 0.7) & ~state[3]).float()
+    keep, bw, lp, pl, ll = consts[4], consts[5], consts[6], consts[7], consts[8]
+    for rem in (state[2], torch.full_like(state[2], float("inf"))):
+        got = ops.grid_tick_bank(active, rem, keep, state[9], bw, lp, pl, ll, tables=tables)
+        want = ref.grid_tick_bank_indexed(active, rem, keep, state[9], bw, lp, pl, tables)
+        keep3 = keep if keep.dim() == 3 else keep[:, None]
+        dense = ref.grid_tick(active, rem, keep3, state[9], bw[:, None], lp[:, None],
+                              pl[:, None], ll[:, None])
+        for name, g, w, d in zip(("xfer", "proc_xfer", "link_xfer"), got, want, dense):
+            assert torch.equal(g, w), name
+            _close(name, g, d)
+        for name, g, w in zip(("proc", "link"), ops.grid_tick_bank_sums(want[0], tables), want[1:]):
+            assert torch.equal(g, w), name
+    assert grid_tick.LAUNCHES["grid_tick_bank"] == before["grid_tick_bank"] + 2
+    assert grid_tick.LAUNCHES["grid_tick_bank_sums"] == before["grid_tick_bank_sums"] + 2
+
+
+@pytest.mark.parametrize("K", [1, 7, 32])
+@pytest.mark.parametrize("per_replica", [False, True])
+def test_fused_kernel_matches_plain(per_replica, K):
+    _need_cuda()
+    _check_bank_kernels(build_bank(n=14, seed=0), R=4, K=K, per_replica=per_replica)
+
+
+@pytest.mark.parametrize("family,scale", [("stagein", 8), ("bursty", 6)])
+def test_bank_kernels_on_single_link_families(family, scale):
+    """The lanes' worst split: one link that carries up to 125 processes of
+    one leg each (stagein), or one process of up to 119 legs (bursty)."""
+    _need_cuda()
+    bank = build_bank([family], n=6, seed=0, scale=scale)
+    assert bank.pad_links == 1
+    _check_bank_kernels(bank, R=5, K=16, per_replica=True)
+
+
+@pytest.mark.parametrize("leap", [False, True], ids=["tick", "leap"])
+def test_bank_kernels_on_processes_without_legs(leap):
+    """Random scenarios whose links list processes that have no leg, past
+    the last process that has one (``bank_index_tables`` allows it): the
+    fused window (tick) or the one-tick and sums kernels (leap) bitwise
+    against the plain window on the CPU."""
+    _need_cuda()
+    S, R, T, P, L, K = 4, 6, 40, 96, 5, 12
+    g = torch.Generator().manual_seed(7)
+    inc = [_random_campaign(T, P, L, seed=s) for s in range(S)]
+    lp, pl, ll = (torch.stack(m) for m in zip(*inc))
+    assert any(int(torch.nonzero(lp[s].sum(0)).max()) < P - 1 for s in range(S))
+    consts = (
+        torch.randint(0, 5, (S, T), generator=g, dtype=torch.int32),  # release
+        torch.full((S, T), -1, dtype=torch.int32),  # dep
+        torch.randint(1, 4, (S, L), generator=g, dtype=torch.int32),  # period
+        torch.full((S,), 500, dtype=torch.int32),  # max_ticks
+        0.9 + 0.1 * torch.rand((S, T), generator=g),  # keep
+        1 + 50 * torch.rand((S, L), generator=g),  # bandwidth
+        lp, pl, ll,
+    )
+    i32, f32 = torch.int32, torch.float32
+    z = lambda dt, *shape: torch.zeros(shape, dtype=dt)
+    state = (z(i32, S, R), z(i32, S, R), 20 + 200 * torch.rand((S, R, T), generator=g),
+             z(torch.bool, S, R, T), z(torch.bool, S, R, T), z(i32, S, R, T), z(i32, S, R, T),
+             z(f32, S, R, T), z(f32, S, R, T), z(f32, S, R, L))
+    mu, sigma = torch.full((S, 1, L), 2.0), torch.full((S, 1, L), 1.0)
+    noise = torch.randn((K, S, R, L), generator=g)
+    cpu = (state, mu, sigma, *consts)
+    want = ref.grid_tick_bank_window(*cpu, leap=leap, noise=noise)
+    assert int(want[1].sum()) > 0 and bool((want[8] != 0).any())
+    cuda = [tuple(x.cuda() for x in state)] + [x.cuda() for x in cpu[1:]]
+    tables = ref.bank_index_tables(lp.cuda(), pl.cuda(), ll.cuda())
+    got = ops.grid_tick_bank_fused(*cuda, window=K, leap=leap, noise=noise.cuda(), tables=tables)
+    for name, a, b in zip(ref.BANK_WINDOW_STATE_FIELDS, got, want):
+        assert torch.equal(a.cpu(), b), name
 
 
 def test_fleet_window_invariance_and_cpu_parity():
@@ -163,11 +255,9 @@ def test_kernels_refuse_shapes_past_their_limits():
     dev = torch.device("cuda")
     S, R, T, P, L = 1, 2, max_t + 1, 4, 3
     f = lambda *shape: torch.zeros(shape, device=dev)
-    i = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
+    tables = ref.bank_index_tables(*(m[None].to(dev) for m in _random_campaign(T, P, L, 0)))
     with pytest.raises(ValueError, match="at most"):
-        grid_tick.grid_tick_bank_cuda(
-            f(S, R, T), f(S, R, T), f(S, T), f(S, R, L), f(S, L), i(S, T), i(S, T), i(S, P)
-        )
+        grid_tick.grid_tick_bank_cuda(f(S, R, T), f(S, R, T), f(S, T), f(S, R, L), f(S, L), tables)
     max_t, _, max_l = grid_tick.campaign_limits()
     assert max_t >= 1024 and max_l >= 256
     for T, P, L in ((max_t + 1, 4, 3), (64, 8, max_l + 1)):

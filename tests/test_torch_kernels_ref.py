@@ -171,12 +171,14 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     """The kernel wrappers take CUDA tensors only; a CPU tensor is refused
     before anything is built or launched."""
     x = torch.zeros((1, 1, 4))
-    idx = torch.zeros((1, 4), dtype=torch.int32)
+    tables = ref.bank_index_tables(torch.eye(4, 3)[None], torch.eye(3, 2)[None],
+                                   torch.eye(4, 2)[None])
     with pytest.raises(ValueError, match="CUDA tensor"):
         grid_tick.grid_tick_bank_cuda(
-            x, x, torch.zeros((1, 4)), torch.zeros((1, 1, 2)), torch.zeros((1, 2)),
-            idx, idx, torch.zeros((1, 3), dtype=torch.int32),
+            x, x, torch.zeros((1, 4)), torch.zeros((1, 1, 2)), torch.zeros((1, 2)), tables,
         )
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        grid_tick.grid_tick_bank_sums_cuda(x, tables)
 
 
 # -- the per-campaign tick ----------------------------------------------------

@@ -1,6 +1,6 @@
-"""Time the SELU-MLP and chunkwise SSD kernels of this checkout beside the
-same kernels built from another checkout's sources, in one process on one
-card, and check that both agree with the plain versions.
+"""Time kernels of this checkout beside the same kernels built from another
+checkout's sources, in one process on one card, and check that both agree
+with the plain versions.
 
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
@@ -8,11 +8,21 @@ Run from the root of a checkout on a machine with an NVIDIA GPU:
         | tar -x -C build/other
     python3 tools/ab_kernels.py --other build/other/src/repro_torch/kernels/csrc
 
-The other build's ``selu_mlp_launch`` and ``mlstm_chunk_launch`` are called
-with this checkout's C signatures, so the other sources must export the
-same two (commit 386eef2 does). Each kernel is timed as device time under
-``torch.profiler`` (``chip_smoke.device_ms``) in turns: other, this, this,
-other. One JSON line per shape, then the card's name and power limit.
+Groups (``--groups``, default all):
+
+- ``bank``: the banked simulator's fused window (``bank_fused_kernel``, one
+  K = 32 window of the stochastic tick run's first carry) and one tick
+  (``bank_tick_kernel``, ``remaining = inf`` as the leap scan calls it) at
+  the main path's shapes (1,024 scenarios x 64 replicas). The other build
+  is called with the C signatures of commit a4273ea (three index tables in
+  place of the packed segment lists) and held to the plain version within
+  chip_smoke's RTOL/ATOL; this build bitwise.
+- ``selu_mlp``, ``mlstm_chunk``: called with this checkout's C signatures,
+  so the other sources must export the same two (commit 386eef2 does).
+
+Each kernel is timed as device time under ``torch.profiler``
+(``chip_smoke.device_ms``) in turns: other, this, this, other. One JSON line
+per shape, then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -30,20 +40,27 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from repro_torch.kernels import _build, mlstm_chunk, ref, selu_mlp  # noqa: E402
+from repro_torch.core import engine  # noqa: E402
+from repro_torch.core.scenarios import build_bank  # noqa: E402
+from repro_torch.kernels import _build, grid_tick, mlstm_chunk, ref, selu_mlp  # noqa: E402
 
 P = ctypes.c_void_p
+I = ctypes.c_int
+# the bank launches' C signatures at commit a4273ea
+OLD_FUSED_ARGTYPES = [P] * 13 + [I] + [P] * 5 + [I] + [P] * 14 + [I] * 6 + [P]
+OLD_TICK_ARGTYPES = [P] * 3 + [I] + [P] * 8 + [I] * 5 + [P]
 
 
-def build_other(csrc: str, out_dir: str) -> dict:
-    """Build the other checkout's two sources with this checkout's flags."""
+def build_other(csrc: str, out_dir: str, names) -> dict:
+    """Build the other checkout's sources with this checkout's flags, every
+    ``nvcc`` at once."""
     os.makedirs(out_dir, exist_ok=True)
     procs = {
         name: subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", os.path.join(out_dir, f"lib{name}.so"),
              os.path.join(csrc, f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name in ("selu_mlp", "mlstm_chunk")
+        for name in names
     }
     libs = {}
     for name, proc in procs.items():
@@ -52,8 +69,98 @@ def build_other(csrc: str, out_dir: str) -> dict:
             raise RuntimeError(f"other {name}.cu did not build:\n{log}")
         libs[name] = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
     for name, mod in (("selu_mlp", selu_mlp), ("mlstm_chunk", mlstm_chunk)):
-        getattr(libs[name], f"{name}_launch").argtypes = getattr(mod._lib(), f"{name}_launch").argtypes
+        if name in libs:
+            getattr(libs[name], f"{name}_launch").argtypes = getattr(mod._lib(), f"{name}_launch").argtypes
+    if "grid_tick" in libs:
+        libs["grid_tick"].grid_tick_bank_fused_launch.argtypes = OLD_FUSED_ARGTYPES
+        libs["grid_tick"].grid_tick_bank_launch.argtypes = OLD_TICK_ARGTYPES
     return libs
+
+
+def fused_call(lib, state, noise, mu, sigma, consts, tables):
+    """One window of the other build's fused kernel, as its wrapper
+    launched it at commit a4273ea (three index tables)."""
+    K, S, R, L = noise.shape
+    T, P = state[2].shape[-1], tables.link_of_proc.shape[-1]
+    release, dep, period, max_ticks, keep, bw = consts[:6]
+    out = tuple(torch.empty_like(x) for x in state)
+    tab = [tables.proc_of_leg.data_ptr(), tables.link_of_leg.data_ptr(),
+           tables.link_of_proc.data_ptr()]
+    err = lib.grid_tick_bank_fused_launch(
+        *(x.data_ptr() for x in state), noise.data_ptr(), mu.data_ptr(), sigma.data_ptr(), 0,
+        release.data_ptr(), dep.data_ptr(), period.data_ptr(), max_ticks.data_ptr(),
+        keep.data_ptr(), 0, bw.data_ptr(), *tab, *(o.data_ptr() for o in out),
+        S, R, T, P, L, K, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused launch failed: {err}")
+    return out
+
+
+def tick_call(lib, active, remaining, keep, bg, bw, tables):
+    """One tick of the other build's bank tick kernel, as its wrapper
+    launched it at commit a4273ea."""
+    S, R, T = active.shape
+    L, P = bw.shape[-1], tables.link_of_proc.shape[-1]
+    outs = [torch.empty((S, R, n), device=active.device) for n in (T, P, L)]
+    tab = [tables.proc_of_leg.data_ptr(), tables.link_of_leg.data_ptr(),
+           tables.link_of_proc.data_ptr()]
+    err = lib.grid_tick_bank_launch(
+        active.data_ptr(), remaining.data_ptr(), keep.data_ptr(), 0, bg.data_ptr(),
+        bw.data_ptr(), *tab, *(o.data_ptr() for o in outs), S, R, T, P, L,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tick launch failed: {err}")
+    return outs
+
+
+def held(label, got, want, names, exact: bool) -> float:
+    return max(cs.compare(f"{label} {n}", g, w, exact=exact) for n, g, w in zip(names, got, want))
+
+
+def ab_bank(other_lib, dev) -> None:
+    """B.1's full window and B.2's tick at the main path's shapes."""
+    bank = build_bank(n=cs.N_SCEN, seed=0)
+    S, R, K = cs.N_SCEN, cs.N_REP, 32
+    T, L = bank.pad_legs, bank.pad_links
+    spec = engine.bank_spec(bank, dev)
+    p = engine.make_bank_params(bank, bg_mu=2.0, bg_sigma=1.0, device=dev)
+    mu, sigma = p.bg_mu[:, None].contiguous(), p.bg_sigma[:, None].contiguous()
+    consts = (spec.release, spec.dep, spec.bg_period, spec.max_ticks, p.keep_frac,
+              spec.bandwidth, spec.leg_proc, spec.proc_link, spec.leg_link)
+    c = engine._banked_init_carry(spec, p, torch.zeros((S, R, 2), dtype=torch.int64, device=dev))
+    state = (c.t, torch.zeros_like(c.t), c.remaining, c.done, c.started,
+             c.t_start, c.t_end, c.conth, c.conpr, c.bg)
+    noise = torch.randn((K, S, R, L), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    tables = spec.bank_tables
+    want = ref.grid_tick_bank_window(state, mu, sigma, *consts, leap=False, noise=noise,
+                                     tables=tables)
+    fields = ref.BANK_WINDOW_STATE_FIELDS
+    other = lambda: fused_call(other_lib, state, noise, mu, sigma, consts, tables)
+    this = lambda: grid_tick.grid_tick_bank_fused_cuda(state, noise, mu, sigma, *consts[:6], tables)
+    row = dict(kernel="bank_fused_kernel", shape=[K, S, R, T, bank.pad_procs, L],
+               alive_steps=int(want[1].sum()),
+               this_bitwise=held("this fused", this(), want, fields, exact=True) == 0.0,
+               other_max_abs_err=held("other fused", other(), want, fields, exact=False))
+    row.update(turns(other, this, 5, "bank_fused_kernel"))
+    print(json.dumps(row), flush=True)
+
+    g = torch.Generator(device="cpu").manual_seed(2)
+    active = ((torch.rand((S, R, T), generator=g) < 0.5).to(dev).float()
+              * spec.leg_valid[:, None].float())
+    remaining = torch.full((S, R, T), float("inf"), device=dev)
+    bg = torch.rand((S, R, L), generator=g).to(dev)
+    keep = p.keep_frac.contiguous()
+    want = ref.grid_tick_bank_indexed(active, remaining, keep, bg, spec.bandwidth,
+                                      spec.leg_proc, spec.proc_link, tables)
+    names = ("xfer", "proc_xfer", "link_xfer")
+    other = lambda: tick_call(other_lib, active, remaining, keep, bg, spec.bandwidth, tables)
+    this = lambda: grid_tick.grid_tick_bank_cuda(active, remaining, keep, bg, spec.bandwidth, tables)
+    row = dict(kernel="bank_tick_kernel", shape=[S, R, T, bank.pad_procs, L],
+               this_bitwise=held("this tick", this(), want, names, exact=True) == 0.0,
+               other_max_abs_err=held("other tick", other(), want, names, exact=False))
+    row.update(turns(other, this, 50, "bank_tick_kernel"))
+    print(json.dumps(row), flush=True)
 
 
 def other_selu(lib, x, ws, bs):
@@ -93,35 +200,44 @@ def turns(other, this, reps, tag) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, help="the other checkout's kernels/csrc directory")
+    ap.add_argument("--groups", nargs="+", default=["bank", "selu_mlp", "mlstm_chunk"],
+                    choices=["bank", "selu_mlp", "mlstm_chunk"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    _build.build(["selu_mlp", "mlstm_chunk"])
-    libs = build_other(args.other, os.path.join(ROOT, "build", "ab_other"))
-    for n in (4, 37, 4096, 8192):
-        x, ws, bs = cs.mlp_net(n, cs.MLP_IN, dev, seed=n)
-        want = ref.selu_mlp(x, ws, bs)
-        this_out, _ = selu_mlp.selu_mlp_cuda(x, ws, bs)
-        row = dict(kernel="selu_mlp", N=n, this_bitwise=bool(torch.equal(this_out, want)),
-                   other_bitwise=bool(torch.equal(other_selu(libs["selu_mlp"], x, ws, bs), want)),
-                   tile=list(selu_mlp.tile(n, cs.MLP_IN, cs.MLP_HIDDEN)))
-        row.update(turns(lambda: other_selu(libs["selu_mlp"], x, ws, bs),
-                         lambda: selu_mlp.selu_mlp_cuda(x, ws, bs), 200, "selu_mlp_kernel"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names = [{"bank": "grid_tick"}.get(g, g) for g in args.groups]
+    _build.build(names)
+    out_dir = os.path.join(ROOT, "build", "ab_other")
+    libs = build_other(args.other, out_dir, names)
+    if "bank" in args.groups:
+        ab_bank(libs["grid_tick"], dev)
+    if "selu_mlp" in args.groups:
+        for n in (4, 37, 4096, 8192):
+            x, ws, bs = cs.mlp_net(n, cs.MLP_IN, dev, seed=n)
+            want = ref.selu_mlp(x, ws, bs)
+            this_out, _ = selu_mlp.selu_mlp_cuda(x, ws, bs)
+            row = dict(kernel="selu_mlp", N=n, this_bitwise=bool(torch.equal(this_out, want)),
+                       other_bitwise=bool(torch.equal(other_selu(libs["selu_mlp"], x, ws, bs), want)),
+                       tile=list(selu_mlp.tile(n, cs.MLP_IN, cs.MLP_HIDDEN)))
+            row.update(turns(lambda: other_selu(libs["selu_mlp"], x, ws, bs),
+                             lambda: selu_mlp.selu_mlp_cuda(x, ws, bs), 200, "selu_mlp_kernel"))
+            print(json.dumps(row), flush=True)
+    if "mlstm_chunk" in args.groups:
+        bf = torch.bfloat16
+        ssd = cs.mlstm_case(cs.LLM_B, cs.LLM_S, 25, 16, 128, False, bf, seed=13, dev=dev)
+        want = ref.mlstm_chunk_chunked(*ssd, chunk=128, normalize=False)
+        row = dict(kernel="mlstm_chunk", shape=[cs.LLM_B, cs.LLM_S, 25, 16, 128], chunk=128,
+                   this_rel_err=cs.rel_err("this ssd", mlstm_chunk.mlstm_chunk_cuda(
+                       *ssd, chunk=128, normalize=False), want, cs.LLM_TOL[bf]),
+                   other_rel_err=cs.rel_err("other ssd", other_ssd(libs["mlstm_chunk"], *ssd, 128),
+                                            want, cs.LLM_TOL[bf]))
+        row.update(turns(lambda: other_ssd(libs["mlstm_chunk"], *ssd, 128),
+                         lambda: mlstm_chunk.mlstm_chunk_cuda(*ssd, chunk=128, normalize=False), 20,
+                         "mlstm"))
         print(json.dumps(row), flush=True)
-    bf = torch.bfloat16
-    ssd = cs.mlstm_case(cs.LLM_B, cs.LLM_S, 25, 16, 128, False, bf, seed=13, dev=dev)
-    want = ref.mlstm_chunk_chunked(*ssd, chunk=128, normalize=False)
-    row = dict(kernel="mlstm_chunk", shape=[cs.LLM_B, cs.LLM_S, 25, 16, 128], chunk=128,
-               this_rel_err=cs.rel_err("this ssd", mlstm_chunk.mlstm_chunk_cuda(
-                   *ssd, chunk=128, normalize=False), want, cs.LLM_TOL[bf]),
-               other_rel_err=cs.rel_err("other ssd", other_ssd(libs["mlstm_chunk"], *ssd, 128),
-                                        want, cs.LLM_TOL[bf]))
-    row.update(turns(lambda: other_ssd(libs["mlstm_chunk"], *ssd, 128),
-                     lambda: mlstm_chunk.mlstm_chunk_cuda(*ssd, chunk=128, normalize=False), 20,
-                     "mlstm"))
-    print(json.dumps(row), flush=True)
     print(cs.smi(), flush=True)
     return 0
 
