@@ -42,17 +42,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    just after); the device time per MCMC and training step under
    ``torch.profiler``; and a 200-step chain on the card against the CPU
    path;
-8. kernels (per campaign) — the per-campaign kernel against its plain
-   versions (``ref.grid_tick_indexed`` bitwise, ``ref.grid_tick`` within
-   RTOL/ATOL) on the paper's Section-5 campaign (T=106, P=11, L=1) at
+8. kernels (per campaign) — the per-campaign tick (the bank tick at S = 1,
+   its wide instance past the bank limits) against its plain versions
+   (``ref.grid_tick_indexed`` bitwise, ``ref.grid_tick`` within RTOL/ATOL)
+   and the per-campaign sums launch on its transfers (``ref.bank_sums`` at
+   S = 1, bitwise) on the paper's Section-5 campaign (T=106, P=11, L=1) at
    B = 7 and B = 2,048, shared and per-row keep, finite and infinite
-   ``remaining``, and on a 700-leg campaign;
+   ``remaining``, and on a 700-leg campaign (P=90, L=40);
 9. campaign — ``simulate_batch`` of the Section-5 campaign at B = 2,048,
    tick and leap, default and stochastic background load, with sims/s and
-   launches per run; device time by kernel of a stochastic tick (300
-   ticks) and leap run under ``torch.profiler``; window invariance (K=1 vs
-   K=64, bitwise); card vs CPU path; the kernel's device time at the main
-   shape (``torch.profiler``) beside its bound;
+   launches per run (in a leap run one sums launch an event step, one per
+   tick launch); device time by kernel of a stochastic tick (300 ticks) and
+   leap run under ``torch.profiler``; window invariance (K=1 vs K=64,
+   bitwise); card vs CPU path, bitwise; the tick's and the sums launch's
+   device time at the main shape (``torch.profiler``) beside their bounds,
+   the sums beside the one-hot matmul they replace;
 10. section5 — ``repro_torch.launch.calibrate``'s ``main`` at its defaults
    (8,192 presimulated tuples x 4 replicates, 120 epochs, 4 x 8,000 MCMC
    steps, 64 validation runs), seconds and kernel launches per stage,
@@ -490,7 +494,10 @@ def device_ms(fn, reps: int, tag=None) -> float:
     events of a trace (on an H100 a few to a few dozen launches, at times
     every launch of a short loop), so the ``reps`` calls are traced once
     as a warm-up step that is thrown away and again as the step that is
-    read. A read step with no device event, or with a
+    read. The read step can miss its own first launches too (on an H100 the
+    first 6 of 20 calls in six profiles in a row once), so each step
+    starts with a burst of ``torch.cuda._sleep`` spin kernels that are not
+    counted. A read step with no device event, or with a
     count of ``tag``'s kernels that is not a multiple of ``reps`` (each
     call launches the tagged kernel the same number of times), is taken
     again, up to six times (a read step missed launches in three profiles
@@ -506,11 +513,14 @@ def device_ms(fn, reps: int, tag=None) -> float:
                      schedule=schedule(wait=0, warmup=1, active=1),
                      on_trace_ready=lambda p: read.append(device_rows(p))) as prof:
             for _step in range(2):
+                for _ in range(32):
+                    torch.cuda._sleep(5000)
+                torch.cuda.synchronize()
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
-        rows = read[0] if read else []
+        rows = [r for r in (read[0] if read else []) if "spin_kernel" not in r[0]]
         tagged = [r for r in rows if tag is None or tag in r[0]]
         launches = sum(r[2] for r in tagged)
         if rows and (tag is None or (launches and launches % reps == 0)):
@@ -823,23 +833,29 @@ def campaign_tick_inputs(B, T, L, dev, per_row: bool, inf: bool, seed: int = 0):
 
 
 def check_campaign_kernel(label, a, rem, keep, bg, bw, lp, pl, ll) -> float:
-    """The per-campaign kernel against ``ref.grid_tick_indexed`` (bitwise)
-    and ``ref.grid_tick`` (within RTOL/ATOL); the max abs error against the
-    latter."""
+    """The per-campaign tick against ``ref.grid_tick_indexed`` (bitwise)
+    and ``ref.grid_tick`` (within RTOL/ATOL), then the per-campaign sums
+    launch on the tick's transfers against ``ref.bank_sums`` at S = 1
+    (bitwise); the max abs error against the one-hot matmul."""
     tables = ref.campaign_index_tables(lp, pl, ll)
     got = grid_tick.grid_tick_cuda(a, rem, keep, bg, bw, tables)
-    want = ref.grid_tick_indexed(a, rem, keep, bg, bw, tables)
+    want = ref.grid_tick_indexed(a, rem, keep, bg, bw, lp, pl, tables)
     for name, g_, w_ in zip(("xfer", "proc_xfer", "link_xfer"), got, want):
         compare(f"grid_tick {label} {name} vs indexed", g_, w_, exact=True)
+    plain_sums = ref.bank_sums(want[0][None], tables)
+    for name, g_, w_ in zip(("proc", "link"), grid_tick.grid_tick_sums_cuda(want[0], tables),
+                            plain_sums):
+        compare(f"grid_tick_sums {label} {name}", g_, w_[0], exact=True)
     plain = ref.grid_tick(a, rem, keep, bg, bw, lp, pl, ll)
     return max(compare(f"grid_tick {label} {name}", g_, w_, exact=False)
                for name, g_, w_ in zip(("xfer", "proc_xfer", "link_xfer"), got, plain))
 
 
 def phase_campaign_kernel(dev) -> float:
-    """The per-campaign kernel against its plain versions: the Section-5
-    campaign at B = 7 and at the main shape B = 2,048 (shared and per-row
-    keep, finite and infinite remaining), and a 700-leg campaign."""
+    """The per-campaign tick and sums against their plain versions: the
+    Section-5 campaign at B = 7 and at the main shape B = 2,048 (shared and
+    per-row keep, finite and infinite remaining), and a 700-leg campaign
+    (the wide instance)."""
     spec = engine.SimSpec.from_table(section5_table(), max_ticks=SECTION5_MAX_TICKS, device=dev)
     inc = (spec.leg_proc, spec.proc_link, spec.leg_link)
     T, P, L = spec.n_legs, spec.leg_proc.shape[1], spec.n_links
@@ -850,7 +866,8 @@ def phase_campaign_kernel(dev) -> float:
                 x = campaign_tick_inputs(B, T, L, dev, per_row, inf, seed=B)
                 e = check_campaign_kernel(f"B={B}", *x, spec.bandwidth, *inc)
                 emit("kernels", kernel="grid_tick", B=B, T=T, P=P, L=L, per_row_keep=per_row,
-                     remaining_inf=inf, bitwise_vs_indexed=True, max_abs_err=e)
+                     remaining_inf=inf, bitwise_vs_indexed=True, sums_bitwise=True,
+                     max_abs_err=e)
                 err = max(err, e)
     T2, P2, L2, B2 = 700, 90, 40, 300
     inc2 = tuple(m.to(dev) for m in random_campaign(T2, P2, L2, seed=3))
@@ -858,18 +875,19 @@ def phase_campaign_kernel(dev) -> float:
     e = check_campaign_kernel("T=700", *campaign_tick_inputs(B2, T2, L2, dev, True, False, 5),
                               bw2, *inc2)
     emit("kernels", kernel="grid_tick", B=B2, T=T2, P=P2, L=L2, per_row_keep=True,
-         bitwise_vs_indexed=True, max_abs_err=e)
+         bitwise_vs_indexed=True, sums_bitwise=True, max_abs_err=e)
     torch.cuda.synchronize()
     return max(err, e)
 
 
 def phase_campaign(dev) -> dict:
     """``simulate_batch`` of the Section-5 campaign at B = 2,048 through
-    the per-campaign kernel: tick and leap, the campaign's own
-    (deterministic) background load and the launcher's stochastic theta;
-    each timed run's launches counted from 0. Then window invariance
-    (K = 1 vs K = 64, bitwise), the card against the CPU path, and the
-    kernel's time at the main shape beside its bound."""
+    the per-campaign tick (and, in leap mode, the sums launch): tick and
+    leap, the campaign's own (deterministic) background load and the
+    launcher's stochastic theta; each timed run's launches counted from 0.
+    Then window invariance (K = 1 vs K = 64, bitwise), the card against the
+    CPU path (bitwise), and the two launches' times at the main shape
+    beside their bounds."""
     table = section5_table()
     spec = engine.SimSpec.from_table(table, max_ticks=SECTION5_MAX_TICKS, device=dev)
     mapper = calibration.make_theta_mapper(table, device=dev)
@@ -895,6 +913,10 @@ def phase_campaign(dev) -> dict:
                 assert bool(torch.isfinite(x).all()), f"{f} not finite"
             if launches["grid_tick"] <= 0:
                 raise AssertionError(f"grid_tick was not launched in the {label} run (leap={leap})")
+            # a leap event step takes its last tick's sums in one launch
+            if launches["grid_tick_sums"] != (launches["grid_tick"] if leap else 0):
+                raise AssertionError(f"grid_tick_sums {launches['grid_tick_sums']} launches, "
+                                     f"grid_tick {launches['grid_tick']} (leap={leap})")
             run = dict(mode="leap" if leap else "tick", params=label, sims=CAMPAIGN_B, wall_s=wall,
                        sims_per_s=CAMPAIGN_B / wall, windows=engine.STATS["windows"],
                        realized_ticks=int(res.ticks.max()),
@@ -922,7 +944,8 @@ def phase_campaign(dev) -> dict:
         mode = "leap" if leap else "tick"
         prof[mode] = dict(
             max_ticks=cut, wall_s=wall, device_s=dev_s, busy_share=dev_s / wall,
-            grid_tick_kernel_s=sum(r[1] for r in rows if "campaign_tick_kernel" in r[0]) / 1e6,
+            grid_tick_kernel_s=sum(r[1] for r in rows if "bank_tick_kernel" in r[0]) / 1e6,
+            grid_tick_sums_kernel_s=sum(r[1] for r in rows if "bank_sums_kernel" in r[0]) / 1e6,
             device_launches=sum(r[2] for r in rows),
             top=[[k[:60], us / 1e6, n] for k, us, n in rows[:6]],
         )
@@ -951,45 +974,69 @@ def phase_campaign(dev) -> dict:
         c = engine.simulate_batch(cpu_spec._replace(max_ticks=cut), cpu_p, keys[:4].cpu(),
                                   leap=leap)
         errs = {f: compare(f"campaign card vs CPU leap={leap} {f}", getattr(g, f).cpu(),
-                           getattr(c, f), exact=False) for f in g._fields}
-        emit("campaign", check="card vs CPU path", leap=leap, sims=4, max_ticks=cut,
+                           getattr(c, f), exact=True) for f in g._fields}
+        emit("campaign", check="card vs CPU path, bitwise", leap=leap, sims=4, max_ticks=cut,
              max_abs_err=errs)
 
-    # the kernel at the main shape, as presimulation's leap calls it: one
+    # the tick at the main shape, as presimulation's leap calls it: one
     # keep per row, remaining = inf
     T, P, L = spec.n_legs, spec.leg_proc.shape[1], spec.n_links
     a, rem, keep, bg = campaign_tick_inputs(CAMPAIGN_B, T, L, dev, per_row=True, inf=True)
     tables = spec.campaign_tables
     launch = lambda: grid_tick.grid_tick_cuda(a, rem, keep, bg, spec.bandwidth, tables)
     # a launch's device time is shorter than the wrapper's host time, so
-    # CUDA events around back-to-back launches time the host: the kernel's
+    # CUDA events around back-to-back launches time the host: each launch's
     # own time is its device time under the profiler
     wall_ms, got = timed(launch, 200)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
-        for _ in range(200):
-            launch()
-        torch.cuda.synchronize()
-    ms = sum(us for k, us, _ in device_rows(pr) if "campaign_tick_kernel" in k) / 1e3 / 200
-    if not ms > 0:
-        raise AssertionError("the profiler recorded no device time for campaign_tick_kernel")
-    plain_ms, want = timed(lambda: ref.grid_tick(a, rem, keep, bg, spec.bandwidth, spec.leg_proc,
-                                                 spec.proc_link, spec.leg_link), 20)
-    err = max(compare(f"grid_tick main shape {n}", g_, w_, exact=False)
+    ms = device_ms(launch, 200, "bank_tick_kernel")
+    plain_ms, want = timed(lambda: ref.grid_tick_indexed(a, rem, keep, bg, spec.bandwidth,
+                                                         spec.leg_proc, spec.proc_link, tables), 20)
+    err = max(compare(f"grid_tick main shape {n}", g_, w_, exact=True)
               for n, g_, w_ in zip(("xfer", "proc_xfer", "link_xfer"), got, want))
+    err = max(err, *(compare(f"grid_tick main shape {n} vs one-hot matmul", g_, w_, exact=False)
+                     for n, g_, w_ in zip(("xfer", "proc_xfer", "link_xfer"), got, ref.grid_tick(
+                         a, rem, keep, bg, spec.bandwidth, spec.leg_proc, spec.proc_link,
+                         spec.leg_link))))
     # bytes: the [B, T] inputs and bg read once, the tables, the outputs
-    # written once; operations per row: a sum over the legs for the thread
-    # counts and for each of the two transfer sums, five per leg for the
-    # share, a few per process and link
+    # written once; operations per row: five per leg for the share, an add
+    # per list position for the two transfer sums, a few per process and link
+    nnz = int(tables.proc_ptr[0, -1]) + int(tables.link_proc_ptr[0, -1])
     bytes_ = nbytes(a, rem, keep, bg, spec.bandwidth, tables.packed, *got)
-    ops_ = CAMPAIGN_B * (8 * T + 2 * P + 4 * L)
+    ops_ = CAMPAIGN_B * (5 * T + nnz + 2 * P + 4 * L)
     bound = max(bytes_ / PEAK_BYTES, ops_ / PEAK_FP32) * 1e3
     timing = dict(ms=ms, wall_ms_per_launch=wall_ms, plain_ms=plain_ms, bound_ms=bound,
                   bound_by="bytes" if bytes_ / PEAK_BYTES >= ops_ / PEAK_FP32 else "operations",
-                  bytes=bytes_, ops=ops_, shape=[CAMPAIGN_B, T, P, L], max_abs_err=err)
-    emit("campaign", check="grid_tick kernel timing", card=smi(), library_ms=None,
+                  bytes=bytes_, ops=ops_, shape=[CAMPAIGN_B, T, P, L], max_abs_err=err,
+                  library_ms=None)
+    emit("campaign", check="grid_tick kernel timing", card=smi(),
          library="none: no single PyTorch call computes the tick", **timing)
+
+    # the sums launch on that tick's transfers, as the leap step calls it;
+    # library: the one-hot matmul it replaces (cuBLAS), timed here only
+    v = got[0]
+    sums = lambda: grid_tick.grid_tick_sums_cuda(v, tables)
+    sums_ms = device_ms(sums, 200, "bank_sums_kernel")
+    sums_wall_ms, got_s = timed(sums, 200)
+    plain_sums_ms, want_s = timed(lambda: ref.bank_sums(v[None], tables), 20)
+    sums_err = max(compare(f"grid_tick_sums main shape {n}", g_, w_[0], exact=True)
+                   for n, g_, w_ in zip(("proc", "link"), got_s, want_s))
+    columns = torch.cat([spec.leg_proc, spec.leg_link], dim=-1).contiguous()
+    lib_sums_ms = device_ms(lambda: v @ columns, 200)
+    compare("grid_tick_sums vs one-hot matmul", torch.cat(got_s, dim=-1), v @ columns, exact=False)
+    sums_bytes = nbytes(v, tables.packed, *got_s)
+    sums_ops = CAMPAIGN_B * nnz
+    sums_bound = max(sums_bytes / PEAK_BYTES, sums_ops / PEAK_FP32) * 1e3
+    sums_timing = dict(
+        ms=sums_ms, wall_ms_per_launch=sums_wall_ms, plain_ms=plain_sums_ms, bound_ms=sums_bound,
+        bound_by="bytes" if sums_bytes / PEAK_BYTES >= sums_ops / PEAK_FP32 else "operations",
+        bytes=sums_bytes, ops=sums_ops, shape=[CAMPAIGN_B, T, P, L], max_abs_err=sums_err,
+        library_ms=lib_sums_ms)
+    emit("campaign", check="grid_tick_sums kernel timing", card=smi(),
+         library="v @ cat([leg_proc, leg_link]) (cuBLAS, device time)", **sums_timing)
     by_run = {f"{r['mode']}_{r['params']}": r["launches"]["grid_tick"] for r in runs}
-    return {"runs": runs, "timing": timing, "launches_by_run": by_run, "profile": prof}
+    sums_by_run = {f"{r['mode']}_{r['params']}": r["launches"]["grid_tick_sums"] for r in runs}
+    return {"runs": runs, "timing": timing, "sums_timing": sums_timing, "launches_by_run": by_run,
+            "sums_launches_by_run": sums_by_run, "profile": prof}
 
 
 def phase_section5(dev) -> dict:
@@ -1020,7 +1067,9 @@ def phase_section5(dev) -> dict:
     if not 0.0 < report["accept_rate"] < 1.0:
         raise AssertionError(f"section5 accept rate {report['accept_rate']}")
     for name, want in (("x_true", "grid_tick"), ("presimulate", "grid_tick"),
-                       ("train", "selu_mlp"), ("mcmc", "selu_mlp"), ("validate", "grid_tick")):
+                       ("presimulate", "grid_tick_sums"), ("train", "selu_mlp"),
+                       ("mcmc", "selu_mlp"), ("validate", "grid_tick"),
+                       ("validate", "grid_tick_sums")):
         if stages[name]["launches"][want] <= 0:
             raise AssertionError(f"kernel {want} was not launched in stage {name}")
     res = dict(wall_s=wall, stages=stages, theta_true=report["theta_true"],
@@ -2012,16 +2061,25 @@ def main() -> int:
             ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t.get("library_ms"),
         ))
-    t = camp["timing"]
-    by_run = {f"campaign_{k}": n for k, n in camp["launches_by_run"].items()}
-    by_run.update({f"section5_{k}": v["launches"]["grid_tick"] for k, v in sec5["stages"].items()})
-    kernels.append(dict(
-        name="grid_tick", route="cuda", source="src/repro_torch/kernels/csrc/grid_tick.cu",
-        replaces="src/repro/kernels/grid_tick.py:115", launches=sum(by_run.values()),
-        launches_by_run=by_run, max_abs_err=max(campaign_err, t["max_abs_err"]),
-        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-        library_ms=None,
-    ))
+    # the per-campaign tick (the bank tick at S = 1) and, with no Pallas
+    # kernel, the leap step's sums (the reference's one-hot dots)
+    # (max abs error: the tick's against the one-hot matmul, the sums' against
+    # ref.bank_sums)
+    for name, timing, runs_key, src, err in (
+            ("grid_tick", "timing", "launches_by_run", "src/repro/kernels/grid_tick.py:115",
+             campaign_err),
+            ("grid_tick_sums", "sums_timing", "sums_launches_by_run",
+             "src/repro/core/engine.py:220", 0.0)):
+        t = camp[timing]
+        by_run = {f"campaign_{k}": n for k, n in camp[runs_key].items()}
+        by_run.update({f"section5_{k}": v["launches"][name] for k, v in sec5["stages"].items()})
+        kernels.append(dict(
+            name=name, route="cuda", source="src/repro_torch/kernels/csrc/grid_tick.cu",
+            replaces=src, launches=sum(by_run.values()), launches_by_run=by_run,
+            max_abs_err=max(err, t["max_abs_err"]),
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"],
+        ))
     m = mlp[8192]
     by_stage = {k: cal["stages"][k]["launches"]["selu_mlp"] for k in ("train", "mcmc")}
     by_stage.update({f"section5_{k}": sec5["stages"][k]["launches"]["selu_mlp"]

@@ -6,7 +6,11 @@ The port of the reference package's ``repro.core.engine``, in two parts.
   simulations of one compiled campaign (an unstacked :class:`SimSpec`,
   :meth:`SimSpec.from_table`) advance as one ``[B, ...]`` carry, one
   :func:`ops.grid_tick` call per tick or event leap: one launch of the
-  per-campaign kernel on the card.
+  per-campaign tick on the card, and under ``leap`` one
+  :func:`ops.grid_tick_sums` launch an event step for its last tick's
+  sums. Every per-process and per-link float sum walks the campaign's
+  lists (``ref.campaign_index_tables``) as the banked engine walks a
+  scenario's, so the ``vmap`` lowering equals the banked one bitwise.
 - **Banked** (:func:`simulate_bank`): a compiled scenario bank runs as one
   ``[S, R, ...]`` carry advanced by fused windows of ``K`` ticks (``K``
   event leaps under ``leap``), each window one call of
@@ -66,7 +70,8 @@ class SimSpec(NamedTuple):
     them, filled by :func:`with_index_tables`: ``proc_of_leg``,
     ``link_of_leg`` and ``link_of_proc``, and beside them all of a bank's
     ``bank_tables`` (``ref.bank_index_tables``) or one campaign's
-    ``campaign_tables`` (``ref.campaign_index_tables``)."""
+    ``campaign_tables`` (``ref.campaign_index_tables``: the same tables
+    for a bank of one scenario)."""
 
     size_mb: torch.Tensor  # [N, T] f32
     release: torch.Tensor  # [N, T] i32
@@ -83,7 +88,7 @@ class SimSpec(NamedTuple):
     proc_of_leg: Optional[torch.Tensor] = None  # [N, T] i32
     link_of_leg: Optional[torch.Tensor] = None  # [N, T] i32
     link_of_proc: Optional[torch.Tensor] = None  # [N, P] i32
-    campaign_tables: Optional[ref.CampaignTables] = None  # unstacked only
+    campaign_tables: Optional[ref.BankTables] = None  # unstacked only, S = 1
     bank_tables: Optional[ref.BankTables] = None  # stacked only
 
     @property
@@ -190,8 +195,8 @@ def with_index_tables(spec: SimSpec) -> SimSpec:
         return spec
     if spec.size_mb.dim() == 1:
         ct = ref.campaign_index_tables(spec.leg_proc, spec.proc_link, spec.leg_link)
-        return spec._replace(proc_of_leg=ct.proc_of_leg, link_of_leg=ct.link_of_leg,
-                             link_of_proc=ct.link_of_proc, campaign_tables=ct)
+        return spec._replace(proc_of_leg=ct.proc_of_leg[0], link_of_leg=ct.link_of_leg[0],
+                             link_of_proc=ct.link_of_proc[0], campaign_tables=ct)
     bt = ref.bank_index_tables(spec.leg_proc, spec.proc_link, spec.leg_link)
     return spec._replace(proc_of_leg=bt.proc_of_leg, link_of_leg=bt.link_of_leg,
                          link_of_proc=bt.link_of_proc, bank_tables=bt)
@@ -518,9 +523,7 @@ def _sim_step(
         # dt - 1 rate-exact ticks, then the final (possibly clipped) tick
         rem_mid = prng.fma(-(a * rate), dt1, c.remaining)
         xfer_f = torch.minimum(rem_mid, rate) * a
-        n_procs = spec.leg_proc.shape[-1]
-        both = xfer_f @ torch.cat([spec.leg_proc, spec.leg_link], dim=-1)
-        proc_xfer_f, link_xfer_f = both[:, :n_procs], both[:, n_procs:]
+        proc_xfer_f, link_xfer_f = ops.grid_tick_sums(xfer_f, spec.campaign_tables)
         remaining = rem_mid - xfer_f
         own_proc_rate = proc_rate[:, proc_of_leg]
         own_link_rate = link_rate[:, link_of_leg]

@@ -5,21 +5,27 @@
 //   - bank_fused_kernel  <- grid_tick_bank_fused_pallas / _bank_fused_kernel
 //     (K fair-share ticks per launch, the carry resident on chip);
 //   - bank_tick_kernel   <- grid_tick_bank_pallas / _bank_tick_kernel
-//     (one tick -> xfer, proc_xfer, link_xfer; the leap engine's rates);
-//   - campaign_tick_kernel <- grid_tick_pallas / _tick_kernel
-//     (one tick of B simulations of one campaign; see its own note below).
+//     (one tick -> xfer, proc_xfer, link_xfer; the leap engine's rates),
+//     and <- grid_tick_pallas / _tick_kernel (one tick of B simulations of
+//     one campaign): a campaign is a bank of one scenario whose B
+//     simulations are its replicas, so both run this kernel;
 // and one that has no Pallas counterpart:
-//   - bank_sums_kernel: the leap step's per-process and per-link sums of the
+//   - bank_sums_kernel: the leap steps' per-process and per-link sums of the
 //     event step's last tick (the reference takes them as one-hot dots,
-//     src/repro/kernels/ref.py:307), in the order of the other two.
+//     src/repro/kernels/ref.py:307 for a bank, src/repro/core/engine.py:220
+//     for one campaign), in the order of the other two.
+// Past the bank limits (T <= 128, P <= 128, L <= 32) the tick and the sums
+// run bank_tick_wide_kernel and bank_sums_wide_kernel: the same routines on
+// tables in dynamic shared memory, up to a campaign's T <= 1,024,
+// P <= 1,024, L <= 256 (see "Wide tables" below).
 //
 // What bounds them on the card. Per element and tick the work is a few
-// hundred scalar operations on ~T legs, P processes and L links (T <= 128,
-// P <= 128, L <= 32), so neither kernel comes near the tensor cores or the
-// fp32 peak, and the one-tick kernel moves its inputs and outputs once. What
-// bounds both in practice is the warp's instruction stream: each tick is a
-// chain of dependent segment sums inside one warp, so the cost is issue
-// slots and the latency between them, which more resident warps hide.
+// hundred scalar operations on ~T legs, P processes and L links, so neither
+// kernel comes near the tensor cores or the fp32 peak, and the one-tick
+// kernel moves its inputs and outputs once. What bounds both in practice is
+// the warp's instruction stream: each tick is a chain of dependent segment
+// sums inside one warp, so the cost is issue slots and the latency between
+// them, which more resident warps hide.
 //
 // Layout. One warp owns one (scenario, replica) element, and the whole carry
 // stays in registers for the K loop. Each block holds the warps of one
@@ -27,7 +33,8 @@
 // (ref.BankTables.packed: the process and link of each leg, the legs of each
 // process and the processes of each link as ascending lists), and builds from
 // the lists one bit mask per process over the legs and one per link over the
-// processes. A warp leaves its loop as soon as its element is finished or
+// processes, a thread a list entry (atomicOr), so no thread walks a list
+// while the block waits. A warp leaves its loop as soon as its element is finished or
 // clocked out, which is exact: a dead element never changes again. Each warp
 // issues its element's loads before the block stages the tables, and the
 // fused kernel loads the next tick's normals while a tick runs.
@@ -43,19 +50,29 @@
 //     mask (lane k counts link k). No lane walks a list for a count, so a
 //     link with 80 processes costs what a link with one does;
 //   - xfer per process: lane k walks the legs of processes k, k + 32, ...;
-//   - xfer per link: lane k walks the processes of link k and adds their
-//     sums. A link's sum walks its processes, not its legs: on an L = 1
-//     scenario no lane walks all T legs while the others wait; the longest
-//     walk is the largest process or the busiest link.
+//   - xfer per link: lane k walks the processes of links k, k + 32, ... and
+//     adds their sums. A link's sum walks its processes, not its legs: on an
+//     L = 1 campaign no lane walks all T legs while the others wait; the
+//     longest walk is the largest process or the busiest link (Section 5's
+//     106 legs on one link: ~20 legs, then 11 processes).
 // The float sums run one term at a time from 0.0 with __fadd_rn, in list
 // order, with no float atomics: bitwise what ref.grid_tick_bank_indexed
-// computes, run to run and for every window size K. A link that carries one
-// process sums to exactly that process's sum, so its ConPr adds exact zeros.
+// (ref.grid_tick_indexed for one campaign) computes, run to run and for
+// every window size K. A link that carries one process sums to exactly that
+// process's sum, so its ConPr adds exact zeros.
 // At the main bank (S 1,024, padded T 93, P 80, L 11; a scenario has on
 // average 17 legs, 12 processes and 2.5 links, the longest process list ~4
 // legs and the busiest link ~7 processes) a tick should cost ~300-400 warp
 // instructions an element; a compare-scan of every segment over the padded
 // T, P and L would cost ~5,000.
+//
+// Wide tables. Past the bank limits the bit masks would not fit (P x T / 32
+// words: 128 KB at a 1,024-leg campaign), so the wide kernels stage the
+// packed lists alone in dynamic shared memory, keep the first 128 legs of a
+// lane in its 4 register slots and read the legs past them from device
+// memory into the warp's shared row, and take the counts as integer walks
+// of the lists over the warp's ballots (exact, so in any order). Their
+// float sums are the same routines in the same order.
 //
 // Rounding follows the plain PyTorch version (repro_torch/kernels/ref.py):
 // every float operation is written as an explicit round-to-nearest intrinsic
@@ -73,10 +90,14 @@ constexpr int kMaxP = 128;
 constexpr int kMaxL = 32;
 constexpr int kMaxSlots = kMaxT / kWarp;  // leg slots a lane
 constexpr int kProcWords = kMaxP / kWarp;
-constexpr int kWarpsPerBlock = 4;
 // Warps (elements) per block of the bank kernels: the scenario's tables are
 // staged once per block. ~5 KB of tables and ~1.8 KB of scratch a warp.
 constexpr int kBankWarps = 4;
+// The wide kernels' limits: one campaign of up to 1,024 legs and processes
+// and 256 links (~78 KB of dynamic shared memory at the limits).
+constexpr int kWideT = 1024;
+constexpr int kWideP = 1024;
+constexpr int kWideL = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct FusedArgs {
@@ -148,6 +169,7 @@ __host__ __device__ inline int bank_table_words(int T, int P, int L) {
 
 // One scenario's tables, staged once per block.
 struct ScenarioTables {
+  static constexpr bool kWide = false;
   int proc_of_leg[kMaxT];
   int link_of_leg[kMaxT];
   int proc_ptr[kMaxP + 1];
@@ -168,6 +190,85 @@ struct WarpScratch {
   float lx[kMaxL];       // xfer per link
 };
 
+// The wide kernels' view of one scenario's tables in dynamic shared memory
+// (the packed lists, no masks).
+struct WideTables {
+  static constexpr bool kWide = true;
+  const int* proc_of_leg;
+  const int* link_of_leg;
+  const int* proc_ptr;
+  const int* proc_legs;
+  const int* link_proc_ptr;
+  const int* link_procs;
+  int n_proc;
+};
+
+// The wide kernels' per-warp rows in dynamic shared memory: WarpScratch's,
+// and the warp's ballot of the active legs, one word per 32 legs.
+struct WideScratch {
+  float* x;
+  int* threads;
+  float* px;
+  float* ppbw;
+  float* lx;
+  unsigned* act;
+};
+
+// One element's rows in device memory, for what a lane's registers do not
+// hold under wide tables: the legs past its slots, every link.
+struct LegRows {
+  const float* active;     // [T]
+  const float* keep;       // [T]
+  const float* remaining;  // [T]
+  const float* bg;         // [L]
+  const float* bw;         // [L]
+};
+
+__host__ __device__ inline int wide_scratch_words(int T, int P, int L) {
+  return T + 2 * P + 2 * L + (T + kWarp - 1) / kWarp;
+}
+
+// Dynamic shared memory of a wide block: the packed tables, n_proc, and
+// kBankWarps scratch rows.
+__host__ __device__ inline size_t wide_smem_bytes(int T, int P, int L) {
+  return sizeof(int) * ((size_t)bank_table_words(T, P, L) + 1 +
+                        (size_t)kBankWarps * wide_scratch_words(T, P, L));
+}
+
+// 1 + the last process in any list of the staged lists, for one thread's
+// share of the list entries (thread t takes entries t, t + blockDim.x, ...),
+// reduced over the block into *n_proc (set to 1 before the caller's first
+// barrier). With kMasks, also sets each entry's bit in its process's leg
+// mask and its link's process mask: every entry at once, so no thread walks
+// a list. A listed leg's process is its proc_of_leg; an entry's link is
+// found in the link pointers (at most kMaxL + 1 of them).
+template <bool kMasks, class Tb>
+__device__ void scan_lists(Tb& tb, int* n_proc, int P, int L) {
+  int np = 0;
+  const int n_legs = tb.proc_ptr[P];
+  for (int k = threadIdx.x; k < n_legs; k += blockDim.x) {
+    const int leg = tb.proc_legs[k];
+    const int p = tb.proc_of_leg[leg];
+    if constexpr (kMasks) atomicOr(&tb.leg_mask[p][leg / kWarp], 1u << (leg % kWarp));
+    np = max(np, p + 1);
+  }
+  const int n_procs = tb.link_proc_ptr[L];
+  for (int k = threadIdx.x; k < n_procs; k += blockDim.x) {
+    const int p = tb.link_procs[k];  // a process with no leg still counts
+    if constexpr (kMasks) {
+      int l = 0;
+      while (tb.link_proc_ptr[l + 1] <= k) ++l;
+      atomicOr(&tb.proc_mask[l][p / kWarp], 1u << (p % kWarp));
+    }
+    np = max(np, p + 1);
+  }
+  np = __reduce_max_sync(kFull, np);
+  if (threadIdx.x % kWarp == 0) atomicMax(n_proc, np);
+}
+
+// Stages scenario s's tables into tb, with the bit masks when kMasks (the
+// sums kernel reads the lists alone).
+template <bool kMasks>
 __device__ void stage_tables(ScenarioTables& tb, const int* tables, int s, int T, int P, int L) {
   const int* src = tables + (size_t)s * bank_table_words(T, P, L);
   const int* proc_ptr = src + 2 * T;
@@ -182,28 +283,50 @@ __device__ void stage_tables(ScenarioTables& tb, const int* tables, int s, int T
   for (int i = threadIdx.x; i <= P; i += blockDim.x) tb.proc_ptr[i] = proc_ptr[i];
   for (int i = threadIdx.x; i < P; i += blockDim.x) tb.link_procs[i] = link_procs[i];
   for (int i = threadIdx.x; i <= L; i += blockDim.x) tb.link_proc_ptr[i] = link_proc_ptr[i];
-  for (int i = threadIdx.x; i < P * kMaxSlots; i += blockDim.x) (&tb.leg_mask[0][0])[i] = 0u;
-  for (int i = threadIdx.x; i < L * kProcWords; i += blockDim.x) (&tb.proc_mask[0][0])[i] = 0u;
+  if constexpr (kMasks) {
+    for (int i = threadIdx.x; i < P * kMaxSlots; i += blockDim.x) (&tb.leg_mask[0][0])[i] = 0u;
+    for (int i = threadIdx.x; i < L * kProcWords; i += blockDim.x) (&tb.proc_mask[0][0])[i] = 0u;
+  }
   if (threadIdx.x == 0) tb.n_proc = 1;
   __syncthreads();
-  // the masks from the lists, one process (link) per thread
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    const int a = tb.proc_ptr[p], b = tb.proc_ptr[p + 1];
-    for (int k = a; k < b; ++k) {
-      const int leg = tb.proc_legs[k];
-      tb.leg_mask[p][leg / kWarp] |= 1u << (leg % kWarp);
-    }
-    if (b > a) atomicMax(&tb.n_proc, p + 1);
-  }
-  // a link may list a process that has no leg: its sum is 0, so it counts
-  for (int l = threadIdx.x; l < L; l += blockDim.x) {
-    for (int k = tb.link_proc_ptr[l]; k < tb.link_proc_ptr[l + 1]; ++k) {
-      const int p = tb.link_procs[k];
-      tb.proc_mask[l][p / kWarp] |= 1u << (p % kWarp);
-      atomicMax(&tb.n_proc, p + 1);
-    }
-  }
+  scan_lists<kMasks>(tb, &tb.n_proc, P, L);
   __syncthreads();
+}
+
+// The wide kernels' staging: the packed lists copied into smem, n_proc
+// (as ScenarioTables') in the word after them.
+__device__ WideTables stage_wide_tables(int* smem, const int* tables, int s, int T, int P, int L) {
+  const int words = bank_table_words(T, P, L);
+  const int* src = tables + (size_t)s * words;
+  int* n_proc = smem + words;
+  for (int i = threadIdx.x; i < words; i += blockDim.x) smem[i] = src[i];
+  if (threadIdx.x == 0) *n_proc = 1;
+  WideTables tb;
+  tb.proc_of_leg = smem;
+  tb.link_of_leg = smem + T;
+  tb.proc_ptr = smem + 2 * T;
+  tb.proc_legs = tb.proc_ptr + P + 1;
+  tb.link_proc_ptr = tb.proc_legs + T;
+  tb.link_procs = tb.link_proc_ptr + L + 1;
+  __syncthreads();
+  scan_lists<false>(tb, n_proc, P, L);
+  __syncthreads();
+  tb.n_proc = *n_proc;
+  return tb;
+}
+
+// Warp `warp`'s rows, after the tables and n_proc.
+__device__ WideScratch wide_scratch(int* smem, int warp, int T, int P, int L) {
+  float* row = reinterpret_cast<float*>(smem + bank_table_words(T, P, L) + 1) +
+               (size_t)warp * wide_scratch_words(T, P, L);
+  WideScratch ws;
+  ws.x = row;
+  ws.threads = reinterpret_cast<int*>(row + T);
+  ws.px = row + T + P;
+  ws.ppbw = ws.px + P;
+  ws.lx = ws.ppbw + L;
+  ws.act = reinterpret_cast<unsigned*>(ws.lx + L);
+  return ws;
 }
 
 // Bit i of the per-slot ballots b (bit k of b[j] is leg 32 j + k).
@@ -219,7 +342,8 @@ __device__ inline bool ballot_bit(const unsigned (&b)[kSlots], int i) {
 // The float segment sums of one element's per-leg values ws.x, in list
 // order from 0.0: ws.px[p] over the legs of process p (p < n_proc), ws.lx[l]
 // over the sums of the processes of link l.
-__device__ void segment_sums(const ScenarioTables& tb, WarpScratch& ws, int lane, int L) {
+template <class Tb, class Ws>
+__device__ void segment_sums(const Tb& tb, Ws& ws, int lane, int L) {
   for (int p = lane; p < tb.n_proc; p += kWarp) {
     float acc = 0.f;
     for (int k = tb.proc_ptr[p]; k < tb.proc_ptr[p + 1]; ++k) {
@@ -228,52 +352,93 @@ __device__ void segment_sums(const ScenarioTables& tb, WarpScratch& ws, int lane
     ws.px[p] = acc;
   }
   __syncwarp();
-  if (lane < L) {
+  for (int l = lane; l < L; l += kWarp) {
     float acc = 0.f;
-    for (int k = tb.link_proc_ptr[lane]; k < tb.link_proc_ptr[lane + 1]; ++k) {
+    for (int k = tb.link_proc_ptr[l]; k < tb.link_proc_ptr[l + 1]; ++k) {
       acc = __fadd_rn(acc, ws.px[tb.link_procs[k]]);
     }
-    ws.lx[lane] = acc;
+    ws.lx[l] = acc;
   }
   __syncwarp();
 }
 
+// The per-process bandwidth of link l: bw / max(campaign + max(bg, 0), 1).
+__device__ inline float per_proc_bw(int campaign, float bg, float bw) {
+  const float denom = fmaxf(__fadd_rn(__int2float_rn(campaign), fmaxf(bg, 0.f)), 1.f);
+  return __fdiv_rn(bw, denom);
+}
+
 // The fair share of one tick for one element, from the lane's active flags
 // av to its transfers xf and the warp's ws.px and ws.lx. av, keep, rem hold
-// the lane's legs; bgv and bwv the lane's link.
-template <int kSlots>
-__device__ void fair_share(const ScenarioTables& tb, WarpScratch& ws,
+// the lane's legs in its slots; bgv and bwv the lane's link. Under wide
+// tables the legs past the slots and every link come from `more`, and the
+// transfers of the former stay in ws.x.
+template <int kSlots, class Tb, class Ws>
+__device__ void fair_share(const Tb& tb, Ws& ws,
                            const float (&av)[kSlots], const float (&keep)[kSlots],
                            const float (&rem)[kSlots], float (&xf)[kSlots],
-                           float bgv, float bwv, int lane, int T, int L) {
+                           float bgv, float bwv, const LegRows& more, int lane, int T, int L) {
   unsigned act[kSlots];
   #pragma unroll
   for (int j = 0; j < kSlots; ++j) act[j] = __ballot_sync(kFull, av[j] > 0.f);
   const int np = tb.n_proc;
-  // active legs per process (popcounts under its leg mask), and a ballot of
-  // the active processes per word of 32
-  unsigned pact[kProcWords];
-  #pragma unroll
-  for (int w = 0; w < kProcWords; ++w) {
-    pact[w] = 0u;
-    if (w * kWarp < np) {  // warp-uniform
-      const int p = w * kWarp + lane;
-      int c = 0;
-      if (p < np) {
-        #pragma unroll
-        for (int j = 0; j < kSlots; ++j) c += __popc(act[j] & tb.leg_mask[p][j]);
-        ws.threads[p] = c;
-      }
-      pact[w] = __ballot_sync(kFull, c > 0);
-    }
-  }
-  // active campaign processes per link, fair share per process
-  if (lane < L) {
-    int c = 0;
+  if constexpr (!Tb::kWide) {
+    // active legs per process (popcounts under its leg mask), and a ballot
+    // of the active processes per word of 32
+    unsigned pact[kProcWords];
     #pragma unroll
-    for (int w = 0; w < kProcWords; ++w) c += __popc(pact[w] & tb.proc_mask[lane][w]);
-    const float denom = fmaxf(__fadd_rn(__int2float_rn(c), fmaxf(bgv, 0.f)), 1.f);
-    ws.ppbw[lane] = __fdiv_rn(bwv, denom);
+    for (int w = 0; w < kProcWords; ++w) {
+      pact[w] = 0u;
+      if (w * kWarp < np) {  // warp-uniform
+        const int p = w * kWarp + lane;
+        int c = 0;
+        if (p < np) {
+          #pragma unroll
+          for (int j = 0; j < kSlots; ++j) c += __popc(act[j] & tb.leg_mask[p][j]);
+          ws.threads[p] = c;
+        }
+        pact[w] = __ballot_sync(kFull, c > 0);
+      }
+    }
+    // active campaign processes per link, fair share per process
+    if (lane < L) {
+      int c = 0;
+      #pragma unroll
+      for (int w = 0; w < kProcWords; ++w) c += __popc(pact[w] & tb.proc_mask[lane][w]);
+      ws.ppbw[lane] = per_proc_bw(c, bgv, bwv);
+    }
+  } else {
+    // the warp's ballot of every leg: the slots', then 32 legs at a time
+    // past them; then each count an integer walk of a list over it
+    const int words = (T + kWarp - 1) / kWarp;
+    if (lane == 0) {
+      #pragma unroll
+      for (int j = 0; j < kSlots; ++j) {
+        if (j < words) ws.act[j] = act[j];
+      }
+    }
+    for (int w = kSlots; w < words; ++w) {  // warp-uniform
+      const int i = w * kWarp + lane;
+      const unsigned b = __ballot_sync(kFull, i < T && more.active[i] > 0.f);
+      if (lane == 0) ws.act[w] = b;
+    }
+    __syncwarp();
+    for (int p = lane; p < np; p += kWarp) {
+      int c = 0;
+      for (int k = tb.proc_ptr[p]; k < tb.proc_ptr[p + 1]; ++k) {
+        const int leg = tb.proc_legs[k];
+        c += (ws.act[leg / kWarp] >> (leg % kWarp)) & 1u;
+      }
+      ws.threads[p] = c;
+    }
+    __syncwarp();
+    for (int l = lane; l < L; l += kWarp) {
+      int c = 0;
+      for (int k = tb.link_proc_ptr[l]; k < tb.link_proc_ptr[l + 1]; ++k) {
+        c += ws.threads[tb.link_procs[k]] > 0 ? 1 : 0;
+      }
+      ws.ppbw[l] = per_proc_bw(c, more.bg[l], more.bw[l]);
+    }
   }
   __syncwarp();
   #pragma unroll
@@ -287,8 +452,26 @@ __device__ void fair_share(const ScenarioTables& tb, WarpScratch& ws,
       ws.x[i] = xf[j];
     }
   }
+  if constexpr (Tb::kWide) {
+    for (int i = lane + kSlots * kWarp; i < T; i += kWarp) {
+      const float threads_leg = fmaxf(__int2float_rn(ws.threads[tb.proc_of_leg[i]]), 1.f);
+      const float chunk = __fdiv_rn(
+          __fmul_rn(__fmul_rn(more.active[i], more.keep[i]), ws.ppbw[tb.link_of_leg[i]]),
+          threads_leg);
+      ws.x[i] = fminf(more.remaining[i], chunk);
+    }
+  }
   __syncwarp();
   segment_sums(tb, ws, lane, L);
+}
+
+// One element's per-process and per-link sums out: processes past the last
+// one in any list sum nothing.
+template <class Tb, class Ws>
+__device__ void write_sums(const Tb& tb, const Ws& ws, float* proc, float* link, size_t e,
+                           int lane, int P, int L) {
+  for (int p = lane; p < P; p += kWarp) proc[e * P + p] = p < tb.n_proc ? ws.px[p] : 0.f;
+  for (int l = lane; l < L; l += kWarp) link[e * L + l] = ws.lx[l];
 }
 
 // kSlots = ceil(T / 32) leg slots a lane, so the carry takes the registers
@@ -355,7 +538,7 @@ bank_fused_kernel(FusedArgs g) {
     steps = g.steps[e];
     mt = g.max_ticks[s];
   }
-  stage_tables(tb, g.tables, s, T, g.P, L);
+  stage_tables<true>(tb, g.tables, s, T, g.P, L);
   if (!live) return;  // no block barrier follows
   WarpScratch& ws = scratch[warp];
 
@@ -387,7 +570,7 @@ bank_fused_kernel(FusedArgs g) {
       av[j] = act ? 1.f : 0.f;
       xf[j] = 0.f;
     }
-    fair_share(tb, ws, av, keep, rem, xf, bgv, bwv, lane, T, L);
+    fair_share(tb, ws, av, keep, rem, xf, bgv, bwv, LegRows{}, lane, T, L);
     #pragma unroll
     for (int j = 0; j < kSlots; ++j) {
       int i = lane + j * kWarp;
@@ -431,6 +614,41 @@ bank_fused_kernel(FusedArgs g) {
   if (lane < L) g.bg_out[link0 + lane] = bgv;
 }
 
+// One tick's inputs of element e in the lane's slots, loaded before the
+// block stages its tables.
+template <int kSlots>
+__device__ void load_tick_legs(const TickArgs& g, bool live, int lane, size_t leg0,
+                               const float* keep_row, float (&av)[kSlots],
+                               float (&keep)[kSlots], float (&rem)[kSlots], float (&xf)[kSlots]) {
+  #pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    int i = lane + j * kWarp;
+    av[j] = keep[j] = rem[j] = xf[j] = 0.f;
+    if (live && i < g.T) {
+      av[j] = g.active[leg0 + i];
+      keep[j] = keep_row[i];
+      rem[j] = g.remaining[leg0 + i];
+    }
+  }
+}
+
+// One tick's outputs of element e: the slots' transfers, under wide tables
+// those past them from ws.x, then the sums.
+template <int kSlots, class Tb, class Ws>
+__device__ void write_tick(const TickArgs& g, const Tb& tb, const Ws& ws,
+                           const float (&xf)[kSlots], size_t e, int lane) {
+  const size_t leg0 = e * g.T;
+  #pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    int i = lane + j * kWarp;
+    if (i < g.T) g.xfer[leg0 + i] = xf[j];
+  }
+  if constexpr (Tb::kWide) {
+    for (int i = lane + kSlots * kWarp; i < g.T; i += kWarp) g.xfer[leg0 + i] = ws.x[i];
+  }
+  write_sums(tb, ws, g.proc_xfer, g.link_xfer, e, lane, g.P, g.L);
+}
+
 template <int kSlots>
 __global__ void __launch_bounds__(kBankWarps * kWarp)
 bank_tick_kernel(TickArgs g) {
@@ -441,40 +659,49 @@ bank_tick_kernel(TickArgs g) {
   const int lane = threadIdx.x % kWarp;
   const int r = blockIdx.y * kBankWarps + warp;
   const bool live = r < g.R;  // warp-uniform
-  const int T = g.T, P = g.P, L = g.L;
+  const int T = g.T, L = g.L;
 
   const size_t e = (size_t)s * g.R + r;
-  const size_t leg0 = e * T;
   const float* keep_row = g.keep + (size_t)s * (g.keep_rstride ? (size_t)g.R * T : T)
                           + (size_t)r * g.keep_rstride;
   float av[kSlots], keep[kSlots], rem[kSlots], xf[kSlots];
-  #pragma unroll
-  for (int j = 0; j < kSlots; ++j) {
-    int i = lane + j * kWarp;
-    av[j] = keep[j] = rem[j] = xf[j] = 0.f;
-    if (live && i < T) {
-      av[j] = g.active[leg0 + i];
-      keep[j] = keep_row[i];
-      rem[j] = g.remaining[leg0 + i];
-    }
-  }
+  load_tick_legs(g, live, lane, e * T, keep_row, av, keep, rem, xf);
   float bgv = 0.f, bwv = 0.f;
   if (live && lane < L) {
     bgv = g.bg[e * L + lane];
     bwv = g.bw[(size_t)s * L + lane];
   }
-  stage_tables(tb, g.tables, s, T, P, L);
+  stage_tables<true>(tb, g.tables, s, T, g.P, L);
   if (!live) return;
   WarpScratch& ws = scratch[warp];
-  fair_share(tb, ws, av, keep, rem, xf, bgv, bwv, lane, T, L);
-  #pragma unroll
-  for (int j = 0; j < kSlots; ++j) {
-    int i = lane + j * kWarp;
-    if (i < T) g.xfer[leg0 + i] = xf[j];
-  }
-  // processes past the last one with a leg sum nothing
-  for (int p = lane; p < P; p += kWarp) g.proc_xfer[e * P + p] = p < tb.n_proc ? ws.px[p] : 0.f;
-  if (lane < L) g.link_xfer[e * L + lane] = ws.lx[lane];
+  fair_share(tb, ws, av, keep, rem, xf, bgv, bwv, LegRows{}, lane, T, L);
+  write_tick(g, tb, ws, xf, e, lane);
+}
+
+// bank_tick_kernel on wide tables: kMaxSlots slots a lane, the legs past
+// them and every link read from device memory.
+__global__ void __launch_bounds__(kBankWarps * kWarp)
+bank_tick_wide_kernel(TickArgs g) {
+  extern __shared__ int smem[];
+  const int s = blockIdx.x;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int r = blockIdx.y * kBankWarps + warp;
+  const bool live = r < g.R;  // warp-uniform
+  const int T = g.T, P = g.P, L = g.L;
+
+  const size_t e = (size_t)s * g.R + r;
+  const float* keep_row = g.keep + (size_t)s * (g.keep_rstride ? (size_t)g.R * T : T)
+                          + (size_t)r * g.keep_rstride;
+  float av[kMaxSlots], keep[kMaxSlots], rem[kMaxSlots], xf[kMaxSlots];
+  load_tick_legs(g, live, lane, e * T, keep_row, av, keep, rem, xf);
+  const WideTables tb = stage_wide_tables(smem, g.tables, s, T, P, L);
+  if (!live) return;
+  WideScratch ws = wide_scratch(smem, warp, T, P, L);
+  const LegRows more{g.active + e * T, keep_row, g.remaining + e * T, g.bg + e * L,
+                     g.bw + (size_t)s * L};
+  fair_share(tb, ws, av, keep, rem, xf, 0.f, 0.f, more, lane, T, L);
+  write_tick(g, tb, ws, xf, e, lane);
 }
 
 // The per-process and per-link sums of v, by segment_sums: one warp an
@@ -488,17 +715,37 @@ bank_sums_kernel(SumsArgs g) {
   const int lane = threadIdx.x % kWarp;
   const int r = blockIdx.y * kBankWarps + warp;
   const bool live = r < g.R;  // warp-uniform
-  const int T = g.T, P = g.P, L = g.L;
+  const int T = g.T;
   const size_t e = (size_t)s * g.R + r;
   WarpScratch& ws = scratch[warp];
   if (live) {
     for (int i = lane; i < T; i += kWarp) ws.x[i] = g.v[e * T + i];
   }
-  stage_tables(tb, g.tables, s, T, P, L);  // its barriers publish ws.x too
+  stage_tables<false>(tb, g.tables, s, T, g.P, g.L);  // its barriers publish ws.x too
+  if (!live) return;
+  segment_sums(tb, ws, lane, g.L);
+  write_sums(tb, ws, g.proc, g.link, e, lane, g.P, g.L);
+}
+
+// bank_sums_kernel on wide tables.
+__global__ void __launch_bounds__(kBankWarps * kWarp)
+bank_sums_wide_kernel(SumsArgs g) {
+  extern __shared__ int smem[];
+  const int s = blockIdx.x;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int r = blockIdx.y * kBankWarps + warp;
+  const bool live = r < g.R;  // warp-uniform
+  const int T = g.T, P = g.P, L = g.L;
+  const size_t e = (size_t)s * g.R + r;
+  WideScratch ws = wide_scratch(smem, warp, T, P, L);
+  if (live) {
+    for (int i = lane; i < T; i += kWarp) ws.x[i] = g.v[e * T + i];
+  }
+  const WideTables tb = stage_wide_tables(smem, g.tables, s, T, P, L);  // publishes ws.x too
   if (!live) return;
   segment_sums(tb, ws, lane, L);
-  for (int p = lane; p < P; p += kWarp) g.proc[e * P + p] = p < tb.n_proc ? ws.px[p] : 0.f;
-  if (lane < L) g.link[e * L + lane] = ws.lx[lane];
+  write_sums(tb, ws, g.proc, g.link, e, lane, P, L);
 }
 
 // Launches kernel<ceil(T / 32)> (kSlots = 1 .. 4).
@@ -510,125 +757,28 @@ bank_sums_kernel(SumsArgs g) {
     default: kernel<4><<<grid, kBankWarps * kWarp, 0, (cudaStream_t)stream>>>(args); break; \
   }
 
+// Whether a scenario of T legs, P processes and L links fits the static
+// tables of the bank kernels, and whether the tick and sums launches take it.
+inline bool fits_bank(int T, int P, int L) { return T <= kMaxT && P <= kMaxP && L <= kMaxL; }
 
-// ---------------------------------------------------------------------------
-// campaign_tick_kernel: one fair-share tick of B simulations of one campaign
-// ---------------------------------------------------------------------------
-//
-// Replaces grid_tick_pallas (src/repro/kernels/grid_tick.py:115), whose
-// _tick_kernel broadcasts the campaign's dense one-hot incidences into VMEM
-// and contracts them on the MXU. Here the incidences arrive as index tables
-// (repro_torch.kernels.ref.campaign_index_tables, packed into one int32
-// buffer): the gathers read one column per leg, and every segment sum walks
-// an ascending CSR list of legs (or processes), so a one-hot dot's "one term
-// and zeros" becomes that term, bitwise, and the float sums are the plain
-// grid_tick_indexed's, in the same order, with no float atomics.
-//
-// What bounds it: one launch reads active, remaining and keep and writes
-// xfer ([B, T] each), a few hundred bytes of tables and [B, P + L] sums; a
-// few operations per byte, so memory, and at the engine's shapes (B up to a
-// few thousand, T ~ 100) the launch latency comes first.
-//
-// Layout: one warp per simulation row, kWarpsPerBlock rows per block (fewer
-// when the tables and scratch rows would pass 48 KB). The campaign's tables
-// are staged in shared memory once per block; each warp keeps its row's
-// active flags, transfers and per-process and per-link values in its own
-// scratch rows. Legs are strided over the lanes, processes and links too.
-// Limits: T <= kMaxCampaignT legs, P <= T processes, L <= kMaxCampaignL links.
-
-constexpr int kMaxCampaignT = 1024;
-constexpr int kMaxCampaignL = 256;
-
-struct CampaignArgs {
-  const float* active;     // [B, T]
-  const float* remaining;  // [B, T]
-  const float* keep;       // [T] or [B, T]
-  int keep_rstride;        // T for per-row keeps, else 0
-  const float* bg;         // [B, L]
-  const float* bw;         // [L]
-  const int* tables;       // packed, see ref.CampaignTables
-  int n_tables;
-  float* xfer;             // [B, T]
-  float* proc_xfer;        // [B, P]
-  float* link_xfer;        // [B, L]
-  int B, T, P, L, rows_per_block;
-};
-
-// Scratch floats per warp: active flags and transfers per leg, threads and
-// transfers per process, fair share and transfers per link.
-__host__ __device__ inline int campaign_scratch_floats(int T, int P, int L) {
-  return 2 * T + 2 * P + 2 * L;
+inline bool bad_shape(int S, int R, int T, int P, int L) {
+  return T < 1 || T > kWideT || P < 0 || P > kWideP || L < 0 || L > kWideL || S < 1 ||
+         R < 1 || (R + kBankWarps - 1) / kBankWarps > 65535;
 }
 
-// Segment sum of v over the ascending list idx[ptr[c] .. ptr[c + 1]).
-__device__ inline float ascending_sum(const float* v, const int* ptr,
-                                      const int* idx, int c) {
-  float acc = 0.f;
-  for (int j = ptr[c]; j < ptr[c + 1]; ++j) acc = __fadd_rn(acc, v[idx[j]]);
-  return acc;
-}
-
-__global__ void campaign_tick_kernel(CampaignArgs g) {
-  extern __shared__ int smem[];
-  const int T = g.T, P = g.P, L = g.L;
-  for (int i = threadIdx.x; i < g.n_tables; i += blockDim.x) smem[i] = g.tables[i];
-  __syncthreads();
-  const int* proc_of_leg = smem;
-  const int* link_of_leg = proc_of_leg + T;
-  const int* proc_ptr = link_of_leg + T;
-  const int* proc_legs = proc_ptr + P + 1;
-  const int* link_ptr = proc_legs + proc_ptr[P];
-  const int* link_legs = link_ptr + L + 1;
-  const int* link_proc_ptr = link_legs + link_ptr[L];
-  const int* link_procs = link_proc_ptr + L + 1;
-
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int row = blockIdx.x * g.rows_per_block + warp;
-  if (row >= g.B) return;  // warp-uniform; no block barrier follows
-  float* ws = reinterpret_cast<float*>(smem + g.n_tables) +
-              (size_t)warp * campaign_scratch_floats(T, P, L);
-  float* act = ws;
-  float* xs = act + T;
-  float* threads = xs + T;
-  float* px = threads + P;
-  float* ppbw = px + P;
-  float* lx = ppbw + L;
-
-  const size_t leg0 = (size_t)row * T;
-  const float* keep_row = g.keep + (size_t)row * g.keep_rstride;
-  for (int i = lane; i < T; i += kWarp) act[i] = g.active[leg0 + i];
-  __syncwarp();
-  // threads per process: ascending sums of the active flags
-  for (int p = lane; p < P; p += kWarp) {
-    threads[p] = ascending_sum(act, proc_ptr, proc_legs, p);
+// Launches a wide kernel with its dynamic shared memory, raising the
+// kernel's limit past the default 48 KB where it needs more.
+template <class Args>
+int wide_launch(void (*kernel)(Args), const Args& g, dim3 grid, int T, int P, int L,
+                void* stream) {
+  const size_t smem = wide_smem_bytes(T, P, L);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
-  __syncwarp();
-  // active campaign processes per link, fair share per process
-  for (int l = lane; l < L; l += kWarp) {
-    float c = 0.f;
-    for (int j = link_proc_ptr[l]; j < link_proc_ptr[l + 1]; ++j) {
-      if (threads[link_procs[j]] > 0.f) c = __fadd_rn(c, 1.f);
-    }
-    const float denom = fmaxf(__fadd_rn(c, fmaxf(g.bg[(size_t)row * L + l], 0.f)), 1.f);
-    ppbw[l] = __fdiv_rn(g.bw[l], denom);
-  }
-  __syncwarp();
-  for (int i = lane; i < T; i += kWarp) {
-    const float threads_leg = fmaxf(threads[proc_of_leg[i]], 1.f);
-    const float chunk = __fdiv_rn(
-        __fmul_rn(__fmul_rn(act[i], keep_row[i]), ppbw[link_of_leg[i]]), threads_leg);
-    const float x = fminf(g.remaining[leg0 + i], chunk);
-    xs[i] = x;
-    g.xfer[leg0 + i] = x;
-  }
-  __syncwarp();
-  for (int p = lane; p < P; p += kWarp) {
-    g.proc_xfer[(size_t)row * P + p] = ascending_sum(xs, proc_ptr, proc_legs, p);
-  }
-  for (int l = lane; l < L; l += kWarp) {
-    g.link_xfer[(size_t)row * L + l] = ascending_sum(xs, link_ptr, link_legs, l);
-  }
+  kernel<<<grid, kBankWarps * kWarp, smem, (cudaStream_t)stream>>>(g);
+  return 0;
 }
 
 }  // namespace
@@ -640,6 +790,14 @@ int grid_tick_limits(int* max_t, int* max_p, int* max_l) {
   *max_t = kMaxT;
   *max_p = kMaxP;
   *max_l = kMaxL;
+  return 0;
+}
+
+// Limits of the tick and sums launches on wide tables (one campaign).
+int grid_tick_campaign_limits(int* max_t, int* max_p, int* max_l) {
+  *max_t = kWideT;
+  *max_p = kWideP;
+  *max_l = kWideL;
   return 0;
 }
 
@@ -674,7 +832,7 @@ int grid_tick_bank_fused_launch(
     unsigned char* started_out, int* t_start_out, int* t_end_out,
     float* conth_out, float* conpr_out, float* bg_out, int S, int R, int T,
     int P, int L, int K, void* stream) {
-  if (T < 1 || T > kMaxT || P > kMaxP || L > kMaxL || S < 1 || R < 1 || K < 1) {
+  if (!fits_bank(T, P, L) || bad_shape(S, R, T, P, L) || K < 1) {
     return (int)cudaErrorInvalidValue;
   }
   FusedArgs g{t, steps, remaining, done, started, t_start, t_end, conth,
@@ -688,60 +846,38 @@ int grid_tick_bank_fused_launch(
   return (int)cudaGetLastError();
 }
 
+// One tick of S scenarios x R replicas (a campaign: S = 1, its B
+// simulations the replicas); wide tables past the bank limits.
 int grid_tick_bank_launch(
     const float* active, const float* remaining, const float* keep,
     int keep_rstride, const float* bg, const float* bw, const int* tables,
     float* xfer, float* proc_xfer, float* link_xfer, int S, int R, int T,
     int P, int L, void* stream) {
-  if (T < 1 || T > kMaxT || P > kMaxP || L > kMaxL || S < 1 || R < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (bad_shape(S, R, T, P, L)) return (int)cudaErrorInvalidValue;
   TickArgs g{active, remaining, keep, keep_rstride, bg, bw, tables, xfer,
              proc_xfer, link_xfer, S, R, T, P, L};
   dim3 grid(S, (R + kBankWarps - 1) / kBankWarps);
-  BANK_LAUNCH(bank_tick_kernel, T, grid, stream, g)
+  if (fits_bank(T, P, L)) {
+    BANK_LAUNCH(bank_tick_kernel, T, grid, stream, g)
+  } else {
+    const int err = wide_launch(bank_tick_wide_kernel, g, grid, T, P, L, stream);
+    if (err != 0) return err;
+  }
   return (int)cudaGetLastError();
 }
 
 int grid_tick_bank_sums_launch(const float* v, const int* tables, float* proc,
                                float* link, int S, int R, int T, int P, int L,
                                void* stream) {
-  if (T < 1 || T > kMaxT || P > kMaxP || L > kMaxL || S < 1 || R < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (bad_shape(S, R, T, P, L)) return (int)cudaErrorInvalidValue;
   SumsArgs g{v, tables, proc, link, S, R, T, P, L};
   dim3 grid(S, (R + kBankWarps - 1) / kBankWarps);
-  bank_sums_kernel<<<grid, kBankWarps * kWarp, 0, (cudaStream_t)stream>>>(g);
-  return (int)cudaGetLastError();
-}
-
-// Limits of the per-campaign kernel; the wrapper checks against them.
-int grid_tick_campaign_limits(int* max_t, int* max_p, int* max_l) {
-  *max_t = kMaxCampaignT;
-  *max_p = kMaxCampaignT;
-  *max_l = kMaxCampaignL;
-  return 0;
-}
-
-int grid_tick_campaign_launch(
-    const float* active, const float* remaining, const float* keep,
-    int keep_rstride, const float* bg, const float* bw, const int* tables,
-    int n_tables, float* xfer, float* proc_xfer, float* link_xfer, int B,
-    int T, int P, int L, void* stream) {
-  if (T < 1 || T > kMaxCampaignT || P < 1 || P > T || L < 1 ||
-      L > kMaxCampaignL || B < 1 || n_tables > 4 * T + 2 * P + 2 * L + 3) {
-    return (int)cudaErrorInvalidValue;
+  if (fits_bank(T, P, L)) {
+    bank_sums_kernel<<<grid, kBankWarps * kWarp, 0, (cudaStream_t)stream>>>(g);
+  } else {
+    const int err = wide_launch(bank_sums_wide_kernel, g, grid, T, P, L, stream);
+    if (err != 0) return err;
   }
-  // as many warps (rows) per block as fit beside the tables in 48 KB
-  const size_t table_bytes = (size_t)n_tables * sizeof(int);
-  const size_t row_bytes = (size_t)campaign_scratch_floats(T, P, L) * sizeof(float);
-  int rows = kWarpsPerBlock;
-  while (rows > 1 && table_bytes + rows * row_bytes > 48 * 1024) --rows;
-  const size_t smem = table_bytes + rows * row_bytes;
-  CampaignArgs g{active, remaining, keep, keep_rstride, bg, bw, tables,
-                 n_tables, xfer, proc_xfer, link_xfer, B, T, P, L, rows};
-  dim3 grid((B + rows - 1) / rows);
-  campaign_tick_kernel<<<grid, rows * kWarp, smem, (cudaStream_t)stream>>>(g);
   return (int)cudaGetLastError();
 }
 

@@ -1,34 +1,41 @@
 """Wrappers of the hand-written CUDA grid-tick kernels (``csrc/grid_tick.cu``).
 
-- :func:`grid_tick_cuda` — one fair-share tick of ``B`` simulations of one
-  campaign (replaces the reference's ``grid_tick_pallas``);
-- :func:`grid_tick_bank_cuda` — one fair-share tick of a scenario bank
-  (replaces the reference's ``grid_tick_bank_pallas``);
 - :func:`grid_tick_bank_fused_cuda` — ``K`` ticks of a scenario bank per
   launch, the carry resident on chip (replaces
   ``grid_tick_bank_fused_pallas``);
-- :func:`grid_tick_bank_sums_cuda` — the per-process and per-link sums of a
-  per-leg bank tensor, as the leap step takes them (the reference takes
-  them as one-hot dots, not as a Pallas kernel).
+- :func:`grid_tick_bank_cuda` — one fair-share tick of a scenario bank
+  (replaces the reference's ``grid_tick_bank_pallas``);
+- :func:`grid_tick_cuda` — one fair-share tick of ``B`` simulations of one
+  campaign (replaces the reference's ``grid_tick_pallas``): the same tick
+  kernel, on the campaign as a bank of one scenario whose ``B``
+  simulations are its replicas;
+- :func:`grid_tick_bank_sums_cuda`, :func:`grid_tick_sums_cuda` — the
+  per-process and per-link sums of a per-leg tensor of a bank or of one
+  campaign, as the leap steps take them (the reference takes them as
+  one-hot dots, not as a Pallas kernel).
 
 Each wrapper takes CUDA tensors only, checks their device, dtype, shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on the
 current stream and raises if the launch is refused. :data:`LAUNCHES` counts
-the launches of each kernel. The kernels take the one-hot incidences as
-index tables (``ref.bank_index_tables``, ``ref.campaign_index_tables``,
-each packed into one int32 buffer);
-the plain versions live in :mod:`repro_torch.kernels.ref`, and
+the launches of each wrapper. The kernels take the one-hot incidences as
+the segment lists of ``ref.BankTables`` (``ref.bank_index_tables``, or
+``ref.campaign_index_tables`` for one campaign), packed into one int32
+buffer; past the bank limits (:func:`limits`) the tick and sums kernels run
+an instance with the tables in dynamic shared memory, up to
+:func:`campaign_limits`, which the per-campaign wrappers take. The plain
+versions live in :mod:`repro_torch.kernels.ref`, and
 :mod:`repro_torch.kernels.ops` dispatches between them by device.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import BankTables, CampaignTables
+from repro_torch.kernels.ref import BankTables
 
 __all__ = [
     "LAUNCHES",
@@ -37,14 +44,16 @@ __all__ = [
     "bank_occupancy",
     "campaign_limits",
     "grid_tick_cuda",
+    "grid_tick_sums_cuda",
     "grid_tick_bank_cuda",
     "grid_tick_bank_fused_cuda",
     "grid_tick_bank_sums_cuda",
 ]
 
-#: Launch counts per kernel, raised by one at every launch.
+#: Launch counts per wrapper, raised by one at every launch.
 LAUNCHES: Dict[str, int] = {
-    "grid_tick": 0, "grid_tick_bank": 0, "grid_tick_bank_fused": 0, "grid_tick_bank_sums": 0,
+    "grid_tick": 0, "grid_tick_sums": 0, "grid_tick_bank": 0, "grid_tick_bank_fused": 0,
+    "grid_tick_bank_sums": 0,
 }
 
 _WARPS_PER_BLOCK = 4
@@ -55,7 +64,6 @@ _I = ctypes.c_int
 _FUSED_ARGTYPES = [_P] * 13 + [_I] + [_P] * 5 + [_I] + [_P] * 12 + [_I] * 6 + [_P]
 _TICK_ARGTYPES = [_P] * 3 + [_I] + [_P] * 6 + [_I] * 5 + [_P]
 _SUMS_ARGTYPES = [_P] * 4 + [_I] * 5 + [_P]
-_CAMPAIGN_ARGTYPES = [_P] * 3 + [_I] + [_P] * 3 + [_I] + [_P] * 3 + [_I] * 4 + [_P]
 
 
 def reset_launches() -> None:
@@ -72,8 +80,6 @@ def _lib() -> ctypes.CDLL:
         lib.grid_tick_bank_launch.restype = _I
         lib.grid_tick_bank_sums_launch.argtypes = _SUMS_ARGTYPES
         lib.grid_tick_bank_sums_launch.restype = _I
-        lib.grid_tick_campaign_launch.argtypes = _CAMPAIGN_ARGTYPES
-        lib.grid_tick_campaign_launch.restype = _I
         for fn in (lib.grid_tick_limits, lib.grid_tick_campaign_limits):
             fn.argtypes = [ctypes.POINTER(_I)] * 3
             fn.restype = _I
@@ -89,6 +95,7 @@ def _limits(fn) -> Tuple[int, int, int]:
     return t.value, p.value, l.value
 
 
+@functools.lru_cache(maxsize=None)
 def limits() -> Tuple[int, int, int]:
     """The bank kernels' largest ``(legs, processes, links)`` per scenario."""
     return _limits(_lib().grid_tick_limits)
@@ -111,8 +118,11 @@ def bank_occupancy() -> Dict[str, object]:
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def campaign_limits() -> Tuple[int, int, int]:
-    """The per-campaign kernel's largest ``(legs, processes, links)``."""
+    """The largest ``(legs, processes, links)`` of one campaign that the
+    tick and sums kernels take (past :func:`limits`, by their instance with
+    the tables in dynamic shared memory)."""
     return _limits(_lib().grid_tick_campaign_limits)
 
 
@@ -134,15 +144,16 @@ def _check_tables(tables: BankTables, S: int, T: int, P: int, L: int) -> int:
     return _check("tables", tables.packed, torch.int32, (S, 3 * T + 2 * P + L + 2))
 
 
-def _check_dims(S: int, R: int, T: int, P: int, L: int) -> None:
-    max_t, max_p, max_l = limits()
+def _check_dims(S: int, R: int, T: int, P: int, L: int, campaign: bool = False) -> None:
+    max_t, max_p, max_l = campaign_limits() if campaign else limits()
     if T > max_t or P > max_p or L > max_l:
+        what = "one campaign" if campaign else "per scenario"
         raise ValueError(
             f"grid-tick kernels take at most {max_t} legs, {max_p} processes "
-            f"and {max_l} links per scenario: got T={T}, P={P}, L={L}"
+            f"and {max_l} links {what}: got T={T}, P={P}, L={L}"
         )
     if -(-R // _WARPS_PER_BLOCK) > _MAX_GRID_Y:
-        raise ValueError(f"too many replicas for one launch: R={R}")
+        raise ValueError(f"too many replicas (simulations) for one launch: R={R}")
 
 
 def _replica_stride(name: str, x: torch.Tensor, S: int, R: int, W: int) -> int:
@@ -155,53 +166,87 @@ def _replica_stride(name: str, x: torch.Tensor, S: int, R: int, W: int) -> int:
     return 0
 
 
+def _tick(name: str, S: int, R: int, active, remaining, keep_frac, keep_rs: int, bg_load,
+          bandwidth, tables, campaign: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of the tick kernel on ``S`` scenarios x ``R`` replicas.
+    The per-element tensors are shaped ``lead + (X,)``, ``lead`` being
+    ``(S, R)`` for a bank and ``(B,)`` for one campaign (``S = 1``), and
+    the outputs likewise; the caller has checked ``keep_frac`` (replica
+    stride ``keep_rs``)."""
+    lead = tuple(active.shape[:-1])
+    T = active.shape[-1]
+    L = bandwidth.shape[-1]
+    P = tables.link_of_proc.shape[-1]
+    ptrs = [
+        _check("active", active, torch.float32, lead + (T,)),
+        _check("remaining", remaining, torch.float32, lead + (T,)),
+        keep_frac.data_ptr(), keep_rs,
+        _check("bg_load", bg_load, torch.float32, lead + (L,)),
+        _check("bandwidth", bandwidth, torch.float32, lead[:-1] + (L,)),
+        _check_tables(tables, S, T, P, L),
+    ]
+    _check_dims(S, R, T, P, L, campaign)
+    dev = active.device
+    out = [torch.empty(lead + (n,), dtype=torch.float32, device=dev) for n in (T, P, L)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().grid_tick_bank_launch(*ptrs, *(o.data_ptr() for o in out), S, R, T, P, L, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    LAUNCHES[name] += 1
+    return tuple(out)
+
+
+def _sums(name: str, S: int, R: int, v: torch.Tensor, tables: BankTables,
+          campaign: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the sums kernel on ``v`` shaped ``lead + (T,)`` (as
+    :func:`_tick`'s tensors)."""
+    lead = tuple(v.shape[:-1])
+    T = v.shape[-1]
+    P = tables.link_of_proc.shape[-1]
+    L = tables.link_proc_ptr.shape[-1] - 1
+    ptrs = [_check("v", v, torch.float32, lead + (T,)), _check_tables(tables, S, T, P, L)]
+    _check_dims(S, R, T, P, L, campaign)
+    proc = torch.empty(lead + (P,), dtype=torch.float32, device=v.device)
+    link = torch.empty(lead + (L,), dtype=torch.float32, device=v.device)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    err = _lib().grid_tick_bank_sums_launch(
+        *ptrs, proc.data_ptr(), link.data_ptr(), S, R, T, P, L, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    LAUNCHES[name] += 1
+    return proc, link
+
+
 def grid_tick_cuda(
     active: torch.Tensor,  # [B, T] f32 0/1
     remaining: torch.Tensor,  # [B, T] f32
     keep_frac: torch.Tensor,  # [T] or [B, T] f32
     bg_load: torch.Tensor,  # [B, L] f32
     bandwidth: torch.Tensor,  # [L] f32
-    tables: CampaignTables,
+    tables: BankTables,  # of one campaign (S = 1)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One fair-share tick of ``B`` simulations of one campaign on the
-    card: ``(xfer [B, T], proc_xfer [B, P], link_xfer [B, L])``."""
+    card: ``(xfer [B, T], proc_xfer [B, P], link_xfer [B, L])``, the tick
+    kernel at ``S = 1`` with the simulations as replicas."""
+    if active.dim() != 2:
+        raise ValueError(f"active must be [B, T], got {tuple(active.shape)}")
     B, T = active.shape
-    L = bandwidth.shape[-1]
-    P = tables.link_of_proc.shape[-1]
-    if tables.shape != (T, P, L):
-        raise ValueError(f"tables are for (T, P, L) = {tables.shape}, got {(T, P, L)}")
     per_row = keep_frac.dim() == 2
-    ptrs = [
-        _check("active", active, torch.float32, (B, T)),
-        _check("remaining", remaining, torch.float32, (B, T)),
-        _check("keep_frac", keep_frac, torch.float32, (B, T) if per_row else (T,)),
-    ]
-    keep_rs = T if per_row else 0
-    ptrs2 = [
-        _check("bg_load", bg_load, torch.float32, (B, L)),
-        _check("bandwidth", bandwidth, torch.float32, (L,)),
-        _check("tables", tables.packed, torch.int32, tuple(tables.packed.shape)),
-    ]
-    max_t, max_p, max_l = campaign_limits()
-    if T > max_t or P > min(max_p, T) or L > max_l:
-        raise ValueError(
-            f"the per-campaign grid-tick kernel takes at most {max_t} legs, "
-            f"as many processes as legs and {max_l} links: got T={T}, P={P}, L={L}"
-        )
-    dev = active.device
-    xfer = torch.empty((B, T), dtype=torch.float32, device=dev)
-    proc_xfer = torch.empty((B, P), dtype=torch.float32, device=dev)
-    link_xfer = torch.empty((B, L), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().grid_tick_campaign_launch(
-        *ptrs, keep_rs, *ptrs2, tables.packed.numel(),
-        xfer.data_ptr(), proc_xfer.data_ptr(), link_xfer.data_ptr(),
-        B, T, P, L, stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"grid_tick kernel launch failed: cudaError_t {err}")
-    LAUNCHES["grid_tick"] += 1
-    return xfer, proc_xfer, link_xfer
+    _check("keep_frac", keep_frac, torch.float32, (B, T) if per_row else (T,))
+    return _tick("grid_tick", 1, B, active, remaining, keep_frac, T if per_row else 0, bg_load,
+                 bandwidth, tables, campaign=True)
+
+
+def grid_tick_sums_cuda(
+    v: torch.Tensor,  # [B, T] f32
+    tables: BankTables,  # of one campaign (S = 1)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(proc [B, P], link [B, L])`` of ``B`` per-leg rows of one
+    campaign, in the order of its lists: the sums kernel at ``S = 1``."""
+    if v.dim() != 2:
+        raise ValueError(f"v must be [B, T], got {tuple(v.shape)}")
+    return _sums("grid_tick_sums", 1, v.shape[0], v, tables, campaign=True)
 
 
 def grid_tick_bank_cuda(
@@ -214,35 +259,12 @@ def grid_tick_bank_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One fair-share tick of a bank on the card: ``(xfer [S, R, T],
     proc_xfer [S, R, P], link_xfer [S, R, L])``."""
+    if active.dim() != 3:
+        raise ValueError(f"active must be [S, R, T], got {tuple(active.shape)}")
     S, R, T = active.shape
-    L = bandwidth.shape[-1]
-    P = tables.link_of_proc.shape[-1]
-    ptrs = [
-        _check("active", active, torch.float32, (S, R, T)),
-        _check("remaining", remaining, torch.float32, (S, R, T)),
-        keep_frac.data_ptr(),
-    ]
     keep_rs = _replica_stride("keep_frac", keep_frac, S, R, T)
-    ptrs2 = [
-        _check("bg_load", bg_load, torch.float32, (S, R, L)),
-        _check("bandwidth", bandwidth, torch.float32, (S, L)),
-        _check_tables(tables, S, T, P, L),
-    ]
-    _check_dims(S, R, T, P, L)
-    dev = active.device
-    xfer = torch.empty((S, R, T), dtype=torch.float32, device=dev)
-    proc_xfer = torch.empty((S, R, P), dtype=torch.float32, device=dev)
-    link_xfer = torch.empty((S, R, L), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().grid_tick_bank_launch(
-        *ptrs, keep_rs, *ptrs2,
-        xfer.data_ptr(), proc_xfer.data_ptr(), link_xfer.data_ptr(),
-        S, R, T, P, L, stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"grid_tick_bank kernel launch failed: cudaError_t {err}")
-    LAUNCHES["grid_tick_bank"] += 1
-    return xfer, proc_xfer, link_xfer
+    return _tick("grid_tick_bank", S, R, active, remaining, keep_frac, keep_rs, bg_load,
+                 bandwidth, tables, campaign=False)
 
 
 _STATE_DTYPES = (
@@ -323,18 +345,6 @@ def grid_tick_bank_sums_cuda(
     """``(proc [S, R, P], link [S, R, L])``: each process's sum of ``v`` over
     its legs and each link's over its processes' sums, in the order of the
     tables' lists, in one launch."""
-    S, R, T = v.shape
-    P = tables.link_of_proc.shape[-1]
-    L = tables.link_proc_ptr.shape[-1] - 1
-    ptrs = [_check("v", v, torch.float32, (S, R, T)), _check_tables(tables, S, T, P, L)]
-    _check_dims(S, R, T, P, L)
-    proc = torch.empty((S, R, P), dtype=torch.float32, device=v.device)
-    link = torch.empty((S, R, L), dtype=torch.float32, device=v.device)
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    err = _lib().grid_tick_bank_sums_launch(
-        *ptrs, proc.data_ptr(), link.data_ptr(), S, R, T, P, L, stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"grid_tick_bank_sums kernel launch failed: cudaError_t {err}")
-    LAUNCHES["grid_tick_bank_sums"] += 1
-    return proc, link
+    if v.dim() != 3:
+        raise ValueError(f"v must be [S, R, T], got {tuple(v.shape)}")
+    return _sums("grid_tick_bank_sums", v.shape[0], v.shape[1], v, tables, campaign=False)

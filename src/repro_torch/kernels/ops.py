@@ -41,6 +41,7 @@ from repro_torch.kernels import ref
 
 __all__ = [
     "grid_tick",
+    "grid_tick_sums",
     "grid_tick_bank",
     "grid_tick_bank_fused",
     "grid_tick_bank_sums",
@@ -69,14 +70,17 @@ def grid_tick(
     proc_link: torch.Tensor,  # [P, L]
     leg_link: torch.Tensor,  # [T, L]
     *,
-    tables: Optional[ref.CampaignTables] = None,
+    tables: Optional[ref.BankTables] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fair-share tick of ``B`` simulations of one campaign (shared
     incidences): ``(xfer [B, T], proc_xfer [B, P], link_xfer [B, L])``.
 
-    ``keep_frac`` may be shared ``[T]`` or per simulation ``[B, T]``. The
-    kernel reads the incidences as ``tables``
-    (:func:`ref.campaign_index_tables`), derived from them when ``None``.
+    ``keep_frac`` may be shared ``[T]`` or per simulation ``[B, T]``. Both
+    versions read the incidences as ``tables`` (the campaign's
+    :func:`ref.campaign_index_tables`, a bank of one scenario), derived
+    from them when ``None``, and take every sum in the order of its lists:
+    the plain :func:`ref.grid_tick_indexed` on the CPU, the bank's tick
+    kernel at ``S = 1`` on the card.
     """
     if active.dim() != 2 or remaining.dim() != 2 or bg_load.dim() != 2:
         raise ValueError(
@@ -95,21 +99,42 @@ def grid_tick(
             f"got {tuple(leg_proc.shape)}, {tuple(proc_link.shape)}, "
             f"{tuple(leg_link.shape)}"
         )
+    if tables is None:
+        tables = ref.campaign_index_tables(leg_proc, proc_link, leg_link)
     if _device_kind(active) == "cpu":
-        return ref.grid_tick(
-            active, remaining, keep_frac, bg_load, bandwidth,
-            leg_proc, proc_link, leg_link,
+        return ref.grid_tick_indexed(
+            active, remaining, keep_frac, bg_load, bandwidth, leg_proc, proc_link, tables,
         )
     from repro_torch.kernels import grid_tick as _k
 
-    if tables is None:
-        tables = ref.campaign_index_tables(leg_proc, proc_link, leg_link)
     f32 = torch.float32
     return _k.grid_tick_cuda(
         active.to(f32).contiguous(), remaining.to(f32).contiguous(),
         keep_frac.to(f32).contiguous(), bg_load.to(f32).contiguous(),
         bandwidth.to(f32).contiguous(), tables,
     )
+
+
+def grid_tick_sums(
+    v: torch.Tensor,  # [B, T]
+    tables: ref.BankTables,  # of one campaign
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(proc [B, P], link [B, L])`` of ``B`` per-leg rows of one
+    campaign: each process's sum of ``v`` over its legs and each link's
+    over its processes' sums, in the order of the campaign's lists
+    (:func:`ref.bank_sums` at ``S = 1``), as the per-campaign leap step
+    takes them."""
+    if v.dim() != 2 or tables.shape[:2] != (1, v.shape[1]):
+        raise ValueError(
+            f"grid_tick_sums: v must be [B, T] and tables one campaign's of T legs: "
+            f"got v {tuple(v.shape)}, tables for (S, T) = {tables.shape[:2]}"
+        )
+    if _device_kind(v) == "cpu":
+        proc, link = ref.bank_sums(v[None], tables)
+        return proc[0], link[0]
+    from repro_torch.kernels import grid_tick as _k
+
+    return _k.grid_tick_sums_cuda(v.to(torch.float32).contiguous(), tables)
 
 
 def grid_tick_bank(

@@ -27,13 +27,13 @@ from repro_torch.core import prng
 __all__ = [
     "BANK_WINDOW_STATE_FIELDS",
     "grid_tick",
-    "CampaignTables",
-    "campaign_index_tables",
-    "grid_tick_indexed",
     "bank_split_draw",
     "SegmentPlan",
     "BankTables",
+    "bank_sums",
     "bank_index_tables",
+    "campaign_index_tables",
+    "grid_tick_indexed",
     "grid_tick_bank_indexed",
     "grid_tick_bank_window",
     "SELU_ALPHA",
@@ -83,6 +83,10 @@ def grid_tick(
 
     chunk = (link.bandwidth / (background_load + campaign_load)) / n_threads,
     less the protocol overhead. All operands broadcast over leading dims.
+    The sums are one-hot matmuls, as the reference's Pallas kernel takes
+    them: the tests hold this against it, and no path of the port runs it
+    (the per-campaign and banked ticks sum in list order,
+    :func:`grid_tick_indexed` and :func:`grid_tick_bank_indexed`).
     """
     f32 = torch.float32
     a = active.to(f32)
@@ -141,15 +145,21 @@ class SegmentPlan(NamedTuple):
     Segments are ranked longest first (``pos`` holds the rank of each flat
     segment ``s * C + c``), so step ``j`` adds the ``j``-th member of the
     first ``steps[j]`` ranked segments; ``src`` lists, step by step and in
-    rank order, the flat source row ``s * X + m`` of each such member."""
+    rank order, the flat source row ``s * X + m`` of each such member, and
+    ``dst`` the rank it adds into. On the CPU one ``index_add_`` adds them
+    all: it adds one row an entry, in entry order, so each segment's terms
+    in list order. On the card ``index_add_`` takes atomics in no order, so
+    there each step is one add."""
 
     src: torch.Tensor  # [nnz] i64
+    dst: torch.Tensor  # [nnz] i64
     pos: torch.Tensor  # [S * C] i64
     steps: Tuple[int, ...]
     n_segments: int  # C
 
     def to(self, device) -> "SegmentPlan":
-        return self._replace(src=self.src.to(device), pos=self.pos.to(device))
+        return self._replace(src=self.src.to(device), dst=self.dst.to(device),
+                             pos=self.pos.to(device))
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         """``[S, R, X] -> [S, R, C]``."""
@@ -157,10 +167,13 @@ class SegmentPlan(NamedTuple):
         C = self.n_segments
         rows = v.transpose(1, 2).reshape(S * X, R).index_select(0, self.src)
         acc = v.new_zeros((S * C, R))
-        start = 0
-        for n in self.steps:
-            acc[:n].add_(rows[start:start + n])
-            start += n
+        if v.device.type == "cpu":
+            acc.index_add_(0, self.dst, rows)
+        else:
+            start = 0
+            for n in self.steps:
+                acc[:n].add_(rows[start:start + n])
+                start += n
         return acc.index_select(0, self.pos).view(S, C, R).transpose(1, 2).contiguous()
 
 
@@ -242,8 +255,23 @@ def _segment_plan(ptr: torch.Tensor, members: torch.Tensor, n_src: int) -> Segme
     s = seg // C
     m = members[s, ptr[:, :-1].reshape(-1)[seg] + j]
     by_step = torch.sort(j * (S * C) + pos[seg]).indices
-    return SegmentPlan(src=(s * n_src + m)[by_step], pos=pos,
+    return SegmentPlan(src=(s * n_src + m)[by_step], dst=pos[seg][by_step], pos=pos,
                        steps=tuple(torch.bincount(j).tolist()), n_segments=C)
+
+
+def _check_leg_links(lp: torch.Tensor, pl: torch.Tensor, ll: torch.Tensor) -> None:
+    """Raise unless each leg's link is its process's link: a link's sum
+    adds its processes' sums, so a leg on another link than its process's
+    would be summed on the wrong one. A padded leg (no process, no link)
+    passes."""
+    via_proc = torch.bmm((lp != 0).float(), (pl != 0).float()) != 0  # [S, T, L]
+    bad = (via_proc != (ll != 0)).any(dim=-1)
+    if bool(bad.any()):
+        s, leg = torch.nonzero(bad)[0].tolist()
+        raise ValueError(
+            f"leg {leg} of scenario {s}: its link is not its process's link "
+            "(leg_link must equal leg_proc @ proc_link)"
+        )
 
 
 def bank_index_tables(
@@ -252,10 +280,11 @@ def bank_index_tables(
     leg_link: torch.Tensor,  # [S, T, L] one-hot
 ) -> BankTables:
     """The :class:`BankTables` of a bank, on the incidences' device. A row
-    with more than one nonzero entry raises; all-zero (padded) rows are
-    allowed."""
+    with more than one nonzero entry raises, as does a leg whose link is
+    not its process's link; all-zero (padded) rows are allowed."""
     _check_one_hot(leg_proc=leg_proc, proc_link=proc_link, leg_link=leg_link)
     lp, pl, ll = (m.detach().cpu() for m in (leg_proc, proc_link, leg_link))
+    _check_leg_links(lp, pl, ll)
     T, P = lp.shape[1], lp.shape[2]
     i32 = torch.int32
     cols = [torch.argmax(lp, dim=-1).to(i32), torch.argmax(ll, dim=-1).to(i32),
@@ -270,90 +299,21 @@ def bank_index_tables(
     ).to(leg_proc.device)
 
 
-class CampaignTables(NamedTuple):
-    """One campaign's incidences as the per-campaign tick reads them.
-
-    ``proc_of_leg``, ``link_of_leg`` and ``link_of_proc`` hold the column of
-    each one-hot row (0 for an all-zero row, as :func:`bank_index_tables`).
-    The three CSR pairs list, in ascending order, the legs of each process,
-    the legs of each link and the processes of each link: the order of the
-    kernel's segment sums. An all-zero row is in no list. ``packed`` is all
-    of it in one int32 buffer, the layout the CUDA kernel stages into
-    shared memory: ``proc_of_leg | link_of_leg | proc_ptr | proc_legs |
-    link_ptr | link_legs | link_proc_ptr | link_procs``."""
-
-    proc_of_leg: torch.Tensor  # [T] i32
-    link_of_leg: torch.Tensor  # [T] i32
-    link_of_proc: torch.Tensor  # [P] i32
-    proc_ptr: torch.Tensor  # [P + 1] i32
-    proc_legs: torch.Tensor  # [nnz(leg_proc)] i32
-    link_ptr: torch.Tensor  # [L + 1] i32
-    link_legs: torch.Tensor  # [nnz(leg_link)] i32
-    link_proc_ptr: torch.Tensor  # [L + 1] i32
-    link_procs: torch.Tensor  # [nnz(proc_link)] i32
-    packed: torch.Tensor  # i32, the concatenation above
-
-    @property
-    def shape(self) -> Tuple[int, int, int]:
-        """``(T, P, L)``."""
-        return (self.proc_of_leg.shape[0], self.link_of_proc.shape[0],
-                self.link_ptr.shape[0] - 1)
-
-
-def _csr(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(ptr [C + 1], rows)`` of the nonzeros of ``m [R, C]`` by column,
-    rows ascending within each column."""
-    nz = (m != 0).t()  # [C, R]
-    counts = nz.sum(dim=1)
-    ptr = torch.zeros(nz.shape[0] + 1, dtype=torch.int64)
-    ptr[1:] = torch.cumsum(counts, 0)
-    rows = torch.nonzero(nz)[:, 1]  # row-major over [C, R]: by column, rows ascending
-    return ptr.to(torch.int32), rows.to(torch.int32)
-
-
 def campaign_index_tables(
     leg_proc: torch.Tensor,  # [T, P] one-hot
     proc_link: torch.Tensor,  # [P, L] one-hot
     leg_link: torch.Tensor,  # [T, L] one-hot
-) -> CampaignTables:
-    """The :class:`CampaignTables` of one campaign, on the incidences'
-    device. A row with more than one nonzero entry raises; all-zero
-    (padded) rows are allowed."""
+) -> BankTables:
+    """The :class:`BankTables` of one campaign, a bank of one scenario
+    (``S = 1``), on the incidences' device: the per-campaign tick and sums
+    walk the same lists in the same order as the bank's. Refuses what
+    :func:`bank_index_tables` refuses."""
     if leg_proc.dim() != 2 or proc_link.dim() != 2 or leg_link.dim() != 2:
         raise ValueError(
             "campaign incidences must be [T, P], [P, L], [T, L]: got "
             f"{tuple(leg_proc.shape)}, {tuple(proc_link.shape)}, {tuple(leg_link.shape)}"
         )
-    _check_one_hot(leg_proc=leg_proc, proc_link=proc_link, leg_link=leg_link)
-    dev = leg_proc.device
-    lp, pl, ll = (m.detach().cpu() for m in (leg_proc, proc_link, leg_link))
-    i32 = torch.int32
-    cols = [torch.argmax(lp, dim=-1).to(i32), torch.argmax(ll, dim=-1).to(i32),
-            torch.argmax(pl, dim=-1).to(i32)]
-    csr = [*_csr(lp), *_csr(ll), *_csr(pl)]
-    packed = torch.cat([cols[0], cols[1], *csr])
-    return CampaignTables(*(x.to(dev) for x in (*cols, *csr, packed)))
-
-
-def _segment_sums(v: torch.Tensor, ptr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``out[..., c] = sum of v[..., idx[ptr[c]:ptr[c+1]]]``, added one term
-    at a time in list order from 0.0 (the kernel's order): ``[..., X] ->
-    [..., C]``. Shorter lists are padded with a zero term, which leaves a
-    non-negative sum as it is."""
-    ptr_l = ptr.tolist()
-    n_seg = len(ptr_l) - 1
-    deg = max([b - a for a, b in zip(ptr_l[:-1], ptr_l[1:])], default=0)
-    zero = torch.zeros(v.shape[:-1] + (1,), dtype=v.dtype, device=v.device)
-    vz = torch.cat([v, zero], dim=-1)  # index X is the zero term
-    pad = torch.full((n_seg, max(deg, 1)), v.shape[-1], dtype=torch.long)
-    idx_l = idx.long().cpu()
-    for c, (a, b) in enumerate(zip(ptr_l[:-1], ptr_l[1:])):
-        pad[c, : b - a] = idx_l[a:b]
-    pad = pad.to(v.device)
-    acc = torch.zeros(v.shape[:-1] + (n_seg,), dtype=v.dtype, device=v.device)
-    for j in range(deg):
-        acc = acc + vz[..., pad[:, j]]
-    return acc
+    return bank_index_tables(leg_proc[None], proc_link[None], leg_link[None])
 
 
 def grid_tick_indexed(
@@ -362,28 +322,19 @@ def grid_tick_indexed(
     keep_frac: torch.Tensor,  # [T] or [B, T]
     bg_load: torch.Tensor,  # [B, L]
     bandwidth: torch.Tensor,  # [L]
-    tables: CampaignTables,
+    leg_proc: torch.Tensor,  # [T, P] one-hot
+    proc_link: torch.Tensor,  # [P, L] one-hot
+    tables: BankTables,  # of one campaign (campaign_index_tables)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """:func:`grid_tick` for one campaign through its index tables, every
-    sum in the CUDA kernel's order: each process's and link's segment sum
-    ascends over its CSR list, so the kernel equals this bitwise. Legs whose
-    incidence row is all zero must be inactive (they gather column 0)."""
-    f32 = torch.float32
-    a = active.to(f32)
-    threads = _segment_sums(a, tables.proc_ptr, tables.proc_legs)  # [B, P]
-    proc_active = (threads > 0).to(f32)
-    campaign = _segment_sums(proc_active, tables.link_proc_ptr, tables.link_procs)
-    denom = torch.clamp_min(campaign + torch.clamp_min(bg_load.to(f32), 0.0), 1.0)
-    per_proc_bw = bandwidth.to(f32) / denom  # [B, L]
-    per_proc_bw_leg = per_proc_bw[:, tables.link_of_leg.long()]
-    threads_leg = torch.clamp_min(threads[:, tables.proc_of_leg.long()], 1.0)
-    chunk = a * keep_frac.to(f32) * per_proc_bw_leg / threads_leg
-    xfer = torch.minimum(remaining.to(f32), chunk)
-    return (
-        xfer,
-        _segment_sums(xfer, tables.proc_ptr, tables.proc_legs),
-        _segment_sums(xfer, tables.link_ptr, tables.link_legs),
+    """:func:`grid_tick` for ``B`` simulations of one campaign:
+    :func:`grid_tick_bank_indexed` at ``S = 1``, the ``B`` simulations its
+    replicas, so every float sum runs in the order of the campaign's lists
+    (the per-campaign kernel's order)."""
+    out = grid_tick_bank_indexed(
+        active[None], remaining[None], keep_frac[None], bg_load[None], bandwidth[None],
+        leg_proc[None], proc_link[None], tables,
     )
+    return tuple(x[0] for x in out)
 
 
 def _to_legs(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -11,9 +11,10 @@ its three outputs, at K = 1, 7 and 32, with bank-wide and per-replica keep,
 and on single-link families with up to 125 processes or one process of 119
 legs on the link; the one tick also within rtol 1e-5, atol 1e-4 of the
 one-hot matmul of ``ref.grid_tick`` (sums in another order).
-The per-campaign kernel sums in ``ref.grid_tick_indexed``'s order and is
-held bitwise against it, and against ``ref.grid_tick`` within that
-tolerance.
+The per-campaign tick is the bank tick at S = 1 (the wide instance past
+the bank limits) and sums in ``ref.grid_tick_indexed``'s order: it is held
+bitwise against it, and against ``ref.grid_tick`` within that tolerance;
+the per-campaign sums launch bitwise against ``ref.bank_sums`` at S = 1.
 The SELU-MLP kernel sums in the plain version's order: logits and
 pre-activations within rtol/atol 1e-5 (expm1 may round differently), its
 autograd gradients within 1e-4 of each tensor's largest entry; at the
@@ -220,7 +221,8 @@ def _section5_campaign():
 def test_campaign_kernel_matches_plain(shape):
     """The main path's shape (B = 2,048 simulations of the Section-5
     campaign, T=106, P=11, L=1, shared keep, ``remaining = inf`` as the
-    leap calls it), a campaign past 128 legs, and one keep per row."""
+    leap calls it), a campaign past 128 legs, and one keep per row; then
+    the sums launch on the tick's transfers, as the leap step calls it."""
     _need_cuda()
     dev = torch.device("cuda")
     if shape == "T>128":
@@ -242,11 +244,18 @@ def test_campaign_kernel_matches_plain(shape):
     got = ops.grid_tick(a, rem, keep, bg, bw, lp, pl, ll, tables=tables)
     torch.cuda.synchronize()
     assert grid_tick.LAUNCHES["grid_tick"] == before + 1
-    for g_, w_ in zip(got, ref.grid_tick_indexed(a, rem, keep, bg, bw, tables)):
+    want = ref.grid_tick_indexed(a, rem, keep, bg, bw, lp, pl, tables)
+    for g_, w_ in zip(got, want):
         assert torch.equal(g_, w_)
     for name, g_, w_ in zip(("xfer", "proc_xfer", "link_xfer"), got,
                             ref.grid_tick(a, rem, keep, bg, bw, lp, pl, ll)):
         _close(name, g_, w_)
+    before = grid_tick.LAUNCHES["grid_tick_sums"]
+    sums = ops.grid_tick_sums(want[0], tables)
+    torch.cuda.synchronize()
+    assert grid_tick.LAUNCHES["grid_tick_sums"] == before + 1
+    for g_, w_ in zip(sums, want[1:]):
+        assert torch.equal(g_, w_)
 
 
 def test_kernels_refuse_shapes_past_their_limits():
@@ -258,8 +267,8 @@ def test_kernels_refuse_shapes_past_their_limits():
     tables = ref.bank_index_tables(*(m[None].to(dev) for m in _random_campaign(T, P, L, 0)))
     with pytest.raises(ValueError, match="at most"):
         grid_tick.grid_tick_bank_cuda(f(S, R, T), f(S, R, T), f(S, T), f(S, R, L), f(S, L), tables)
-    max_t, _, max_l = grid_tick.campaign_limits()
-    assert max_t >= 1024 and max_l >= 256
+    max_t, max_p, max_l = grid_tick.campaign_limits()
+    assert max_t >= 1024 and max_p >= 1024 and max_l >= 256
     for T, P, L in ((max_t + 1, 4, 3), (64, 8, max_l + 1)):
         tables = ref.campaign_index_tables(*(m.to(dev) for m in _random_campaign(T, P, L, 0)))
         with pytest.raises(ValueError, match="at most"):

@@ -223,7 +223,7 @@ def test_grid_tick_campaign_matches_pallas_interpret(per_row, inf):
     before = dict(grid_tick.LAUNCHES)
     outs = {
         "ref.grid_tick": ref.grid_tick(*t_state, *t_inc),
-        "ref.grid_tick_indexed": ref.grid_tick_indexed(*t_state, tables),
+        "ref.grid_tick_indexed": ref.grid_tick_indexed(*t_state, *t_inc[:2], tables),
         "ops.grid_tick": ops.grid_tick(*t_state, *t_inc),
     }
     assert grid_tick.LAUNCHES == before
@@ -233,30 +233,31 @@ def test_grid_tick_campaign_matches_pallas_interpret(per_row, inf):
 
 
 def test_campaign_index_tables_layout():
-    """The CSR lists hold each process's and link's legs (and each link's
-    processes) in ascending order; ``packed`` is their concatenation; the
-    per-leg columns equal the bank tables of the same incidences."""
+    """A campaign's tables are the bank tables of a bank of one scenario:
+    the lists hold each process's legs and each link's processes in
+    ascending order, and every field, ``packed`` and the sum plans
+    included, equals ``bank_index_tables`` of the same incidences."""
     _, inc = _campaign_inputs(per_row=False)
     lp, pl, ll = _torch(inc)
     t = ref.campaign_index_tables(lp, pl, ll)
-    T, P, L = t.shape
-    assert (T, P, L) == (lp.shape[0], lp.shape[1], pl.shape[1])
-    for ptr, idx, m in ((t.proc_ptr, t.proc_legs, lp), (t.link_ptr, t.link_legs, ll),
-                        (t.link_proc_ptr, t.link_procs, pl)):
+    assert t.shape == (1, lp.shape[0], lp.shape[1], pl.shape[1])
+    for ptr, idx, m in ((t.proc_ptr[0], t.proc_legs[0], lp), (t.link_proc_ptr[0], t.link_procs[0], pl)):
         for c in range(m.shape[1]):
             members = idx[ptr[c]:ptr[c + 1]].tolist()
             assert members == sorted(members)
             assert members == torch.nonzero(m[:, c]).flatten().tolist()
     bank = ref.bank_index_tables(lp[None], pl[None], ll[None])
-    for got, want in zip((t.proc_of_leg, t.link_of_leg, t.link_of_proc), bank):
-        assert torch.equal(got, want[0])
-    assert torch.equal(t.packed, torch.cat([t.proc_of_leg, t.link_of_leg, *t[3:9]]))
+    for got, want in zip(t[:8], bank[:8]):
+        assert torch.equal(got, want)
+    for got, want in zip(t[8:], bank[8:]):
+        assert torch.equal(got.src, want.src) and got.steps == want.steps
 
 
 def test_index_tables_refuse_rows_that_are_not_one_hot():
     """A process on two links (a hand-made incidence) is refused by both
     index-table functions: the gathers keep one column per row, where the
-    reference's matmul would sum both. All-zero padded rows are allowed."""
+    reference's matmul would sum both. All-zero padded rows are allowed; a
+    leg whose link is not its process's link is refused too."""
     leg_proc = torch.tensor([[1.0, 0.0], [0.0, 1.0], [0.0, 0.0]])  # leg 2 padded
     two_links = torch.tensor([[1.0, 0.0], [1.0, 1.0]])  # process 1 on two links
     leg_link = leg_proc @ torch.tensor([[1.0, 0.0], [0.0, 1.0]])
@@ -266,8 +267,15 @@ def test_index_tables_refuse_rows_that_are_not_one_hot():
         ref.bank_index_tables(leg_proc[None], two_links[None], leg_link[None])
     ok = torch.tensor([[1.0, 0.0], [0.0, 1.0]])
     t = ref.campaign_index_tables(leg_proc, ok, leg_link)
-    assert t.proc_legs.tolist() == [0, 1] and t.link_legs.tolist() == [0, 1]
+    assert t.proc_legs[0, :2].tolist() == [0, 1] and t.link_procs[0].tolist() == [0, 1]
     ref.bank_index_tables(leg_proc[None], ok[None], leg_link[None])
+    # leg 1 on link 0 while its process 1 sits on link 1: a link's sum adds
+    # its processes' sums, so both refuse it
+    crossed = torch.tensor([[1.0, 0.0], [1.0, 0.0], [0.0, 0.0]])
+    with pytest.raises(ValueError, match="not its process's link"):
+        ref.campaign_index_tables(leg_proc, ok, crossed)
+    with pytest.raises(ValueError, match="not its process's link"):
+        ref.bank_index_tables(leg_proc[None], ok[None], crossed[None])
 
 
 def test_grid_tick_op_validates_inputs():

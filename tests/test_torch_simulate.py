@@ -9,7 +9,8 @@ The same numpy inputs and threefry keys go through both packages, whose
 kernel path), never its banked run. Tolerances: ``done``, ``ticks``,
 ``transfer_time`` and ``start_tick`` equal; ``conth_mb`` and ``conpr_mb``
 within rtol 1e-5, atol 1e-4 (per-process and per-link sums in another
-order than XLA's dot). Across window sizes the port is bitwise equal to
+order than XLA's dot), and ``conpr_mb`` exactly 0 wherever the
+reference's is. Across window sizes the port is bitwise equal to
 itself."""
 import jax
 import jax.numpy as jnp
@@ -52,6 +53,11 @@ def _assert_matches(port, ref, msg=""):
             getattr(port, f).numpy(), np.asarray(getattr(ref, f)),
             rtol=1e-5, atol=1e-4, err_msg=msg + f,
         )
+    # where the reference's ConPr is exactly 0 (a link whose other
+    # processes moved nothing), the port's is too: its link sums add the
+    # processes' sums, so a link with one busy process sums to exactly it
+    zero = np.asarray(ref.conpr_mb) == 0
+    np.testing.assert_array_equal(port.conpr_mb.numpy()[zero], 0.0, err_msg=msg + "conpr_mb zeros")
 
 
 def _assert_bitwise(a, b, msg=""):

@@ -13,10 +13,20 @@ Groups (``--groups``, default all):
 - ``bank``: the banked simulator's fused window (``bank_fused_kernel``, one
   K = 32 window of the stochastic tick run's first carry) and one tick
   (``bank_tick_kernel``, ``remaining = inf`` as the leap scan calls it) at
-  the main path's shapes (1,024 scenarios x 64 replicas). The other build
-  is called with the C signatures of commit a4273ea (three index tables in
-  place of the packed segment lists) and held to the plain version within
-  chip_smoke's RTOL/ATOL; this build bitwise.
+  the main path's shapes (1,024 scenarios x 64 replicas). Both builds run
+  through this checkout's wrappers (the other's library swapped in), so the
+  other sources must export the same C signatures (commit 593f029 does);
+  both bitwise against the plain versions.
+- ``campaign``: one per-campaign tick at its main shape (B = 2,048
+  simulations of the Section-5 campaign, one keep per row, ``remaining =
+  inf`` as presimulation's leap calls it). This build runs
+  ``bank_tick_kernel`` at S = 1, bitwise against ``ref.grid_tick_indexed``;
+  the other is commit 593f029's ``campaign_tick_kernel``, called with its own
+  C signature (``grid_tick_campaign_launch`` on its own packed CSR tables)
+  and held within chip_smoke's RTOL/ATOL (its link sums walk the legs).
+  Then the leap step's sums of that tick's transfers (``bank_sums_kernel``
+  at S = 1, bitwise against ``ref.bank_sums``) beside the one-hot matmul
+  that commit 593f029's leap step ran in its place.
 - ``selu_mlp``, ``mlstm_chunk``: called with this checkout's C signatures,
   so the other sources must export the same two (commit 386eef2 does).
 
@@ -46,9 +56,8 @@ from repro_torch.kernels import _build, grid_tick, mlstm_chunk, ref, selu_mlp  #
 
 P = ctypes.c_void_p
 I = ctypes.c_int
-# the bank launches' C signatures at commit a4273ea
-OLD_FUSED_ARGTYPES = [P] * 13 + [I] + [P] * 5 + [I] + [P] * 14 + [I] * 6 + [P]
-OLD_TICK_ARGTYPES = [P] * 3 + [I] + [P] * 8 + [I] * 5 + [P]
+# the per-campaign launch's C signature at commit 593f029
+OLD_CAMPAIGN_ARGTYPES = [P] * 3 + [I] + [P] * 3 + [I] + [P] * 3 + [I] * 4 + [P]
 
 
 def build_other(csrc: str, out_dir: str, names) -> dict:
@@ -72,45 +81,24 @@ def build_other(csrc: str, out_dir: str, names) -> dict:
         if name in libs:
             getattr(libs[name], f"{name}_launch").argtypes = getattr(mod._lib(), f"{name}_launch").argtypes
     if "grid_tick" in libs:
-        libs["grid_tick"].grid_tick_bank_fused_launch.argtypes = OLD_FUSED_ARGTYPES
-        libs["grid_tick"].grid_tick_bank_launch.argtypes = OLD_TICK_ARGTYPES
+        ours, other = grid_tick._lib(), libs["grid_tick"]
+        for fn in ("grid_tick_bank_fused_launch", "grid_tick_bank_launch", "grid_tick_limits"):
+            getattr(other, fn).argtypes = getattr(ours, fn).argtypes
+        if hasattr(other, "grid_tick_campaign_launch"):
+            other.grid_tick_campaign_launch.argtypes = OLD_CAMPAIGN_ARGTYPES
     return libs
 
 
-def fused_call(lib, state, noise, mu, sigma, consts, tables):
-    """One window of the other build's fused kernel, as its wrapper
-    launched it at commit a4273ea (three index tables)."""
-    K, S, R, L = noise.shape
-    T, P = state[2].shape[-1], tables.link_of_proc.shape[-1]
-    release, dep, period, max_ticks, keep, bw = consts[:6]
-    out = tuple(torch.empty_like(x) for x in state)
-    tab = [tables.proc_of_leg.data_ptr(), tables.link_of_leg.data_ptr(),
-           tables.link_of_proc.data_ptr()]
-    err = lib.grid_tick_bank_fused_launch(
-        *(x.data_ptr() for x in state), noise.data_ptr(), mu.data_ptr(), sigma.data_ptr(), 0,
-        release.data_ptr(), dep.data_ptr(), period.data_ptr(), max_ticks.data_ptr(),
-        keep.data_ptr(), 0, bw.data_ptr(), *tab, *(o.data_ptr() for o in out),
-        S, R, T, P, L, K, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused launch failed: {err}")
-    return out
-
-
-def tick_call(lib, active, remaining, keep, bg, bw, tables):
-    """One tick of the other build's bank tick kernel, as its wrapper
-    launched it at commit a4273ea."""
-    S, R, T = active.shape
-    L, P = bw.shape[-1], tables.link_of_proc.shape[-1]
-    outs = [torch.empty((S, R, n), device=active.device) for n in (T, P, L)]
-    tab = [tables.proc_of_leg.data_ptr(), tables.link_of_leg.data_ptr(),
-           tables.link_of_proc.data_ptr()]
-    err = lib.grid_tick_bank_launch(
-        active.data_ptr(), remaining.data_ptr(), keep.data_ptr(), 0, bg.data_ptr(),
-        bw.data_ptr(), *tab, *(o.data_ptr() for o in outs), S, R, T, P, L,
-        torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"tick launch failed: {err}")
-    return outs
+def through(lib, fn):
+    """``fn()`` with the grid-tick wrappers launching from ``lib``."""
+    def call():
+        saved = grid_tick._lib
+        grid_tick._lib = lambda: lib
+        try:
+            return fn()
+        finally:
+            grid_tick._lib = saved
+    return call
 
 
 def held(label, got, want, names, exact: bool) -> float:
@@ -136,12 +124,12 @@ def ab_bank(other_lib, dev) -> None:
     want = ref.grid_tick_bank_window(state, mu, sigma, *consts, leap=False, noise=noise,
                                      tables=tables)
     fields = ref.BANK_WINDOW_STATE_FIELDS
-    other = lambda: fused_call(other_lib, state, noise, mu, sigma, consts, tables)
     this = lambda: grid_tick.grid_tick_bank_fused_cuda(state, noise, mu, sigma, *consts[:6], tables)
+    other = through(other_lib, this)
     row = dict(kernel="bank_fused_kernel", shape=[K, S, R, T, bank.pad_procs, L],
                alive_steps=int(want[1].sum()),
                this_bitwise=held("this fused", this(), want, fields, exact=True) == 0.0,
-               other_max_abs_err=held("other fused", other(), want, fields, exact=False))
+               other_bitwise=held("other fused", other(), want, fields, exact=True) == 0.0)
     row.update(turns(other, this, 5, "bank_fused_kernel"))
     print(json.dumps(row), flush=True)
 
@@ -154,12 +142,73 @@ def ab_bank(other_lib, dev) -> None:
     want = ref.grid_tick_bank_indexed(active, remaining, keep, bg, spec.bandwidth,
                                       spec.leg_proc, spec.proc_link, tables)
     names = ("xfer", "proc_xfer", "link_xfer")
-    other = lambda: tick_call(other_lib, active, remaining, keep, bg, spec.bandwidth, tables)
     this = lambda: grid_tick.grid_tick_bank_cuda(active, remaining, keep, bg, spec.bandwidth, tables)
+    other = through(other_lib, this)
     row = dict(kernel="bank_tick_kernel", shape=[S, R, T, bank.pad_procs, L],
                this_bitwise=held("this tick", this(), want, names, exact=True) == 0.0,
-               other_max_abs_err=held("other tick", other(), want, names, exact=False))
+               other_bitwise=held("other tick", other(), want, names, exact=True) == 0.0)
     row.update(turns(other, this, 50, "bank_tick_kernel"))
+    print(json.dumps(row), flush=True)
+
+
+def old_campaign_tables(lp, pl, ll) -> torch.Tensor:
+    """Commit 593f029's packed per-campaign tables: ``proc_of_leg |
+    link_of_leg | proc_ptr | proc_legs | link_ptr | link_legs |
+    link_proc_ptr | link_procs``, each list a CSR pair over the nonzeros
+    of an incidence by column, rows ascending."""
+    def csr(m):
+        nz = (m != 0).t()
+        ptr = torch.zeros(nz.shape[0] + 1, dtype=torch.int64, device=m.device)
+        ptr[1:] = torch.cumsum(nz.sum(dim=1), 0)
+        return [ptr, torch.nonzero(nz)[:, 1]]
+    cols = [torch.argmax(lp, dim=-1), torch.argmax(ll, dim=-1)]
+    return torch.cat([*cols, *csr(lp), *csr(ll), *csr(pl)]).to(torch.int32).contiguous()
+
+
+def old_campaign_call(lib, a, rem, keep, bg, bw, packed, P):
+    """One tick of the other build's ``campaign_tick_kernel``, as its
+    wrapper launched it at commit 593f029."""
+    B, T = a.shape
+    L = bw.shape[0]
+    outs = [torch.empty((B, n), device=a.device) for n in (T, P, L)]
+    err = lib.grid_tick_campaign_launch(
+        a.data_ptr(), rem.data_ptr(), keep.data_ptr(), T if keep.dim() == 2 else 0, bg.data_ptr(),
+        bw.data_ptr(), packed.data_ptr(), packed.numel(), *(o.data_ptr() for o in outs),
+        B, T, P, L, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"campaign launch failed: {err}")
+    return outs
+
+
+def ab_campaign(other_lib, dev) -> None:
+    """B.3's tick at its main shape, this build against commit 593f029's."""
+    spec = engine.SimSpec.from_table(cs.section5_table(), max_ticks=cs.SECTION5_MAX_TICKS,
+                                     device=dev)
+    T, P, L = spec.n_legs, spec.leg_proc.shape[1], spec.n_links
+    a, rem, keep, bg = cs.campaign_tick_inputs(cs.CAMPAIGN_B, T, L, dev, per_row=True, inf=True)
+    tables = spec.campaign_tables
+    want = ref.grid_tick_indexed(a, rem, keep, bg, spec.bandwidth, spec.leg_proc, spec.proc_link,
+                                 tables)
+    packed = old_campaign_tables(spec.leg_proc, spec.proc_link, spec.leg_link)
+    names = ("xfer", "proc_xfer", "link_xfer")
+    this = lambda: grid_tick.grid_tick_cuda(a, rem, keep, bg, spec.bandwidth, tables)
+    other = lambda: old_campaign_call(other_lib, a, rem, keep, bg, spec.bandwidth, packed, P)
+    row = dict(kernel="campaign tick", shape=[cs.CAMPAIGN_B, T, P, L],
+               this_bitwise=held("this campaign", this(), want, names, exact=True) == 0.0,
+               other_max_abs_err=held("other campaign", other(), want, names, exact=False))
+    row.update(turns(other, this, 200, "bank_tick_kernel", other_tag="campaign_tick_kernel"))
+    print(json.dumps(row), flush=True)
+
+    # the leap step's sums of the tick's transfers, beside the one-hot
+    # matmul they replace (as the other checkout's leap step ran them)
+    v = want[0]
+    plain = ref.bank_sums(v[None], tables)
+    columns = torch.cat([spec.leg_proc, spec.leg_link], dim=-1).contiguous()
+    this = lambda: grid_tick.grid_tick_sums_cuda(v, tables)
+    row = dict(kernel="campaign sums", shape=[cs.CAMPAIGN_B, T, P, L], other="v @ columns",
+               this_bitwise=held("this sums", this(), [x[0] for x in plain], ("proc", "link"),
+                                 exact=True) == 0.0)
+    row.update(turns(lambda: v @ columns, this, 200, "bank_sums_kernel", other_tag=""))
     print(json.dumps(row), flush=True)
 
 
@@ -188,32 +237,36 @@ def other_ssd(lib, q, k, v, ig, fg, chunk):
     return out
 
 
-def turns(other, this, reps, tag) -> dict:
-    """Device ms of each, in turns other, this, this, other."""
-    o1 = cs.device_ms(other, reps, tag)
+def turns(other, this, reps, tag, other_tag=None) -> dict:
+    """Device ms of each, in turns other, this, this, other (the other's
+    kernels named ``other_tag`` where their names differ; "" takes all)."""
+    other_tag = tag if other_tag is None else other_tag
+    o1 = cs.device_ms(other, reps, other_tag)
     t1 = cs.device_ms(this, reps, tag)
     t2 = cs.device_ms(this, reps, tag)
-    o2 = cs.device_ms(other, reps, tag)
+    o2 = cs.device_ms(other, reps, other_tag)
     return dict(other_ms=[o1, o2], this_ms=[t1, t2])
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, help="the other checkout's kernels/csrc directory")
-    ap.add_argument("--groups", nargs="+", default=["bank", "selu_mlp", "mlstm_chunk"],
-                    choices=["bank", "selu_mlp", "mlstm_chunk"])
+    ap.add_argument("--groups", nargs="+", default=["bank", "campaign", "selu_mlp", "mlstm_chunk"],
+                    choices=["bank", "campaign", "selu_mlp", "mlstm_chunk"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    names = [{"bank": "grid_tick"}.get(g, g) for g in args.groups]
+    names = sorted({{"bank": "grid_tick", "campaign": "grid_tick"}.get(g, g) for g in args.groups})
     _build.build(names)
     out_dir = os.path.join(ROOT, "build", "ab_other")
     libs = build_other(args.other, out_dir, names)
     if "bank" in args.groups:
         ab_bank(libs["grid_tick"], dev)
+    if "campaign" in args.groups:
+        ab_campaign(libs["grid_tick"], dev)
     if "selu_mlp" in args.groups:
         for n in (4, 37, 4096, 8192):
             x, ws, bs = cs.mlp_net(n, cs.MLP_IN, dev, seed=n)
