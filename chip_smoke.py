@@ -10,25 +10,41 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    with ``nvcc`` (all at once) and load it; ptxas registers and spills by
    kernel, the bf16 tensor-core kernels' and the bank kernels' blocks an SM;
 2. kernels — each bank kernel against its plain PyTorch version on the
-   card, on a 7-family bank (bank-wide and per-replica keep/mu/sigma):
-   bitwise, since both take every sum in the order of the bank's segment
-   lists (the one tick also within RTOL/ATOL of the one-hot matmul);
+   card, on a 7-family bank (bank-wide and per-replica keep/mu/sigma), and
+   their wide instances on a scale-3 bank (T 162, P 162): bitwise, since
+   both take every sum in the order of the bank's segment lists (the one
+   tick also within RTOL/ATOL of the one-hot matmul);
 3. main    — ``Fleet.from_scenarios(n=1024).run(replicas=64)`` (65,536
    elements) in tick and leap mode, default and stochastic params, with the
    kernels' launch counts of each timed run (counts set to 0 just before
    it, read just after);
+3b. bucketed — the same fleet compiled in 8 cost-packed buckets, the four
+   runs each bitwise equal to phase main's with the same keys, with
+   elements/s, windows, bucket pads and launches beside phase main's; then
+   a long-tail fleet (256 scale-3 scenarios, 8 buckets), tick and leap,
+   whose buckets past T 128 run the wide kernel instances;
+3c. stepped — ``simulate_bank_stepped`` on the main fleet (tick,
+   stochastic) bitwise equal to phase main's ``Fleet.run``, a checkpoint
+   at half its windows through ``Fleet.save_checkpoint`` (under
+   ``build/stepped_check``), and the run resumed from ``Fleet.load`` /
+   ``Fleet.load_checkpoint`` bitwise; walls beside the one-shot run's;
+3d. stream — ``Fleet.stream`` over the same 1,024 pairs in chunks of 256
+   with ``prefetch=1``, each chunk bitwise equal to its standalone
+   ``simulate_bank`` run under the stream's key schedule;
 4. parity  — bitwise window invariance (K=1 vs K=64) on 64 scenarios x 4
    replicas; the card's normals bitwise against the CPU path's (200,000
    keys x 11); the card's ``Fleet.run`` against the CPU path on a small
    bank, default and stochastic (``bg_mu=2, bg_sigma=1.5``) params; the
    calibration test fixture's run (theta (0.05, 40, 20), 2 replicas, key
    42, leap) with ConPr exactly 0 at the same legs on both, Eq.-1 fits
-   within rtol 1e-4;
+   within rtol 1e-4; a small bucketed scale-3 fleet (one bucket past T
+   128), card against CPU path, bitwise, tick and leap;
 5. profile — device time by kernel of one tick and one leap main-path run
    under ``torch.profiler``, and the device's busy share;
 6. timing  — each bank kernel and its plain version at the main path's
-   shapes: the outputs held bitwise against each other, the times taken
-   with CUDA events, beside the least time the card could take;
+   shapes, and each wide instance at the long-tail fleet's widest bucket:
+   the outputs held bitwise against each other, the times taken with CUDA
+   events, beside the least time the card could take;
 7. calibrate — the SELU-MLP kernel against its plain version at the
    calibration path's shapes (forward and backward; N = 8,192, 4,096, the
    Section-5 chains' N = 4 and a ragged 37; each bitwise equal),
@@ -126,11 +142,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
 
-from repro_torch import CalibrationConfig, Fleet  # noqa: E402
+from repro_torch import CalibrationConfig, Fleet, simulate_bank  # noqa: E402
 from repro_torch.convert import classifier_from_reference, classifier_to_reference  # noqa: E402
 from repro_torch.core import calibration, classifier, engine, mcmc, prng  # noqa: E402
 from repro_torch.core import scheduler, topology, workload  # noqa: E402
-from repro_torch.core.scenarios import build_bank  # noqa: E402
+from repro_torch.core.scenarios import build_bank, sample_scenarios  # noqa: E402
 from repro_torch.kernels import _build, grid_tick, ops, ref, selu_mlp  # noqa: E402
 from repro_torch.kernels import decode_attention, flash_attention, mlstm_chunk  # noqa: E402
 from repro_torch.launch import calibrate as calibrate_launcher  # noqa: E402
@@ -151,6 +167,15 @@ RTOL, ATOL = 1e-5, 1e-4
 
 N_SCEN, N_REP = 1024, 64
 BANK_KERNELS = ("grid_tick_bank_fused", "grid_tick_bank", "grid_tick_bank_sums")
+# the bank kernels' wide instances (tables in dynamic shared memory), past
+# T 128, P 128 or L 32 a scenario
+WIDE_KERNELS = ("grid_tick_bank_fused_wide", "grid_tick_bank_wide", "grid_tick_bank_sums_wide")
+MAIN_PARAMS = (("default", {}), ("stochastic", dict(bg_mu=2.0, bg_sigma=1.0)))
+# the bucketed cells: the main fleet in 8 cost-packed buckets, and a
+# long-tail fleet (scale 3) whose widest buckets pass the narrow kernels
+N_BUCKETS = 8
+LONG_TAIL = dict(n=256, seed=0, scale=3.0, n_buckets=N_BUCKETS)
+STREAM_CHUNK = 256
 # the paper's Section-5 campaign as the calibration launcher compiles it
 # (T=106 legs, P=11 processes, L=1 link), the batch of one presimulation
 # chunk (512 thetas x 4 replicates) and the launcher's ground truth
@@ -275,84 +300,243 @@ def ptxas_by_kernel(log: str) -> dict:
 
 
 def phase_kernels(dev) -> dict:
-    """The bank kernels against their plain versions on a 64-scenario bank:
+    """The bank kernels against their plain versions on a 64-scenario bank,
+    and their wide instances on a 64-scenario scale-3 bank (T 162, P 162):
     the fused window bitwise on every carry field, the one tick bitwise on
     its three outputs (``remaining`` finite, and ``inf`` as the leap scan
     calls it), and the sums kernel bitwise on the tick's transfers."""
-    bank = build_bank(n=64, seed=0)
     R, K = 8, 16
-    errs = {"grid_tick_bank_fused": 0.0, "grid_tick_bank": 0.0, "grid_tick_bank_sums": 0.0}
-    for per_replica in (False, True):
-        state, mu, sigma, consts, noise, tables = window_inputs(bank, R, K, dev, per_replica)
-        want = ref.grid_tick_bank_window(state, mu, sigma, *consts, leap=False, noise=noise,
-                                         tables=tables)
-        got = ops.grid_tick_bank_fused(state, mu, sigma, *consts, window=K, noise=noise,
-                                       tables=tables)
-        fields = {}
-        for name, g_, w_ in zip(ref.BANK_WINDOW_STATE_FIELDS, got, want):
-            fields[name] = compare(f"fused {name}", g_, w_, exact=True)
-        errs["grid_tick_bank_fused"] = max(errs["grid_tick_bank_fused"], *fields.values())
-        emit("kernels", kernel="grid_tick_bank_fused", per_replica=per_replica, bitwise=True,
-             S=bank.n_scenarios, R=R, K=K, max_abs_err=fields,
-             alive_steps=int(got[1].sum()))
+    errs = {k: 0.0 for k in BANK_KERNELS + WIDE_KERNELS}
+    for names, bank in ((BANK_KERNELS, build_bank(n=64, seed=0)),
+                        (WIDE_KERNELS, build_bank(n=64, seed=0, scale=3.0))):
+        fused, tick, sums = names
+        assert grid_tick._wide(bank.pad_legs, bank.pad_procs, bank.pad_links) == (
+            names == WIDE_KERNELS)
+        for per_replica in (False, True):
+            state, mu, sigma, consts, noise, tables = window_inputs(bank, R, K, dev, per_replica)
+            want = ref.grid_tick_bank_window(state, mu, sigma, *consts, leap=False, noise=noise,
+                                             tables=tables)
+            got = ops.grid_tick_bank_fused(state, mu, sigma, *consts, window=K, noise=noise,
+                                           tables=tables)
+            fields = {}
+            for name, g_, w_ in zip(ref.BANK_WINDOW_STATE_FIELDS, got, want):
+                fields[name] = compare(f"{fused} {name}", g_, w_, exact=True)
+            errs[fused] = max(errs[fused], *fields.values())
+            emit("kernels", kernel=fused, per_replica=per_replica, bitwise=True,
+                 S=bank.n_scenarios, R=R, K=K, pads=[bank.pad_legs, bank.pad_procs, bank.pad_links],
+                 max_abs_err=fields, alive_steps=int(got[1].sum()))
 
-        # one tick at the same state: a random active set over unfinished legs
-        g = torch.Generator(device="cpu").manual_seed(1)
-        done, remaining, bg = state[3], state[2], state[9]
-        active = ((torch.rand(done.shape, generator=g).to(dev) < 0.7) & ~done).float()
-        for label, rem in (("remaining", remaining), ("inf", torch.full_like(remaining, float("inf")))):
-            fields = check_bank_tick(label, active, rem, consts[4], bg, consts, tables)
-            errs["grid_tick_bank"] = max(errs["grid_tick_bank"], fields["xfer"],
-                                         fields["proc_xfer"], fields["link_xfer"])
-            errs["grid_tick_bank_sums"] = max(errs["grid_tick_bank_sums"], fields["sums_proc"],
-                                              fields["sums_link"])
-            emit("kernels", kernel="grid_tick_bank", per_replica=per_replica, remaining=label,
-                 bitwise=True, S=bank.n_scenarios, R=R, max_abs_err=fields)
+            # one tick at the same state: a random active set over unfinished legs
+            g = torch.Generator(device="cpu").manual_seed(1)
+            done, remaining, bg = state[3], state[2], state[9]
+            active = ((torch.rand(done.shape, generator=g).to(dev) < 0.7) & ~done).float()
+            for label, rem in (("remaining", remaining),
+                               ("inf", torch.full_like(remaining, float("inf")))):
+                fields = check_bank_tick(label, active, rem, consts[4], bg, consts, tables)
+                errs[tick] = max(errs[tick], fields["xfer"], fields["proc_xfer"],
+                                 fields["link_xfer"])
+                errs[sums] = max(errs[sums], fields["sums_proc"], fields["sums_link"])
+                emit("kernels", kernel=tick, per_replica=per_replica, remaining=label,
+                     bitwise=True, S=bank.n_scenarios, R=R, max_abs_err=fields)
     torch.cuda.synchronize()
     return errs
 
 
+def counted_run(fleet, params, leap: bool, warm: bool = True):
+    """One ``Fleet.run`` at ``N_REP`` replicas (after an uncounted warm-up
+    when ``warm``), its counts set to 0 just before it and read just after:
+    ``(result, wall, windows, buckets, launches)``."""
+    if warm:
+        fleet.run(params, replicas=N_REP, leap=leap)
+    torch.cuda.synchronize()
+    engine.STATS["windows"] = engine.STATS["buckets"] = 0
+    grid_tick.reset_launches()
+    t0 = time.perf_counter()
+    res = fleet.run(params, replicas=N_REP, leap=leap)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, engine.STATS["windows"], engine.STATS["buckets"], dict(grid_tick.LAUNCHES)
+
+
+def check_result(res, fleet, dev) -> float:
+    """Shapes, finite values and non-negative durations of a fleet run;
+    the share of its valid legs that finished."""
+    shape = (fleet.n_scenarios, N_REP, fleet.pads[0])
+    for f in ("transfer_time", "conth_mb", "conpr_mb", "start_tick"):
+        x = getattr(res, f)
+        assert tuple(x.shape) == shape, (f, tuple(x.shape))
+        assert bool(torch.isfinite(x).all()), f"{f} not finite"
+    assert bool((res.transfer_time >= 0).all()), "negative transfer_time"
+    valid = torch.as_tensor(fleet.bank.leg_valid, device=dev)[:, None, :]
+    return float((res.done & valid).sum() / valid.expand_as(res.done).sum())
+
+
 def phase_main(dev) -> dict:
     """The four timed runs (tick/leap x default/stochastic), each after an
-    uncounted warm-up. ``launches`` sums the four runs' counts."""
+    uncounted warm-up. ``launches`` sums the four runs' counts; the results
+    are kept for the bucketed and stepped phases."""
     fleet = Fleet.from_scenarios(n=N_SCEN, seed=0, device=dev)
-    runs = []
+    runs, results = [], {}
     for leap in (False, True):
-        for label, kw in (("default", {}), ("stochastic", dict(bg_mu=2.0, bg_sigma=1.0))):
-            params = fleet.params(**kw)
-            fleet.run(params, replicas=N_REP, leap=leap)  # warm-up
-            torch.cuda.synchronize()
-            engine.STATS["windows"] = 0
-            grid_tick.reset_launches()
-            t0 = time.perf_counter()
-            res = fleet.run(params, replicas=N_REP, leap=leap)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = dict(grid_tick.LAUNCHES)
-            shape = (N_SCEN, N_REP, fleet.pads[0])
-            for f in ("transfer_time", "conth_mb", "conpr_mb", "start_tick"):
-                x = getattr(res, f)
-                assert tuple(x.shape) == shape, (f, tuple(x.shape))
-                assert bool(torch.isfinite(x).all()), f"{f} not finite"
-            assert bool((res.transfer_time >= 0).all()), "negative transfer_time"
-            valid = torch.as_tensor(fleet.bank.leg_valid, device=dev)[:, None, :]
+        for label, kw in MAIN_PARAMS:
+            res, wall, windows, _, launches = counted_run(fleet, fleet.params(**kw), leap)
             run = dict(
                 mode="leap" if leap else "tick", params=label, wall_s=wall,
                 elements=N_SCEN * N_REP, elements_per_s=N_SCEN * N_REP / wall,
-                windows=engine.STATS["windows"],
-                realized_ticks=int(res.ticks.max()),
-                done_share=float((res.done & valid).sum() / valid.expand_as(res.done).sum()),
-                launches=launches,
+                windows=windows, realized_ticks=int(res.ticks.max()),
+                done_share=check_result(res, fleet, dev), launches=launches,
             )
             emit("main", **run)
             runs.append(run)
+            results[(run["mode"], label)] = res
     launches = {k: sum(r["launches"][k] for r in runs) for k in BANK_KERNELS}
     by_run = {k: {f"{r['mode']}_{r['params']}": r["launches"][k] for r in runs}
               for k in BANK_KERNELS}
     for name, n in launches.items():
         assert n > 0, f"kernel {name} was not launched on the main path"
     emit("main", pads=list(fleet.pads), launches=launches, launches_by_run=by_run)
-    return {"launches": launches, "by_run": by_run, "runs": runs}
+    return {"launches": launches, "by_run": by_run, "runs": runs, "results": results}
+
+
+def phase_bucketed(dev, main_run: dict) -> dict:
+    """The main fleet in ``N_BUCKETS`` cost-packed buckets (tick costs for
+    the tick fleet, leap costs for the leap one), each run bitwise equal to
+    phase main's run with the same keys and reported beside it; then the
+    long-tail fleet, whose widest buckets run the wide kernel instances.
+    In place of a warm-up run (phase main has warmed the kernels), each
+    bucket's spec is uploaded before the timed runs: a run is paced by its
+    windows on the host, so a warm-up would cost as much as the run."""
+    main_by = {(r["mode"], r["params"]): r for r in main_run["runs"]}
+    by_run = {}
+    for leap in (False, True):
+        mode = "leap" if leap else "tick"
+        fleet = Fleet.from_scenarios(n=N_SCEN, seed=0, n_buckets=N_BUCKETS, leap=leap,
+                                     device=dev)
+        for b in fleet.bank.buckets:
+            engine.bank_spec(b.bank, dev)
+        for label, kw in MAIN_PARAMS:
+            res, wall, windows, buckets, launches = counted_run(fleet, fleet.params(**kw), leap,
+                                                                warm=False)
+            want = main_run["results"][(mode, label)]
+            for f in res._fields:
+                compare(f"bucketed vs main {mode} {label} {f}", getattr(res, f), getattr(want, f),
+                        exact=True)
+            assert buckets == fleet.n_buckets, (buckets, fleet.n_buckets)
+            m = main_by[(mode, label)]
+            by_run[f"bucketed_{mode}_{label}"] = launches
+            emit("bucketed", fleet="main", mode=mode, params=label, bitwise_vs_main=True,
+                 wall_s=wall, elements_per_s=N_SCEN * N_REP / wall, windows=windows,
+                 buckets=buckets, launches={k: v for k, v in launches.items() if v},
+                 main_wall_s=m["wall_s"], main_elements_per_s=m["elements_per_s"],
+                 main_windows=m["windows"],
+                 main_launches={k: v for k, v in m["launches"].items() if v},
+                 bucket_pads=fleet.bucket_pad_floors,
+                 bucket_scenarios=list(fleet.bucket_scenario_counts),
+                 done_share=check_result(res, fleet, dev))
+    limit = grid_tick.limits()
+    for leap in (False, True):
+        mode = "leap" if leap else "tick"
+        fleet = Fleet.from_scenarios(**LONG_TAIL, leap=leap, device=dev)
+        pads = fleet.bucket_pad_floors
+        wide_buckets = [p for p in pads if any(x > m for x, m in zip(p, limit))]
+        assert any(p[0] > 128 for p in pads), pads
+        res, wall, windows, buckets, launches = counted_run(fleet, fleet.params(), leap,
+                                                            warm=False)
+        wide = ("grid_tick_bank_fused_wide",) if not leap else WIDE_KERNELS[1:]
+        for k in wide:
+            assert launches[k] > 0, f"{k} was not launched on the long-tail fleet"
+        by_run[f"long_tail_{mode}"] = launches
+        emit("bucketed", fleet="long-tail", mode=mode, params="default", first_run=True,
+             wall_s=wall, elements_per_s=fleet.n_scenarios * N_REP / wall, windows=windows,
+             buckets=buckets, launches={k: v for k, v in launches.items() if v},
+             bucket_pads=pads, wide_buckets=wide_buckets,
+             bucket_scenarios=list(fleet.bucket_scenario_counts),
+             realized_ticks=int(res.ticks.max()), done_share=check_result(res, fleet, dev))
+    return {"by_run": by_run}
+
+
+def phase_stepped(dev, main_run: dict) -> dict:
+    """``simulate_bank_stepped`` on the main fleet, tick stochastic, with a
+    checkpoint at half phase main's windows written by
+    ``Fleet.save_checkpoint``; the one-shot stepped run and the run resumed
+    from ``Fleet.load`` / ``Fleet.load_checkpoint`` of that directory, each
+    bitwise equal to phase main's ``Fleet.run``."""
+    fleet = Fleet.from_scenarios(n=N_SCEN, seed=0, device=dev)
+    kw = dict(MAIN_PARAMS)["stochastic"]
+    params = fleet.params(**kw)
+    keys = prng.split(prng.PRNGKey(0, dev), N_SCEN * N_REP).reshape(N_SCEN, N_REP, 2)
+    want = main_run["results"][("tick", "stochastic")]
+    main = {(r["mode"], r["params"]): r for r in main_run["runs"]}[("tick", "stochastic")]
+    half = max(1, main["windows"] // 2)
+    path = os.path.join(ROOT, "build", "stepped_check")
+    saved = {}
+
+    def on_checkpoint(ck):
+        if not saved:
+            t = time.perf_counter()
+            fleet.save_checkpoint(path, ck)
+            saved.update(windows_done=ck.windows_done, save_s=time.perf_counter() - t)
+
+    torch.cuda.synchronize()
+    engine.STATS["windows"] = 0
+    grid_tick.reset_launches()
+    t0 = time.perf_counter()
+    got = engine.simulate_bank_stepped(fleet.bank, params, keys, device=dev,
+                                       checkpoint_every=half, on_checkpoint=on_checkpoint)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    windows, launches = engine.STATS["windows"], dict(grid_tick.LAUNCHES)
+    for f in got._fields:
+        compare(f"stepped vs Fleet.run {f}", getattr(got, f), getattr(want, f), exact=True)
+    loaded, ck = Fleet.load(path, device=dev), Fleet.load_checkpoint(path)
+    torch.cuda.synchronize()
+    grid_tick.reset_launches()
+    t0 = time.perf_counter()
+    resumed = engine.simulate_bank_stepped(loaded.bank, loaded.params(**kw), keys, device=dev,
+                                           resume=ck)
+    torch.cuda.synchronize()
+    resumed_wall = time.perf_counter() - t0
+    resumed_launches = dict(grid_tick.LAUNCHES)
+    for f in resumed._fields:
+        compare(f"resumed vs Fleet.run {f}", getattr(resumed, f), getattr(want, f), exact=True)
+    assert launches["grid_tick_bank_fused"] > 0 and resumed_launches["grid_tick_bank_fused"] > 0
+    emit("stepped", mode="tick", params="stochastic", bitwise_vs_run=True, wall_s=wall,
+         wall_without_checkpoint_save_s=wall - saved["save_s"], checkpoint_save_s=saved["save_s"],
+         one_shot_run_wall_s=main["wall_s"], windows=windows, run_windows=main["windows"],
+         checkpoint_windows_done=saved["windows_done"], resumed_bitwise=True,
+         resumed_wall_s=resumed_wall, launches={k: v for k, v in launches.items() if v},
+         resumed_launches={k: v for k, v in resumed_launches.items() if v})
+    return {"by_run": {"stepped": launches, "stepped_resumed": resumed_launches}}
+
+
+def phase_stream(dev) -> dict:
+    """``Fleet.stream`` of the main fleet's 1,024 pairs in chunks of
+    ``STREAM_CHUNK`` with ``prefetch=1`` (tick, each chunk's own params),
+    each chunk bitwise equal to its standalone ``simulate_bank`` run under
+    the stream's key schedule."""
+    fleet = Fleet.from_scenarios(n=N_SCEN, seed=0, device=dev)
+    pairs = sample_scenarios(None, N_SCEN, 0)
+    torch.cuda.synchronize()
+    grid_tick.reset_launches()
+    t0 = time.perf_counter()
+    chunks = list(fleet.stream(iter(pairs), chunk=STREAM_CHUNK, replicas=N_REP, prefetch=1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(grid_tick.LAUNCHES)
+    key = prng.PRNGKey(0, dev)
+    for i, c in enumerate(chunks):
+        key, sub = prng.split(key, 2)
+        keys = prng.split(sub, STREAM_CHUNK * N_REP).reshape(STREAM_CHUNK, N_REP, 2)
+        want = simulate_bank(c.bank, engine.make_bank_params(c.bank, device=dev), keys,
+                             device=dev)
+        for f in want._fields:
+            compare(f"stream chunk {i} {f}", getattr(c.result, f), getattr(want, f), exact=True)
+    assert len(chunks) == N_SCEN // STREAM_CHUNK
+    assert launches["grid_tick_bank_fused"] > 0
+    emit("stream", mode="tick", params="default", chunks=len(chunks), chunk=STREAM_CHUNK,
+         prefetch=1, bitwise_vs_standalone=True, wall_s=wall,
+         elements_per_s=N_SCEN * N_REP / wall, launches={k: v for k, v in launches.items() if v})
+    return {"by_run": {"stream": launches}}
 
 
 def phase_parity(dev) -> None:
@@ -387,6 +571,18 @@ def phase_parity(dev) -> None:
                                   getattr(c, f), exact=False)
             emit("parity", check="card vs CPU path", params=label, leap=leap, scenarios=7,
                  replicas=2, max_abs_err=errs)
+    # a small bucketed scale-3 fleet (one bucket past the narrow kernels):
+    # the card against the CPU path, bitwise
+    kw = dict(n=7, seed=14, scale=3.0, max_ticks=300, n_buckets=3, leap=True)
+    gpu, cpu = Fleet.from_scenarios(**kw, device=dev), Fleet.from_scenarios(**kw, device="cpu")
+    for leap in (False, True):
+        g = gpu.run(gpu.params(bg_mu=2.0, bg_sigma=1.5), replicas=2, leap=leap)
+        c = cpu.run(cpu.params(bg_mu=2.0, bg_sigma=1.5), replicas=2, leap=leap)
+        for f in g._fields:
+            compare(f"bucketed scale-3 gpu vs cpu leap={leap} {f}", getattr(g, f).cpu(),
+                    getattr(c, f), exact=True)
+        emit("parity", check="bucketed scale-3 fleet card vs CPU path bitwise", leap=leap,
+             scenarios=7, replicas=2, bucket_pads=gpu.bucket_pad_floors)
     # the calibration fixture's run (theta (0.05, 40, 20), 2 replicas, key
     # 42, leap): ConPr is exactly 0 at the same legs on the card as on the
     # CPU (a link that carries one process adds exact zeros), and the Eq.-1
@@ -534,17 +730,16 @@ def nbytes(*xs) -> int:
     return sum(x.numel() * x.element_size() for x in xs)
 
 
-def phase_timing(dev) -> dict:
-    """Each kernel and its plain version on the main path's inputs: the
-    fused kernel over one K=32 window of the stochastic tick run's first
-    carry, the one-tick kernel with ``remaining = inf`` as the leap scan
-    calls it, the sums kernel on that tick's transfers. The outputs are
-    held against each other, then timed."""
-    bank = build_bank(n=N_SCEN, seed=0)
-    S, R, K = N_SCEN, N_REP, 32
-    T, P, L = bank.pad_legs, bank.pad_procs, bank.pad_links
-    spec = engine.bank_spec(bank, dev)
-    p = engine.make_bank_params(bank, bg_mu=2.0, bg_sigma=1.0, device=dev)
+def time_bank_kernels(spec, p, R: int, dev, names=BANK_KERNELS) -> dict:
+    """Each bank kernel and its plain version on ``spec`` (a stacked spec
+    on the card) x ``R`` replicas with bank-wide params ``p``: the fused
+    kernel over one K=32 window of the stochastic tick run's first carry,
+    the one-tick kernel with ``remaining = inf`` as the leap scan calls it,
+    the sums kernel on that tick's transfers. The outputs are held against
+    each other, then timed; ``names`` are the rows' names."""
+    S, T = spec.size_mb.shape
+    P, L = spec.leg_proc.shape[-1], spec.bandwidth.shape[-1]
+    K = 32
     mu, sigma = p.bg_mu[:, None], p.bg_sigma[:, None]
     consts = (spec.release, spec.dep, spec.bg_period, spec.max_ticks, p.keep_frac,
               spec.bandwidth, spec.leg_proc, spec.proc_link, spec.leg_link)
@@ -560,7 +755,7 @@ def phase_timing(dev) -> dict:
     alive_steps = int(got[1].sum())
     plain_fused_ms, want = timed(lambda: ref.grid_tick_bank_window(
         state, mu, sigma, *consts, leap=False, noise=noise, tables=tables), 2)
-    fused_errs = {name: compare(f"fused {name} at main shapes", g_, w_, exact=True)
+    fused_errs = {name: compare(f"fused {name} at {names[0]} shapes", g_, w_, exact=True)
                   for name, g_, w_ in zip(ref.BANK_WINDOW_STATE_FIELDS, got, want)}
     # bytes: carry in and out once, the window's noise, the scenario tables
     fused_bytes = 2 * nbytes(*state) + nbytes(noise, mu, sigma, *consts[:6], tables.packed)
@@ -579,7 +774,7 @@ def phase_timing(dev) -> dict:
     tick_ms, got = timed(lambda: grid_tick.grid_tick_bank_cuda(*targs), 50)
     plain_tick_ms, want = timed(lambda: ref.grid_tick_bank_indexed(
         active, remaining, keep, bg, spec.bandwidth, spec.leg_proc, spec.proc_link, tables), 5)
-    tick_errs = {n: compare(f"tick {n} at main shapes", g_, w_, exact=True)
+    tick_errs = {n: compare(f"tick {n} at {names[1]} shapes", g_, w_, exact=True)
                  for n, g_, w_ in zip(("xfer", "proc_xfer", "link_xfer"), got, want)}
     tick_bytes = nbytes(active, remaining, keep, bg, spec.bandwidth, tables.packed) + 4 * S * R * (T + P + L)
     tick_ops = S * R * (14 * T + 5 * L)
@@ -590,10 +785,10 @@ def phase_timing(dev) -> dict:
     # device time (a launch is shorter than its host call). Library: one
     # bmm against the legs' process and link columns (a link over its legs)
     v = got[0]
-    sums_ms = device_ms(lambda: grid_tick.grid_tick_bank_sums_cuda(v, tables), 50, "bank_sums_kernel")
+    sums_ms = device_ms(lambda: grid_tick.grid_tick_bank_sums_cuda(v, tables), 50, "bank_sums")
     sums_events_ms, got_s = timed(lambda: grid_tick.grid_tick_bank_sums_cuda(v, tables), 50)
     plain_sums_ms, want_s = timed(lambda: ref.bank_sums(v, tables), 5)
-    sums_errs = {n: compare(f"sums {n} at main shapes", g_, w_, exact=True)
+    sums_errs = {n: compare(f"sums {n} at {names[2]} shapes", g_, w_, exact=True)
                  for n, g_, w_ in zip(("proc", "link"), got_s, want_s)}
     columns = torch.cat([spec.leg_proc, spec.leg_link], dim=2).to(f32).contiguous()
     lib_sums_ms, lib_out = timed(lambda: torch.bmm(v, columns), 50)
@@ -602,19 +797,38 @@ def phase_timing(dev) -> dict:
     sums_ops = R * int(tables.proc_ptr[:, -1].sum() + tables.link_proc_ptr[:, -1].sum())
     sums_bound = max(sums_bytes / PEAK_BYTES, sums_ops / PEAK_FP32) * 1e3
     sums_by = "bytes" if sums_bytes / PEAK_BYTES >= sums_ops / PEAK_FP32 else "operations"
-    res = {
-        "grid_tick_bank_fused": dict(ms=fused_ms, plain_ms=plain_fused_ms, bound_ms=fused_bound,
-                                     bound_by=fused_by, bytes=fused_bytes, ops=fused_ops,
-                                     shape=[K, S, R, T, P, L], alive_steps=alive_steps,
-                                     max_abs_err=fused_errs),
-        "grid_tick_bank": dict(ms=tick_ms, plain_ms=plain_tick_ms, bound_ms=tick_bound,
-                               bound_by=tick_by, bytes=tick_bytes, ops=tick_ops,
-                               shape=[S, R, T, P, L], max_abs_err=tick_errs),
-        "grid_tick_bank_sums": dict(ms=sums_ms, events_ms=sums_events_ms, plain_ms=plain_sums_ms,
-                                    bound_ms=sums_bound, bound_by=sums_by, bytes=sums_bytes,
-                                    ops=sums_ops, library_ms=lib_sums_ms,
-                                    shape=[S, R, T, P, L], max_abs_err=sums_errs),
+    return {
+        names[0]: dict(ms=fused_ms, plain_ms=plain_fused_ms, bound_ms=fused_bound,
+                       bound_by=fused_by, bytes=fused_bytes, ops=fused_ops,
+                       shape=[K, S, R, T, P, L], alive_steps=alive_steps,
+                       max_abs_err=fused_errs),
+        names[1]: dict(ms=tick_ms, plain_ms=plain_tick_ms, bound_ms=tick_bound,
+                       bound_by=tick_by, bytes=tick_bytes, ops=tick_ops,
+                       shape=[S, R, T, P, L], max_abs_err=tick_errs),
+        names[2]: dict(ms=sums_ms, events_ms=sums_events_ms, plain_ms=plain_sums_ms,
+                       bound_ms=sums_bound, bound_by=sums_by, bytes=sums_bytes,
+                       ops=sums_ops, library_ms=lib_sums_ms,
+                       shape=[S, R, T, P, L], max_abs_err=sums_errs),
     }
+
+
+def phase_timing(dev) -> dict:
+    """The bank kernels at the main path's shapes (the 1,024-scenario bank
+    x 64 replicas), then their wide instances at the shapes of the
+    long-tail fleet's widest bucket as the bucketed dispatch runs it (a
+    singleton bucket folded over its replicas)."""
+    bank = build_bank(n=N_SCEN, seed=0)
+    spec = engine.bank_spec(bank, dev)
+    p = engine.make_bank_params(bank, bg_mu=2.0, bg_sigma=1.0, device=dev)
+    res = time_bank_kernels(spec, p, N_REP, dev)
+    fleet = Fleet.from_scenarios(**LONG_TAIL, device=dev)
+    sub = max(fleet.bank.buckets, key=lambda b: b.bank.pad_legs).bank
+    fold = engine._replica_fold(N_REP) if sub.n_scenarios == 1 else 1
+    spec = engine._folded_spec(sub, fold, dev) if fold > 1 else engine.bank_spec(sub, dev)
+    p = engine.make_bank_params(sub, bg_mu=2.0, bg_sigma=1.0, device=dev)
+    p = engine.SimParams(*(None if f is None else f.expand((spec.size_mb.shape[0],) + tuple(
+        f.shape[1:])).contiguous() for f in p))
+    res.update(time_bank_kernels(spec, p, N_REP // fold, dev, names=WIDE_KERNELS))
     emit("timing", card=smi(), **res)
     return res
 
@@ -2030,6 +2244,11 @@ def main() -> int:
     timed_phase("build", phase_build)
     errs = timed_phase("kernels", phase_kernels, dev)
     main_run = timed_phase("main", phase_main, dev)
+    bucketed = timed_phase("bucketed", phase_bucketed, dev, main_run)
+    stepped = timed_phase("stepped", phase_stepped, dev, main_run)
+    stream = timed_phase("stream", phase_stream, dev)
+    main_run.pop("results")
+    new_runs = {**bucketed["by_run"], **stepped["by_run"], **stream["by_run"]}
     timed_phase("parity", phase_parity, dev)
     timed_phase("profile", phase_profile, dev, main_run)
     times = timed_phase("timing", phase_timing, dev)
@@ -2051,15 +2270,21 @@ def main() -> int:
         # one-hot dots (scatter_pl)
         "grid_tick_bank_sums": "src/repro/kernels/ref.py:307",
     }
-    for name in BANK_KERNELS:
+    # the bank kernels and their wide instances: launches by main-path run
+    # (phase main's four, the bucketed, long-tail, stepped and stream runs)
+    for name in BANK_KERNELS + WIDE_KERNELS:
         t = times[name]
+        by_run = dict(main_run["by_run"].get(name, {}))
+        by_run.update({run: n[name] for run, n in new_runs.items()})
+        assert sum(by_run.values()) > 0, f"kernel {name} was not launched on a main path"
         kernels.append(dict(
             name=name, route="cuda", source="src/repro_torch/kernels/csrc/grid_tick.cu",
-            replaces=replaces[name], launches=main_run["launches"][name],
-            launches_by_run=main_run["by_run"][name],
-            max_abs_err=max(errs[name], *t["max_abs_err"].values()),
+            replaces=replaces[name.removesuffix("_wide")], launches=sum(by_run.values()),
+            launches_by_run=by_run,
+            max_abs_err=max(errs.get(name, 0.0), *t["max_abs_err"].values()),
             ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t.get("library_ms"),
+            shape=t["shape"],
         ))
     # the per-campaign tick (the bank tick at S = 1) and, with no Pallas
     # kernel, the leap step's sums (the reference's one-hot dots)

@@ -46,6 +46,7 @@ __all__ = [
     "simulate_coefficients",
     "presimulate",
     "presimulate_bank",
+    "make_bank_theta_mapper",
     "calibrate",
     "validate",
     "validate_bank",
@@ -289,6 +290,12 @@ def make_theta_mapper(source, protocol: str = "webdav", *, missing_ok: bool = Fa
     else:
         link_scale = torch.ones((source.n_links,), dtype=torch.float32, device=dev)
     return functools.partial(_theta_to_params, keep, t(mask, bool), link_scale)
+
+
+def make_bank_theta_mapper(bank, protocol: str = "webdav", device=None):
+    """Deprecated alias: :func:`make_theta_mapper` takes banks (and
+    fleets) directly."""
+    return make_theta_mapper(bank, protocol, device=device)
 
 
 def _eq1_coefficients(res: SimResult) -> torch.Tensor:

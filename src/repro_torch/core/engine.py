@@ -20,18 +20,28 @@ The port of the reference package's ``repro.core.engine``, in two parts.
 
 Both loop over windows on the host and stop when no simulation is alive;
 results are bitwise the same for every ``K`` (the alive freeze is inside
-the window). Bucketed dispatch, replica folding and the stepped
-(checkpointed) loop of the banked engine are open ROADMAP items.
+the window).
+
+A :class:`BucketedBank` runs bucket by bucket (:func:`simulate_bank`'s
+bucketed dispatch): each sub-bank at its own pads and its own clamped
+window, its params gathered by scenario id, its results scattered back
+into the caller's ``[N, R]`` order; a singleton bucket folds its replicas
+into scenario rows (:func:`_replica_fold`), which changes no bit.
+:func:`simulate_bank_stepped` is the same banked loop driven window by
+window from the host with a bounded trip count, checkpoints
+(:class:`BankCheckpoint`) and resume; :func:`_admit_bank_rows` and
+:func:`_bank_snapshot` are the seams a serving loop steps a resident bank
+with (:class:`repro_torch.core.residency.ResidentBank`).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import prng
-from repro_torch.core.workload import BucketedBank, LegTable, ScenarioBank
+from repro_torch.core.workload import PAD_PROFILE, BucketedBank, LegTable, ScenarioBank
 from repro_torch.kernels import ops, ref
 
 __all__ = [
@@ -48,11 +58,14 @@ __all__ = [
     "make_bank_params",
     "default_tick_window",
     "simulate_bank",
+    "simulate_bank_stepped",
+    "BankCheckpoint",
     "STATS",
 ]
 
-#: Host-side counters of the window loops: windows run since the last reset.
-STATS = {"windows": 0}
+#: Host-side counters of the window loops: windows run and buckets
+#: dispatched (one a bucket a bucketed run) since the last reset.
+STATS = {"windows": 0, "buckets": 0}
 
 
 class SimSpec(NamedTuple):
@@ -230,6 +243,22 @@ def make_params(
     return SimParams(keep_frac=f32(keep), bg_mu=f32(mu), bg_sigma=f32(sigma))
 
 
+def _bank_spec_uncached(bank: ScenarioBank, dev: torch.device) -> SimSpec:
+    """The stacked spec of ``bank`` uploaded to ``dev`` anew, its index
+    tables built from the bank's current rows. The host arrays are copied,
+    so a CPU spec shares no memory with a bank whose rows are rewritten
+    (``ResidentBank.write_rows``)."""
+    t = lambda a: torch.as_tensor(np.array(a)).to(dev)
+    return with_index_tables(SimSpec(
+        size_mb=t(bank.size_mb), release=t(bank.release), dep=t(bank.dep),
+        profile=t(bank.profile), protocol_id=t(bank.protocol_id),
+        leg_proc=t(bank.leg_proc), proc_link=t(bank.proc_link),
+        leg_link=t(bank.leg_link), bandwidth=t(bank.bandwidth),
+        bg_period=t(bank.bg_period), max_ticks=t(bank.max_ticks),
+        leg_valid=t(bank.leg_valid),
+    ))
+
+
 def bank_spec(bank: ScenarioBank, device: DeviceLike = None) -> SimSpec:
     """The stacked ``[N, ...]`` SimSpec of a compiled bank on ``device``,
     memoized per device on the bank (compiled banks are immutable)."""
@@ -237,15 +266,7 @@ def bank_spec(bank: ScenarioBank, device: DeviceLike = None) -> SimSpec:
     cache = bank.__dict__.setdefault("_torch_spec_cache", {})
     spec = cache.get(str(dev))
     if spec is None:
-        t = lambda a: torch.as_tensor(np.asarray(a)).to(dev)
-        spec = with_index_tables(SimSpec(
-            size_mb=t(bank.size_mb), release=t(bank.release), dep=t(bank.dep),
-            profile=t(bank.profile), protocol_id=t(bank.protocol_id),
-            leg_proc=t(bank.leg_proc), proc_link=t(bank.proc_link),
-            leg_link=t(bank.leg_link), bandwidth=t(bank.bandwidth),
-            bg_period=t(bank.bg_period), max_ticks=t(bank.max_ticks),
-            leg_valid=t(bank.leg_valid),
-        ))
+        spec = _bank_spec_uncached(bank, dev)
         cache[str(dev)] = spec
     return spec
 
@@ -642,6 +663,28 @@ def simulate(
     return SimResult(*(f[0] for f in res))
 
 
+def _resolve_lowering(lowering: Optional[str]) -> str:
+    """``None`` and ``"auto"`` (a reference save's default) resolve to
+    ``"banked"``; ``"vmap"`` is the cross-check."""
+    if lowering in (None, "auto", "banked"):
+        return "banked"
+    if lowering == "vmap":
+        return "vmap"
+    raise ValueError(f"lowering must be 'banked' or 'vmap': {lowering!r}")
+
+
+def _to_device_spec(bank: Union[ScenarioBank, SimSpec], dev: torch.device) -> SimSpec:
+    if isinstance(bank, ScenarioBank):
+        return bank_spec(bank, dev)
+    return SimSpec(*(None if f is None else f.to(dev) for f in bank))
+
+
+def _tick_bound(bank: Union[ScenarioBank, SimSpec]) -> int:
+    """The largest ``max_ticks`` of a bank or a stacked spec."""
+    if isinstance(bank, ScenarioBank):
+        return int(np.max(np.asarray(bank.max_ticks)))
+    return int(bank.max_ticks.max())
+
 
 def simulate_bank(
     bank: Union[ScenarioBank, SimSpec],
@@ -657,11 +700,11 @@ def simulate_bank(
     """Simulate every scenario of the bank x ``R`` stochastic replicas on
     ``device`` (default ``cuda``).
 
-    ``lowering`` is ``"banked"`` (the default, ``None``): the whole bank as
-    one carry; or ``"vmap"``, a cross-check that runs each scenario as one
-    campaign through :func:`simulate_batch` over its replicas (padded legs
-    born done through ``leg_valid``), as the reference's ``vmap`` lowering
-    runs ``simulate`` per scenario.
+    ``lowering`` is ``"banked"`` (the default, ``None`` or ``"auto"``): the
+    whole bank as one carry; or ``"vmap"``, a cross-check that runs each
+    scenario as one campaign through :func:`simulate_batch` over its
+    replicas (padded legs born done through ``leg_valid``), as the
+    reference's ``vmap`` lowering runs ``simulate`` per scenario.
 
     Fields of the result carry ``[N, R]`` leading dims; padded legs report
     ``done=True`` with zero transfer. ``params`` fields may be bank-wide
@@ -669,31 +712,32 @@ def simulate_bank(
     move to ``device``. ``window=K`` fuses ``K`` ticks (``K`` event leaps
     under ``leap``) into each window, with results bit-identical for every
     ``K``; ``None`` takes the device's default, capped at the bank's tick
-    bound. A :class:`BucketedBank` runs monolithically with
-    ``bucketed=False``; its bucketed dispatch is not ported yet.
+    bound.
+
+    A :class:`BucketedBank` runs bucket by bucket (each sub-bank at its own
+    pads until its own slowest scenario finishes, its window capped at its
+    own tick bound) and its results are scattered back into the caller's
+    ``[N, R]`` order, bitwise those of the monolithic run; ``bucketed=False``
+    runs it monolithically.
     """
     dev = resolve_device(device)
     if keys.dim() != 3:
         raise ValueError(
             f"keys must be [n_scenarios, n_replicas, 2]: {tuple(keys.shape)}"
         )
-    if lowering not in (None, "banked", "vmap"):
-        raise ValueError(f"lowering must be 'banked' or 'vmap': {lowering!r}")
-    if bucketed and isinstance(bank, BucketedBank):
-        raise NotImplementedError(
-            "bucketed bank dispatch is not ported yet (ROADMAP A.3); pass "
-            "bucketed=False to run the bank monolithically"
-        )
+    lowering = _resolve_lowering(lowering)
     w = _resolve_window(window, leap, dev)
     if isinstance(bank, ScenarioBank):
-        w = _clamp_window(w, int(np.max(np.asarray(bank.max_ticks))))
-        spec = bank_spec(bank, dev)
-    else:
-        spec = SimSpec(*(None if f is None else f.to(dev) for f in bank))
+        w = _clamp_window(w, _tick_bound(bank))
     params = SimParams(*(None if f is None else f.to(dev) for f in params))
+    keys = keys.to(dev)
+    if bucketed and isinstance(bank, BucketedBank):
+        return _simulate_bank_bucketed(bank, params, keys, leap=leap, lowering=lowering,
+                                       window=w, dev=dev)
+    spec = _to_device_spec(bank, dev)
     if lowering == "vmap":
-        return _vmap_bank(spec, params, keys.to(dev), leap=leap, window=window)
-    return _banked_core(spec, params, keys.to(dev), leap=leap, window=w)
+        return _vmap_bank(spec, params, keys, leap=leap, window=w)
+    return _banked_core(spec, params, keys, leap=leap, window=w)
 
 
 def _vmap_bank(
@@ -711,3 +755,274 @@ def _vmap_bank(
         p = SimParams(*(row(f, i) for f in params))
         runs.append(simulate_batch(one, p, keys[i], leap=leap, window=window))
     return SimResult(*(torch.stack(fs) for fs in zip(*runs)))
+
+
+# ---------------------------------------------------------------------------
+# Bucketed dispatch
+# ---------------------------------------------------------------------------
+
+# A cost-packed bank splits long-tail scenarios into singleton buckets at
+# their native pads, whose runs hold one scenario row. The dispatch folds
+# such a bucket's [1, R] elements into [fold, R / fold] rows, the spec
+# repeated over the folded rows: the engine is element-independent (each
+# element's freeze mask and key), so every element's trajectory and the
+# number of windows are unchanged and no bit moves. The fold is capped so
+# the repeated spec stays small.
+_SINGLETON_FOLD_MAX = 8
+
+
+def _replica_fold(n_replicas: int) -> int:
+    """Largest power of two <= _SINGLETON_FOLD_MAX dividing n_replicas."""
+    fold = 1
+    while fold * 2 <= _SINGLETON_FOLD_MAX and n_replicas % (fold * 2) == 0:
+        fold *= 2
+    return fold
+
+
+def _folded_spec(bucket_bank: ScenarioBank, fold: int, dev: torch.device) -> SimSpec:
+    """The one-scenario spec of ``bucket_bank`` repeated over ``fold`` rows,
+    memoized per fold and device on the bank. The base fields are repeated
+    contiguously (the kernels take contiguous tensors) and the index tables
+    rebuilt for the repeated rows."""
+    cache = bucket_bank.__dict__.setdefault("_torch_fold_cache", {})
+    key = (fold, str(dev))
+    spec = cache.get(key)
+    if spec is None:
+        base = bank_spec(bucket_bank, dev)
+        widened = {
+            f: getattr(base, f).expand((fold,) + tuple(getattr(base, f).shape[1:])).contiguous()
+            for f in SimSpec._fields
+            if f not in INDEX_TABLE_FIELDS and getattr(base, f) is not None
+        }
+        spec = with_index_tables(SimSpec(**widened))
+        cache[key] = spec
+    return spec
+
+
+def _bucket_ids(bank: BucketedBank, dev: torch.device):
+    """Per bucket ``(ids, gid)`` on ``dev``: the real scenario ids, and the
+    gather index extended with the last real id over the bucket's shard-pad
+    rows (never live, so their params and keys are irrelevant). Memoized per
+    device on the bank."""
+    cache = bank.__dict__.setdefault("_torch_bucket_ids", {})
+    out = cache.get(str(dev))
+    if out is None:
+        out = []
+        for b in bank.buckets:
+            ids = np.asarray(b.scenario_ids, np.int64)
+            pad = b.bank.n_scenarios - len(ids)
+            gid = np.concatenate([ids, np.repeat(ids[-1:], pad)]) if pad else ids
+            out.append((torch.as_tensor(ids).to(dev), torch.as_tensor(gid).to(dev)))
+        cache[str(dev)] = out
+    return out
+
+
+def _simulate_bank_bucketed(
+    bank: BucketedBank, params: SimParams, keys: torch.Tensor, *, leap: bool,
+    lowering: str, window: int, dev: torch.device,
+) -> SimResult:
+    """Run every bucket of ``bank`` and scatter its results into ``[N, R,
+    pad_legs]`` outputs pre-filled with the padding contract (born done,
+    zeros, ``PAD_PROFILE``). Each bucket gathers its rows of the bank-wide
+    (or per-replica) params by scenario id, sliced to its own pads, and runs
+    at ``window`` capped at its own tick bound; shard-pad rows are run and
+    dropped before the scatter."""
+    if keys.shape[0] != bank.n_scenarios:
+        raise ValueError(
+            f"keys must be [n_scenarios={bank.n_scenarios}, R, 2]: {tuple(keys.shape)}"
+        )
+    n, r = keys.shape[:2]
+    T = bank.pad_legs
+    f32 = torch.float32
+    z = lambda dt: torch.zeros((n, r, T), dtype=dt, device=dev)
+    out = SimResult(
+        transfer_time=z(f32), size_mb=z(f32), conth_mb=z(f32), conpr_mb=z(f32),
+        done=torch.ones((n, r, T), dtype=torch.bool, device=dev),
+        ticks=torch.zeros((n, r), dtype=torch.int32, device=dev),
+        profile=torch.full((n, r, T), PAD_PROFILE, dtype=torch.int32, device=dev),
+        start_tick=z(f32),
+    )
+    bank_wide = all(f is None or f.dim() == 2 for f in params)
+    for b, (ids, gid) in zip(bank.buckets, _bucket_ids(bank, dev)):
+        sub = b.bank
+        t_b, l_b = sub.pad_legs, sub.pad_links
+        n_real, s_b = ids.shape[0], sub.n_scenarios
+        w_b = _clamp_window(window, _tick_bound(sub))
+        legs = lambda f: None if f is None else f[gid][..., :t_b]
+        links = lambda f: None if f is None else f[gid][..., :l_b]
+        sub_params = SimParams(
+            keep_frac=legs(params.keep_frac), bg_mu=links(params.bg_mu),
+            bg_sigma=links(params.bg_sigma), enabled=legs(params.enabled),
+        )
+        fold = _replica_fold(r) if s_b == 1 and n_real == 1 and r > 1 and bank_wide else 1
+        if fold > 1:
+            spec_b = _folded_spec(sub, fold, dev)
+            widen = lambda f: None if f is None else f.expand(
+                (fold,) + tuple(f.shape[1:])).contiguous()
+            sub_params = SimParams(*(widen(f) for f in sub_params))
+            sub_keys = keys[gid].reshape(fold, r // fold, 2)
+        else:
+            spec_b = bank_spec(sub, dev)
+            sub_keys = keys[gid]
+        if lowering == "vmap":
+            res = _vmap_bank(spec_b, sub_params, sub_keys, leap=leap, window=w_b)
+        else:
+            res = _banked_core(spec_b, sub_params, sub_keys, leap=leap, window=w_b)
+        STATS["buckets"] += 1
+        if fold > 1:
+            res = SimResult(*(f.reshape((1, r) + tuple(f.shape[2:])) for f in res))
+        if s_b != n_real:
+            res = SimResult(*(f[:n_real] for f in res))
+        for name in SimResult._fields:
+            dst = getattr(out, name)
+            if name == "ticks":
+                dst[ids] = getattr(res, name)
+            else:
+                dst[ids, :, :t_b] = getattr(res, name)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The stepped loop, checkpoints and the serving seams
+# ---------------------------------------------------------------------------
+
+
+class BankCheckpoint(NamedTuple):
+    """Resumable snapshot of a host-driven banked run
+    (:func:`simulate_bank_stepped`): the windows run so far, the window, and
+    host (numpy) copies of the ``[S, R, ...]`` carry, which later steps do
+    not touch (``Fleet.save_checkpoint`` writes them with ``np.savez``)."""
+
+    windows_done: int
+    window: int
+    carry: _Carry
+
+
+def _snapshot_carry(carry: _Carry) -> _Carry:
+    return _Carry(*(x.detach().cpu().numpy().copy() for x in carry))
+
+
+def _upload_carry(carry: _Carry, dev: torch.device) -> _Carry:
+    """A host carry on ``dev``; a reference checkpoint's ``uint32`` key
+    becomes the port's ``int64``."""
+    up = lambda name, a: torch.as_tensor(
+        np.asarray(a).astype(np.int64) if name == "key" else np.array(a)).to(dev)
+    return _Carry(*(up(name, a) for name, a in zip(_Carry._fields, carry)))
+
+
+def _validate_resume_carry(carry: _Carry, spec: SimSpec, keys: torch.Tensor) -> None:
+    """Reject a resume carry whose shapes do not match the target bank: a
+    checkpoint of another bank (other pads, scenario or replica counts)
+    would fail deep in a window or, at a same-rank mismatch, simulate
+    garbage."""
+    S, R = keys.shape[0], keys.shape[1]
+    T = spec.size_mb.shape[-1]
+    L = spec.bandwidth.shape[-1]
+    expect = {
+        "t": (S, R), "remaining": (S, R, T), "done": (S, R, T), "started": (S, R, T),
+        "t_start": (S, R, T), "t_end": (S, R, T), "conth": (S, R, T), "conpr": (S, R, T),
+        "bg": (S, R, L), "key": (S, R, 2),
+    }
+    for field, want in expect.items():
+        got = tuple(np.shape(getattr(carry, field)))
+        if got != want:
+            raise ValueError(
+                f"checkpoint carry field {field!r} has shape {got} but the "
+                f"target bank expects {want} (scenarios={S}, replicas={R}, "
+                f"pad_legs={T}, pad_links={L}): the checkpoint was taken "
+                "against a bank with other pads, scenarios or replicas and "
+                "cannot resume this one"
+            )
+
+
+def simulate_bank_stepped(
+    bank: Union[ScenarioBank, SimSpec],
+    params: SimParams,
+    keys: torch.Tensor,  # [S, R, 2]
+    *,
+    leap: bool = False,
+    window: Optional[int] = None,
+    sync_every: Optional[int] = 8,
+    checkpoint_every: Optional[int] = None,
+    on_checkpoint: Optional[Callable[[BankCheckpoint], None]] = None,
+    resume: Optional[BankCheckpoint] = None,
+    device: DeviceLike = None,
+) -> SimResult:
+    """The banked simulation as a host-driven loop of window steps, bitwise
+    :func:`simulate_bank` (monolithic, ``lowering="banked"``) at the same
+    resolved window.
+
+    The window is resolved and clamped as :func:`simulate_bank` does; the
+    loop runs at most ``ceil(max_ticks / window)`` windows (windows past an
+    element's end are frozen no-ops) and checks on the host every
+    ``sync_every`` windows whether any element is alive, stopping early
+    (``None``: never checks). Each step rebinds the carry: a window's
+    outputs are new tensors. Every ``checkpoint_every`` windows,
+    ``on_checkpoint`` receives a :class:`BankCheckpoint` with a host copy
+    of the carry; passing one back as ``resume`` uploads the carry and
+    continues from its window, bitwise, since each window is a function of
+    the carry alone. The checkpoint must come from this bank and window:
+    other shapes or another window raise ``ValueError``.
+    """
+    dev = resolve_device(device)
+    if keys.dim() != 3:
+        raise ValueError(f"keys must be [n_scenarios, n_replicas, 2]: {tuple(keys.shape)}")
+    spec = with_index_tables(_to_device_spec(bank, dev))
+    params = SimParams(*(None if f is None else f.to(dev) for f in params))
+    bound = _tick_bound(bank)
+    w = _clamp_window(_resolve_window(window, leap, dev), bound)
+    start = 0
+    if resume is not None:
+        if int(resume.window) != w:
+            raise ValueError(
+                f"checkpoint was taken at window={resume.window}, cannot "
+                f"resume at window={w} (windows_done would not align)"
+            )
+        start = int(resume.windows_done)
+        _validate_resume_carry(resume.carry, spec, keys)
+        carry = _upload_carry(resume.carry, dev)
+    else:
+        carry = _banked_init_carry(spec, params, keys.to(dev).clone())
+    draw = bool(torch.any(params.bg_sigma > 0))
+    for i in range(start, max(1, -(-bound // w))):
+        carry = _bank_window_body(spec, params, leap, w, draw, carry)
+        STATS["windows"] += 1
+        if (checkpoint_every is not None and on_checkpoint is not None
+                and (i + 1) % checkpoint_every == 0):
+            on_checkpoint(BankCheckpoint(windows_done=i + 1, window=w,
+                                         carry=_snapshot_carry(carry)))
+        if (sync_every is not None and (i + 1) % sync_every == 0
+                and not bool(torch.any(_banked_live(spec, carry)))):
+            break
+    return _banked_result(spec, carry)
+
+
+def _admit_bank_rows(
+    spec: SimSpec,
+    params: SimParams,
+    keys: torch.Tensor,  # [S, R, 2]
+    carry: _Carry,
+    mask: torch.Tensor,  # [S] bool: rows to (re)initialize
+) -> _Carry:
+    """Merge freshly admitted scenario rows into a running carry: ``spec``,
+    ``params`` and ``keys`` are the full ``[S, ...]`` views with the new
+    scenarios written into their rows, ``mask`` selects those rows. Masked
+    rows restart from :func:`_banked_init_carry`; every other row passes
+    through bitwise, keys included."""
+    fresh = _banked_init_carry(spec, params, keys)
+    mask = mask.to(device=carry.t.device, dtype=torch.bool)
+
+    def merge(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+        return torch.where(mask.reshape((mask.shape[0],) + (1,) * (old.dim() - 1)), new, old)
+
+    return _Carry(*(merge(n, o) for n, o in zip(fresh, carry)))
+
+
+def _bank_snapshot(spec: SimSpec, carry: _Carry):
+    """``([S] row liveness, bank SimResult)`` of a carry. The result holds
+    no buffer of the carry (the carry-backed fields are copied), so it
+    stays as it is whatever a later step does with the carry."""
+    live = torch.any(_banked_live(spec, carry), dim=-1)
+    res = _banked_result(spec, carry)
+    return live, res._replace(ticks=res.ticks.clone(), done=res.done.clone(),
+                              conth_mb=res.conth_mb.clone(), conpr_mb=res.conpr_mb.clone())

@@ -14,10 +14,10 @@
 //     event step's last tick (the reference takes them as one-hot dots,
 //     src/repro/kernels/ref.py:307 for a bank, src/repro/core/engine.py:220
 //     for one campaign), in the order of the other two.
-// Past the bank limits (T <= 128, P <= 128, L <= 32) the tick and the sums
-// run bank_tick_wide_kernel and bank_sums_wide_kernel: the same routines on
-// tables in dynamic shared memory, up to a campaign's T <= 1,024,
-// P <= 1,024, L <= 256 (see "Wide tables" below).
+// Past the bank limits (T <= 128, P <= 128, L <= 32) the three run
+// bank_fused_wide_kernel, bank_tick_wide_kernel and bank_sums_wide_kernel:
+// the same routines on tables in dynamic shared memory, up to T <= 1,024,
+// P <= 1,024, L <= 256 a scenario (see "Wide tables" below).
 //
 // What bounds them on the card. Per element and tick the work is a few
 // hundred scalar operations on ~T legs, P processes and L links, so neither
@@ -71,8 +71,10 @@
 // packed lists alone in dynamic shared memory, keep the first 128 legs of a
 // lane in its 4 register slots and read the legs past them from device
 // memory into the warp's shared row, and take the counts as integer walks
-// of the lists over the warp's ballots (exact, so in any order). Their
-// float sums are the same routines in the same order.
+// of the lists over the warp's ballots (exact, so in any order). The fused
+// one keeps the carry of the legs past the slots, and every link's, in the
+// element's rows of its output in device memory. Their float sums are the
+// same routines in the same order.
 //
 // Rounding follows the plain PyTorch version (repro_torch/kernels/ref.py):
 // every float operation is written as an explicit round-to-nearest intrinsic
@@ -93,8 +95,9 @@ constexpr int kProcWords = kMaxP / kWarp;
 // Warps (elements) per block of the bank kernels: the scenario's tables are
 // staged once per block. ~5 KB of tables and ~1.8 KB of scratch a warp.
 constexpr int kBankWarps = 4;
-// The wide kernels' limits: one campaign of up to 1,024 legs and processes
-// and 256 links (~78 KB of dynamic shared memory at the limits).
+// The wide kernels' limits: a scenario (or one campaign) of up to 1,024 legs
+// and processes and 256 links (~78 KB of dynamic shared memory at the limits,
+// ~113 KB for the fused kernel's larger warp rows).
 constexpr int kWideT = 1024;
 constexpr int kWideP = 1024;
 constexpr int kWideL = 256;
@@ -228,11 +231,18 @@ __host__ __device__ inline int wide_scratch_words(int T, int P, int L) {
   return T + 2 * P + 2 * L + (T + kWarp - 1) / kWarp;
 }
 
+// The wide fused kernel's per-warp rows: WideScratch's, then the active flag
+// of each leg (float) and the warp's ballot of the done legs, one word per
+// 32 legs.
+__host__ __device__ inline int wide_fused_scratch_words(int T, int P, int L) {
+  return wide_scratch_words(T, P, L) + T + (T + kWarp - 1) / kWarp;
+}
+
 // Dynamic shared memory of a wide block: the packed tables, n_proc, and
-// kBankWarps scratch rows.
-__host__ __device__ inline size_t wide_smem_bytes(int T, int P, int L) {
+// kBankWarps scratch rows of warp_words words each.
+__host__ __device__ inline size_t wide_smem_bytes(int T, int P, int L, int warp_words) {
   return sizeof(int) * ((size_t)bank_table_words(T, P, L) + 1 +
-                        (size_t)kBankWarps * wide_scratch_words(T, P, L));
+                        (size_t)kBankWarps * warp_words);
 }
 
 // 1 + the last process in any list of the staged lists, for one thread's
@@ -315,10 +325,10 @@ __device__ WideTables stage_wide_tables(int* smem, const int* tables, int s, int
   return tb;
 }
 
-// Warp `warp`'s rows, after the tables and n_proc.
-__device__ WideScratch wide_scratch(int* smem, int warp, int T, int P, int L) {
+// Warp `warp`'s rows, after the tables and n_proc (warp_words a warp).
+__device__ WideScratch wide_scratch(int* smem, int warp, int T, int P, int L, int warp_words) {
   float* row = reinterpret_cast<float*>(smem + bank_table_words(T, P, L) + 1) +
-               (size_t)warp * wide_scratch_words(T, P, L);
+               (size_t)warp * warp_words;
   WideScratch ws;
   ws.x = row;
   ws.threads = reinterpret_cast<int*>(row + T);
@@ -614,6 +624,191 @@ bank_fused_kernel(FusedArgs g) {
   if (lane < L) g.bg_out[link0 + lane] = bgv;
 }
 
+// bank_fused_kernel on wide tables (past T 128, P 128 or L 32), tables in
+// dynamic shared memory as bank_tick_wide_kernel stages them. A lane holds
+// its first kMaxSlots legs in registers as the narrow kernel does; the legs
+// past them and every link live in the element's rows of the output carry
+// in device memory, copied from the input once and then updated in place,
+// each entry by the one lane that owns it (leg i by lane i % 32, link l by
+// lane l % 32), so no entry is read by a lane that did not write it. The
+// warp's shared rows hold each leg's active flag (what fair_share reads
+// past the slots) and the ballot of the done legs (the dependency check).
+__global__ void __launch_bounds__(kBankWarps * kWarp)
+bank_fused_wide_kernel(FusedArgs g) {
+  extern __shared__ int smem[];
+  const int s = blockIdx.x;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int r = blockIdx.y * kBankWarps + warp;
+  const bool live = r < g.R;  // warp-uniform
+  const int T = g.T, P = g.P, L = g.L;
+  constexpr int kSlots = kMaxSlots;
+  constexpr int kPast = kSlots * kWarp;  // the first leg past the slots
+
+  const size_t e = (size_t)s * g.R + r;
+  const size_t leg0 = e * T;
+  const size_t link0 = e * L;
+  const float* keep_row = g.keep + (size_t)s * (g.keep_rstride ? (size_t)g.R * T : T)
+                          + (size_t)r * g.keep_rstride;
+  float rem[kSlots], cth[kSlots], cpr[kSlots], keep[kSlots];
+  int tst[kSlots], ten[kSlots], rel[kSlots], dp[kSlots];
+  bool dn[kSlots], st[kSlots];
+  #pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    int i = lane + j * kWarp;
+    if (live && i < T) {
+      rem[j] = g.remaining[leg0 + i];
+      cth[j] = g.conth[leg0 + i];
+      cpr[j] = g.conpr[leg0 + i];
+      keep[j] = keep_row[i];
+      tst[j] = g.t_start[leg0 + i];
+      ten[j] = g.t_end[leg0 + i];
+      dn[j] = g.done[leg0 + i] != 0;
+      st[j] = g.started[leg0 + i] != 0;
+      rel[j] = g.release[(size_t)s * T + i];
+      dp[j] = g.dep[(size_t)s * T + i];
+    } else {  // lane slots past the last leg are inert and born done
+      rem[j] = cth[j] = cpr[j] = keep[j] = 0.f;
+      tst[j] = ten[j] = rel[j] = 0;
+      dp[j] = -1;
+      dn[j] = true;
+      st[j] = false;
+    }
+  }
+  int tc = 0, steps = 0, mt = 0;
+  if (live) {
+    tc = g.t[e];
+    steps = g.steps[e];
+    mt = g.max_ticks[s];
+    for (int i = lane + kPast; i < T; i += kWarp) {
+      const size_t o = leg0 + i;
+      g.remaining_out[o] = g.remaining[o];
+      g.done_out[o] = g.done[o];
+      g.started_out[o] = g.started[o];
+      g.t_start_out[o] = g.t_start[o];
+      g.t_end_out[o] = g.t_end[o];
+      g.conth_out[o] = g.conth[o];
+      g.conpr_out[o] = g.conpr[o];
+    }
+    for (int l = lane; l < L; l += kWarp) g.bg_out[link0 + l] = g.bg[link0 + l];
+  }
+  const WideTables tb = stage_wide_tables(smem, g.tables, s, T, P, L);
+  if (!live) return;  // no block barrier follows
+  const int words = (T + kWarp - 1) / kWarp;
+  WideScratch ws = wide_scratch(smem, warp, T, P, L, wide_fused_scratch_words(T, P, L));
+  float* av_row = reinterpret_cast<float*>(ws.act + words);
+  unsigned* dwords = reinterpret_cast<unsigned*>(av_row + T);
+  const size_t bg_off = (size_t)s * (g.bg_rstride ? (size_t)g.R * L : L)
+                        + (size_t)r * g.bg_rstride;
+  const size_t noise_stride = (size_t)g.S * g.R * L;
+  const LegRows more{av_row, keep_row, g.remaining_out + leg0, g.bg_out + link0,
+                     g.bw + (size_t)s * L};
+
+  for (int k = 0; k < g.K; ++k) {
+    // the done ballot of every leg: the slots', then 32 legs at a time past
+    // them (legs past T count as done)
+    unsigned all_done = kFull;
+    #pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      const unsigned b = __ballot_sync(kFull, dn[j]);
+      if (lane == 0 && j < words) dwords[j] = b;
+      all_done &= b;
+    }
+    for (int w = kSlots; w < words; ++w) {  // warp-uniform
+      const int i = w * kWarp + lane;
+      const unsigned b = __ballot_sync(kFull, i >= T || g.done_out[leg0 + i] != 0);
+      if (lane == 0) dwords[w] = b;
+      all_done &= b;
+    }
+    if (tc >= mt || all_done == kFull) break;  // dead elements never change again
+    __syncwarp();
+
+    for (int l = lane; l < L; l += kWarp) {
+      const size_t b = bg_off + l;
+      const float z = g.noise[(size_t)k * noise_stride + link0 + l];
+      const float fresh = fmaxf(__fmaf_rn(g.sigma[b], z, g.mu[b]), 0.f);
+      if (tc % g.period[(size_t)s * L + l] == 0) g.bg_out[link0 + l] = fresh;
+    }
+    float av[kSlots], xf[kSlots];
+    #pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      int i = lane + j * kWarp;
+      bool act = false;
+      if (i < T) {
+        bool dep_ok = dp[j] < 0 || ((dwords[dp[j] / kWarp] >> (dp[j] % kWarp)) & 1u);
+        act = !dn[j] && rel[j] <= tc && dep_ok;
+      }
+      av[j] = act ? 1.f : 0.f;
+      xf[j] = 0.f;
+    }
+    for (int i = lane + kPast; i < T; i += kWarp) {
+      const int d = g.dep[(size_t)s * T + i];
+      const bool dep_ok = d < 0 || ((dwords[d / kWarp] >> (d % kWarp)) & 1u);
+      const bool act = g.done_out[leg0 + i] == 0 && g.release[(size_t)s * T + i] <= tc && dep_ok;
+      av_row[i] = act ? 1.f : 0.f;
+    }
+    __syncwarp();
+    fair_share(tb, ws, av, keep, rem, xf, 0.f, 0.f, more, lane, T, L);
+    #pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      int i = lane + j * kWarp;
+      if (i < T) {
+        float own_proc = ws.px[tb.proc_of_leg[i]];
+        float own_link = ws.lx[tb.link_of_leg[i]];
+        cth[j] = __fadd_rn(cth[j], __fmul_rn(av[j], __fsub_rn(own_proc, xf[j])));
+        cpr[j] = __fadd_rn(cpr[j], __fmul_rn(av[j], __fsub_rn(own_link, own_proc)));
+        rem[j] = __fsub_rn(rem[j], xf[j]);
+        bool act = av[j] > 0.f;
+        if (act && !st[j]) tst[j] = tc;
+        st[j] = st[j] || act;
+        if (act && rem[j] <= 1e-6f) {
+          dn[j] = true;
+          ten[j] = tc + 1;
+        }
+      }
+    }
+    for (int i = lane + kPast; i < T; i += kWarp) {
+      const size_t o = leg0 + i;
+      const float a = av_row[i];
+      const float x = ws.x[i];
+      const float own_proc = ws.px[tb.proc_of_leg[i]];
+      const float own_link = ws.lx[tb.link_of_leg[i]];
+      g.conth_out[o] = __fadd_rn(g.conth_out[o], __fmul_rn(a, __fsub_rn(own_proc, x)));
+      g.conpr_out[o] = __fadd_rn(g.conpr_out[o], __fmul_rn(a, __fsub_rn(own_link, own_proc)));
+      const float rm = __fsub_rn(g.remaining_out[o], x);
+      g.remaining_out[o] = rm;
+      const bool act = a > 0.f;
+      if (act && g.started_out[o] == 0) g.t_start_out[o] = tc;
+      if (act) g.started_out[o] = 1;
+      if (act && rm <= 1e-6f) {
+        g.done_out[o] = 1;
+        g.t_end_out[o] = tc + 1;
+      }
+    }
+    tc += 1;
+    steps += 1;
+    __syncwarp();  // the next tick rewrites the scratch rows
+  }
+
+  if (lane == 0) {
+    g.t_out[e] = tc;
+    g.steps_out[e] = steps;
+  }
+  #pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    int i = lane + j * kWarp;
+    if (i < T) {
+      g.remaining_out[leg0 + i] = rem[j];
+      g.done_out[leg0 + i] = dn[j] ? 1 : 0;
+      g.started_out[leg0 + i] = st[j] ? 1 : 0;
+      g.t_start_out[leg0 + i] = tst[j];
+      g.t_end_out[leg0 + i] = ten[j];
+      g.conth_out[leg0 + i] = cth[j];
+      g.conpr_out[leg0 + i] = cpr[j];
+    }
+  }
+}
+
 // One tick's inputs of element e in the lane's slots, loaded before the
 // block stages its tables.
 template <int kSlots>
@@ -697,7 +892,7 @@ bank_tick_wide_kernel(TickArgs g) {
   load_tick_legs(g, live, lane, e * T, keep_row, av, keep, rem, xf);
   const WideTables tb = stage_wide_tables(smem, g.tables, s, T, P, L);
   if (!live) return;
-  WideScratch ws = wide_scratch(smem, warp, T, P, L);
+  WideScratch ws = wide_scratch(smem, warp, T, P, L, wide_scratch_words(T, P, L));
   const LegRows more{g.active + e * T, keep_row, g.remaining + e * T, g.bg + e * L,
                      g.bw + (size_t)s * L};
   fair_share(tb, ws, av, keep, rem, xf, 0.f, 0.f, more, lane, T, L);
@@ -738,7 +933,7 @@ bank_sums_wide_kernel(SumsArgs g) {
   const bool live = r < g.R;  // warp-uniform
   const int T = g.T, P = g.P, L = g.L;
   const size_t e = (size_t)s * g.R + r;
-  WideScratch ws = wide_scratch(smem, warp, T, P, L);
+  WideScratch ws = wide_scratch(smem, warp, T, P, L, wide_scratch_words(T, P, L));
   if (live) {
     for (int i = lane; i < T; i += kWarp) ws.x[i] = g.v[e * T + i];
   }
@@ -770,8 +965,8 @@ inline bool bad_shape(int S, int R, int T, int P, int L) {
 // kernel's limit past the default 48 KB where it needs more.
 template <class Args>
 int wide_launch(void (*kernel)(Args), const Args& g, dim3 grid, int T, int P, int L,
-                void* stream) {
-  const size_t smem = wide_smem_bytes(T, P, L);
+                int warp_words, void* stream) {
+  const size_t smem = wide_smem_bytes(T, P, L, warp_words);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
@@ -793,7 +988,7 @@ int grid_tick_limits(int* max_t, int* max_p, int* max_l) {
   return 0;
 }
 
-// Limits of the tick and sums launches on wide tables (one campaign).
+// Limits of the launches on wide tables (a scenario or one campaign).
 int grid_tick_campaign_limits(int* max_t, int* max_p, int* max_l) {
   *max_t = kWideT;
   *max_p = kWideP;
@@ -832,9 +1027,7 @@ int grid_tick_bank_fused_launch(
     unsigned char* started_out, int* t_start_out, int* t_end_out,
     float* conth_out, float* conpr_out, float* bg_out, int S, int R, int T,
     int P, int L, int K, void* stream) {
-  if (!fits_bank(T, P, L) || bad_shape(S, R, T, P, L) || K < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (bad_shape(S, R, T, P, L) || K < 1) return (int)cudaErrorInvalidValue;
   FusedArgs g{t, steps, remaining, done, started, t_start, t_end, conth,
               conpr, bg, noise, mu, sigma, bg_rstride, release, dep, period,
               max_ticks, keep, keep_rstride, bw, tables, t_out, steps_out,
@@ -842,7 +1035,13 @@ int grid_tick_bank_fused_launch(
               started_out, t_start_out, t_end_out, conth_out, conpr_out,
               bg_out, S, R, T, P, L, K};
   dim3 grid(S, (R + kBankWarps - 1) / kBankWarps);
-  BANK_LAUNCH(bank_fused_kernel, T, grid, stream, g)
+  if (fits_bank(T, P, L)) {
+    BANK_LAUNCH(bank_fused_kernel, T, grid, stream, g)
+  } else {
+    const int err = wide_launch(bank_fused_wide_kernel, g, grid, T, P, L,
+                                wide_fused_scratch_words(T, P, L), stream);
+    if (err != 0) return err;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -860,7 +1059,8 @@ int grid_tick_bank_launch(
   if (fits_bank(T, P, L)) {
     BANK_LAUNCH(bank_tick_kernel, T, grid, stream, g)
   } else {
-    const int err = wide_launch(bank_tick_wide_kernel, g, grid, T, P, L, stream);
+    const int err = wide_launch(bank_tick_wide_kernel, g, grid, T, P, L,
+                                 wide_scratch_words(T, P, L), stream);
     if (err != 0) return err;
   }
   return (int)cudaGetLastError();
@@ -875,7 +1075,8 @@ int grid_tick_bank_sums_launch(const float* v, const int* tables, float* proc,
   if (fits_bank(T, P, L)) {
     bank_sums_kernel<<<grid, kBankWarps * kWarp, 0, (cudaStream_t)stream>>>(g);
   } else {
-    const int err = wide_launch(bank_sums_wide_kernel, g, grid, T, P, L, stream);
+    const int err = wide_launch(bank_sums_wide_kernel, g, grid, T, P, L,
+                                 wide_scratch_words(T, P, L), stream);
     if (err != 0) return err;
   }
   return (int)cudaGetLastError();

@@ -20,9 +20,10 @@ current stream and raises if the launch is refused. :data:`LAUNCHES` counts
 the launches of each wrapper. The kernels take the one-hot incidences as
 the segment lists of ``ref.BankTables`` (``ref.bank_index_tables``, or
 ``ref.campaign_index_tables`` for one campaign), packed into one int32
-buffer; past the bank limits (:func:`limits`) the tick and sums kernels run
-an instance with the tables in dynamic shared memory, up to
-:func:`campaign_limits`, which the per-campaign wrappers take. The plain
+buffer; past the bank limits (:func:`limits`) each kernel runs an instance
+with the tables in dynamic shared memory, up to :func:`campaign_limits`,
+which every wrapper takes; a bank wrapper counts those launches under its
+name with ``_wide`` appended. The plain
 versions live in :mod:`repro_torch.kernels.ref`, and
 :mod:`repro_torch.kernels.ops` dispatches between them by device.
 """
@@ -53,7 +54,8 @@ __all__ = [
 #: Launch counts per wrapper, raised by one at every launch.
 LAUNCHES: Dict[str, int] = {
     "grid_tick": 0, "grid_tick_sums": 0, "grid_tick_bank": 0, "grid_tick_bank_fused": 0,
-    "grid_tick_bank_sums": 0,
+    "grid_tick_bank_sums": 0, "grid_tick_bank_wide": 0, "grid_tick_bank_fused_wide": 0,
+    "grid_tick_bank_sums_wide": 0,
 }
 
 _WARPS_PER_BLOCK = 4
@@ -120,10 +122,16 @@ def bank_occupancy() -> Dict[str, object]:
 
 @functools.lru_cache(maxsize=None)
 def campaign_limits() -> Tuple[int, int, int]:
-    """The largest ``(legs, processes, links)`` of one campaign that the
-    tick and sums kernels take (past :func:`limits`, by their instance with
-    the tables in dynamic shared memory)."""
+    """The largest ``(legs, processes, links)`` of a scenario (or one
+    campaign) that the kernels take (past :func:`limits`, by their
+    instances with the tables in dynamic shared memory)."""
     return _limits(_lib().grid_tick_campaign_limits)
+
+
+def _wide(T: int, P: int, L: int) -> bool:
+    """Whether a scenario of these pads runs the wide instances."""
+    max_t, max_p, max_l = limits()
+    return T > max_t or P > max_p or L > max_l
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: Tuple[int, ...]) -> int:
@@ -144,13 +152,12 @@ def _check_tables(tables: BankTables, S: int, T: int, P: int, L: int) -> int:
     return _check("tables", tables.packed, torch.int32, (S, 3 * T + 2 * P + L + 2))
 
 
-def _check_dims(S: int, R: int, T: int, P: int, L: int, campaign: bool = False) -> None:
-    max_t, max_p, max_l = campaign_limits() if campaign else limits()
+def _check_dims(S: int, R: int, T: int, P: int, L: int) -> None:
+    max_t, max_p, max_l = campaign_limits()
     if T > max_t or P > max_p or L > max_l:
-        what = "one campaign" if campaign else "per scenario"
         raise ValueError(
             f"grid-tick kernels take at most {max_t} legs, {max_p} processes "
-            f"and {max_l} links {what}: got T={T}, P={P}, L={L}"
+            f"and {max_l} links a scenario: got T={T}, P={P}, L={L}"
         )
     if -(-R // _WARPS_PER_BLOCK) > _MAX_GRID_Y:
         raise ValueError(f"too many replicas (simulations) for one launch: R={R}")
@@ -164,6 +171,12 @@ def _replica_stride(name: str, x: torch.Tensor, S: int, R: int, W: int) -> int:
         return W
     _check(name, x, torch.float32, (S, 1, W) if x.dim() == 3 else (S, W))
     return 0
+
+
+def _counted(name: str, campaign: bool, T: int, P: int, L: int) -> str:
+    """The :data:`LAUNCHES` key of a launch: a bank wrapper's wide launches
+    count apart."""
+    return name + "_wide" if not campaign and _wide(T, P, L) else name
 
 
 def _tick(name: str, S: int, R: int, active, remaining, keep_frac, keep_rs: int, bg_load,
@@ -185,14 +198,14 @@ def _tick(name: str, S: int, R: int, active, remaining, keep_frac, keep_rs: int,
         _check("bandwidth", bandwidth, torch.float32, lead[:-1] + (L,)),
         _check_tables(tables, S, T, P, L),
     ]
-    _check_dims(S, R, T, P, L, campaign)
+    _check_dims(S, R, T, P, L)
     dev = active.device
     out = [torch.empty(lead + (n,), dtype=torch.float32, device=dev) for n in (T, P, L)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().grid_tick_bank_launch(*ptrs, *(o.data_ptr() for o in out), S, R, T, P, L, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[_counted(name, campaign, T, P, L)] += 1
     return tuple(out)
 
 
@@ -205,7 +218,7 @@ def _sums(name: str, S: int, R: int, v: torch.Tensor, tables: BankTables,
     P = tables.link_of_proc.shape[-1]
     L = tables.link_proc_ptr.shape[-1] - 1
     ptrs = [_check("v", v, torch.float32, lead + (T,)), _check_tables(tables, S, T, P, L)]
-    _check_dims(S, R, T, P, L, campaign)
+    _check_dims(S, R, T, P, L)
     proc = torch.empty(lead + (P,), dtype=torch.float32, device=v.device)
     link = torch.empty(lead + (L,), dtype=torch.float32, device=v.device)
     stream = torch.cuda.current_stream(v.device).cuda_stream
@@ -214,7 +227,7 @@ def _sums(name: str, S: int, R: int, v: torch.Tensor, tables: BankTables,
     )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[_counted(name, campaign, T, P, L)] += 1
     return proc, link
 
 
@@ -292,7 +305,7 @@ def grid_tick_bank_fused_cuda(
     """``K = noise.shape[0]`` fair-share ticks of a bank in one launch; the
     returned carry follows ``ref.BANK_WINDOW_STATE_FIELDS``. ``bg_mu`` and
     ``bg_sigma`` must agree on their replica dim (``ops`` broadcasts a mixed
-    pair)."""
+    pair). Past :func:`limits` the launch runs ``bank_fused_wide_kernel``."""
     K, S, R, L = noise.shape
     T = state[2].shape[-1]
     P = tables.link_of_proc.shape[-1]
@@ -334,7 +347,7 @@ def grid_tick_bank_fused_cuda(
         raise RuntimeError(
             f"grid_tick_bank_fused kernel launch failed: cudaError_t {err}"
         )
-    LAUNCHES["grid_tick_bank_fused"] += 1
+    LAUNCHES[_counted("grid_tick_bank_fused", False, T, P, L)] += 1
     return out
 
 

@@ -126,16 +126,16 @@ def test_entry_points_default_to_cuda():
 
 def test_unported_paths_raise():
     """A calibration theta maps onto the bank; the bucketed dispatch
-    (ROADMAP A.3) still raises. The per-campaign engine (A.7) is ported:
-    one scenario of the bank run as a campaign of its own equals the
-    reference's ``simulate_batch`` of it."""
+    (ROADMAP A.3) runs and equals the monolithic run bitwise. The
+    per-campaign engine (A.7) is ported: one scenario of the bank run as a
+    campaign of its own equals the reference's ``simulate_batch`` of it."""
     import jax
     from repro.core import engine as ref_engine
     from repro_torch.core import engine
 
     fleet = Fleet.from_scenarios(n=4, seed=2, max_ticks=200, n_buckets=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.3"):
-        fleet.run()
+    assert fleet.n_buckets > 1
+    _assert_bitwise(fleet.run(replicas=2), fleet.run(replicas=2, bucketed=False))
     assert fleet.run(bucketed=False).ticks.shape == (4, 1)
     res = fleet.run([0.1, 2.0, 1.0], bucketed=False)
     assert res.ticks.shape == (4, 1)

@@ -10,7 +10,9 @@ do: the fused window is bitwise on every carry field and the one tick on
 its three outputs, at K = 1, 7 and 32, with bank-wide and per-replica keep,
 and on single-link families with up to 125 processes or one process of 119
 legs on the link; the one tick also within rtol 1e-5, atol 1e-4 of the
-one-hot matmul of ``ref.grid_tick`` (sums in another order).
+one-hot matmul of ``ref.grid_tick`` (sums in another order). Past the bank
+limits (T 128, P 128, L 32) the three run their wide instances, bitwise as
+well: at the pads of a scale-3 fleet and at a random 700-leg table.
 The per-campaign tick is the bank tick at S = 1 (the wide instance past
 the bank limits) and sums in ``ref.grid_tick_indexed``'s order: it is held
 bitwise against it, and against ``ref.grid_tick`` within that tolerance;
@@ -104,10 +106,21 @@ def _check_bank_kernels(bank, R, K, per_replica, dev="cuda"):
     launch each."""
     state, mu, sigma, consts, noise, tables = _bank_case(bank, R, K, per_replica,
                                                          torch.device(dev))
+    _check_bank_launches(state, mu, sigma, consts, noise, tables, K)
+
+
+def _check_bank_launches(state, mu, sigma, consts, noise, tables, K):
+    """:func:`_check_bank_kernels` on a given carry and constants; the
+    launches counted under the bank's names (``_wide`` past the bank
+    limits)."""
+    dev = state[2].device
+    S, T, P, L = tables.shape
+    suffix = "_wide" if grid_tick._wide(T, P, L) else ""
     before = dict(grid_tick.LAUNCHES)
     got = ops.grid_tick_bank_fused(state, mu, sigma, *consts, window=K, noise=noise, tables=tables)
     torch.cuda.synchronize()
-    assert grid_tick.LAUNCHES["grid_tick_bank_fused"] == before["grid_tick_bank_fused"] + 1
+    name = "grid_tick_bank_fused" + suffix
+    assert grid_tick.LAUNCHES[name] == before[name] + 1
     want = ref.grid_tick_bank_window(state, mu, sigma, *consts, leap=False, noise=noise,
                                      tables=tables)
     assert int(want[1].sum()) > 0, "the window must advance"
@@ -127,8 +140,60 @@ def _check_bank_kernels(bank, R, K, per_replica, dev="cuda"):
             _close(name, g, d)
         for name, g, w in zip(("proc", "link"), ops.grid_tick_bank_sums(want[0], tables), want[1:]):
             assert torch.equal(g, w), name
-    assert grid_tick.LAUNCHES["grid_tick_bank"] == before["grid_tick_bank"] + 2
-    assert grid_tick.LAUNCHES["grid_tick_bank_sums"] == before["grid_tick_bank_sums"] + 2
+    for name in ("grid_tick_bank" + suffix, "grid_tick_bank_sums" + suffix):
+        assert grid_tick.LAUNCHES[name] == before[name] + 2, name
+
+
+@pytest.mark.parametrize("per_replica", [False, True])
+def test_wide_bank_kernels_at_long_tail_pads(per_replica):
+    """A scale-3 fleet pads past the bank limits (T 162, P 162): the wide
+    fused window, tick and sums bitwise against the plain versions."""
+    _need_cuda()
+    bank = build_bank(n=64, seed=0, scale=3.0)
+    assert grid_tick._wide(bank.pad_legs, bank.pad_procs, bank.pad_links)
+    _check_bank_kernels(bank, R=4, K=16, per_replica=per_replica)
+
+
+@pytest.mark.parametrize("K", [1, 24])
+def test_wide_bank_kernels_on_a_random_wide_table(K):
+    """Random scenarios of 700 legs, 300 processes and 40 links (dependency
+    chains, releases, per-replica keep and moments): the wide instances
+    bitwise against the plain versions."""
+    _need_cuda()
+    S, R, T, P, L = 3, 5, 700, 300, 40
+    g = torch.Generator().manual_seed(11)
+    inc = [_random_campaign(T, P, L, seed=20 + s) for s in range(S)]
+    dev = torch.device("cuda")
+    lp, pl, ll = (torch.stack(m).to(dev) for m in zip(*inc))
+    dep = torch.full((S, T), -1, dtype=torch.int32)
+    chained = torch.rand((S, T), generator=g) < 0.3
+    parent = (torch.rand((S, T), generator=g) * torch.arange(T)).to(torch.int32)
+    dep = torch.where(chained & (torch.arange(T) > 0), parent, dep)
+    keep = (0.9 + 0.1 * torch.rand((S, R, T), generator=g))
+    consts = (
+        torch.randint(0, 6, (S, T), generator=g, dtype=torch.int32),  # release
+        dep,
+        torch.randint(1, 5, (S, L), generator=g, dtype=torch.int32),  # period
+        torch.full((S,), 10_000, dtype=torch.int32),  # max_ticks
+        keep,
+        1 + 200 * torch.rand((S, L), generator=g),  # bandwidth
+    )
+    consts = tuple(x.to(dev) for x in consts) + (lp, pl, ll)
+    i32, f32 = torch.int32, torch.float32
+    z = lambda dt, *shape: torch.zeros(shape, dtype=dt, device=dev)
+    state = (z(i32, S, R), z(i32, S, R), (5 + 60 * torch.rand((S, R, T), generator=g)).to(dev),
+             z(torch.bool, S, R, T), z(torch.bool, S, R, T), z(i32, S, R, T), z(i32, S, R, T),
+             z(f32, S, R, T), z(f32, S, R, T), z(f32, S, R, L))
+    mu = (1 + torch.rand((S, R, L), generator=g)).to(dev)
+    sigma = torch.full((S, R, L), 1.0, device=dev)
+    tables = ref.bank_index_tables(lp, pl, ll)
+    warm = torch.randn((6, S, R, L), generator=g).to(dev)
+    state = ref.grid_tick_bank_window(state, mu, sigma, *consts, leap=False, noise=warm,
+                                      tables=tables)
+    state = (state[0], torch.zeros_like(state[1])) + tuple(state[2:])
+    assert bool(state[3].any()) and not bool(state[3].all())
+    noise = torch.randn((K, S, R, L), generator=g).to(dev)
+    _check_bank_launches(state, mu, sigma, consts, noise, tables, K)
 
 
 @pytest.mark.parametrize("K", [1, 7, 32])
@@ -259,17 +324,30 @@ def test_campaign_kernel_matches_plain(shape):
 
 
 def test_kernels_refuse_shapes_past_their_limits():
+    """Every grid-tick wrapper, bank and per campaign, takes up to
+    ``campaign_limits()`` and raises past it."""
     _need_cuda()
-    max_t, max_p, max_l = grid_tick.limits()
-    dev = torch.device("cuda")
-    S, R, T, P, L = 1, 2, max_t + 1, 4, 3
-    f = lambda *shape: torch.zeros(shape, device=dev)
-    tables = ref.bank_index_tables(*(m[None].to(dev) for m in _random_campaign(T, P, L, 0)))
-    with pytest.raises(ValueError, match="at most"):
-        grid_tick.grid_tick_bank_cuda(f(S, R, T), f(S, R, T), f(S, T), f(S, R, L), f(S, L), tables)
     max_t, max_p, max_l = grid_tick.campaign_limits()
     assert max_t >= 1024 and max_p >= 1024 and max_l >= 256
+    assert grid_tick.limits() < (max_t, max_p, max_l)
+    dev = torch.device("cuda")
+    S, R = 1, 2
+    f = lambda *shape: torch.zeros(shape, device=dev)
+    i = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
     for T, P, L in ((max_t + 1, 4, 3), (64, 8, max_l + 1)):
+        tables = ref.bank_index_tables(*(m[None].to(dev) for m in _random_campaign(T, P, L, 0)))
+        with pytest.raises(ValueError, match="at most"):
+            grid_tick.grid_tick_bank_cuda(f(S, R, T), f(S, R, T), f(S, T), f(S, R, L), f(S, L),
+                                          tables)
+        with pytest.raises(ValueError, match="at most"):
+            grid_tick.grid_tick_bank_sums_cuda(f(S, R, T), tables)
+        state = (i(S, R), i(S, R), f(S, R, T), torch.zeros((S, R, T), dtype=torch.bool, device=dev),
+                 torch.zeros((S, R, T), dtype=torch.bool, device=dev), i(S, R, T), i(S, R, T),
+                 f(S, R, T), f(S, R, T), f(S, R, L))
+        with pytest.raises(ValueError, match="at most"):
+            grid_tick.grid_tick_bank_fused_cuda(
+                state, f(2, S, R, L), f(S, 1, L), f(S, 1, L), i(S, T), i(S, T), i(S, L), i(S),
+                f(S, T), f(S, L), tables)
         tables = ref.campaign_index_tables(*(m.to(dev) for m in _random_campaign(T, P, L, 0)))
         with pytest.raises(ValueError, match="at most"):
             grid_tick.grid_tick_cuda(f(2, T), f(2, T), f(T), f(2, L), f(L), tables)
