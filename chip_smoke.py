@@ -13,7 +13,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    card, on a 7-family bank (bank-wide and per-replica keep/mu/sigma), and
    their wide instances on a scale-3 bank (T 162, P 162): bitwise, since
    both take every sum in the order of the bank's segment lists (the one
-   tick also within RTOL/ATOL of the one-hot matmul);
+   tick also within RTOL/ATOL of the one-hot matmul); the spec's tables,
+   built from the host rows, equal to those built from the incidences on
+   the card, the fused window bitwise on both;
 3. main    — ``Fleet.from_scenarios(n=1024).run(replicas=64)`` (65,536
    elements) in tick and leap mode, default and stochastic params, with the
    kernels' launch counts of each timed run (counts set to 0 just before
@@ -31,6 +33,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 3d. stream — ``Fleet.stream`` over the same 1,024 pairs in chunks of 256
    with ``prefetch=1``, each chunk bitwise equal to its standalone
    ``simulate_bank`` run under the stream's key schedule;
+3e. sim_serve — the port's ``SimServer`` on the card: (a) parity, the
+   synthetic workload of 16 requests x 4 replicas (rate 200/s, scale 1)
+   under ``ServeConfig(slots=8, replicas=4)``, base params and theta
+   (0.05, 2.0, 1.0), tick and leap, every served row bitwise the card's
+   ``Fleet.run`` of its scenario at the served pads; (b) the reference
+   benchmark's workload (``BENCH_serve.json``: 64 requests, 4 replicas,
+   rate 200/s, scale 4, seed 0) open loop in tick mode, with requests/s,
+   latency and queue-delay percentiles, rounds, banks, windows per rung,
+   the admit / dispatch / sync / retire wall split, the seconds of bank
+   creation before the rounds (each cold slot bank's warm-up), and the
+   synchronizing CUDA calls of bank creation and of the ADMIT and DISPATCH
+   phases (warnings under ``torch.cuda.set_sync_debug_mode("warn")``, by
+   source line); (c) 256 requests x 64 replicas at t = 0 under
+   ``ServeConfig(slots=64, replicas=64)``, every row bitwise a warm batch
+   ``Fleet.run`` of the same pairs and keys on the overlapping extent,
+   scenario-replicas/s beside the batch run's elements/s, and the seconds
+   of bank creation;
 4. parity  — bitwise window invariance (K=1 vs K=64) on 64 scenarios x 4
    replicas; the card's normals bitwise against the CPU path's (200,000
    keys x 11); the card's ``Fleet.run`` against the CPU path on a small
@@ -123,6 +142,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -134,6 +154,8 @@ import re
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 
@@ -150,6 +172,8 @@ from repro_torch.core.scenarios import build_bank, sample_scenarios  # noqa: E40
 from repro_torch.kernels import _build, grid_tick, ops, ref, selu_mlp  # noqa: E402
 from repro_torch.kernels import decode_attention, flash_attention, mlstm_chunk  # noqa: E402
 from repro_torch.launch import calibrate as calibrate_launcher  # noqa: E402
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.serve import ServeConfig, SimRequest, SimServer, synthetic_workload  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.models import model as llm  # noqa: E402
 from repro_torch.data.tokens import TokenStream, TokenStreamConfig  # noqa: E402
@@ -176,6 +200,12 @@ MAIN_PARAMS = (("default", {}), ("stochastic", dict(bg_mu=2.0, bg_sigma=1.0)))
 N_BUCKETS = 8
 LONG_TAIL = dict(n=256, seed=0, scale=3.0, n_buckets=N_BUCKETS)
 STREAM_CHUNK = 256
+# phase sim_serve: the parity workload, the reference benchmark's workload
+# (BENCH_serve.json) and the fleet-width one
+SERVE_THETA = (0.05, 2.0, 1.0)
+SERVE_PARITY = dict(n=16, rate=200.0, scale=1.0, replicas=4, slots=8)
+SERVE_BENCH = dict(n=64, rate=200.0, scale=4.0, replicas=4, slots=8)
+SERVE_WIDE = dict(n=256, scale=1.0, replicas=64, slots=64)
 # the paper's Section-5 campaign as the calibration launcher compiles it
 # (T=106 legs, P=11 processes, L=1 link), the batch of one presimulation
 # chunk (512 thetas x 4 replicates) and the launcher's ground truth
@@ -325,6 +355,8 @@ def phase_kernels(dev) -> dict:
             emit("kernels", kernel=fused, per_replica=per_replica, bitwise=True,
                  S=bank.n_scenarios, R=R, K=K, pads=[bank.pad_legs, bank.pad_procs, bank.pad_links],
                  max_abs_err=fields, alive_steps=int(got[1].sum()))
+            if not per_replica:
+                check_card_built_tables(fused, state, mu, sigma, consts, noise, tables, want, K)
 
             # one tick at the same state: a random active set over unfinished legs
             g = torch.Generator(device="cpu").manual_seed(1)
@@ -340,6 +372,26 @@ def phase_kernels(dev) -> dict:
                      bitwise=True, S=bank.n_scenarios, R=R, max_abs_err=fields)
     torch.cuda.synchronize()
     return errs
+
+
+def check_card_built_tables(name, state, mu, sigma, consts, noise, tables, want, K) -> None:
+    """The spec's tables, built from the bank's host rows, against the
+    tables ``ref.bank_index_tables`` builds from the incidences on the card:
+    equal field for field and plan step for plan step, and the fused
+    window on the card-built ones bitwise the plain window too."""
+    card = ref.bank_index_tables(*consts[6:9])
+    for field, h, c in zip(tables._fields, tables, card):
+        if isinstance(h, ref.SegmentPlan):
+            assert h.steps == c.steps and h.n_segments == c.n_segments, field
+            for f in ("src", "dst", "pos"):
+                same(f"tables {field}.{f}", getattr(h, f), getattr(c, f))
+        else:
+            same(f"tables {field}", h, c)
+    got = ops.grid_tick_bank_fused(state, mu, sigma, *consts, window=K, noise=noise, tables=card)
+    for field, g_, w_ in zip(ref.BANK_WINDOW_STATE_FIELDS, got, want):
+        compare(f"{name} on card-built tables {field}", g_, w_, exact=True)
+    emit("kernels", kernel=name, check="host-built tables equal card-built ones; the window "
+         "on either bitwise the plain window", equal=True, bitwise=True)
 
 
 def counted_run(fleet, params, leap: bool, warm: bool = True):
@@ -537,6 +589,214 @@ def phase_stream(dev) -> dict:
          prefetch=1, bitwise_vs_standalone=True, wall_s=wall,
          elements_per_s=N_SCEN * N_REP / wall, launches={k: v for k, v in launches.items() if v})
     return {"by_run": {"stream": launches}}
+
+
+def same(name, got, want) -> None:
+    """``got`` bitwise ``want``: same shape, dtype and bits."""
+    assert got.shape == want.shape and got.dtype == want.dtype, (
+        name, tuple(got.shape), tuple(want.shape), got.dtype, want.dtype)
+    compare(name, got, want, exact=True)
+
+
+def sync_source() -> str:
+    """Where a synchronizing call was made, from inside the warning's hook:
+    the innermost frame of the repository's own code, then the innermost
+    frame of all (the library function that synchronized)."""
+    stack = [f for f in traceback.extract_stack()[:-2]
+             if os.path.basename(f.filename) != "warnings.py"]
+    mine = [f for f in stack if f.filename.startswith(os.path.join(ROOT, "src"))]
+    where = lambda f: f"{os.path.relpath(f.filename, ROOT)}:{f.lineno} {f.name}"
+    inner = stack[-1]
+    return (where(mine[-1]) if mine else "?") + f" -> {os.path.basename(inner.filename)}:" \
+        f"{inner.lineno} {inner.name}"
+
+
+def creation_timed(server) -> dict:
+    """Wrap ``server._ensure_banks``, which ``step`` runs before the round's
+    four phases: each cold ``SlotBank``'s warm-up (one window a rung and a
+    snapshot, then ``event.synchronize()``) lies there, outside the wall
+    split. Returns the live totals: seconds, calls, banks created."""
+    timed = {"seconds": 0.0, "calls": 0, "banks": 0}
+    inner = server._ensure_banks
+
+    def ensure():
+        t0 = time.perf_counter()
+        created = inner()
+        timed["seconds"] += time.perf_counter() - t0
+        timed["calls"] += 1
+        timed["banks"] += created
+        return created
+
+    server._ensure_banks = ensure
+    return timed
+
+
+def sync_counted(server) -> dict:
+    """Wrap ``server``'s ADMIT and DISPATCH phases, and the bank creation
+    before them, so that each counts the synchronizing CUDA calls it makes:
+    the warnings ``torch.cuda.set_sync_debug_mode("warn")`` raises inside
+    it, by their source (:func:`sync_source`). Returns the live counters."""
+    counted = {"admit": collections.Counter(), "dispatch": collections.Counter(),
+               "create": collections.Counter()}
+
+    def wrap(name, fn):
+        def hook(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" in str(message):
+                counted[name][sync_source()] += 1
+
+        def phase(*args):
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = hook
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return fn(*args)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+        return phase
+
+    server._admit_phase = wrap("admit", server._admit_phase)
+    server._dispatch_phase = wrap("dispatch", server._dispatch_phase)
+    server._ensure_banks = wrap("create", server._ensure_banks)
+    return counted
+
+
+def submit_all(server, workload):
+    """Every request of ``workload`` submitted at once, then drained:
+    ``(results, wall)``."""
+    t0 = time.perf_counter()
+    for _, req in workload:
+        server.submit(req)
+    results = server.drain()
+    return results, time.perf_counter() - t0
+
+
+def served_run(server, workload, drive=serve_launcher.drive):
+    """``drive`` of ``workload`` (open loop by default, as the launcher
+    runs it), its launch counts set to 0 just before and read just after:
+    ``(results, wall, launches)``."""
+    torch.cuda.synchronize()
+    grid_tick.reset_launches()
+    results, wall = drive(server, workload)
+    torch.cuda.synchronize()
+    return results, wall, dict(grid_tick.LAUNCHES)
+
+
+def percentiles_ms(xs) -> dict:
+    xs = np.asarray(xs) * 1e3
+    return {f"p{q}_ms": float(np.percentile(xs, q)) for q in (50, 90, 99)} | {
+        "mean_ms": float(xs.mean())}
+
+
+def serve_summary(server, results, wall) -> dict:
+    m = server.metrics()
+    rungs = collections.Counter()
+    for b in m["slot_banks"].values():
+        rungs.update({int(k): v for k, v in b["rung_windows"].items()})
+    return dict(
+        requests=len(results), wall_s=wall, requests_per_s=len(results) / wall,
+        latency=percentiles_ms([r.latency for r in results]),
+        queue_delay=percentiles_ms([r.queue_delay for r in results]),
+        rounds=m["rounds"], banks=len(server.banks), signatures=sorted(m["slot_banks"]),
+        window=m["window"], rungs=m["rungs"], rung_windows=dict(sorted(rungs.items())),
+        windows=sum(rungs.values()), coalesced=m["coalesced"], wall_split_s=m["wall_split_s"],
+        occupancy_mean={k: b["occupancy_mean"] for k, b in m["slot_banks"].items()},
+    )
+
+
+def phase_sim_serve(dev) -> dict:
+    """The port's ``SimServer`` on the card, parts (a)-(c) of the module
+    docstring; returns the served runs' launches."""
+    by_run = {}
+    # (a) parity: every served row bitwise the card's Fleet.run at its pads
+    p = SERVE_PARITY
+    for leap in (False, True):
+        for label, theta in (("base", None), ("theta", SERVE_THETA)):
+            wl = synthetic_workload(p["n"], rate=p["rate"], seed=0, scale=p["scale"],
+                                    replicas=p["replicas"], theta=theta)
+            server = SimServer(ServeConfig(slots=p["slots"], replicas=p["replicas"], leap=leap),
+                               device=dev)
+            results, wall, launches = served_run(server, wl)
+            mode = "leap" if leap else "tick"
+            by_run[f"sim_serve_parity_{mode}_{label}"] = launches
+            assert sorted(r.rid for r in results) == list(range(p["n"]))
+            for _, req in wl:
+                res = server.poll(req.rid)
+                fleet = Fleet.from_pairs([(req.grid, req.campaign)], pad_floors=res.signature,
+                                         leap=leap, device=dev)
+                want = fleet.run(theta, replicas=p["replicas"], key=prng.PRNGKey(req.seed, dev))
+                for f in want._fields:
+                    same(f"served {mode} {label} rid {req.rid} {f}", getattr(res.result, f),
+                         getattr(want, f)[0].cpu())
+            emit("sim_serve", part="a_parity", mode=mode, params=label,
+                 bitwise_vs_fleet_run=True, **serve_summary(server, results, wall),
+                 launches={k: v for k, v in launches.items() if v})
+    # (b) the reference benchmark's workload, open loop, tick; syncs by phase
+    b = SERVE_BENCH
+    wl = synthetic_workload(b["n"], rate=b["rate"], seed=0, scale=b["scale"],
+                            replicas=b["replicas"])
+    server = SimServer(ServeConfig(slots=b["slots"], replicas=b["replicas"]), device=dev)
+    # the debug mode toggled once around no work: what the counting itself raises
+    toggle = collections.Counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode(0)
+    toggle.update(str(w.message) for w in caught)
+    syncs = sync_counted(server)
+    creation = creation_timed(server)
+    results, wall, launches = served_run(server, wl)
+    by_run["sim_serve_bench"] = launches
+    assert sorted(r.rid for r in results) == list(range(b["n"]))
+    for r in results:
+        for f in ("transfer_time", "conth_mb", "conpr_mb", "start_tick"):
+            assert bool(torch.isfinite(getattr(r.result, f)).all()), (r.rid, f)
+    summary = serve_summary(server, results, wall)
+    emit("sim_serve", part="b_bench", mode="tick", params="default",
+         workload={k: b[k] for k in ("n", "rate", "scale", "replicas")}, slots=b["slots"],
+         **summary, bank_creation_s=creation["seconds"], banks_created=creation["banks"],
+         syncs={k: sum(c.values()) for k, c in syncs.items()},
+         warnings_of_a_bare_toggle=dict(toggle),
+         sync_sources={k: dict(c.most_common()) for k, c in syncs.items()},
+         launches={k: v for k, v in launches.items() if v},
+         done_share=float(np.mean([float(r.result.done.float().mean()) for r in results])))
+    # (c) fleet width: 256 x 64 at t = 0, bitwise a warm batch run on the overlap
+    c = SERVE_WIDE
+    pairs = sample_scenarios(None, c["n"], 0, scale=c["scale"])
+    keys = prng.split(prng.PRNGKey(0, dev), c["n"] * c["replicas"]).reshape(
+        c["n"], c["replicas"], 2)
+    fleet = Fleet.from_pairs(pairs, device=dev)
+    fleet.run(keys=keys)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = fleet.run(keys=keys)
+    torch.cuda.synchronize()
+    batch_wall = time.perf_counter() - t0
+    host_keys = keys.cpu().numpy().astype(np.uint32)
+    wl = [(0.0, SimRequest(rid=i, grid=g, campaign=cp, n_replicas=c["replicas"],
+                           keys=host_keys[i], name=f"wide_{i}"))
+          for i, (g, cp) in enumerate(pairs)]
+    server = SimServer(ServeConfig(slots=c["slots"], replicas=c["replicas"]), device=dev)
+    creation = creation_timed(server)
+    results, wall, launches = served_run(server, wl, drive=submit_all)
+    by_run["sim_serve_fleet_width"] = launches
+    assert sorted(r.rid for r in results) == list(range(c["n"]))
+    for r in results:
+        for f in batch._fields:
+            a, w = getattr(r.result, f), getattr(batch, f)[r.rid].cpu()
+            sl = tuple(slice(0, min(x, y)) for x, y in zip(a.shape, w.shape))
+            same(f"fleet-width rid {r.rid} {f}", a[sl], w[sl])
+    elements = c["n"] * c["replicas"]
+    summary = serve_summary(server, results, wall)
+    emit("sim_serve", part="c_fleet_width", mode="tick", params="default",
+         bitwise_vs_batch_run=True, slots=c["slots"], replicas=c["replicas"], **summary,
+         bank_creation_s=creation["seconds"], banks_created=creation["banks"],
+         served_elements_per_s=elements / wall, batch_wall_s=batch_wall,
+         batch_elements_per_s=elements / batch_wall,
+         serve_vs_warm_batch=(elements / wall) / (elements / batch_wall),
+         launches={k: v for k, v in launches.items() if v},
+         grid_tick_bank_fused_launches=launches["grid_tick_bank_fused"])
+    return {"by_run": by_run}
 
 
 def phase_parity(dev) -> None:
@@ -2248,7 +2508,9 @@ def main() -> int:
     stepped = timed_phase("stepped", phase_stepped, dev, main_run)
     stream = timed_phase("stream", phase_stream, dev)
     main_run.pop("results")
-    new_runs = {**bucketed["by_run"], **stepped["by_run"], **stream["by_run"]}
+    sim_serve = timed_phase("sim_serve", phase_sim_serve, dev)
+    new_runs = {**bucketed["by_run"], **stepped["by_run"], **stream["by_run"],
+                **sim_serve["by_run"]}
     timed_phase("parity", phase_parity, dev)
     timed_phase("profile", phase_profile, dev, main_run)
     times = timed_phase("timing", phase_timing, dev)
@@ -2271,7 +2533,8 @@ def main() -> int:
         "grid_tick_bank_sums": "src/repro/kernels/ref.py:307",
     }
     # the bank kernels and their wide instances: launches by main-path run
-    # (phase main's four, the bucketed, long-tail, stepped and stream runs)
+    # (phase main's four, the bucketed, long-tail, stepped, stream and
+    # served runs)
     for name in BANK_KERNELS + WIDE_KERNELS:
         t = times[name]
         by_run = dict(main_run["by_run"].get(name, {}))

@@ -244,19 +244,22 @@ def make_params(
 
 
 def _bank_spec_uncached(bank: ScenarioBank, dev: torch.device) -> SimSpec:
-    """The stacked spec of ``bank`` uploaded to ``dev`` anew, its index
-    tables built from the bank's current rows. The host arrays are copied,
-    so a CPU spec shares no memory with a bank whose rows are rewritten
-    (``ResidentBank.write_rows``)."""
-    t = lambda a: torch.as_tensor(np.array(a)).to(dev)
-    return with_index_tables(SimSpec(
-        size_mb=t(bank.size_mb), release=t(bank.release), dep=t(bank.dep),
-        profile=t(bank.profile), protocol_id=t(bank.protocol_id),
-        leg_proc=t(bank.leg_proc), proc_link=t(bank.proc_link),
-        leg_link=t(bank.leg_link), bandwidth=t(bank.bandwidth),
-        bg_period=t(bank.bg_period), max_ticks=t(bank.max_ticks),
-        leg_valid=t(bank.leg_valid),
-    ))
+    """The stacked spec of ``bank`` uploaded to ``dev`` anew. Its index
+    tables are built from the bank's current host rows, and every tensor
+    goes up by :func:`ref.upload` (pinned, ``non_blocking`` to the card):
+    nothing reads device memory back or waits for work in flight, so the
+    spec of a running bank can be rebuilt between its windows
+    (``ResidentBank.write_rows``). Every tensor is a copy: a CPU spec
+    shares no memory with a bank whose rows are rewritten."""
+    # the bank's arrays carry the spec's base fields under the same names
+    host = {f: torch.as_tensor(np.asarray(getattr(bank, f)))
+            for f in SimSpec._fields if f not in INDEX_TABLE_FIELDS}
+    tables = ref.bank_index_tables(host["leg_proc"], host["proc_link"], host["leg_link"]).to(dev)
+    return SimSpec(
+        **{f: ref.upload(x, dev) for f, x in host.items()},
+        proc_of_leg=tables.proc_of_leg, link_of_leg=tables.link_of_leg,
+        link_of_proc=tables.link_of_proc, bank_tables=tables,
+    )
 
 
 def bank_spec(bank: ScenarioBank, device: DeviceLike = None) -> SimSpec:

@@ -100,11 +100,14 @@ def _cache_get(key: Hashable) -> Any:
 
 
 def _cache_put(key: Hashable, value: Any) -> None:
+    """Insert at the back, evicting the oldest entries first, so the dict
+    never holds more than ``_COMPILE_CACHE_MAX`` entries, not even for a
+    reader that does not take the lock."""
     with _COMPILE_CACHE_LOCK:
         _compile_cache.pop(key, None)  # re-insert at the back
-        _compile_cache[key] = value
-        while len(_compile_cache) > _COMPILE_CACHE_MAX:
+        while len(_compile_cache) >= _COMPILE_CACHE_MAX:
             _compile_cache.pop(next(iter(_compile_cache)))
+        _compile_cache[key] = value
 
 
 def clear_compile_cache() -> None:

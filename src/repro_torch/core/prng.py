@@ -165,6 +165,15 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 Bound = Union[float, torch.Tensor]
 
 
+def _f32(v: Bound, device) -> torch.Tensor:
+    """``v`` as a float32 tensor on ``device``. A Python number is filled
+    there rather than copied up from the host: a blocking copy to a CUDA
+    device would wait for every launch in flight."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32)
+    return torch.full((), float(v), dtype=torch.float32, device=device)
+
+
 def uniform(
     key: torch.Tensor, shape: Sequence[int], lo: Bound = 0.0, hi: Bound = 1.0
 ) -> torch.Tensor:
@@ -175,8 +184,8 @@ def uniform(
     bits = random_bits(key, shape)
     one = torch.tensor(1.0, dtype=torch.float32).view(torch.int32).item()
     f = ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
-    lo_t = torch.as_tensor(lo, dtype=torch.float32, device=key.device)
-    scale = torch.as_tensor(hi, dtype=torch.float32, device=key.device) - lo_t
+    lo_t = _f32(lo, key.device)
+    scale = _f32(hi, key.device) - lo_t
     return torch.maximum(lo_t, fma(f, scale, lo_t))
 
 
@@ -270,11 +279,9 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     # sqrt in float64, rounded once: the correctly rounded float32 sqrt that
     # XLA and the card compute (torch's CPU float32 sqrt is not always)
     w = torch.where(small, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
-    coef = lambda i: torch.where(
-        small,
-        torch.tensor(_ERFINV_SMALL[i], dtype=torch.float32, device=x.device),
-        torch.tensor(_ERFINV_LARGE[i], dtype=torch.float32, device=x.device),
-    )
+    # the coefficients filled on x's device (float32 roundings of the
+    # constants), never copied up from the host
+    coef = lambda i: torch.where(small, torch.full_like(w, _ERFINV_SMALL[i]), _ERFINV_LARGE[i])
     p = coef(0)
     for i in range(1, len(_ERFINV_SMALL)):
         p = fma(p, w, coef(i))

@@ -17,7 +17,8 @@ exposes the banked engine's host-driven surface:
   as it is (:func:`engine._bank_snapshot`);
 - ``write_rows``: for ``mutable=True`` residents, overwrite whole scenario
   rows of the host bank; the spec (and its index tables) is rebuilt from
-  the new rows at its next use.
+  the new host rows at its next use and uploaded without waiting for the
+  device (:func:`engine._bank_spec_uncached`).
 
 ``Fleet.resident`` returns the memoized immutable resident of the fleet's
 bank on the fleet's device.
@@ -33,6 +34,7 @@ import torch
 from repro_torch.core import engine as engine_lib
 from repro_torch.core.engine import DeviceLike, SimParams, SimResult, SimSpec
 from repro_torch.core.workload import ScenarioBank
+from repro_torch.kernels import ref
 
 __all__ = ["ResidentBank"]
 
@@ -133,11 +135,16 @@ class ResidentBank:
         return engine_lib._banked_init_carry(self.spec, params, keys.to(self.device).clone())
 
     def window_step(self, params: SimParams, carry: engine_lib._Carry, *,
-                    leap: bool = False, window: int = 1) -> engine_lib._Carry:
+                    leap: bool = False, window: int = 1,
+                    draw: Optional[bool] = None) -> engine_lib._Carry:
         """One window of ``window`` ticks (event leaps under ``leap``); the
-        carry is rebound to the step's new tensors."""
+        carry is rebound to the step's new tensors. ``draw`` says whether
+        any ``params.bg_sigma`` is positive: a caller that keeps the params
+        on the host passes it, and the step then reads nothing from the
+        device; ``None`` reads it from ``params``."""
         spec = self.spec
-        draw = bool(torch.any(params.bg_sigma > 0))
+        if draw is None:
+            draw = bool(torch.any(params.bg_sigma > 0))
         carry = engine_lib._bank_window_body(spec, params, leap, int(window), draw, carry)
         engine_lib.STATS["windows"] += 1
         return carry
@@ -146,8 +153,9 @@ class ResidentBank:
               mask) -> engine_lib._Carry:
         """Restart the rows ``mask`` selects from the current spec, params
         and keys; every other row passes through bitwise
-        (:func:`engine._admit_bank_rows`)."""
-        mask = torch.as_tensor(np.asarray(mask, bool)).to(self.device)
+        (:func:`engine._admit_bank_rows`). The host mask goes up by
+        :func:`ref.upload` (pinned, ``non_blocking`` to the card)."""
+        mask = ref.upload(np.asarray(mask, bool), self.device)
         return engine_lib._admit_bank_rows(self.spec, params, keys.to(self.device), carry, mask)
 
     def snapshot(self, carry: engine_lib._Carry):

@@ -137,6 +137,27 @@ def _check_one_hot(**incidences: torch.Tensor) -> None:
             )
 
 
+def upload(x, device) -> torch.Tensor:
+    """A copy of host data ``x`` (a numpy array or a CPU tensor) on
+    ``device``, sharing no memory with ``x``. To a CUDA device the copy is
+    staged through pinned memory and enqueued with ``non_blocking=True``:
+    it waits for no work in flight on the stream, and the caching host
+    allocator keeps the pinned block until the copy has run. Staging copies
+    ``x`` at once, so the caller may change ``x`` as soon as this returns."""
+    x = torch.as_tensor(x)
+    device = torch.device(device)
+    if device.type == "cuda":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device, copy=True)
+
+
+def _moved(x: torch.Tensor, device) -> torch.Tensor:
+    """``x.to(device)``, by :func:`upload` from the host to a CUDA device."""
+    if x.device.type == "cpu" and torch.device(device).type == "cuda":
+        return upload(x, device)
+    return x.to(device)
+
+
 class SegmentPlan(NamedTuple):
     """A batch of segment sums, ``out[s, :, c]`` the sum of ``v[s, :, m]``
     over the members ``m`` of segment ``(s, c)`` added one term at a time in
@@ -158,8 +179,10 @@ class SegmentPlan(NamedTuple):
     n_segments: int  # C
 
     def to(self, device) -> "SegmentPlan":
-        return self._replace(src=self.src.to(device), dst=self.dst.to(device),
-                             pos=self.pos.to(device))
+        """The plan on ``device`` (from the host to the card without a wait;
+        ``steps`` stays a host tuple)."""
+        return self._replace(src=_moved(self.src, device), dst=_moved(self.dst, device),
+                             pos=_moved(self.pos, device))
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         """``[S, R, X] -> [S, R, C]``."""
@@ -214,7 +237,10 @@ class BankTables(NamedTuple):
         return (S, T, self.link_of_proc.shape[1], self.link_proc_ptr.shape[1] - 1)
 
     def to(self, device) -> "BankTables":
-        return BankTables(*(x.to(device) for x in self))
+        """The tables on ``device`` (from the host to the card without a
+        wait)."""
+        return BankTables(*(x.to(device) if isinstance(x, SegmentPlan) else _moved(x, device)
+                            for x in self))
 
 
 def bank_sums(v: torch.Tensor, tables: BankTables) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -498,7 +524,7 @@ def grid_tick_bank_window(
                 a, inf_rem, keep_frac, bg, bandwidth,
                 leg_proc, proc_link, leg_link,
             )
-            inf = torch.tensor(float("inf"), dtype=f32, device=rate.device)
+            inf = float("inf")  # a scalar operand: no upload that would wait
             ttc = torch.where(
                 active & (rate > 0),
                 torch.ceil(remaining / torch.clamp_min(rate, 1e-30)),

@@ -251,6 +251,34 @@ def test_bank_kernels_on_processes_without_legs(leap):
         assert torch.equal(a.cpu(), b), name
 
 
+@pytest.mark.parametrize("leap", [False, True], ids=["tick", "leap"])
+def test_served_rows_equal_fleet_run_on_the_card(leap):
+    """The port's ``SimServer`` on the card: every served row bitwise the
+    card's ``Fleet.run`` of the same scenario and keys, stochastic theta,
+    with the bank kernels launched by the served windows."""
+    _need_cuda()
+    from repro_torch.core import prng
+    from repro_torch.core.scenarios import sample_scenarios
+    from repro_torch.serve import ServeConfig, SimRequest, SimServer
+
+    pairs = sample_scenarios(n=5, seed=0, scale=0.5)
+    theta = (0.05, 2.0, 1.0)
+    server = SimServer(ServeConfig(slots=4, replicas=3, leap=leap), device="cuda")
+    before = dict(grid_tick.LAUNCHES)
+    for i, (g, c) in enumerate(pairs):
+        server.submit(SimRequest(rid=i, grid=g, campaign=c, theta=theta, n_replicas=3, seed=i))
+    server.drain()
+    kernels = ("grid_tick_bank", "grid_tick_bank_sums") if leap else ("grid_tick_bank_fused",)
+    for name in kernels:
+        assert grid_tick.LAUNCHES[name] > before[name], name
+    for i, (g, c) in enumerate(pairs):
+        res = server.poll(i)
+        fleet = Fleet.from_pairs([(g, c)], pad_floors=res.signature, leap=leap, device="cuda")
+        direct = fleet.run(theta, replicas=3, key=prng.PRNGKey(i))
+        for f in direct._fields:
+            assert torch.equal(getattr(direct, f)[0].cpu(), getattr(res.result, f)), (i, f)
+
+
 def test_fleet_window_invariance_and_cpu_parity():
     _need_cuda()
     fleet = Fleet.from_scenarios(n=7, seed=0, max_ticks=2_000, device="cuda")

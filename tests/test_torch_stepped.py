@@ -7,7 +7,9 @@ on the CPU.
 other shapes or another window raises. ``_admit_bank_rows`` restarts the
 masked rows and leaves every other row bitwise as it was, keys included;
 ``ResidentBank`` steps, snapshots and rewrites rows as the reference's
-does."""
+does; the seams the server needs: a window step told ``draw`` from the host
+is bitwise the one that reads it, and the spec's index tables, built from
+the bank's host rows, equal those of its tensors."""
 import numpy as np
 import pytest
 import torch
@@ -16,8 +18,9 @@ from repro_torch import Fleet, simulate_bank
 from repro_torch.core import engine, prng
 from repro_torch.core.engine import simulate_bank_stepped
 from repro_torch.core.residency import ResidentBank
-from repro_torch.core.scenarios import sample_scenarios
+from repro_torch.core.scenarios import build_bank, sample_scenarios
 from repro_torch.core.workload import bank_from_tables, compile_campaign
+from repro_torch.kernels import ref
 
 N, R, MAX_TICKS = 6, 3, 300
 STOCHASTIC = dict(bg_mu=2.0, bg_sigma=1.5)
@@ -165,3 +168,59 @@ def test_resident_write_rows_rebuilds_the_spec():
     one = bank_from_tables(tables[4:5], names[4:5], max_ticks=MAX_TICKS, **pads)
     with pytest.raises(ValueError, match="src carries"):
         res.write_rows([0, 1], one)
+
+
+def _assert_same_tables(got, want):
+    """Two ``ref.BankTables`` equal element for element, their segment
+    plans entry for entry and step for step."""
+    for name, g, w in zip(want._fields, got, want):
+        if isinstance(w, ref.SegmentPlan):
+            for f in ("src", "dst", "pos"):
+                assert torch.equal(getattr(g, f), getattr(w, f)), (name, f)
+            assert g.steps == w.steps and g.n_segments == w.n_segments, name
+        else:
+            assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+def _tables_through_the_spec(spec):
+    """The tables the spec's own tensors give (the path that built them
+    from device tensors before the host build)."""
+    bare = spec._replace(**{f: None for f in engine.INDEX_TABLE_FIELDS})
+    return engine.with_index_tables(bare).bank_tables
+
+
+def test_spec_tables_built_from_host_rows():
+    """``_bank_spec_uncached`` builds the index tables from the bank's host
+    rows: identical to the tables of the spec's tensors, on a 7-scenario
+    bank and on a resident bank after ``write_rows``."""
+    bank = build_bank(n=7, seed=0)
+    spec = engine._bank_spec_uncached(bank, torch.device("cpu"))
+    _assert_same_tables(spec.bank_tables, _tables_through_the_spec(spec))
+    assert spec.proc_of_leg is spec.bank_tables.proc_of_leg
+    for f in ("leg_proc", "size_mb", "max_ticks"):  # copies, not views of the bank
+        assert getattr(spec, f).data_ptr() != torch.as_tensor(getattr(bank, f)).data_ptr()
+    res = ResidentBank(build_bank(n=7, seed=0), mutable=True, device="cpu")
+    res.spec
+    res.write_rows([2, 5], build_bank(n=2, seed=9, pad_legs=bank.pad_legs,
+                                      pad_procs=bank.pad_procs, pad_links=bank.pad_links))
+    _assert_same_tables(res.spec.bank_tables, _tables_through_the_spec(res.spec))
+    _assert_same_tables(res.spec.bank_tables, ref.bank_index_tables(
+        *(torch.as_tensor(getattr(res.bank, f)) for f in ("leg_proc", "proc_link", "leg_link"))))
+
+
+@pytest.mark.parametrize("leap", [False, True], ids=["tick", "leap"])
+@pytest.mark.parametrize("params_kw", [{}, STOCHASTIC], ids=["default", "stochastic"])
+def test_window_step_with_draw_given(fleet, leap, params_kw):
+    """``window_step(draw=...)`` from the host is bitwise the step that
+    reads ``draw`` from the params."""
+    res = fleet.resident
+    params = fleet.params(**params_kw)
+    draw = bool((np.asarray(params.bg_sigma) > 0).any())
+    assert draw == bool(params_kw)
+    a = b = res.init_carry(params, _keys())
+    for _ in range(3):  # the first windows, every link drawn at t = 0
+        a = res.window_step(params, a, leap=leap, window=4)
+        b = res.window_step(params, b, leap=leap, window=4, draw=draw)
+        for f, x, y in zip(a._fields, a, b):
+            assert torch.equal(x, y), f
+    assert bool(res.live(a).any())
