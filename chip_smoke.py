@@ -127,14 +127,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    of plain values, their shares of it and of the old limit reported; the
    forward there too; then each timed with CUDA events beside its bound,
    the plain version and ``F.scaled_dot_product_attention``'s forward and
-   backward;
-15. llm_train — TinyLlama-1.1B at full width (bf16, random weights from a
-   seed): ``make_train_step`` with the trainer's AdamW on 8 x 2,048 tokens
-   a step from the port's ``TokenStream``, 1 warm-up and 5 timed steps, with
-   tokens/s, losses, grad norms, peak memory, launches per step and one
-   step under ``torch.profiler``; one float32 step at TinyLlama's widths and
-   2 layers on the card against the CPU path; the ``Trainer``'s restart
-   continuity on the card (6 steps straight against 3, a restore, 3 more).
+   backward; then the backward at Hymba-1.5B's attention training shapes
+   (25 / 5 heads, causal and the 1,024 window) to the same limits; the SSD
+   / mLSTM backward (``ops.MlstmChunk``: torch ops, no TPU kernel) on the
+   card against the CPU path (both flags, S 100 and 300, two widths,
+   float32 and bf16), and timed at Hymba's SSD training shapes beside the
+   forward kernel, with its launches and bound;
+15. llm_train — TinyLlama-1.1B and Hymba-1.5B at full width (bf16, random
+   weights from a seed): ``make_train_step`` with the trainer's AdamW on 8
+   x 2,048 tokens a step from the port's ``TokenStream``, 1 warm-up and 5
+   (TinyLlama) or 3 (Hymba) timed steps, with tokens/s, losses, grad norms,
+   peak memory, launches per step held to their counts, and one step under
+   ``torch.profiler`` (Hymba's SSD backward range and its share); one
+   float32 step of 2 layers of each on the card against the CPU path; the
+   ``Trainer``'s restart continuity on the card at both smoke configs (6
+   steps straight against 3, a restore, 3 more).
 
 Then the ``kernels`` line, the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -176,6 +183,7 @@ from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.serve import ServeConfig, SimRequest, SimServer, synthetic_workload  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.models import model as llm  # noqa: E402
+from repro_torch.models.config import BlockKind  # noqa: E402
 from repro_torch.data.tokens import TokenStream, TokenStreamConfig  # noqa: E402
 from repro_torch.train import trainer as llm_trainer  # noqa: E402
 
@@ -872,9 +880,18 @@ def device_rows(prof):
         e, "self_cuda_time_total", 0)
     return sorted(
         ((e.key, dev_us(e), e.count) for e in prof.key_averages()
-         if str(e.device_type).endswith("CUDA") and dev_us(e) > 0),
+         if str(e.device_type).endswith("CUDA") and dev_us(e) > 0
+         and e.key not in ANNOTATIONS),
         key=lambda r: -r[1],
     )
+
+
+def range_device_s(prof, name: str) -> float:
+    """Device seconds of the kernels launched inside the
+    ``torch.profiler.record_function(name)`` ranges of a profile."""
+    total = lambda e: getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+    return max((total(e) for e in prof.key_averages()
+                if e.key == name and not str(e.device_type).endswith("CUDA")), default=0) / 1e6
 
 
 def profile_steps(fn, steps: int, wall_per_step: float) -> dict:
@@ -941,7 +958,7 @@ def timed(fn, reps: int):
     return start.elapsed_time(stop) / reps, out
 
 
-def device_ms(fn, reps: int, tag=None) -> float:
+def device_ms(fn, reps: int, tag=None, counted=None) -> float:
     """The mean device ms a call of ``fn`` over ``reps`` calls after a
     warm-up call: the kernels' time under ``torch.profiler`` (those whose
     name holds ``tag``, or all), without the host's time between launches.
@@ -957,7 +974,8 @@ def device_ms(fn, reps: int, tag=None) -> float:
     count of ``tag``'s kernels that is not a multiple of ``reps`` (each
     call launches the tagged kernel the same number of times), is taken
     again, up to six times (a read step missed launches in three profiles
-    running on an H100 in a row once)."""
+    running on an H100 in a row once). ``counted``, a list, gets the read
+    step's device launches a call."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
@@ -980,6 +998,8 @@ def device_ms(fn, reps: int, tag=None) -> float:
         tagged = [r for r in rows if tag is None or tag in r[0]]
         launches = sum(r[2] for r in tagged)
         if rows and (tag is None or (launches and launches % reps == 0)):
+            if counted is not None:
+                counted.append(launches / reps)
             return sum(r[1] for r in tagged) / 1e3 / reps
         seen.append(launches)
     raise AssertionError(f"torch.profiler recorded no device time, or not every launch of "
@@ -2162,6 +2182,16 @@ TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4, 1e-4
 BF16_U = 2.0 ** -8
 # seeds (q/k/v, dout) of the backward check at TinyLlama's shapes
 TRAIN_BWD_SEEDS = ((21, 22), (31, 32), (41, 42))
+# hymba-1.5b's train step: 1 warm-up and 3 timed steps
+HYMBA_TRAIN_STEPS = 3
+# the SSD backward (ops.MlstmChunk: ref.mlstm_chunk_bwd in torch ops), card
+# against CPU path on the same inputs: (normalize, S, Dk, Dv) at chunk 128,
+# S 100 and 300 (a padded last chunk), float32 and bf16 q, k, v
+SSD_BWD_CASES = tuple((n, S_, dk, dv) for n in (True, False) for S_ in (100, 300)
+                      for dk, dv in ((16, 32), (64, 128)))
+# record_function ranges: the profiler may show each as a device-side row
+# spanning its kernels, which the sums of kernel time must not count again
+ANNOTATIONS = ("mlstm_chunk_bwd",)
 
 
 def bwd_row_limit(want32) -> torch.Tensor:
@@ -2243,6 +2273,100 @@ def check_flash_bwd(label, q, k, v, dout, dtype, **kw) -> dict:
          dead_rows=int(torch.isinf(lse).sum()),
          live_rows=int(torch.isfinite(lse).sum()), **{k_: v_ for k_, v_ in kw.items()})
     return dict(err=max(errs), bf16_share=bf16_share, old_share=old_share)
+
+
+def mlstm_grads(args, dout, chunk, normalize):
+    """``torch.autograd.grad`` through ``ops.mlstm_chunk`` (the
+    ``MlstmChunk`` Function) in all five inputs, against ``dout``."""
+    leaves = [x.detach().clone().requires_grad_() for x in args]
+    out = ops.mlstm_chunk(*leaves, chunk=chunk, normalize=normalize)
+    return torch.autograd.grad(out, leaves, dout)
+
+
+def check_mlstm_bwd(label, args, chunk, normalize) -> float:
+    """The SSD / mLSTM backward on the card against the CPU path on the same
+    inputs (bf16 ``q, k, v`` as the same bf16 values on the CPU) and a fixed
+    ``dout``: the float32 gradients ``ref.mlstm_chunk_bwd`` computes, each
+    within TRAIN_GRAD_TOL of its own max|CPU| (the same float32 function,
+    cuBLAS against MKL); the Function's gradients on each device are those,
+    cast to the inputs' dtypes, bit for bit."""
+    g = torch.Generator().manual_seed(args[0].shape[1] + args[2].shape[-1])
+    dout = torch.randn(args[2].shape, generator=g).to(args[2].dtype)
+    cpu_args = [x.cpu() for x in args]
+    errs = []
+    got = {}
+    for where, xs, d in (("card", args, dout.to(args[0].device)), ("cpu", cpu_args, dout)):
+        grads = mlstm_grads(xs, d, chunk, normalize)
+        f32 = ref.mlstm_chunk_bwd(*xs, d, chunk=chunk, normalize=normalize)
+        for name, x, a, b in zip(("q", "k", "v", "i_gate", "f_gate"), xs, grads, f32):
+            if a.dtype != x.dtype or not torch.equal(a, b.to(x.dtype)):
+                raise AssertionError(f"mlstm bwd {label} d{name} ({where}): the Function's "
+                                     "gradient is not the backward's, cast to the input's dtype")
+        got[where] = f32
+    for name, a, b in zip(("q", "k", "v", "i_gate", "f_gate"), got["card"], got["cpu"]):
+        errs.append(rel_err(f"mlstm bwd {label} d{name} (card vs CPU)", a.cpu(), b,
+                            TRAIN_GRAD_TOL))
+    emit("llm_train_kernels", check="mlstm_chunk backward, card vs CPU path", case=label,
+         dtype=str(args[0].dtype), normalize=normalize, chunk=chunk, q=list(args[0].shape),
+         v=list(args[2].shape), max_rel_err_dq_dk_dv_di_df=errs, tol=TRAIN_GRAD_TOL)
+    return max(errs)
+
+
+def ssd_bwd_timing(hy, dev, max_abs_err: float) -> dict:
+    """The SSD backward (``ref.mlstm_chunk_bwd``, torch ops) at ``hy``'s
+    SSD training shapes (B 8, S 2,048, bf16 q, k, v, normalize False) with
+    CUDA events and profiler device time, its launches a call and its
+    bound, beside the forward kernel and the loop recompute."""
+    B, S, bf = TRAIN_B, TRAIN_S, torch.bfloat16
+    H, Dk, Dv, chunk = hy.n_heads, hy.ssm_state, hy.ssm_expand * hy.d_model // hy.n_heads, 128
+    args = mlstm_case(B, S, H, Dk, Dv, False, bf, seed=13, dev=dev)
+    dout = torch.randn(args[2].shape, generator=torch.Generator().manual_seed(14)).to(dev).to(bf)
+    fwd_ms, _ = timed(lambda: mlstm_chunk.mlstm_chunk_cuda(*args, chunk=chunk, normalize=False), 20)
+    bwd = lambda: ref.mlstm_chunk_bwd(*args, dout, chunk=chunk, normalize=False)
+    bwd_ms, grads = timed(bwd, 5)
+    launches = []
+    bwd_dev_ms = device_ms(bwd, 2, counted=launches)
+    # beside it, autograd through the loop over chunks that the kernel runs
+    # (ref.mlstm_chunk_chunked), the backward's simplest form: the same
+    # gradients, its sums in another order
+    def loop():
+        with torch.enable_grad():
+            xs = [x.detach().float().requires_grad_() for x in args]
+            out = ref.mlstm_chunk_chunked(*xs, chunk=chunk, normalize=False)
+            return torch.autograd.grad(out, xs, dout.float())
+    loop_ms, loop_grads = timed(loop, 5)
+    loop_launches = []
+    loop_dev_ms = device_ms(loop, 2, counted=loop_launches)
+    loop_err = max(rel_err(f"mlstm bwd closed form vs loop d{n}", a, b, TRAIN_GRAD_TOL)
+                   for n, a, b in zip(("q", "k", "v", "i_gate", "f_gate"), grads, loop_grads))
+    del loop_grads
+    fwd_bwd_ms, _ = timed(lambda: mlstm_grads(args, dout, chunk, False), 5)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    bwd()
+    torch.cuda.synchronize()
+    bwd_peak = torch.cuda.max_memory_allocated() - base
+    n_chunks = -(-S // chunk)
+    # the chunked form's float32 operations over the causal half: the
+    # forward (scores and their products with v, the inter-chunk q C, the
+    # state update k^T v), and the backward's two products for each of its
+    # products, all recomputed with it
+    fwd_ops = B * H * n_chunks * 2 * (chunk * chunk // 2 * (Dk + Dv) + 2 * chunk * Dk * Dv)
+    bwd_ops = 3 * fwd_ops
+    bytes_ = nbytes(*args, dout) + nbytes(*args)  # gradients in the inputs' dtypes
+    t_b, t_o = bytes_ / PEAK_BYTES, bwd_ops / PEAK_FP32
+    res = dict(
+        ms=bwd_ms, device_ms=bwd_dev_ms, plain_ms=bwd_ms, bound_ms=max(t_b, t_o) * 1e3,
+        bound_by="bytes" if t_b >= t_o else "operations", library_ms=None,
+        launches_per_call=launches[0], ops=bwd_ops, bytes=bytes_, fwd_kernel_ms=fwd_ms,
+        fwd_bwd_ms=fwd_bwd_ms, peak_extra_gb=bwd_peak / 1e9, max_abs_err=max_abs_err,
+        loop_ms=loop_ms, loop_device_ms=loop_dev_ms, loop_launches_per_call=loop_launches[0],
+        loop_max_rel_err=loop_err)
+    emit("llm_train_kernels", kernel="mlstm_chunk_bwd (torch ops, no TPU kernel)",
+         timing="hymba SSD training shapes", card=smi(), shape=[B, S, H, Dk, Dv], chunk=chunk,
+         plain="itself: ref.mlstm_chunk_bwd", library="none", **res)
+    del args, dout, grads
+    return res
 
 
 def phase_llm_train_kernels(dev) -> dict:
@@ -2339,7 +2463,31 @@ def phase_llm_train_kernels(dev) -> dict:
          library_fwd_bwd_ms=sdpa_fwd_bwd_ms)
     del q, k, v, out, lse, dout, qt, kt, vt, graph
     torch.cuda.synchronize()
+
+    # hymba-1.5b's attention training shapes (25 / 5 heads of 64, group 5),
+    # causal and the 1,024 window, bf16, one seed each, to the same limits
+    hy = configs.get_config(HYMBA)
+    B, Hq, Hkv, D = TRAIN_B, hy.n_heads, hy.n_kv_heads, hy.hd
+    for label, window in (("global", None), ("local", hy.window)):
+        q, k, v = flash_case(B, S, S, Hq, Hkv, D, bf, seed=51, dev=dev)
+        dout = flash_case(B, S, 1, Hq, 1, D, bf, seed=52, dev=dev)[0]
+        r = check_flash_bwd(f"hymba {label}", q, k, v, dout, bf, window=window)
+        err = max(err, r["err"])
+        del q, k, v, dout
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        res[name]["max_abs_err"] = err
     res["flash_attention_fwd"] = dict(max_abs_err=fwd_err, train=train_fwd)
+
+    # the SSD / mLSTM backward (no TPU kernel: ops.MlstmChunk's backward in
+    # torch ops), card against CPU path, float32 and bf16 q, k, v
+    ssd_err = 0.0
+    for dtype in (torch.float32, bf):
+        for normalize, S_, Dk, Dv in SSD_BWD_CASES:
+            args = mlstm_case(2, S_, 3, Dk, Dv, normalize, dtype, seed=S_ + Dv, dev=dev)
+            ssd_err = max(ssd_err, check_mlstm_bwd(f"S={S_} Dk={Dk} Dv={Dv}", args, 128,
+                                                   normalize))
+    res["mlstm_chunk_bwd"] = ssd_bwd_timing(hy, dev, ssd_err)
+    torch.cuda.synchronize()
     return res
 
 
@@ -2347,17 +2495,31 @@ def token_batch(stream, dev) -> dict:
     return {k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
 
 
-def phase_llm_train(dev) -> dict:
-    """TinyLlama-1.1B at full width on the card: the trainer's AdamW through
-    ``make_train_step``, 1 warm-up and 5 timed steps on 8 x 2,048 tokens,
-    each step's launches counted from 0; device time by kernel of one step;
-    one float32 step of 2 layers against the CPU path; the Trainer's
-    restart continuity."""
+def train_launches_want(cfg) -> dict:
+    """Each LLM kernel's launches in one train step of ``cfg``: the flash
+    forward and the SSD kernel once a layer that has them, twice under
+    remat (the backward replays the layer), dq and dk/dv once an attention
+    layer, decode attention never."""
+    kinds = collections.Counter(cfg.layer_kinds)
+    hy = (BlockKind.HYMBA, BlockKind.HYMBA_LOCAL)
+    attn = sum(kinds[k] for k in (BlockKind.ATTN, BlockKind.ATTN_LOCAL) + hy)
+    ssd = sum(kinds[k] for k in (BlockKind.MAMBA,) + hy)
+    fwd = 2 if cfg.remat else 1
+    return {"flash_attention_fwd": fwd * attn, "flash_attention_bwd_dq": attn,
+            "flash_attention_bwd_dkv": attn, "decode_attention": 0, "mlstm_chunk": fwd * ssd}
+
+
+def train_run(arch: str, steps: int, dev) -> dict:
+    """``arch`` at full width (bf16, seeded weights, remat on): the
+    trainer's AdamW through ``make_train_step``, 1 warm-up and ``steps``
+    timed steps of 8 x 2,048 tokens from the port's ``TokenStream``, each
+    step's launches counted from 0 and held to :func:`train_launches_want`;
+    then one step under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = configs.get_config(TINYLLAMA)
+    cfg = configs.get_config(arch)
     B, S = TRAIN_B, TRAIN_S
-    tcfg = llm_trainer.TrainerConfig(total_steps=TRAIN_STEPS + 2)
+    tcfg = llm_trainer.TrainerConfig(total_steps=steps + 2)
     opt = llm_trainer.adamw_config(tcfg)
     stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=S,
                                            global_batch=B, seed=tcfg.seed))
@@ -2373,7 +2535,7 @@ def phase_llm_train(dev) -> dict:
     losses, gnorms, walls, launches = [float(metrics["loss"])], [float(metrics["grad_norm"])], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         batch = token_batch(stream, dev)
         torch.cuda.synchronize()
         reset_counts()
@@ -2381,29 +2543,27 @@ def phase_llm_train(dev) -> dict:
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        launches.append(dict(flash_attention.LAUNCHES))
+        launches.append(llm_counts())
         losses.append(float(metrics["loss"]))
         gnorms.append(float(metrics["grad_norm"]))
     peak = torch.cuda.max_memory_allocated()
     if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
-        raise AssertionError(f"train losses {losses} / grad norms {gnorms} not finite")
-    if int(state["step"]) != TRAIN_STEPS + 1:
-        raise AssertionError(f"train state step {int(state['step'])}")
-    L = cfg.n_layers
-    want = {"flash_attention_fwd": (2 if cfg.remat else 1) * L,
-            "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L}
+        raise AssertionError(f"{arch} train losses {losses} / grad norms {gnorms} not finite")
+    if int(state["step"]) != steps + 1:
+        raise AssertionError(f"{arch} train state step {int(state['step'])}")
+    want = train_launches_want(cfg)
     if any(n != want for n in launches):
-        raise AssertionError(f"launches a step {launches}, expected {want}")
+        raise AssertionError(f"{arch} launches a step {launches}, expected {want}")
     step_s = sum(walls) / len(walls)
-    run = dict(layers=L, params=n_params, batch=B, seq=S, remat=cfg.remat, init_s=init_s,
-               step_s_each=walls, step_s=step_s, tokens_per_s=B * S / step_s,
+    run = dict(arch=arch, layers=cfg.n_layers, params=n_params, batch=B, seq=S, remat=cfg.remat,
+               init_s=init_s, step_s_each=walls, step_s=step_s, tokens_per_s=B * S / step_s,
                losses=losses, grad_norms=gnorms, peak_memory_gb=peak / 1e9,
                launches_per_step=launches[0], launches_total={k: sum(n[k] for n in launches)
                                                               for k in want})
     emit("llm_train", card=smi(), **run)
 
-    # device time by kernel of one step, and the device's busy share of the
-    # unprofiled step wall
+    # device time by kernel of one step, the device's busy share of the
+    # unprofiled step wall, and the SSD backward's range (torch ops)
     batch = token_batch(stream, dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
@@ -2412,57 +2572,73 @@ def phase_llm_train(dev) -> dict:
     rows = device_rows(pr)
     dev_s = sum(r[1] for r in rows) / 1e6
     kern = lambda tag: sum(r[1] for r in rows if tag in r[0]) / 1e6
+    ssd_bwd_s = range_device_s(pr, "mlstm_chunk_bwd")
     run["profile"] = dict(
         device_s=dev_s, wall_s=step_s, busy_share=dev_s / step_s,
         flash_fwd_s=kern("flash_fwd"), flash_bwd_dq_s=kern("flash_bwd_dq"),
-        flash_bwd_dkv_s=kern("flash_bwd_dkv"), device_launches=sum(r[2] for r in rows),
+        flash_bwd_dkv_s=kern("flash_bwd_dkv"), mlstm_kernel_s=kern("mlstm_"),
+        mlstm_chunk_bwd_s=ssd_bwd_s,
+        mlstm_chunk_bwd_share_of_device=ssd_bwd_s / dev_s if dev_s else None,
+        mlstm_chunk_bwd_share_of_step=ssd_bwd_s / step_s,
+        device_launches=sum(r[2] for r in rows),
         top=[[k_[:70], us / 1e6, n] for k_, us, n in rows[:12]])
-    emit("llm_train", profile="train_step", **run["profile"])
+    emit("llm_train", arch=arch, profile="train_step", **run["profile"])
     del net, state, step, metrics, batch
     torch.cuda.empty_cache()
+    return run
 
-    # 1. one float32 train step, the card against the CPU path: TinyLlama's
-    #    widths, 2 layers, 2 x 256 tokens; gradients, then the step's loss
-    #    and grad norm
-    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+
+def card_vs_cpu_step(label: str, cfg2, toks, opt, dev, step: bool = True) -> dict:
+    """One float32 train step of ``cfg2`` on the card against the CPU path
+    (cuBLAS and the kernels against MKL and the plain versions): gradients
+    by name, then the step's loss and grad norm, to TRAIN_*_TOL. With
+    ``step=False`` the loss and grad norm (the gradients' global norm, as
+    the step computes it) come from the gradients' pass, which halves the
+    CPU path's time."""
+    t0 = time.perf_counter()
     cpu_net = llm.init_params(1, cfg2, device="cpu")
     card_net = copy.deepcopy(cpu_net).to(dev)
-    toks = torch.randint(0, cfg.vocab_size, (2, 256), generator=torch.Generator().manual_seed(3))
     on = lambda net_: {"tokens": toks.to(net_.embed.device)}
     card = llm.loss_and_grads(card_net, on(card_net), cfg2)
     cpu = llm.loss_and_grads(cpu_net, on(cpu_net), cfg2)
     loss_err = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
-    grad_errs = {n: rel_err(f"card vs CPU grad {n}", card[2][n].cpu(), g, TRAIN_GRAD_TOL)
+    grad_errs = {n: rel_err(f"{label} card vs CPU grad {n}", card[2][n].cpu(), g, TRAIN_GRAD_TOL)
                  for n, g in cpu[2].items()}
+    norm = lambda grads: float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values())))
+    outs = [(float(card[0]), norm(card[2])), (float(cpu[0]), norm(cpu[2]))]
     del card, cpu
-    outs = []
-    for net_ in (card_net, cpu_net):
-        st = llm.init_train_state(net_, opt)
-        _, m = llm.make_train_step(cfg2, opt)(st, on(net_))
-        outs.append((float(m["loss"]), float(m["grad_norm"])))
+    if step:
+        outs = []
+        for net_ in (card_net, cpu_net):
+            st = llm.init_train_state(net_, opt)
+            _, m = llm.make_train_step(cfg2, opt)(st, on(net_))
+            outs.append((float(m["loss"]), float(m["grad_norm"])))
     step_loss_err = abs(outs[0][0] - outs[1][0]) / abs(outs[1][0])
     gnorm_err = abs(outs[0][1] - outs[1][1]) / abs(outs[1][1])
     if not (loss_err <= TRAIN_LOSS_TOL and step_loss_err <= TRAIN_LOSS_TOL
             and gnorm_err <= TRAIN_GNORM_TOL):
-        raise AssertionError(f"card vs CPU train step: loss {loss_err}, {step_loss_err}, "
+        raise AssertionError(f"{label} card vs CPU train step: loss {loss_err}, {step_loss_err}, "
                              f"grad norm {gnorm_err}")
     worst = max(grad_errs, key=grad_errs.get)
-    emit("llm_train", check="card vs CPU path, one float32 train step", layers=2, batch=2,
-         seq=256, loss_rel_err=max(loss_err, step_loss_err), loss_tol=TRAIN_LOSS_TOL,
-         grad_norm_rel_err=gnorm_err, grad_norm_tol=TRAIN_GNORM_TOL,
+    emit("llm_train", check=f"{label}: card vs CPU path, one float32 train step",
+         layers=cfg2.n_layers, kinds=list(cfg2.layer_kinds), batch=int(toks.shape[0]),
+         seq=int(toks.shape[1]), loss_rel_err=max(loss_err, step_loss_err),
+         loss_tol=TRAIN_LOSS_TOL, grad_norm_rel_err=gnorm_err, grad_norm_tol=TRAIN_GNORM_TOL,
          max_grad_rel_err=grad_errs[worst], worst_grad=worst, grad_tol=TRAIN_GRAD_TOL,
-         grads=len(grad_errs), loss=outs[1][0], grad_norm=outs[1][1])
-    run["card_vs_cpu"] = dict(loss=max(loss_err, step_loss_err), grad_norm=gnorm_err,
-                              grad=grad_errs[worst])
-    del card_net, cpu_net
+         grads=len(grad_errs), loss=outs[1][0], grad_norm=outs[1][1], train_step=step,
+         seconds=time.perf_counter() - t0)
+    return dict(loss=max(loss_err, step_loss_err), grad_norm=gnorm_err, grad=grad_errs[worst],
+                worst_grad=worst)
 
-    # 2. the Trainer on the card at the smoke config: 6 steps straight
-    #    against 3 steps, a checkpoint, a new trainer that restores it, and 3
-    #    more. The same ops on the same values (the checkpoint is bitwise,
-    #    the flash kernels use no atomics), so the losses and weights are
-    #    equal bit for bit
+
+def restart_check(arch: str, dev) -> None:
+    """The Trainer on the card at ``arch``'s smoke config: 6 steps straight
+    against 3 steps, a checkpoint, a new trainer that restores it, and 3
+    more. The same ops on the same values (the checkpoint is bitwise, the
+    kernels use no atomics), so the losses and weights are equal bit for
+    bit."""
     import shutil
-    small = configs.get_smoke_config(TINYLLAMA)
+    small = configs.get_smoke_config(arch)
     root = os.path.join(ROOT, "build", "train_check")
     shutil.rmtree(root, ignore_errors=True)
     kw = dict(seq_len=64, global_batch=2, device=dev)
@@ -2475,13 +2651,37 @@ def phase_llm_train(dev) -> dict:
     weights_equal = all(torch.equal(p, q_) for p, q_ in zip(
         straight["state"]["params"].parameters(), second["state"]["params"].parameters()))
     if resumed != straight["losses"] or second["final_step"] != 6 or not weights_equal:
-        raise AssertionError(f"restart: {resumed} against {straight['losses']}, "
+        raise AssertionError(f"{arch} restart: {resumed} against {straight['losses']}, "
                              f"weights equal {weights_equal}")
-    emit("llm_train", check="Trainer restart on the card", losses_straight=straight["losses"],
-         losses_resumed=resumed, bitwise_losses=True, bitwise_weights=True)
+    emit("llm_train", check=f"Trainer restart on the card, {arch} smoke config",
+         losses_straight=straight["losses"], losses_resumed=resumed, bitwise_losses=True,
+         bitwise_weights=True)
     shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_llm_train(dev) -> dict:
+    """TinyLlama-1.1B and Hymba-1.5B at full width on the card
+    (:func:`train_run`: 5 and 3 timed steps); one float32 step of 2 layers
+    of each against the CPU path (TinyLlama 2 x 256 tokens; Hymba one
+    global and one windowed hybrid layer, 2 x 1,280 tokens, past the window
+    and past S 256); the Trainer's restart continuity at both smoke
+    configs."""
+    runs = {TINYLLAMA: train_run(TINYLLAMA, TRAIN_STEPS, dev),
+            HYMBA: train_run(HYMBA, HYMBA_TRAIN_STEPS, dev)}
+    opt = llm_trainer.adamw_config(llm_trainer.TrainerConfig(total_steps=TRAIN_STEPS + 2))
+    tiny = configs.get_config(TINYLLAMA)
+    toks = torch.randint(0, tiny.vocab_size, (2, 256), generator=torch.Generator().manual_seed(3))
+    runs[TINYLLAMA]["card_vs_cpu"] = card_vs_cpu_step(
+        TINYLLAMA, dataclasses.replace(tiny, n_layers=2, dtype="float32"), toks, opt, dev)
+    hy = configs.get_config(HYMBA)
+    toks = torch.randint(0, hy.vocab_size, (2, 1280), generator=torch.Generator().manual_seed(4))
+    hy2 = dataclasses.replace(hy, n_layers=2, dtype="float32",
+                              block_pattern=(BlockKind.HYMBA, BlockKind.HYMBA_LOCAL))
+    runs[HYMBA]["card_vs_cpu"] = card_vs_cpu_step(HYMBA, hy2, toks, opt, dev, step=False)
+    for arch in (TINYLLAMA, HYMBA):
+        restart_check(arch, dev)
     torch.cuda.synchronize()
-    return run
+    return runs
 
 
 def main() -> int:
@@ -2592,10 +2792,14 @@ def main() -> int:
         t = llm_times[name]
         by_run = {run: n[name] for run, n in serve["launches_by_run"].items()}
         extra = {}
+        if name in ("flash_attention_fwd", "mlstm_chunk"):
+            for arch, n_steps in ((TINYLLAMA, TRAIN_STEPS), (HYMBA, HYMBA_TRAIN_STEPS)):
+                by_run[f"{arch}_train_{n_steps}_steps"] = train[arch]["launches_total"][name]
         if name == "flash_attention_fwd":
-            by_run["train_5_steps"] = train["launches_total"][name]
             extra = {f"{k_}_training_shapes": v_ for k_, v_ in train_times[name]["train"].items()
                      if k_ in ("ms", "bound_ms", "library_ms")}
+        if name == "mlstm_chunk":  # its backward: torch ops, no TPU kernel
+            extra = {"backward_torch_ops": train_times["mlstm_chunk_bwd"]}
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=llm_replaces[name], launches=sum(by_run.values()), launches_by_run=by_run,
@@ -2608,8 +2812,9 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces=f"src/repro/kernels/flash_attention.py:{line}",
-            launches=train["launches_total"][name],
-            launches_by_run={"train_step": train["launches_per_step"][name]},
+            launches=sum(train[a]["launches_total"][name] for a in (TINYLLAMA, HYMBA)),
+            launches_by_run={f"{a}_train_step": train[a]["launches_per_step"][name]
+                             for a in (TINYLLAMA, HYMBA)},
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
         ))

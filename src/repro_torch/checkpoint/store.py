@@ -24,6 +24,12 @@ bf16, so a bf16 leaf is stored as its ``uint16`` bits with ``bfloat16`` in the
 manifest, as the reference stores ``ml_dtypes`` arrays. ``restore(template)``
 puts each leaf on the template leaf's device and dtype: the single-card
 counterpart of the reference's elastic restore.
+
+A checkpoint the reference's store wrote keys its leaves by pytree path
+(``params/decoder/units/b0/attn/wq``, ``opt/.mu/embed``, ``opt/.step``):
+``leaves()`` reads any checkpoint by key, and
+:func:`repro_torch.convert.restore_train_state` maps such a one onto the
+port's train state.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ import logging
 import os
 import shutil
 import threading
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -160,17 +166,34 @@ class CheckpointStore:
                  and os.path.exists(os.path.join(self.directory, d, "_COMPLETE"))]
         return max(steps) if steps else None
 
-    def restore(self, template: Tree, *, step: Optional[int] = None) -> Tuple[Tree, int]:
-        """``(tree, step)``: the checkpoint (default the latest) in the
-        structure of ``template``, each leaf on its template leaf's device
-        and dtype. A module in the template is loaded in place and returned."""
+    def _manifest(self, step: Optional[int]) -> Tuple[str, Dict[str, Any], int]:
+        """``(checkpoint directory, manifest entries by key, step)`` of
+        ``step`` (default the latest)."""
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         ckpt = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(ckpt, "manifest.json")) as f:
-            by_key = {e["key"]: e for e in json.load(f)["leaves"]}
+            return ckpt, {e["key"]: e for e in json.load(f)["leaves"]}, step
+
+    def keys(self, *, step: Optional[int] = None) -> List[str]:
+        """The leaf keys of a checkpoint (default the latest)."""
+        return list(self._manifest(step)[1])
+
+    def leaves(self, *, step: Optional[int] = None) -> Tuple[Dict[str, torch.Tensor], int]:
+        """``({key: leaf}, step)``: every leaf of a checkpoint (default the
+        latest) as a CPU tensor in its stored dtype, whatever tree wrote it
+        (the reference's ``CheckpointStore`` writes the same layout)."""
+        ckpt, by_key, step = self._manifest(step)
+        return {key: _from_storable(np.load(os.path.join(ckpt, e["file"])), e["dtype"])
+                for key, e in by_key.items()}, step
+
+    def restore(self, template: Tree, *, step: Optional[int] = None) -> Tuple[Tree, int]:
+        """``(tree, step)``: the checkpoint (default the latest) in the
+        structure of ``template``, each leaf on its template leaf's device
+        and dtype. A module in the template is loaded in place and returned."""
+        ckpt, by_key, step = self._manifest(step)
 
         def load(key: str, tmpl: torch.Tensor) -> torch.Tensor:
             entry = by_key.get(key)

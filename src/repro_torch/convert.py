@@ -23,7 +23,9 @@ layer ``u * pattern_len + i`` (the tail after). Its cache carries ``pos`` as
 a Python int and one dict per layer. Any tree shaped like the parameters
 (gradients, AdamW moments) crosses as a dict keyed by the port's parameter
 names (:func:`named_from_reference`); :func:`model_params_to_reference`
-takes the port's weights back into the reference's layout.
+takes the port's weights back into the reference's layout. A train state
+the reference's ``Trainer`` checkpointed crosses by
+:func:`restore_train_state`, which the port's ``Trainer`` resumes through.
 """
 from __future__ import annotations
 
@@ -52,6 +54,8 @@ __all__ = [
     "model_params_to_reference",
     "cache_from_reference",
     "cache_to_reference",
+    "train_state_from_reference",
+    "restore_train_state",
 ]
 
 
@@ -105,13 +109,16 @@ def _unstack(
     P = cfg.pattern_len
     for path, arr in _leaves(stack.get("units") or {}):
         i = int(path[0][1:])  # "b{i}"
+        rows = arr if isinstance(arr, torch.Tensor) else np.asarray(arr)
         for u in range(cfg.n_units):
-            yield u * P + i, path[1:], np.asarray(arr)[u]
+            yield u * P + i, path[1:], rows[u]
     for path, arr in _leaves(stack.get("tail") or {}):
         yield cfg.n_units * P + int(path[0][1:]), path[1:], np.asarray(arr)  # "t{i}"
 
 
 def _tensor(a: Any, dev: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(dev)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: through float32, exactly
         return torch.as_tensor(a.astype(np.float32)).to(torch.bfloat16).to(dev)
@@ -207,3 +214,93 @@ def cache_to_reference(cache: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, 
     if U * P < len(per_layer):
         out["tail"] = {f"t{i}": c for i, c in enumerate(per_layer[U * P:])}
     return out
+
+
+# ===========================================================================
+# train state checkpoints written by the reference
+# ===========================================================================
+def _reference_key(name: str, cfg: ModelConfig) -> Tuple[str, bool]:
+    """``(the reference's pytree path of the port's parameter name, whether
+    that leaf is stacked [n_units, ...])``: ``layers.{l}.attn.wq`` is
+    ``decoder/units/b{l % P}/attn/wq`` (or ``decoder/tail/t{i}/...``)."""
+    path = name.split(".")
+    if path[0] != "layers":
+        return "/".join(path), False
+    layer, stacked = int(path[1]), cfg.n_units * cfg.pattern_len
+    head = (f"decoder/units/b{layer % cfg.pattern_len}" if layer < stacked
+            else f"decoder/tail/t{layer - stacked}")
+    return "/".join([head] + path[2:]), layer < stacked
+
+
+def _nest(leaves: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
+    """The leaves under ``prefix/`` as a nested dict, one level a path part."""
+    tree: Dict[str, Any] = {}
+    for key, leaf in leaves.items():
+        if key.startswith(prefix + "/"):
+            *parts, last = key[len(prefix) + 1:].split("/")
+            node = tree
+            for part in parts:
+                node = node.setdefault(part, {})
+            node[last] = leaf
+    return tree
+
+
+def train_state_from_reference(leaves: Mapping[str, torch.Tensor], state: Dict[str, Any],
+                               cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's train state from the leaves of a checkpoint that the
+    reference's ``CheckpointStore`` wrote of its train state (keys its
+    pytree paths: ``params/...``, ``opt/.step``, ``opt/.mu/...``,
+    ``opt/.nu/...``, ``step``), held to the template ``state``
+    (``init_train_state``'s): the weights through
+    :func:`model_params_from_reference`, AdamW's moments through
+    :func:`named_from_reference`, the steps as they are, on the template's
+    device.
+
+    Every key the template needs must be there with its shape and dtype
+    (a stacked leaf ``[n_units, ...]``), and no other key may be, or a
+    ``KeyError`` / ``ValueError`` names the key: nothing is filled in or cast.
+    The one exception is ``grad_error/...`` (a compressing run's error
+    feedback), which the template holds none of and which the reference's
+    own restore leaves out too."""
+    net = state["params"]
+    dev = net.embed.device
+    want = {"step": ((), state["step"].dtype), "opt/.step": ((), state["opt"].step.dtype)}
+    for name, p in net.named_parameters():
+        key, stacked = _reference_key(name, cfg)
+        shape = ((cfg.n_units,) if stacked else ()) + tuple(p.shape)
+        want["params/" + key] = (shape, p.dtype)
+        for moment in ("mu", "nu"):
+            want[f"opt/.{moment}/{key}"] = (shape, getattr(state["opt"], moment)[name].dtype)
+    missing = sorted(set(want) - set(leaves))
+    if missing:
+        raise KeyError(f"reference checkpoint lacks leaf {missing[0]!r} "
+                       f"({len(missing)} missing)")
+    extra = sorted(k for k in set(leaves) - set(want) if not k.startswith("grad_error/"))
+    if extra:
+        raise KeyError(f"reference checkpoint has leaf {extra[0]!r}, which the port's "
+                       f"{cfg.name} train state does not hold ({len(extra)} such)")
+    for key, (shape, dtype) in want.items():
+        leaf = leaves[key]
+        if tuple(leaf.shape) != shape or leaf.dtype != dtype:
+            raise ValueError(f"reference checkpoint leaf {key!r} is {leaf.dtype} "
+                             f"{tuple(leaf.shape)}, the port's state wants {dtype} {shape}")
+    opt = state["opt"]._replace(
+        step=leaves["opt/.step"].to(dev),
+        mu=named_from_reference(_nest(leaves, "opt/.mu"), cfg, dev),
+        nu=named_from_reference(_nest(leaves, "opt/.nu"), cfg, dev),
+    )
+    return {"params": model_params_from_reference(_nest(leaves, "params"), cfg, dev),
+            "opt": opt, "step": leaves["step"].to(dev)}
+
+
+def restore_train_state(store: Any, state: Dict[str, Any],
+                        cfg: ModelConfig) -> Tuple[Dict[str, Any], int]:
+    """``(state, step)`` from the newest checkpoint of ``store`` (a
+    :class:`~repro_torch.checkpoint.CheckpointStore`): one the port wrote
+    through ``store.restore`` into the template ``state``, one the
+    reference's ``CheckpointStore`` wrote (recognised by its pytree paths,
+    ``params/decoder/...``) through :func:`train_state_from_reference`."""
+    if not any(k.startswith("params/decoder/") for k in store.keys()):
+        return store.restore(state)
+    leaves, step = store.leaves()
+    return train_state_from_reference(leaves, state, cfg), step

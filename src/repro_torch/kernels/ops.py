@@ -15,9 +15,17 @@ its forward is the dispatch above and saves ``(q, k, v, out, lse)``, its
 backward the plain :func:`ref.flash_attention_bwd` on a CPU tensor and the
 dq and dk/dv kernels on a CUDA tensor, as the reference's custom VJP
 ``flash_attention_pallas`` runs its two Pallas backward kernels.
-:func:`decode_attention` and :func:`mlstm_chunk` have no backward kernel yet
-(ROADMAP A.12): on a CUDA tensor they raise when grad mode is on and an input
-requires grad, rather than return an output cut from the graph.
+:func:`decode_attention` has no backward kernel yet (ROADMAP A.12): on a CUDA
+tensor it raises when grad mode is on and an input requires grad, rather
+than return an output cut from the graph.
+
+:func:`mlstm_chunk` is differentiable through :class:`MlstmChunk`, whose
+forward is the dispatch above and whose backward,
+:func:`ref.mlstm_chunk_bwd`, is written in torch ops and runs on both
+devices: the VJP of the chunked form the kernel computes. No TPU kernel
+computes this gradient either: the reference's ``mlstm_chunk_pallas`` has no
+``custom_vjp``, and its training path differentiates the plain cell by XLA
+autodiff. So the backward is not a fallback from a kernel; none exists.
 
 :func:`selu_mlp` is differentiable through :class:`SeluMLP`, whose forward
 is that dispatch and whose backward is written in torch ops (``torch.matmul``
@@ -51,6 +59,7 @@ __all__ = [
     "FlashAttention",
     "decode_attention",
     "mlstm_chunk",
+    "MlstmChunk",
 ]
 
 
@@ -477,7 +486,7 @@ def _no_backward(name: str, *xs: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
         raise NotImplementedError(
             f"{name}: the CUDA kernel has no backward yet (ROADMAP A.12: the "
-            "SSD / mLSTM and decode training paths); run it under torch.no_grad() "
+            "decode training path); run it under torch.no_grad() "
             "or on inputs that do not require grad"
         )
 
@@ -509,6 +518,57 @@ def decode_attention(
     )
 
 
+def _mlstm_chunk_forward(q, k, v, i_gate, f_gate, *, chunk, eps, normalize, scale):
+    if _device_kind(q) == "cpu":
+        if q.shape[1] <= 256:
+            return ref.mlstm_chunk(
+                q, k, v, i_gate, f_gate, eps=eps, normalize=normalize, scale=scale
+            )
+        return ref.mlstm_chunk_chunked(
+            q, k, v, i_gate, f_gate, chunk=chunk, eps=eps, normalize=normalize, scale=scale
+        )
+    from repro_torch.kernels import mlstm_chunk as _k
+
+    f32 = torch.float32
+    return _k.mlstm_chunk_cuda(
+        q.contiguous(), k.to(q.dtype).contiguous(), v.to(q.dtype).contiguous(),
+        i_gate.to(f32).contiguous(), f_gate.to(f32).contiguous(),
+        chunk=chunk, eps=eps, normalize=normalize, scale=scale,
+    )
+
+
+class MlstmChunk(torch.autograd.Function):
+    """:func:`mlstm_chunk` with a backward: inputs ``(q, k, v, i_gate,
+    f_gate, chunk, eps, normalize, scale)``, output ``[B, S, H, Dv]``.
+
+    The forward is the dispatch by device and saves its five tensor inputs
+    when one of them needs a gradient. The backward is
+    :func:`ref.mlstm_chunk_bwd` on either device (plain torch ops: cuBLAS
+    products on the card, inside a ``mlstm_chunk_bwd`` profiler range), the
+    VJP of the float32 chunked cell at the saved inputs; gradients come back
+    in the inputs' dtypes (bf16 ``q, k, v`` on the card at full width,
+    float32 gates). It does not model the bf16 kernel's rounding of its
+    operands (:func:`ref.mlstm_chunk_tc`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i_gate, f_gate, chunk, eps, normalize, scale):
+        kw = dict(chunk=chunk, eps=eps, normalize=normalize, scale=scale)
+        out = _mlstm_chunk_forward(q, k, v, i_gate, f_gate, **kw)
+        if any(ctx.needs_input_grad[:5]):
+            ctx.save_for_backward(q, k, v, i_gate, f_gate)
+            ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        inputs = ctx.saved_tensors
+        with torch.profiler.record_function("mlstm_chunk_bwd"):
+            grads = ref.mlstm_chunk_bwd(*inputs, dout, **ctx.kw)
+        return (*(g.to(x.dtype) if want else None
+                  for g, x, want in zip(grads, inputs, ctx.needs_input_grad)),
+                None, None, None, None)
+
+
 def mlstm_chunk(
     q: torch.Tensor,  # [B, S, H, Dk]
     k: torch.Tensor,  # [B, S, H, Dk]
@@ -524,7 +584,9 @@ def mlstm_chunk(
     """The chunkwise mLSTM (``normalize=True``) or SSD (``False``) cell:
     ``[B, S, H, Dv]``. On a CPU tensor the plain version in the form the
     reference's CPU path takes (the parallel form up to ``S = 256``, the
-    chunked recurrence above); on a CUDA tensor the mLSTM kernel."""
+    chunked recurrence above); on a CUDA tensor the mLSTM kernel.
+    Differentiable in all five inputs through :class:`MlstmChunk` either
+    way."""
     if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 or v.shape[:3] != q.shape[:3]:
         raise ValueError(
             f"mlstm_chunk: q, k must be [B, S, H, Dk] and v [B, S, H, Dv]: "
@@ -535,20 +597,4 @@ def mlstm_chunk(
             f"mlstm_chunk: gates must be [B, S, H] = {tuple(q.shape[:3])}: "
             f"{tuple(i_gate.shape)}, {tuple(f_gate.shape)}"
         )
-    if _device_kind(q) == "cpu":
-        if q.shape[1] <= 256:
-            return ref.mlstm_chunk(
-                q, k, v, i_gate, f_gate, eps=eps, normalize=normalize, scale=scale
-            )
-        return ref.mlstm_chunk_chunked(
-            q, k, v, i_gate, f_gate, chunk=chunk, eps=eps, normalize=normalize, scale=scale
-        )
-    _no_backward("mlstm_chunk", q, k, v, i_gate, f_gate)
-    from repro_torch.kernels import mlstm_chunk as _k
-
-    f32 = torch.float32
-    return _k.mlstm_chunk_cuda(
-        q.contiguous(), k.to(q.dtype).contiguous(), v.to(q.dtype).contiguous(),
-        i_gate.to(f32).contiguous(), f_gate.to(f32).contiguous(),
-        chunk=chunk, eps=eps, normalize=normalize, scale=scale,
-    )
+    return MlstmChunk.apply(q, k, v, i_gate, f_gate, chunk, eps, normalize, scale)

@@ -46,6 +46,7 @@ __all__ = [
     "decode_attention",
     "mlstm_chunk",
     "mlstm_chunk_chunked",
+    "mlstm_chunk_bwd",
     "mlstm_chunk_tc",
 ]
 
@@ -872,6 +873,85 @@ def mlstm_chunk_chunked(
     0 (no decay)."""
     return _mlstm_chunked(q, k, v, i_gate, f_gate, chunk=chunk, eps=eps,
                           normalize=normalize, scale=scale, round_to=None)
+
+
+def mlstm_chunk_bwd(
+    q: torch.Tensor,  # [B, S, H, Dk]
+    k: torch.Tensor,
+    v: torch.Tensor,  # [B, S, H, Dv]
+    i_gate: torch.Tensor,  # [B, S, H]
+    f_gate: torch.Tensor,  # [B, S, H]
+    dout: torch.Tensor,  # [B, S, H, Dv]
+    *,
+    chunk: int = 128,
+    eps: float = 1e-6,
+    normalize: bool = True,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """The VJP of the chunked cell (:func:`mlstm_chunk_chunked`, the form
+    the CUDA kernel computes) at these inputs against ``dout``: ``(dq, dk,
+    dv, di, df)`` in float32.
+
+    The chunked form is recomputed under ``torch.enable_grad()`` on detached
+    float32 copies of the inputs and differentiated by
+    ``torch.autograd.grad``: the reference differentiates its plain cell by
+    XLA autodiff in the same way (its Pallas kernel has no backward). bf16
+    inputs are read as the float32 values they hold, so this is the
+    gradient of the float32 cell at those values; the bf16 kernel's own
+    rounding (:func:`mlstm_chunk_tc`) is not modelled.
+
+    For SSD (``normalize=False``, hymba's heads) the recompute takes every
+    chunk at once (:func:`_ssd_chunked`): the chunk-to-chunk state
+    recurrence in closed form, some 100 launches where the loop over chunks
+    of :func:`mlstm_chunk_chunked` takes ~1,600 on the card; the same
+    function, its sums in another order."""
+    f32 = torch.float32
+    with torch.enable_grad():
+        xs = [x.detach().to(f32).requires_grad_() for x in (q, k, v, i_gate, f_gate)]
+        if normalize:
+            out = _mlstm_chunked(*xs, chunk=chunk, eps=eps, normalize=True, scale=scale,
+                                 round_to=None)
+        else:
+            out = _ssd_chunked(*xs, chunk=chunk, scale=scale)
+        return torch.autograd.grad(out, xs, dout.to(f32))
+
+
+def _ssd_chunked(q, k, v, log_inject, log_decay, *, chunk, scale):
+    """The SSD cell (``normalize=False``) in float32 by the chunked form,
+    every chunk at once: inside a chunk as :func:`_mlstm_chunked`; the state
+    entering chunk ``c`` is ``sum over c' < c of exp(P[c, c']) k_c'^T v_c'``
+    (each chunk's own ``kw^T v``, ``kw = k exp(f_end - F + i)``), with
+    ``P[c, c']`` the log-decays of the chunks strictly between, summed as
+    one masked product (so each is a sum over its own chunks only)."""
+    B, S, H, Dk = q.shape
+    Dv = v.shape[-1]
+    if scale is None:
+        scale = 1.0
+    n_chunks = -(-S // chunk)
+    pad = n_chunks * chunk - S
+
+    def chunked(x, value=0.0):  # [B, S, H, *] -> [B, H, n, c, *]
+        x = F.pad(x, (0, 0, 0, 0, 0, pad), value=value) if pad else x
+        return x.transpose(1, 2).reshape(B, H, n_chunks, chunk, -1)
+
+    qf, kf, vf = chunked(q * scale), chunked(k), chunked(v)
+    li = chunked(log_inject[..., None], _NEG)[..., 0]  # [B, H, n, c]
+    Fc = torch.cumsum(chunked(log_decay[..., None], 0.0)[..., 0], dim=-1)
+    f_end = Fc[..., -1]  # [B, H, n]
+    dev = q.device
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dev))
+    dmat = (Fc[..., :, None] - Fc[..., None, :] + li[..., None, :]).masked_fill(~causal, _NEG)
+    s_intra = (qf @ kf.transpose(-1, -2)) * torch.exp(dmat)
+    kw = kf * torch.exp(f_end[..., None] - Fc + li)[..., None]
+    own = kw.transpose(-1, -2) @ vf  # [B, H, n, Dk, Dv]
+    c = torch.arange(n_chunks, device=dev)
+    between = (c[None, :, None] < c[None, None, :]) & (c[None, None, :] < c[:, None, None])
+    P = torch.einsum("bhk,cdk->bhcd", f_end, between.to(f_end.dtype))  # [B, H, c, c']
+    decay = torch.exp(P.masked_fill(~(c[None, :] < c[:, None]), _NEG))
+    C = torch.einsum("bhcd,bhdkv->bhckv", decay, own)  # state entering each chunk
+    out = s_intra @ vf + torch.exp(Fc)[..., None] * (qf @ C)
+    out = out.reshape(B, H, n_chunks * chunk, Dv)[:, :, :S]
+    return out.transpose(1, 2)
 
 
 def mlstm_chunk_tc(

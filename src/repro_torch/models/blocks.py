@@ -262,15 +262,25 @@ class Mamba(nn.Module):
         y = rms_norm(y, self.gn_scale, self.cfg.norm_eps)
         return (y * F.silu(z)) @ self.w_out
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
-        """SSD heads over a whole sequence ``x [B, S, d]`` on the chunkwise
-        kernel (``normalize=False``, unit scale): ``(y [B, S, d], state at
-        its end)``, the state in closed form."""
+    def _heads(self, x: torch.Tensor):
+        """``(y [B, S, d], (k, v, log_inject, log_decay))`` of the heads over
+        ``x [B, S, d]`` on the chunkwise cell (``normalize=False``, unit
+        scale)."""
         B, S, _ = x.shape
         _, z, kb, qc, vv, li, lf = self.project(x)
         y = ops.mlstm_chunk(qc, kb, vv, li, lf, normalize=False, scale=1.0)
-        state = final_linear_state(kb, vv, li, lf, normalize=False)
-        return self.finish(y.reshape(B, S, -1), z), state
+        return self.finish(y.reshape(B, S, -1), z), (kb, vv, li, lf)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """SSD heads over a whole sequence ``x [B, S, d]``: ``y [B, S, d]``
+        (the reference's ``mamba_forward``; training computes no state)."""
+        return self._heads(x)[0]
+
+    def prefill(self, x: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+        """:meth:`forward` and the state at the sequence's end, in closed
+        form: ``(y [B, S, d], state)``, for a prompt's cache."""
+        y, (kb, vv, li, lf) = self._heads(x)
+        return y, final_linear_state(kb, vv, li, lf, normalize=False)
 
     def decode(self, x: torch.Tensor, cache: Cache) -> Tuple[torch.Tensor, Cache]:
         """One token ``x [B, d]``: ``(y [B, d], new state)``."""

@@ -24,10 +24,9 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.core.engine import DeviceLike, resolve_device
-from repro_torch.models import blocks
 from repro_torch.models import transformer as T
 from repro_torch.models.common import cross_entropy_loss
-from repro_torch.models.config import BlockKind, ModelConfig
+from repro_torch.models.config import ModelConfig
 from repro_torch.train.optimizer import (
     AdamWConfig,
     adamw_init,
@@ -116,16 +115,6 @@ def init_train_state(params: T.Transformer, opt_cfg: AdamWConfig) -> State:
     }
 
 
-def _check_trainable(cfg: ModelConfig) -> None:
-    """SSD heads run the mLSTM kernel, which has no backward yet: such a
-    config does not train, on any device."""
-    ssd = {BlockKind.MAMBA, BlockKind.HYMBA, BlockKind.HYMBA_LOCAL} & set(cfg.layer_kinds)
-    if ssd:
-        raise blocks.unported(
-            f"training through SSD heads (block kinds {sorted(ssd)}: the mLSTM / SSD "
-            "kernel's backward)")
-
-
 def make_train_step(
     cfg: ModelConfig,
     opt_cfg: AdamWConfig,
@@ -144,7 +133,6 @@ def make_train_step(
     the module's parameters in place (under ``torch.no_grad()``), so the
     state's module keeps its identity from step to step.
     """
-    _check_trainable(cfg)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 

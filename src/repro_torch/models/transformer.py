@@ -20,9 +20,10 @@ return it.
 
 :func:`forward` is the training forward, ``(logits [B, S, V], aux)``; under
 ``cfg.remat`` each layer runs inside ``torch.utils.checkpoint`` (the
-reference's ``jax.checkpoint`` of its scanned unit, whose unit is one layer
-for the single-kind patterns the port trains), so its activations are
-recomputed in the backward instead of kept.
+reference's ``jax.checkpoint`` of its scanned unit, a whole pattern of
+layers: the port checkpoints each layer of it, which recomputes the same
+values), so its activations are recomputed in the backward instead of kept.
+The SSD state at a sequence's end is computed by prefill only.
 """
 from __future__ import annotations
 
@@ -162,6 +163,15 @@ def _write_kv(cache: Cache, k: torch.Tensor, v: torch.Tensor) -> None:
         cache["v"].copy_(torch.roll(v[:, S - size:], shifts=shift, dims=1))
 
 
+def _ssd(layer: Layer, h: torch.Tensor, c: Optional[Cache]) -> torch.Tensor:
+    """The layer's SSD heads over the sequence; with a cache (prefill) their
+    state at its end goes to ``c["ssm"]``, and only then is it computed."""
+    if c is None:
+        return layer.mamba(h)
+    y, c["ssm"] = layer.mamba.prefill(h)
+    return y
+
+
 def _block(layer: Layer, x: torch.Tensor, tables, c: Optional[Cache] = None) -> torch.Tensor:
     """One layer over a whole sequence; with a cache ``c`` (prefill) its
     keys, values and SSD state go there."""
@@ -172,12 +182,9 @@ def _block(layer: Layer, x: torch.Tensor, tables, c: Optional[Cache] = None) -> 
         if c is not None:
             _write_kv(c["kv"], k, v)
         if layer.kind in _HYMBA:
-            s_out, state = layer.mamba(h)
-            a = 0.5 * (a + s_out)
+            a = 0.5 * (a + _ssd(layer, h, c))
     else:  # MAMBA
-        a, state = layer.mamba(h)
-    if c is not None and layer.kind in _HYMBA + (BlockKind.MAMBA,):
-        c["ssm"] = state
+        a = _ssd(layer, h, c)
     x = x + a
     return x + layer.mlp(rms_norm(x, layer.norm2, cfg.norm_eps))
 

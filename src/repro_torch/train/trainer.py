@@ -4,7 +4,8 @@ The port of the reference package's ``repro.train.trainer``:
 
 - checkpoint/restart: periodic async checkpoints
   (:class:`~repro_torch.checkpoint.CheckpointStore`); on start, the latest
-  committed step is restored;
+  committed step is restored, whether the port or the reference's trainer
+  wrote it (:func:`repro_torch.convert.restore_train_state`);
 - deterministic data resume: the token stream is a pure function of the
   step index, so a restart replays the exact order with no state files;
 - straggler detection: a per-step wall-time EMA; steps slower than
@@ -24,6 +25,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.checkpoint import CheckpointStore
+from repro_torch.convert import restore_train_state
 from repro_torch.core.engine import DeviceLike, resolve_device
 from repro_torch.data.tokens import TokenStream, TokenStreamConfig
 from repro_torch.models import model as M
@@ -117,7 +119,7 @@ class Trainer:
         params = M.init_params(self.tcfg.seed, self.cfg, device=self.device)
         state = M.init_train_state(params, self.opt_cfg)
         if self.store.latest_step() is not None:
-            state, step = self.store.restore(state)
+            state, step = restore_train_state(self.store, state, self.cfg)
             log.info("restored checkpoint at step %d", step)
         return state
 

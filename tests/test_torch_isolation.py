@@ -47,3 +47,15 @@ def test_sources_import_no_jax_or_reference():
     for path in files:
         found = IMPORT.findall(path.read_text())
         assert not found, f"{path.relative_to(ROOT)} imports {found}"
+
+
+def test_port_parses_as_python_3_10():
+    """CI's tier-1 job runs Python 3.10: the port's sources, its tests and
+    ``chip_smoke.py`` parse under that grammar."""
+    import ast
+
+    files = (sorted(PORT.rglob("*.py")) + sorted((ROOT / "tests").glob("test_torch_*.py"))
+             + [ROOT / "chip_smoke.py"])
+    assert len(files) > 30
+    for path in files:
+        ast.parse(path.read_text(), filename=str(path), feature_version=(3, 10))

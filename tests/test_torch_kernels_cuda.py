@@ -49,8 +49,10 @@ binade of the row's max|plain| widened by both (each side rounds its
 float32 result once, to nearest).
 The decode kernel splits the cache over blocks and merges their partials
 in split order in the same launch: one launch a call, the same bits from
-call to call. The decode and mLSTM kernels have no backward: on the card
-they raise when an input requires grad."""
+call to call. The decode kernel has no backward: on the card it raises
+when an input requires grad. The mLSTM kernel's gradient is
+``ops.MlstmChunk``'s backward in torch ops, held on the card to the CPU
+path's within 1e-4 of each gradient's max."""
 import pytest
 import torch
 
@@ -759,8 +761,39 @@ def test_kernels_without_backward_raise_under_grad():
         ops.decode_attention(q, kc, kc, lengths)
     with torch.no_grad():
         ops.decode_attention(q, kc, kc, lengths)
-    x = _randn(g, 1, 16, 2, 8, dtype=torch.float32)
-    gates = _randn(g, 1, 16, 2, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="A.12"):
-        ops.mlstm_chunk(x, x, x.clone().requires_grad_(), gates, gates, normalize=False)
-    ops.mlstm_chunk(x, x, x, gates, gates, normalize=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("normalize,S,Dk,Dv", [
+    (True, 100, 16, 32), (True, 300, 64, 128), (False, 100, 64, 128), (False, 300, 16, 32),
+])
+def test_mlstm_backward_on_card_matches_cpu(normalize, S, Dk, Dv, dtype):
+    """``ops.mlstm_chunk`` differentiates on the card (the forward kernel
+    launches once, the backward is ``ref.mlstm_chunk_bwd`` in torch ops):
+    its gradients are the backward's float32 ones cast to the inputs'
+    dtypes, and those are within 1e-4 of each gradient's max on the CPU
+    path on the same inputs (the same float32 function, cuBLAS against
+    MKL)."""
+    _need_cuda()
+    g = torch.Generator().manual_seed(S + Dv)
+    q, k = _randn(g, 2, S, 3, Dk, dtype=dtype), _randn(g, 2, S, 3, Dk, dtype=dtype)
+    v = _randn(g, 2, S, 3, Dv, dtype=dtype)
+    dt = torch.nn.functional.softplus(torch.randn(2, S, 3, generator=g) - 2.0)
+    if normalize:
+        ig, fg = torch.randn(2, S, 3, generator=g), torch.randn(2, S, 3, generator=g) + 3.0
+    else:
+        ig, fg = torch.log(dt + 1e-9), -dt
+    dout = _randn(g, 2, S, 3, Dv, dtype=dtype)
+    args = (q, k, v, ig.to("cuda"), fg.to("cuda"))
+    grads = {}
+    for where, xs, d in (("cuda", args, dout), ("cpu", [x.cpu() for x in args], dout.cpu())):
+        leaves = [x.clone().requires_grad_() for x in xs]
+        before = mlstm_chunk.LAUNCHES["mlstm_chunk"]
+        got = torch.autograd.grad(ops.mlstm_chunk(*leaves, normalize=normalize), leaves, d)
+        assert mlstm_chunk.LAUNCHES["mlstm_chunk"] == before + (where == "cuda")
+        f32 = ref.mlstm_chunk_bwd(*xs, d, normalize=normalize)
+        for x, a, b in zip(xs, got, f32):
+            assert a.dtype == x.dtype and torch.equal(a, b.to(x.dtype))
+        grads[where] = f32
+    for name, a, b in zip(("q", "k", "v", "i_gate", "f_gate"), grads["cuda"], grads["cpu"]):
+        assert _rel_err(a.cpu(), b) <= 1e-4, name

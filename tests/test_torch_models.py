@@ -178,7 +178,7 @@ def test_blocks_match_reference_blocks():
     tables = net.rope_tables(torch.arange(S))
     with torch.no_grad():  # the parameters are trainable; compare values only
         got, _, _ = layer.attn(xt, tables[False], window=cfg.window)
-        got_mamba, got_mlp = layer.mamba(xt)[0], layer.mlp(xt)
+        got_mamba, got_mlp = layer.mamba(xt), layer.mlp(xt)
     want = ref_blocks.attention_forward(unit["attn"], x, cfg_ref, positions=pos, window=cfg.window)
     assert _max_err(got, want) <= ATOL
     cos, sin = ref_rope(jnp.asarray(pos), cfg.hd, cfg.rope_theta)

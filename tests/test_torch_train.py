@@ -197,14 +197,6 @@ def test_train_steps_match_reference(grad_accum, compress):
     assert off <= 1e-4 * sum(a.size for a in got)
 
 
-def test_train_step_refuses_ssd_heads():
-    """hymba's SSD heads run the mLSTM kernel, which has no backward: no
-    train step, on the CPU as on the card."""
-    cfg = configs.get_smoke_config("hymba-1.5b")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
-        model.make_train_step(cfg, AdamWConfig())
-
-
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "hymba-1.5b"])
 def test_serving_records_no_graph(arch):
     """Every parameter requires grad, yet prefill and decode return outputs

@@ -151,16 +151,17 @@ def test_trainer_restart_continues_the_run(tmp_path):
         assert torch.equal(p, q), name
 
 
-def test_launcher_runs_on_the_cpu(tmp_path):
+@pytest.mark.parametrize("arch", [ARCH, "hymba-1.5b"])
+def test_launcher_runs_on_the_cpu(tmp_path, arch):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH, "--smoke",
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--smoke",
          "--device", "cpu", "--steps", "4", "--batch", "2", "--seq", "32",
          "--checkpoint-dir", str(tmp_path), "--checkpoint-every", "2"],
         env=env, capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
     summary = json.loads(out.stdout)
-    assert summary["arch"] == ARCH and summary["final_step"] == 4
+    assert summary["arch"] == arch and summary["final_step"] == 4
     assert np.isfinite([summary["first_loss"], summary["final_loss"]]).all()
-    assert (tmp_path / ARCH / "latest").read_text() == "step_00000004"
+    assert (tmp_path / arch / "latest").read_text() == "step_00000004"
