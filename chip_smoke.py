@@ -118,6 +118,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    and device time by kernel under ``torch.profiler``; decode against
    prefill on the card, and the card against the CPU path in float32 (one
    pattern unit of 8 layers, 2 x 1,280 tokens, 8 decode steps);
+13b. llm_xlstm — xlstm-350m's serving path: the Dk-tiled mLSTM kernel
+   (``mlstm_chunk_tiled_kernel``, every call past Dk 64) against
+   ``ref.mlstm_chunk_chunked`` at Dk 80 and 512 (both flags, float32 and
+   bf16, S off the chunk), then at the prefill's shape (B 8, S 2,048, H 4,
+   Dk = Dv = 512, bf16) timed by CUDA events and device time beside its
+   bound, its float32 floor and the plain version, with registers, blocks
+   an SM and waves; a float32 xLSTM of one mLSTM and one sLSTM layer at
+   full width on the card against the CPU path (2 x 256 tokens, 8 decode
+   steps; logits and every cache leaf); xlstm-350m at full width (bf16,
+   random weights from a seed): 8 x 2,048 prompt tokens and 64 greedy
+   decode steps, tokens/s, peak memory, launches per run (21 tiled
+   launches a prefill, 0 a decode step, no attention), the sLSTM loops'
+   share of a prefill's wall, device busy share of a prefill and a decode
+   step under ``torch.profiler``; decode against prefill: layer by layer on
+   the same inputs in float32 (held to its limit), end to end in float32
+   and bf16 (reported, bf16 as a share of its limit, beside the float32
+   prefill's response to a 1e-7 perturbation of the embedding);
 14. llm_train_kernels — the flash-attention backward kernels (dq, dk/dv)
    against their plain version on ragged cases (GQA groups of 1, 2 and 8, a
    window, ``q_offset``, dead rows beside live ones, an odd head dim,
@@ -183,6 +200,7 @@ from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.serve import ServeConfig, SimRequest, SimServer, synthetic_workload  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.models import model as llm  # noqa: E402
+from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.models.config import BlockKind  # noqa: E402
 from repro_torch.data.tokens import TokenStream, TokenStreamConfig  # noqa: E402
 from repro_torch.train import trainer as llm_trainer  # noqa: E402
@@ -1765,22 +1783,38 @@ def mlstm_model_share(out, model) -> float:
     return float(((g - m).abs() / limit).max())
 
 
-def check_mlstm(label, args, dtype, chunk, normalize) -> float:
+def check_mlstm(label, args, dtype, chunk, normalize, phase="llm_kernels", abs_errs=None) -> float:
+    """The mLSTM kernel against ``ref.mlstm_chunk_chunked`` on the same
+    inputs: its max relative error (returned) within MLSTM_TOL_F32 or
+    LLM_TOL; ``abs_errs``, a list, gets the max absolute error."""
     out = mlstm_chunk.mlstm_chunk_cuda(*args, chunk=chunk, normalize=normalize)
     want = ref.mlstm_chunk_chunked(*args, chunk=chunk, normalize=normalize)
     tol = MLSTM_TOL_F32 if dtype == torch.float32 else LLM_TOL[dtype]
     err = rel_err(f"mlstm {label}", out, want, tol)
-    mma = mlstm_chunk.uses_mma(dtype, normalize, chunk)
+    abs_err = float((out.double() - want.double()).abs().max())
+    if abs_errs is not None:
+        abs_errs.append(abs_err)
+    Dk = args[0].shape[-1]
+    mma = mlstm_chunk.uses_mma(dtype, normalize, chunk, Dk)
     extra = {}
     if mma:
         share = mlstm_model_share(out, ref.mlstm_chunk_tc(*args, chunk=chunk))
         if not share <= 1.0:
             raise AssertionError(f"mlstm {label}: {share} of the rounding model's limit")
         extra = dict(model_limit_share=share)
-    emit("llm_kernels", kernel="mlstm_chunk", case=label, dtype=str(dtype), normalize=normalize,
-         chunk=chunk, q=list(args[0].shape), v=list(args[2].shape), max_rel_err=err, tol=tol,
+    tiled = mlstm_chunk.uses_tiled(Dk)
+    emit(phase, kernel="mlstm_chunk_tiled" if tiled else "mlstm_chunk", case=label,
+         dtype=str(dtype), normalize=normalize, chunk=chunk, q=list(args[0].shape),
+         v=list(args[2].shape), max_rel_err=err, max_abs_err=abs_err, tol=tol,
          tensor_cores=mma, **extra)
     return err
+
+
+def mlstm_ops(B, S, H, Dk, Dv, chunk) -> int:
+    """Operations of the chunkwise cell: per chunk and (batch, head), the
+    scores and their products with v over the causal half, the
+    inter-chunk q C, the state update k^T v."""
+    return B * H * -(-S // chunk) * 2 * (chunk * chunk // 2 * (Dk + Dv) + 2 * chunk * Dk * Dv)
 
 
 def attention_pairs(Sq, Skv, causal, window) -> int:
@@ -1962,10 +1996,7 @@ def phase_llm_kernels(dev) -> dict:
     ms, _ = timed(ssd, 20)
     dev_ms = device_ms(ssd, 20, "mlstm")
     plain_ms, _ = timed(lambda: ref.mlstm_chunk_chunked(*args, chunk=chunk, normalize=False), 2)
-    n_chunks = -(-S // chunk)
-    # per chunk and (batch, head): scores and their products with v over the
-    # causal half, the inter-chunk q C, the state update k^T v
-    ops_ = B * H * n_chunks * 2 * (chunk * chunk // 2 * (Dk + Dv) + 2 * chunk * Dk * Dv)
+    ops_ = mlstm_ops(B, S, H, Dk, Dv, chunk)
     bytes_ = nbytes(*args) + args[2].numel() * args[2].element_size()
     b_ms, b_by = bound(bytes_, ops_)
     res["mlstm_chunk"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -1979,7 +2010,7 @@ def phase_llm_kernels(dev) -> dict:
              if k_.startswith("mlstm_ssd_mma_kernel")}
     emit("llm_kernels", kernel="mlstm_chunk", timing="main SSD", card=smi(),
          shape=[B, S, H, Dk, Dv], chunk=chunk, kernel_name="mlstm_ssd_mma_kernel",
-         tensor_cores=mlstm_chunk.uses_mma(bf, False, chunk), blocks=blocks, threads=256,
+         tensor_cores=mlstm_chunk.uses_mma(bf, False, chunk, Dk), blocks=blocks, threads=256,
          blocks_per_sm=occ["blocks_per_sm"], smem_bytes=occ["smem_bytes"],
          waves=-(-blocks // slots), ptxas=ptxas,
          library="none: no single PyTorch call computes the chunkwise mLSTM / SSD cell",
@@ -2063,8 +2094,8 @@ def phase_llm_serve(dev) -> dict:
         raise AssertionError(f"cache pos {cache['pos']} after {S} + {N} tokens")
     no_bwd = {"flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
     want = {"prefill": {"flash_attention_fwd": cfg.n_layers, "mlstm_chunk": cfg.n_layers,
-                        "decode_attention": 0, **no_bwd},
-            "decode": {"flash_attention_fwd": 0, "mlstm_chunk": 0,
+                        "mlstm_chunk_tiled": 0, "decode_attention": 0, **no_bwd},
+            "decode": {"flash_attention_fwd": 0, "mlstm_chunk": 0, "mlstm_chunk_tiled": 0,
                        "decode_attention": cfg.n_layers * N, **no_bwd}}
     if by_run != want:
         raise AssertionError(f"launches {by_run}, expected {want}")
@@ -2157,6 +2188,270 @@ def phase_llm_serve(dev) -> dict:
     run["card_vs_cpu"] = max(errs)
     torch.cuda.synchronize()
     return run
+
+
+# ---------------------------------------------------------------------------
+# xlstm-350m's serving path: the mLSTM on the Dk-tiled kernel, the sLSTM's
+# loop in torch ops
+# ---------------------------------------------------------------------------
+XLSTM = "xlstm-350m"
+# the Dk-tiled kernel against ref.mlstm_chunk_chunked: (normalize, S, H, Dk,
+# Dv), S off the 128-chunk (a padded last chunk), float32 and bf16
+TILED_CASES = ((True, 150, 3, 80, 96), (False, 150, 3, 80, 96),
+               (True, 300, 2, 512, 512), (False, 300, 2, 512, 512))
+# a float32 xLSTM at full width, one mLSTM and one sLSTM layer: prompt and
+# decode steps of the card against the CPU path
+XLSTM_CHECK_B, XLSTM_CHECK_S, XLSTM_CHECK_STEPS = 2, 256, 8
+
+
+@contextlib.contextmanager
+def slstm_timed():
+    """Inside, every ``SLSTM.prefill`` is timed on the host clock between two
+    synchronisations; yields the list its seconds go to."""
+    from repro_torch.models.blocks import SLSTM
+
+    spent, orig = [], SLSTM.prefill
+
+    def timed_prefill(self, x):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(self, x)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    SLSTM.prefill = timed_prefill
+    try:
+        yield spent
+    finally:
+        SLSTM.prefill = orig
+
+
+def layer_decode_vs_prefill(net, tokens, s: int) -> list:
+    """For each layer of an xLSTM ``net``, on the same inputs (the hidden
+    states of a prefill over ``tokens [b, s + 1]``): the max relative error
+    of its cell's output at position ``s`` by a decode step after a prefill
+    over the first ``s`` positions, against its prefill over all ``s + 1``;
+    raises past SERVE_F32_TOL."""
+    cfg = net.cfg
+    errs = []
+    with torch.no_grad():
+        x = net.embed[tokens]
+        for i, layer in enumerate(net.layers):
+            h = rms_norm(x, layer.norm1, cfg.norm_eps)
+            y_full, _ = layer.cell.prefill(h)
+            _, state = layer.cell.prefill(h[:, :s])
+            y_step, _ = layer.cell.decode(h[:, s], state)
+            errs.append(rel_err(f"xlstm layer {i} ({layer.kind}) decode vs prefill",
+                                y_step.float(), y_full[:, s].float(), SERVE_F32_TOL))
+            x = x + y_full
+    return errs
+
+
+def phase_llm_xlstm(dev) -> dict:
+    """xlstm-350m's serving path on the card: (1) the Dk-tiled mLSTM kernel
+    against its plain version (Dk 80 and 512, both flags, float32 and
+    bf16, padded last chunks) and timed at the prefill's shape beside its
+    bound; (2) a float32 xLSTM of one mLSTM and one sLSTM layer at full
+    width, the card against the CPU path; (3) xlstm-350m at full width in
+    bf16: prefill 8 x 2,048 tokens and 64 greedy decode steps, launches
+    counted from 0 a run, the sLSTM loop's share of the prefill, device
+    busy share; (4) decode against prefill, float32 and bf16."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = configs.get_config(XLSTM)
+    res = {}
+    # 1. the kernel
+    errs, abs_errs = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        for normalize, S_, H_, Dk, Dv in TILED_CASES:
+            args = mlstm_case(2, S_, H_, Dk, Dv, normalize, dtype, seed=S_ + Dk, dev=dev)
+            errs.append(check_mlstm(f"S={S_} Dk={Dk} Dv={Dv}", args, dtype, 128, normalize,
+                                    phase="llm_xlstm", abs_errs=abs_errs))
+    bf = torch.bfloat16
+    B, S, N = LLM_B, LLM_S, LLM_NEW
+    H, chunk = cfg.n_heads, 128
+    Dk = Dv = cfg.ssm_expand * cfg.d_model // H
+    args = mlstm_case(B, S, H, Dk, Dv, True, bf, seed=17, dev=dev)
+    errs.append(check_mlstm("main mLSTM", args, bf, chunk, True, phase="llm_xlstm",
+                            abs_errs=abs_errs))
+    cell = lambda: mlstm_chunk.mlstm_chunk_cuda(*args, chunk=chunk, normalize=True)
+    ms, _ = timed(cell, 10)
+    dev_ms = device_ms(cell, 5, "mlstm_chunk_tiled")
+    plain_ms, _ = timed(lambda: ref.mlstm_chunk_chunked(*args, chunk=chunk, normalize=True), 2)
+    ops_ = mlstm_ops(B, S, H, Dk, Dv, chunk)
+    bytes_ = nbytes(*args) + nbytes(args[2])
+    b_ms, b_by = bound(bytes_, ops_)
+    occ = mlstm_chunk.tiled_occupancy(Dk, bf)
+    blocks = B * H * -(-Dv // 32)
+    slots = torch.cuda.get_device_properties(dev).multi_processor_count * occ["blocks_per_sm"]
+    ptxas = {k_: v_ for k_, v_ in ptxas_by_kernel(_build.build_logs.get("mlstm_chunk", "")).items()
+             if k_.startswith("mlstm_chunk_tiled_kernel")}
+    res["kernel"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         float32_cuda_core_floor_ms=ops_ / PEAK_FP32 * 1e3, library_ms=None,
+                         ops=ops_, bytes=bytes_, max_rel_err=max(errs), max_abs_err=max(abs_errs))
+    emit("llm_xlstm", kernel="mlstm_chunk_tiled", timing="main mLSTM", card=smi(),
+         shape=[B, S, H, Dk, Dv], chunk=chunk, kernel_name="mlstm_chunk_tiled_kernel",
+         blocks=blocks, threads=256, blocks_per_sm=occ["blocks_per_sm"],
+         smem_bytes=occ["smem_bytes"], waves=blocks / slots, ptxas=ptxas,
+         library="none: no single PyTorch call computes the chunkwise mLSTM cell",
+         **res["kernel"])
+    del args
+
+    # 2. float32, one mLSTM and one sLSTM layer at full width: the card
+    #    against the CPU path, logits and every cache leaf
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                               block_pattern=(BlockKind.MLSTM, BlockKind.SLSTM))
+    cpu_net = llm.init_params(1, cfg2, device="cpu")
+    card_net = copy.deepcopy(cpu_net).to(dev)
+    B2, S2, steps = XLSTM_CHECK_B, XLSTM_CHECK_S, XLSTM_CHECK_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (B2, S2 + steps),
+                         generator=torch.Generator().manual_seed(5))
+    caches = [llm.init_cache(cfg2, B2, S2 + steps, device=dev),
+              llm.init_cache(cfg2, B2, S2 + steps, device="cpu")]
+    prefill2, step2 = llm.make_prefill_step(cfg2), llm.make_serve_step(cfg2)
+    got, caches[0] = prefill2(card_net, caches[0], {"tokens": toks[:, :S2].to(dev)})
+    want, caches[1] = prefill2(cpu_net, caches[1], {"tokens": toks[:, :S2]})
+    logit_errs = [rel_err("xlstm card vs CPU prefill", got.cpu(), want, SERVE_F32_TOL)]
+    cache_errs = {}
+    for i in range(steps + 1):
+        for l_, (cg, cc) in enumerate(zip(caches[0]["layers"], caches[1]["layers"])):
+            for name, t in cc["cell"].items():
+                key = f"layer{l_}.{name}"
+                cache_errs[key] = max(cache_errs.get(key, 0.0), rel_err(
+                    f"xlstm card vs CPU cache {key} after {i} steps", cg["cell"][name].cpu(), t,
+                    SERVE_F32_TOL))
+        if i == steps:
+            break
+        got, caches[0] = step2(card_net, caches[0], toks[:, S2 + i].to(dev))
+        want, caches[1] = step2(cpu_net, caches[1], toks[:, S2 + i])
+        logit_errs.append(rel_err(f"xlstm card vs CPU step {i}", got.cpu(), want, SERVE_F32_TOL))
+    emit("llm_xlstm", check="card vs CPU path, float32", layers=list(cfg2.layer_kinds),
+         batch=B2, prompt=S2, steps=steps, max_rel_err_by_step=logit_errs,
+         cache_max_rel_err=cache_errs, tol=SERVE_F32_TOL)
+    res["card_vs_cpu"] = max(logit_errs + list(cache_errs.values()))
+    del cpu_net, card_net, caches
+
+    # 3. xlstm-350m at full width, bf16
+    t0 = time.perf_counter()
+    net = llm.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in net.parameters())
+    prefill, step = llm.make_prefill_step(cfg), llm.make_serve_step(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1),
+                           generator=torch.Generator().manual_seed(0)).to(dev)
+    batch = {"tokens": tokens[:, :S]}
+    logits, cache = prefill(net, llm.init_cache(cfg, B, S + N, device=dev), batch)  # warm-up
+    greedy_decode(step, net, cache, logits, 2)
+    del cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cache = llm.init_cache(cfg, B, S + N, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(net, cache, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    by_run = {"prefill": llm_counts()}
+    first = logits.argmax(-1)
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = greedy_decode(step, net, cache, logits, N)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    by_run["decode"] = llm_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(logits.shape) != (B, cfg.vocab_size) or not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"xlstm serve logits not finite [{B}, {cfg.vocab_size}]")
+    if cache["pos"] != S + N:
+        raise AssertionError(f"xlstm cache pos {cache['pos']} after {S} + {N} tokens")
+    kinds = collections.Counter(cfg.layer_kinds)
+    zero = {k_: 0 for k_ in llm_counts()}
+    want = {"prefill": {**zero, "mlstm_chunk_tiled": kinds[BlockKind.MLSTM]}, "decode": zero}
+    if by_run != want:
+        raise AssertionError(f"xlstm launches {by_run}, expected {want}")
+    graph = [t for t in (logits, *(x for c in cache["layers"] for d in c.values()
+                                   for x in d.values())) if t.requires_grad]
+    if graph:
+        raise AssertionError(f"xlstm serving recorded an autograd graph on {len(graph)} outputs")
+    # the sLSTM layers' loops timed alone inside a second prefill
+    with slstm_timed() as spent:
+        t0 = time.perf_counter()
+        prefill(net, llm.init_cache(cfg, B, S + N, device=dev), batch)
+        torch.cuda.synchronize()
+        timed_prefill_s = time.perf_counter() - t0
+    run = dict(layers=cfg.n_layers, kinds=dict(kinds), params=n_params, batch=B, prompt=S,
+               new_tokens=N, init_s=init_s, prefill_s=prefill_s,
+               prefill_tokens_per_s=B * S / prefill_s, decode_s=decode_s,
+               decode_ms_per_step=decode_s / N * 1e3, decode_tokens_per_s=B * N / decode_s,
+               peak_memory_gb=peak / 1e9, launches_by_run=by_run, first_tokens=first.tolist(),
+               slstm_loop_s=spent, slstm_share_of_prefill=sum(spent) / timed_prefill_s,
+               prefill_s_with_slstm_syncs=timed_prefill_s)
+    emit("llm_xlstm", card=smi(), **{k_: v_ for k_, v_ in run.items()})
+    # device time by kernel of one prefill and one decode step (device
+    # events only), beside the unprofiled walls
+    prof = {}
+    for label, fn, wall in (
+        ("prefill", lambda: prefill(net, llm.init_cache(cfg, B, S + N, device=dev), batch),
+         prefill_s),
+        ("decode_step", lambda: step(net, cache, logits.argmax(-1)), decode_s / N),
+    ):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as pr:
+            fn()
+            torch.cuda.synchronize()
+        rows = device_rows(pr)
+        dev_s = sum(r[1] for r in rows) / 1e6
+        tiled_s = sum(r[1] for r in rows if "mlstm_chunk_tiled" in r[0]) / 1e6
+        prof[label] = dict(device_s=dev_s, wall_s=wall, busy_share=dev_s / wall,
+                           mlstm_tiled_s=tiled_s, mlstm_tiled_share_of_device=tiled_s / dev_s,
+                           device_launches=sum(r[2] for r in rows),
+                           top=[[k_[:70], us / 1e6, n] for k_, us, n in rows[:10]])
+        emit("llm_xlstm", profile=label, **prof[label])
+    run["profile"] = prof
+    del cache
+
+    # 4. decode against prefill, 2 prompts. (a) Layer by layer in float32
+    #    (the same weights, upcast), each layer on the same inputs (the full
+    #    prefill's hidden states): its cell's prefill over S + 1 positions
+    #    against its prefill over S and one decode step, held to
+    #    SERVE_F32_TOL. (b) End to end, reported, not held: random weights
+    #    make the stack amplify rounding (PERF.md, PR 24), so beside the
+    #    float32 and bf16 readings stands the float32 prefill's own response
+    #    to a 1e-7 relative perturbation of the embedding
+    B1 = 2
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    net32 = copy.deepcopy(net).float()
+    layer_errs = layer_decode_vs_prefill(net32, tokens[:B1], S)
+    full32, step32 = decode_vs_prefill(cfg32, net32, tokens[:B1], S, dev)
+    with torch.no_grad():
+        gen = torch.Generator(device=dev).manual_seed(1)
+        net32.embed.mul_(1.0 + 1e-7 * torch.randn(net32.embed.shape, generator=gen, device=dev))
+    moved32, _ = llm.make_prefill_step(cfg32)(
+        net32, llm.init_cache(cfg32, B1, S + 1, device=dev), {"tokens": tokens[:B1]})
+    del net32
+    scale32 = float(full32.abs().max())
+    err32 = float((step32 - full32).abs().max()) / scale32
+    noise32 = float((moved32.float() - full32).abs().max()) / scale32
+    full16, step16 = decode_vs_prefill(cfg, net, tokens[:B1], S, dev)
+    err16 = float((step16 - full16).abs().max()) / float(full16.abs().max())
+    emit("llm_xlstm", check="decode vs prefill on the card", tokens=S + 1, batch=B1,
+         float32_by_layer_max_rel_err=layer_errs, float32_by_layer_tol=SERVE_F32_TOL,
+         float32_end_to_end=err32, float32_end_to_end_of_1e7_embedding_noise=noise32,
+         bf16_prefill_vs_float32=float((full16 - full32).abs().max()) / scale32,
+         bf16_decode_vs_bf16_prefill=err16, bf16_tol=SERVE_BF16_TOL,
+         bf16_share_of_tol=err16 / SERVE_BF16_TOL, bf16_within_tol=err16 <= SERVE_BF16_TOL,
+         argmax_agreement_float32=float((step32.argmax(-1) == full32.argmax(-1)).float().mean()),
+         argmax_agreement_bf16=float((step16.argmax(-1) == full16.argmax(-1)).float().mean()))
+    run.update(decode_vs_prefill_by_layer=max(layer_errs), decode_vs_prefill=err32,
+               decode_vs_prefill_noise_floor=noise32, decode_vs_prefill_bf16=err16,
+               decode_vs_prefill_bf16_share_of_tol=err16 / SERVE_BF16_TOL)
+    res["serve"] = run
+    del net
+    torch.cuda.synchronize()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2506,7 +2801,8 @@ def train_launches_want(cfg) -> dict:
     ssd = sum(kinds[k] for k in (BlockKind.MAMBA,) + hy)
     fwd = 2 if cfg.remat else 1
     return {"flash_attention_fwd": fwd * attn, "flash_attention_bwd_dq": attn,
-            "flash_attention_bwd_dkv": attn, "decode_attention": 0, "mlstm_chunk": fwd * ssd}
+            "flash_attention_bwd_dkv": attn, "decode_attention": 0, "mlstm_chunk": fwd * ssd,
+            "mlstm_chunk_tiled": 0}
 
 
 def train_run(arch: str, steps: int, dev) -> dict:
@@ -2722,6 +3018,7 @@ def main() -> int:
     timed_phase("optimize", phase_optimize, dev)
     llm_times = timed_phase("llm_kernels", phase_llm_kernels, dev)
     serve = timed_phase("llm_serve", phase_llm_serve, dev)
+    xlstm = timed_phase("llm_xlstm", phase_llm_xlstm, dev)
     train_times = timed_phase("llm_train_kernels", phase_llm_train_kernels, dev)
     train = timed_phase("llm_train", phase_llm_train, dev)
     kernels = []
@@ -2807,6 +3104,18 @@ def main() -> int:
             ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"], **extra,
         ))
+    # the Dk-tiled mLSTM kernel: xlstm-350m's prefill and decode runs
+    t = xlstm["kernel"]
+    by_run = {f"{XLSTM}_{run}": n["mlstm_chunk_tiled"]
+              for run, n in xlstm["serve"]["launches_by_run"].items()}
+    kernels.append(dict(
+        name="mlstm_chunk_tiled", route="cuda", source="src/repro_torch/kernels/csrc/mlstm_chunk.cu",
+        replaces=llm_replaces["mlstm_chunk"], launches=sum(by_run.values()), launches_by_run=by_run,
+        max_abs_err=t["max_abs_err"], max_rel_err=t["max_rel_err"], ms=t["ms"],
+        device_ms=t["device_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], float32_cuda_core_floor_ms=t["float32_cuda_core_floor_ms"],
+        library_ms=t["library_ms"],
+    ))
     for name, line in (("flash_attention_bwd_dq", 287), ("flash_attention_bwd_dkv", 329)):
         t = train_times[name]
         kernels.append(dict(

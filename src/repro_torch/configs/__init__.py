@@ -3,7 +3,8 @@
 
 The port's copies of the reference package's ``repro.configs`` modules for
 the architectures whose block kinds it supports (attention, sliding-window
-attention, mamba-style SSD heads and hymba's parallel pair). Each module
+attention, mamba-style SSD heads, hymba's parallel pair, and xLSTM's mLSTM
+and sLSTM blocks). Each module
 defines ``CONFIG`` (the published numbers) and ``smoke_config()`` (a reduced
 same-family config for CPU tests). The other architectures of the reference
 need block kinds no slice has ported yet (ROADMAP A.12).
@@ -20,6 +21,7 @@ __all__ = ["get_config", "get_smoke_config", "list_archs"]
 _ARCHS = {
     "tinyllama-1.1b": "tinyllama_1_1b",
     "hymba-1.5b": "hymba_1_5b",
+    "xlstm-350m": "xlstm_350m",
 }
 
 

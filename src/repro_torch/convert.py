@@ -20,7 +20,11 @@ The LLM substrate's weights and caches cross the same way: the reference
 stacks each pattern position's parameters ``[n_units, ...]`` (``units/b{i}``)
 and keeps leftover layers under ``tail/t{i}``; the port unrolls them into
 layer ``u * pattern_len + i`` (the tail after). Its cache carries ``pos`` as
-a Python int and one dict per layer. Any tree shaped like the parameters
+a Python int and one dict per layer, keyed as the reference keys a layer's
+entries (``kv``, ``ssm``; ``cell`` for the mLSTM's ``C``, ``n``, ``m`` and
+the sLSTM's ``h``, ``c``, ``n``, ``m``). Both walk the leaves by name, so
+every block kind the port runs (xLSTM's ``mlstm`` and ``slstm`` too)
+crosses the same way. Any tree shaped like the parameters
 (gradients, AdamW moments) crosses as a dict keyed by the port's parameter
 names (:func:`named_from_reference`); :func:`model_params_to_reference`
 takes the port's weights back into the reference's layout. A train state

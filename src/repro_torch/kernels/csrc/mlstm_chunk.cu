@@ -17,21 +17,26 @@
 //
 // What bounds it on this card. At the serving path's SSD shapes (B 8, S
 // 2,048, H 25, Dk 16, Dv 128) the pass moves ~240 MB (q, k, v, gates in,
-// out) for ~11 GFLOP of products: bytes, ~0.07 ms at 3.35 TB/s.
+// out) for ~11 GFLOP of products: bytes, ~0.07 ms at 3.35 TB/s. At
+// xLSTM's mLSTM shapes (B 8, S 2,048, H 4, Dk = Dv = 512) it does ~80
+// GFLOP of products for ~134 MB: operations, ~0.08 ms on the bf16 tensor
+// cores, ~1.2 ms in float32 on the CUDA cores.
 //
-// Two kernels. bf16 SSD (normalize = 0, chunks a multiple of 16) runs
-// mlstm_ssd_mma_kernel on the tensor cores (below); float32 inputs, the
-// mLSTM (normalize = 1) and other chunk sizes run mlstm_chunk_kernel, the
-// first, simple CUDA-core design: float32 fused multiply-adds, one (batch,
-// head, 64-wide slice of Dv) per block walking its chunks in order, as the
-// TPU grid walks them; the slices of one head recompute the [c, c] scores
-// (cheap at Dk 16) so that the state C [Dk, 64] fits in shared memory
-// beside the chunk's q, k, v and scores. Per chunk: the gates' inclusive
-// cumsum (one thread, in order), the scores and row quantities with two
-// threads per row, the [c, 64] output tile with a 4 x 8 register tile per
-// thread (the scores times v plus the inter-chunk term q C), then the
-// state update. Dk up to 64 and chunks up to 128 positions in both; xLSTM's
-// Dk = 512 needs the state tiled over Dk too.
+// Three kernels. Up to Dk 64: bf16 SSD (normalize = 0, chunks a multiple
+// of 16) runs mlstm_ssd_mma_kernel on the tensor cores (below); float32
+// inputs, the mLSTM (normalize = 1) and other chunk sizes run
+// mlstm_chunk_kernel, the first, simple CUDA-core design: float32 fused
+// multiply-adds, one (batch, head, 64-wide slice of Dv) per block walking
+// its chunks in order, as the TPU grid walks them; the slices of one head
+// recompute the [c, c] scores (cheap at Dk 16) so that the state C [Dk, 64]
+// fits in shared memory beside the chunk's q, k, v and scores. Per chunk:
+// the gates' inclusive cumsum (one thread, in order), the scores and row
+// quantities with two threads per row, the [c, 64] output tile with a 4 x 8
+// register tile per thread (the scores times v plus the inter-chunk term q
+// C), then the state update. Dk up to 64 and chunks up to 128 positions in
+// both. Past Dk 64 (xLSTM's heads are 512 wide) every call runs
+// mlstm_chunk_tiled_kernel, which streams q and k through shared memory in
+// Dk tiles of 32 (below).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -319,6 +324,321 @@ template <typename T>
 int launch_dk(const MlstmArgs& a, int batch, cudaStream_t stream) {
   if (a.dk <= 16) return launch<T, 16>(a, batch, stream);
   return launch<T, kMaxDk>(a, batch, stream);
+}
+
+// ===========================================================================
+// Past Dk 64: mlstm_chunk_tiled_kernel (both flags, float32 and bf16)
+//
+// xLSTM's mLSTM heads are Dk = Dv = 512 wide. mlstm_chunk_kernel keeps the
+// chunk's q and k whole in shared memory beside the scores and a 64-wide
+// slice of the state; at Dk 512 that is over 500 KB of the 227 KB a block
+// may have. This kernel keeps the state slice C [Dk, 32] (64 KB at Dk 512)
+// and the scores [c, c] in shared memory and streams q and k through it in
+// Dk tiles of 32 positions' columns. One block of 256 threads owns one
+// (batch, head, 32-wide slice of Dv) and walks its chunks in order. Per
+// chunk:
+//  - the gates (inclusive cumsum by one thread, in order), each row's
+//    stabiliser m_j (one thread a row) and the inter-chunk weight;
+//  - over the Dk tiles, thread (ty, tx) accumulates in registers the
+//    scores q_j . k_s of rows ty + 16 r and columns tx + 16 c (8 x 8), the
+//    inter-chunk term q_j C of rows ty + 16 r and its two state columns
+//    tx, tx + 16 (8 x 2), and q_j . n (8): every Dv slice of a head
+//    recomputes the scores and q . n, which do not depend on Dv;
+//  - the scores masked (s <= j) and weighted by exp(F_j - F_s + i_s - m_j)
+//    go to shared memory; one thread a row sums its row, in order, for the
+//    normaliser;
+//  - the [c, 32] output tile: the scores times v plus the inter-chunk term
+//    (still in registers), over the normaliser;
+//  - the state to the chunk's end: k scaled by exp(f_end - F_s + i_s -
+//    m_new) is streamed again tile by tile, C = decay C + kw^T v and n =
+//    decay n + sum_s kw.
+// Every product is a float32 fused multiply-add on the CUDA cores, as in
+// mlstm_chunk_kernel, whose arithmetic (and rounding, op for op) this
+// kernel repeats with Dk split into tiles. Dk up to 512 (the state's
+// shared memory grows with it: ~187 KB a block at 512, one block an SM),
+// chunks up to 128 positions. The tensor-core form is later work.
+// ===========================================================================
+constexpr int kTlW = 32;             // Dv columns a block
+constexpr int kTlD = 32;             // Dk columns of a staged q or k tile
+constexpr int kTlStride = kTlD + 1;  // row stride of a staged tile
+constexpr int kTlSS = kMaxC + 1;     // row stride of the scores
+constexpr int kMaxDkTiled = 512;
+
+// floats of dynamic shared memory at Dk padded to dkp, a multiple of kTlD
+__host__ __device__ constexpr int tiled_smem_floats(int dkp) {
+  return kMaxC * kTlSS             // scores
+         + 2 * kMaxC * kTlStride   // q tile; k (then kw) tile
+         + kMaxC * kTlW            // v slice
+         + 7 * kMaxC               // F, i, m_row, inter, norm, end weights, q . n
+         + 4                       // f_end, m_new, decay
+         + dkp                     // state n
+         + dkp * kTlW;             // state C slice
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) mlstm_chunk_tiled_kernel(MlstmArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  const int dkp = (a.dk + kTlD - 1) / kTlD * kTlD;
+  float* ss = sm;
+  float* qt = ss + kMaxC * kTlSS;
+  float* kt = qt + kMaxC * kTlStride;
+  float* vs = kt + kMaxC * kTlStride;
+  float* fs = vs + kMaxC * kTlW;
+  float* lis = fs + kMaxC;
+  float* mrow = lis + kMaxC;
+  float* inter = mrow + kMaxC;
+  float* nrm = inter + kMaxC;
+  float* ew = nrm + kMaxC;
+  float* qn = ew + kMaxC;
+  float* sc = qn + kMaxC;  // [0] f_end, [1] m_new, [2] decay
+  float* ns = sc + 4;
+  float* cs = ns + dkp;
+
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  const int dv0 = blockIdx.x * kTlW, h = blockIdx.y, b = blockIdx.z;
+  const int dvt = min(kTlW, a.dv - dv0);
+  const int C = a.chunk;
+  const bool norm = a.normalize != 0;
+  const size_t row_qk = (size_t)a.h * a.dk, row_v = (size_t)a.h * a.dv;
+  const size_t head = (size_t)b * a.s * a.h + h;  // (b, position 0, h)
+  const T* qg = static_cast<const T*>(a.q) + head * a.dk;
+  const T* kg = static_cast<const T*>(a.k) + head * a.dk;
+  const T* vg = static_cast<const T*>(a.v) + head * a.dv + dv0;
+  T* og = static_cast<T*>(a.out) + head * a.dv + dv0;
+  const float* igp = a.ig + head;
+  const float* fgp = a.fg + head;
+
+  for (int i = t; i < dkp * kTlW; i += kThreads) cs[i] = 0.0f;
+  for (int i = t; i < dkp; i += kThreads) ns[i] = 0.0f;
+  float m_prev = norm ? kNeg : 0.0f;
+
+  const int n_chunks = (a.s + C - 1) / C;
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    const int c0 = ci * C;
+    // ---- the chunk's gates and v slice ----
+    for (int j = t; j < C; j += kThreads) {
+      const int pos = c0 + j;
+      const float fg = pos < a.s ? fgp[(size_t)pos * a.h] : a.f_pad;
+      lis[j] = pos < a.s ? igp[(size_t)pos * a.h] : kNeg;
+      fs[j] = norm ? log_sigmoid(fg) : fg;
+    }
+    for (int i = t; i < C * kTlW; i += kThreads) {
+      const int j = i / kTlW, c = i % kTlW, pos = c0 + j;
+      vs[i] = pos < a.s && c < dvt ? to_f32(vg[(size_t)pos * row_v + c]) : 0.0f;
+    }
+    __syncthreads();
+    if (t == 0) {  // inclusive cumulative log forget gate, in order
+      float acc = 0.0f;
+      for (int j = 0; j < C; ++j) {
+        acc = __fadd_rn(acc, fs[j]);
+        fs[j] = acc;
+      }
+      sc[0] = acc;
+    }
+    __syncthreads();
+    // ---- each row's stabiliser and inter-chunk weight (read after the
+    //      tile loop's barriers) ----
+    for (int j = t; j < C; j += kThreads) {
+      const float fj = fs[j];
+      float mr = 0.0f;
+      if (norm) {
+        float mx = kNeg;
+        for (int s = 0; s <= j; ++s) mx = fmaxf(mx, __fadd_rn(__fsub_rn(fj, fs[s]), lis[s]));
+        mr = fmaxf(mx, __fadd_rn(fj, m_prev));
+      }
+      mrow[j] = mr;
+      inter[j] = expf(__fsub_rn(__fadd_rn(fj, m_prev), mr));
+    }
+
+    // ---- q k^T, q C and q . n, a Dk tile at a time ----
+    float acc[8][8], qc[8][2], qnr[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+      qc[r][0] = qc[r][1] = qnr[r] = 0.0f;
+    }
+    for (int d0 = 0; d0 < dkp; d0 += kTlD) {
+      for (int i = t; i < C * kTlD; i += kThreads) {
+        const int j = i / kTlD, d = i % kTlD, pos = c0 + j;
+        const bool ok = pos < a.s && d0 + d < a.dk;
+        const size_t off = (size_t)pos * row_qk + d0 + d;
+        qt[j * kTlStride + d] = ok ? __fmul_rn(to_f32(qg[off]), a.scale) : 0.0f;
+        kt[j * kTlStride + d] = ok ? to_f32(kg[off]) : 0.0f;
+      }
+      __syncthreads();
+#pragma unroll 2
+      for (int d = 0; d < kTlD; ++d) {
+        float qv[8], kv[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) qv[r] = qt[(ty + 16 * r) * kTlStride + d];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) kv[c] = kt[(tx + 16 * c) * kTlStride + d];
+        const float cv0 = cs[(d0 + d) * kTlW + tx], cv1 = cs[(d0 + d) * kTlW + tx + 16];
+        const float nv = ns[d0 + d];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[r][c] = __fmaf_rn(qv[r], kv[c], acc[r][c]);
+          qc[r][0] = __fmaf_rn(qv[r], cv0, qc[r][0]);
+          qc[r][1] = __fmaf_rn(qv[r], cv1, qc[r][1]);
+          qnr[r] = __fmaf_rn(qv[r], nv, qnr[r]);
+        }
+      }
+      __syncthreads();  // the tile read by every thread before the next is staged
+    }
+
+    // ---- the scores, masked and weighted; the rows' q . n ----
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int j = ty + 16 * r;
+      if (j >= C) continue;
+      const float fj = fs[j], mr = mrow[j];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int s = tx + 16 * c;
+        float val = 0.0f;
+        if (s <= j) {
+          const float dm = __fadd_rn(__fsub_rn(fj, fs[s]), lis[s]);
+          val = __fmul_rn(acc[r][c], expf(__fsub_rn(dm, mr)));
+        }
+        ss[j * kTlSS + s] = val;
+      }
+      if (tx == 0) qn[j] = qnr[r];
+    }
+    __syncthreads();
+    // ---- the normaliser: each row's sum in order, one thread a row ----
+    if (norm) {
+      for (int j = t; j < C; j += kThreads) {
+        float rs = 0.0f;
+        for (int s = 0; s <= j; ++s) rs = __fadd_rn(rs, ss[j * kTlSS + s]);
+        const float den = __fadd_rn(rs, __fmul_rn(inter[j], qn[j]));
+        nrm[j] = __fadd_rn(fmaxf(fabsf(den), expf(-mrow[j])), a.eps);
+      }
+    }
+    __syncthreads();
+
+    // ---- output tile: scores @ v + inter * (q C), over the normaliser;
+    //      rows ty + 16 r, columns tx and tx + 16 ----
+    {
+      float o[8][2];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) o[r][0] = o[r][1] = 0.0f;
+      const int s_end = min(C, ty + 16 * 7 + 1);
+      for (int s = 0; s < s_end; ++s) {
+        const float v0 = vs[s * kTlW + tx], v1 = vs[s * kTlW + tx + 16];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float sv = ss[(ty + 16 * r) * kTlSS + s];
+          o[r][0] = __fmaf_rn(sv, v0, o[r][0]);
+          o[r][1] = __fmaf_rn(sv, v1, o[r][1]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int j = ty + 16 * r, pos = c0 + j;
+        if (j >= C || pos >= a.s) continue;
+        const float it = inter[j];
+        const float nj = norm ? nrm[j] : 1.0f;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = tx + 16 * c;
+          if (col >= dvt) continue;
+          float val = __fadd_rn(o[r][c], __fmul_rn(it, qc[r][c]));
+          if (norm) val = __fdiv_rn(val, nj);
+          og[(size_t)pos * row_v + col] = from_f32<T>(val);
+        }
+      }
+    }
+
+    // ---- the state to the chunk's end ----
+    const float f_end = sc[0];
+    if (t == 0) {
+      float wmax = kNeg;
+      for (int s = 0; s < C; ++s) wmax = fmaxf(wmax, __fadd_rn(__fsub_rn(f_end, fs[s]), lis[s]));
+      const float m_new = norm ? fmaxf(__fadd_rn(m_prev, f_end), wmax) : 0.0f;
+      sc[1] = m_new;
+      sc[2] = expf(__fsub_rn(__fadd_rn(m_prev, f_end), m_new));
+    }
+    __syncthreads();
+    const float m_new = sc[1], decay = sc[2];
+    for (int s = t; s < C; s += kThreads) {
+      ew[s] = expf(__fsub_rn(__fadd_rn(__fsub_rn(f_end, fs[s]), lis[s]), m_new));
+    }
+    __syncthreads();
+    for (int d0 = 0; d0 < dkp; d0 += kTlD) {
+      for (int i = t; i < C * kTlD; i += kThreads) {
+        const int j = i / kTlD, d = i % kTlD, pos = c0 + j;
+        const bool ok = pos < a.s && d0 + d < a.dk;
+        kt[j * kTlStride + d] =
+            ok ? __fmul_rn(to_f32(kg[(size_t)pos * row_qk + d0 + d]), ew[j]) : 0.0f;
+      }
+      __syncthreads();
+      {  // C rows d0 + rd, d0 + rd + 16; columns cw, cw + 16
+        const int cw = t & 15, rd = t >> 4;
+        float u[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+        for (int s = 0; s < C; ++s) {
+          const float k0 = kt[s * kTlStride + rd], k1 = kt[s * kTlStride + rd + 16];
+          const float v0 = vs[s * kTlW + cw], v1 = vs[s * kTlW + cw + 16];
+          u[0][0] = __fmaf_rn(k0, v0, u[0][0]);
+          u[0][1] = __fmaf_rn(k0, v1, u[0][1]);
+          u[1][0] = __fmaf_rn(k1, v0, u[1][0]);
+          u[1][1] = __fmaf_rn(k1, v1, u[1][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float* e = &cs[(d0 + rd + 16 * i) * kTlW + cw + 16 * c];
+            *e = __fadd_rn(__fmul_rn(decay, *e), u[i][c]);
+          }
+        }
+      }
+      if (t < kTlD) {
+        float acc_n = 0.0f;
+        for (int s = 0; s < C; ++s) acc_n = __fadd_rn(acc_n, kt[s * kTlStride + t]);
+        ns[d0 + t] = __fadd_rn(__fmul_rn(decay, ns[d0 + t]), acc_n);
+      }
+      __syncthreads();  // kw read by every thread before the next tile; the
+                        // state complete before the next chunk
+    }
+    m_prev = m_new;
+  }
+}
+
+size_t tiled_bytes(int dk) {
+  return sizeof(float) * tiled_smem_floats((dk + kTlD - 1) / kTlD * kTlD);
+}
+
+template <typename T>
+int tiled_prepare() {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(mlstm_chunk_tiled_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)tiled_bytes(kMaxDkTiled));
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  return 0;
+}
+
+template <typename T>
+int launch_tiled(const MlstmArgs& a, int batch, cudaStream_t stream) {
+  int err = tiled_prepare<T>();
+  if (err) return err;
+  const dim3 grid((a.dv + kTlW - 1) / kTlW, a.h, batch);
+  mlstm_chunk_tiled_kernel<T><<<grid, kThreads, tiled_bytes(a.dk), stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int tiled_occupancy(int dk, int* blocks_per_sm, int* smem_bytes) {
+  int err = tiled_prepare<T>();
+  if (err) return err;
+  *smem_bytes = (int)tiled_bytes(dk);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, mlstm_chunk_tiled_kernel<T>, kThreads, tiled_bytes(dk));
 }
 
 // ===========================================================================
@@ -716,17 +1036,30 @@ int ssd_occupancy(int* blocks_per_sm, int* smem_bytes) {
 
 extern "C" {
 
-// Largest Dk and chunk the kernel takes.
+// Largest Dk and chunk the kernels take.
 int mlstm_chunk_limits(int* max_dk, int* max_chunk) {
-  *max_dk = kMaxDk;
+  *max_dk = kMaxDkTiled;
   *max_chunk = kMaxC;
   return 0;
 }
 
-// Whether a call runs the tensor-core SSD kernel: bf16, normalize = 0 and a
-// chunk that is a multiple of 16.
-int mlstm_chunk_uses_mma(int dtype, int normalize, int chunk) {
-  return dtype == 1 && normalize == 0 && chunk % 16 == 0;
+// Whether a call at this Dk runs the Dk-tiled kernel (every call past Dk 64).
+int mlstm_chunk_uses_tiled(int dk) { return dk > kMaxDk; }
+
+// Whether a call runs the tensor-core SSD kernel: bf16, normalize = 0, a
+// chunk that is a multiple of 16 and Dk up to 64.
+int mlstm_chunk_uses_mma(int dtype, int normalize, int chunk, int dk) {
+  return dtype == 1 && normalize == 0 && chunk % 16 == 0 && !mlstm_chunk_uses_tiled(dk);
+}
+
+// The Dk-tiled kernel's resident blocks an SM and dynamic shared memory a
+// block at this Dk (dtype: 0 float32, 1 bfloat16).
+int mlstm_chunk_tiled_occupancy(int dk, int dtype, int* blocks_per_sm, int* smem_bytes) {
+  if (dk <= kMaxDk || dk > kMaxDkTiled || (dtype != 0 && dtype != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return dtype == 0 ? tiled_occupancy<float>(dk, blocks_per_sm, smem_bytes)
+                    : tiled_occupancy<__nv_bfloat16>(dk, blocks_per_sm, smem_bytes);
 }
 
 // The tensor-core SSD kernel's resident blocks an SM and shared memory a
@@ -742,12 +1075,17 @@ int mlstm_chunk_launch(const void* q, const void* k, const void* v, const float*
                        const float* fg, void* out, int batch, int s, int h, int dk, int dv,
                        int chunk, int normalize, float scale, float eps, float f_pad,
                        int dtype, void* stream) {
-  if (batch < 1 || batch > 65535 || s < 1 || h < 1 || h > 65535 || dk < 1 || dk > kMaxDk ||
-      dv < 1 || chunk < 1 || chunk > kMaxC || (dtype != 0 && dtype != 1)) {
+  if (batch < 1 || batch > 65535 || s < 1 || h < 1 || h > 65535 || dk < 1 ||
+      dk > kMaxDkTiled || dv < 1 || chunk < 1 || chunk > kMaxC || (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = (cudaStream_t)stream;
-  if (mlstm_chunk_uses_mma(dtype, normalize, chunk)) {
+  if (mlstm_chunk_uses_tiled(dk)) {
+    MlstmArgs a{q, k, v, ig, fg, out, s, h, dk, dv, chunk, normalize, scale, eps, f_pad};
+    return dtype == 0 ? launch_tiled<float>(a, batch, st)
+                      : launch_tiled<__nv_bfloat16>(a, batch, st);
+  }
+  if (mlstm_chunk_uses_mma(dtype, normalize, chunk, dk)) {
     const bool aligned = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 == 0;
     SsdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
               static_cast<const bf16*>(v), ig, fg, static_cast<bf16*>(out),

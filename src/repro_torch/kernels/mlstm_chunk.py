@@ -6,12 +6,16 @@ reference's ``mlstm_chunk_pallas``: the matrix-memory cell, parallel inside
 chunks and recurrent across them, with ``normalize=True`` (xLSTM) or
 ``False`` (SSD). It takes CUDA tensors (q, k, v in float32 or bf16, the
 gates float32), checks them, allocates its output with ``torch.empty``,
-launches on the current stream and raises if the launch is refused. bf16
-SSD calls (``normalize=False``, chunks a multiple of 16) run the
-tensor-core kernel ``mlstm_ssd_mma_kernel`` (:func:`uses_mma`), whose
-bf16 rounding :func:`repro_torch.kernels.ref.mlstm_chunk_tc` models; the
-others run the CUDA-core ``mlstm_chunk_kernel``.
-:data:`LAUNCHES` counts its launches. The plain versions are
+launches on the current stream and raises if the launch is refused. Up to
+``Dk = 64``, bf16 SSD calls (``normalize=False``, chunks a multiple of 16)
+run the tensor-core kernel ``mlstm_ssd_mma_kernel`` (:func:`uses_mma`),
+whose bf16 rounding :func:`repro_torch.kernels.ref.mlstm_chunk_tc` models,
+and the others the CUDA-core ``mlstm_chunk_kernel``. Past ``Dk = 64``
+(xLSTM's 512-wide heads) every call runs ``mlstm_chunk_tiled_kernel``
+(:func:`uses_tiled`), which streams q and k through shared memory in Dk
+tiles, float32 on the CUDA cores. :data:`LAUNCHES` counts the launches,
+``"mlstm_chunk"`` those of the two kernels up to ``Dk = 64`` and
+``"mlstm_chunk_tiled"`` those of the tiled one. The plain versions are
 :func:`repro_torch.kernels.ref.mlstm_chunk` (parallel form) and
 :func:`~repro_torch.kernels.ref.mlstm_chunk_chunked` (the kernel's own
 recurrence).
@@ -26,11 +30,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import check_tensor, dtype_code
 
-__all__ = ["LAUNCHES", "reset_launches", "limits", "uses_mma", "mma_occupancy",
-           "mlstm_chunk_cuda"]
+__all__ = ["LAUNCHES", "reset_launches", "limits", "uses_mma", "uses_tiled", "mma_occupancy",
+           "tiled_occupancy", "mlstm_chunk_cuda"]
 
-#: Launch count of the kernel, raised by one at every launch.
-LAUNCHES: Dict[str, int] = {"mlstm_chunk": 0}
+#: Launch counts: ``"mlstm_chunk"`` raised by one at every launch of the
+#: kernels up to ``Dk = 64``, ``"mlstm_chunk_tiled"`` at every launch of the
+#: Dk-tiled kernel.
+LAUNCHES: Dict[str, int] = {"mlstm_chunk": 0, "mlstm_chunk_tiled": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,7 +44,8 @@ _F = ctypes.c_float
 
 
 def reset_launches() -> None:
-    LAUNCHES["mlstm_chunk"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -48,25 +55,34 @@ def _lib() -> ctypes.CDLL:
         lib.mlstm_chunk_launch.restype = _I
         lib.mlstm_chunk_limits.argtypes = [ctypes.POINTER(_I)] * 2
         lib.mlstm_chunk_limits.restype = _I
-        lib.mlstm_chunk_uses_mma.argtypes = [_I] * 3
+        lib.mlstm_chunk_uses_mma.argtypes = [_I] * 4
         lib.mlstm_chunk_uses_mma.restype = _I
+        lib.mlstm_chunk_uses_tiled.argtypes = [_I]
+        lib.mlstm_chunk_uses_tiled.restype = _I
         lib.mlstm_chunk_mma_occupancy.argtypes = [_I] + [ctypes.POINTER(_I)] * 2
         lib.mlstm_chunk_mma_occupancy.restype = _I
+        lib.mlstm_chunk_tiled_occupancy.argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 2
+        lib.mlstm_chunk_tiled_occupancy.restype = _I
         lib._repro_bound = True
     return lib
 
 
 def limits() -> Tuple[int, int]:
-    """The kernel's largest ``(Dk, chunk)``."""
+    """The kernels' largest ``(Dk, chunk)``."""
     vals = [_I() for _ in range(2)]
     _lib().mlstm_chunk_limits(*(ctypes.byref(x) for x in vals))
     return tuple(x.value for x in vals)
 
 
-def uses_mma(dtype: torch.dtype, normalize: bool, chunk: int) -> bool:
+def uses_mma(dtype: torch.dtype, normalize: bool, chunk: int, dk: int) -> bool:
     """Whether a call with these arguments runs the tensor-core kernel."""
     code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
-    return bool(_lib().mlstm_chunk_uses_mma(code, int(normalize), int(chunk)))
+    return bool(_lib().mlstm_chunk_uses_mma(code, int(normalize), int(chunk), int(dk)))
+
+
+def uses_tiled(dk: int) -> bool:
+    """Whether a call at this ``Dk`` runs the Dk-tiled kernel."""
+    return bool(_lib().mlstm_chunk_uses_tiled(int(dk)))
 
 
 def mma_occupancy(dk: int) -> Dict[str, int]:
@@ -76,6 +92,19 @@ def mma_occupancy(dk: int) -> Dict[str, int]:
     err = _lib().mlstm_chunk_mma_occupancy(int(dk), ctypes.byref(blocks), ctypes.byref(smem))
     if err != 0:
         raise RuntimeError(f"mlstm_chunk occupancy query failed: cudaError_t {err}")
+    return {"blocks_per_sm": blocks.value, "smem_bytes": smem.value}
+
+
+def tiled_occupancy(dk: int, dtype: torch.dtype) -> Dict[str, int]:
+    """The Dk-tiled kernel's resident blocks an SM and dynamic shared memory
+    a block at this ``Dk`` (past 64) and input dtype (on the current
+    device)."""
+    blocks, smem = _I(), _I()
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    err = _lib().mlstm_chunk_tiled_occupancy(int(dk), code, ctypes.byref(blocks),
+                                             ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"mlstm_chunk tiled occupancy query failed: cudaError_t {err}")
     return {"blocks_per_sm": blocks.value, "smem_bytes": smem.value}
 
 
@@ -119,5 +148,5 @@ def mlstm_chunk_cuda(
     )
     if err != 0:
         raise RuntimeError(f"mlstm_chunk kernel launch failed: cudaError_t {err}")
-    LAUNCHES["mlstm_chunk"] += 1
+    LAUNCHES["mlstm_chunk_tiled" if uses_tiled(Dk) else "mlstm_chunk"] += 1
     return out

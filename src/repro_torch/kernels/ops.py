@@ -584,7 +584,8 @@ def mlstm_chunk(
     """The chunkwise mLSTM (``normalize=True``) or SSD (``False``) cell:
     ``[B, S, H, Dv]``. On a CPU tensor the plain version in the form the
     reference's CPU path takes (the parallel form up to ``S = 256``, the
-    chunked recurrence above); on a CUDA tensor the mLSTM kernel.
+    chunked recurrence above); on a CUDA tensor the mLSTM kernels, at any
+    ``Dk`` up to 512 (past 64 the Dk-tiled one, xLSTM's 512-wide heads).
     Differentiable in all five inputs through :class:`MlstmChunk` either
     way."""
     if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 or v.shape[:3] != q.shape[:3]:

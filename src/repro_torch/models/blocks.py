@@ -1,11 +1,12 @@
 """Layer blocks of the serving path: GQA attention (full or sliding
-window), the gated MLP and mamba-style SSD heads, each with its
-full-sequence forward and its one-token decode.
+window), the gated MLP, mamba-style SSD heads and xLSTM's mLSTM and sLSTM
+cells, each with its full-sequence forward and its one-token decode.
 
-The port of the attention, MLP and SSD parts of the reference package's
-``repro.models.blocks``. Each block is an ``nn.Module`` whose parameters
-carry the reference's names (``wq``, ``w_gate``, ``w_in``, ...), so
-:mod:`repro_torch.convert` maps the reference's pytree onto it.
+The port of the attention, MLP, SSD and xLSTM parts of the reference
+package's ``repro.models.blocks``. Each block is an ``nn.Module`` whose
+parameters carry the reference's names (``wq``, ``w_gate``, ``w_in``,
+``r_gates``, ...), so :mod:`repro_torch.convert` maps the reference's
+pytree onto it.
 
 Every parameter is trainable (``requires_grad``), as every leaf of the
 reference's parameter tree is differentiated by its train step; the serving
@@ -20,10 +21,13 @@ Conventions, as in the reference:
   states run in float32, and each cast stands where the reference's result
   dtype puts it (JAX promotes ``bf16 op f32`` on its own, PyTorch does not);
 - SSD heads are the ``normalize=False`` case of the chunkwise mLSTM cell and
-  run on its kernel (:func:`repro_torch.kernels.ops.mlstm_chunk`).
+  xLSTM's mLSTM the ``normalize=True`` case; both run on its kernels
+  (:func:`repro_torch.kernels.ops.mlstm_chunk`);
+- the sLSTM has no kernel, as the reference has none: its recurrence is a
+  Python loop over positions in torch ops (the reference's ``lax.scan``).
 
-MoE, the xLSTM cells (mLSTM, sLSTM), cross-attention and the modality
-frontends are not ported yet (ROADMAP A.12): :func:`unported` names them.
+MoE, cross-attention and the modality frontends are not ported yet
+(ROADMAP A.12): :func:`unported` names them.
 """
 from __future__ import annotations
 
@@ -41,8 +45,12 @@ __all__ = [
     "Attention",
     "MLP",
     "Mamba",
+    "MLSTM",
+    "SLSTM",
     "init_attention_cache",
     "init_mamba_cache",
+    "init_mlstm_cache",
+    "init_slstm_cache",
     "linear_cell_step",
     "final_linear_state",
     "unported",
@@ -55,7 +63,7 @@ Tables = Tuple[torch.Tensor, torch.Tensor]  # rope (cos, sin)
 def unported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP A.12: the LLM "
-        "substrate's MoE, xLSTM, encoder-decoder and frontend blocks)"
+        "substrate's MoE, encoder-decoder and frontend blocks)"
     )
 
 
@@ -165,7 +173,8 @@ class MLP(nn.Module):
 
 
 # ===========================================================================
-# mamba-style SSD heads (hymba's SSM half)
+# the matrix-memory cell: mamba-style SSD heads (hymba's SSM half) and
+# xLSTM's mLSTM
 # ===========================================================================
 def linear_cell_step(q, k, v, li, lf, cache: Cache, *, normalize: bool, eps: float = 1e-6):
     """One recurrent step of the stabilised matrix-memory cell (the
@@ -257,10 +266,7 @@ class Mamba(nn.Module):
         return xc, z, kb, qc, vv, log_inject, log_decay
 
     def finish(self, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        """Group-norm the heads' output ``y [..., di]``, gate it by
-        ``silu(z)`` and project out."""
-        y = rms_norm(y, self.gn_scale, self.cfg.norm_eps)
-        return (y * F.silu(z)) @ self.w_out
+        return _finish(self, y, z)
 
     def _heads(self, x: torch.Tensor):
         """``(y [B, S, d], (k, v, log_inject, log_decay))`` of the heads over
@@ -298,4 +304,175 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, *, device=None) -> Cache:
         "C": torch.zeros((batch, H, N, di // H), dtype=f32, device=device),
         "n": torch.zeros((batch, H, N), dtype=f32, device=device),
         "m": torch.zeros((batch, H), dtype=f32, device=device),
+    }
+
+
+def _finish(block: nn.Module, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Group-norm a cell's heads' output ``y [..., di]``, gate it by
+    ``silu(z)`` and project out (SSD heads and the mLSTM alike)."""
+    y = rms_norm(y, block.gn_scale, block.cfg.norm_eps)
+    return (y * F.silu(z)) @ block.w_out
+
+
+class MLSTM(nn.Module):
+    """xLSTM's matrix-memory block: ``w_in [d, 2 di]`` (x and the gate z),
+    ``wq``/``wk``/``wv [di, di]``, float32 ``w_igate``/``w_fgate [di, H]``,
+    ``b_fgate [H]`` (3.0: the forget gate starts open) and ``gn_scale
+    [di]``, ``w_out [di, d]``; ``di = ssm_expand d``, every head ``di / H``
+    wide in q, k and v."""
+
+    def __init__(self, cfg: ModelConfig, g: Optional[torch.Generator], device=None):
+        super().__init__()
+        d = cfg.d_model
+        di = cfg.ssm_expand * d
+        H = cfg.n_heads
+        dt = DTYPES[cfg.dtype]
+        f32 = torch.float32
+        self.cfg = cfg
+        self.w_in = _new(g, (d, 2 * di), dt, device)
+        self.wq = _new(g, (di, di), dt, device)
+        self.wk = _new(g, (di, di), dt, device)
+        self.wv = _new(g, (di, di), dt, device)
+        self.w_igate = _new(g, (di, H), f32, device)
+        self.w_fgate = _new(g, (di, H), f32, device)
+        dev = self.w_in.device
+        self.b_fgate = _const((H,), 3.0, dev)
+        self.w_out = _new(g, (di, d), dt, device)
+        self.gn_scale = _const((di,), 0.0, dev)
+
+    def project(self, x: torch.Tensor):
+        """``x [..., d]`` -> ``(z, q, k, v, i_gate, f_gate)``: q, k, v
+        ``[..., H, di/H]`` in the compute dtype, the gates' float32
+        pre-activations ``[..., H]``."""
+        cfg = self.cfg
+        H = cfg.n_heads
+        di = cfg.ssm_expand * cfg.d_model
+        xc, z = torch.split(x @ self.w_in, di, dim=-1)
+        heads = lambda w: (xc @ w).reshape(*x.shape[:-1], H, di // H)
+        xf = xc.to(torch.float32)
+        return (z, heads(self.wq), heads(self.wk), heads(self.wv),
+                xf @ self.w_igate, xf @ self.w_fgate + self.b_fgate)
+
+    def _cell(self, x: torch.Tensor):
+        """``(y [B, S, d], (k, v, i_gate, f_gate))`` over ``x [B, S, d]`` on
+        the chunkwise cell (``normalize=True``, scale ``(di/H) ** -0.5``)."""
+        B, S, _ = x.shape
+        z, q, k, v, ig, fg = self.project(x)
+        y = ops.mlstm_chunk(q, k, v, ig, fg, normalize=True)
+        return _finish(self, y.reshape(B, S, -1), z), (k, v, ig, fg)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The block over a whole sequence ``x [B, S, d]``: ``y [B, S, d]``
+        (the reference's ``mlstm_forward``)."""
+        return self._cell(x)[0]
+
+    def prefill(self, x: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+        """:meth:`forward` and the cell's state at the sequence's end, in
+        closed form (the reference's ``_mlstm_prefill``)."""
+        y, (k, v, ig, fg) = self._cell(x)
+        return y, final_linear_state(k, v, ig, fg, normalize=True)
+
+    def decode(self, x: torch.Tensor, cache: Cache) -> Tuple[torch.Tensor, Cache]:
+        """One token ``x [B, d]``: ``(y [B, d], new state)``; q is scaled by
+        ``(di/H) ** -0.5`` in the compute dtype before the step, as the
+        reference's ``mlstm_decode`` scales it."""
+        B = x.shape[0]
+        z, q, k, v, ig, fg = self.project(x)
+        q = q * q.shape[-1] ** -0.5
+        y, new = linear_cell_step(q, k, v, ig, fg, cache, normalize=True)
+        return _finish(self, y.reshape(B, -1).to(x.dtype), z), new
+
+
+def init_mlstm_cache(cfg: ModelConfig, batch: int, *, device=None) -> Cache:
+    di = cfg.ssm_expand * cfg.d_model
+    H = cfg.n_heads
+    dh = di // H
+    f32 = torch.float32
+    return {
+        "C": torch.zeros((batch, H, dh, dh), dtype=f32, device=device),
+        "n": torch.zeros((batch, H, dh), dtype=f32, device=device),
+        "m": torch.full((batch, H), -1e30, dtype=f32, device=device),
+    }
+
+
+# ===========================================================================
+# xLSTM's sLSTM (scalar memory, recurrent)
+# ===========================================================================
+class SLSTM(nn.Module):
+    """xLSTM's scalar-memory block: ``w_gates [d, 4d]`` (the input's part of
+    the i, f, z, o pre-activations), float32 ``r_gates [H, dh, 4 dh]`` (the
+    block-diagonal recurrence, ``dh = d / H``) and ``b_gates [4d]``,
+    ``w_out [d, d]`` and float32 ``gn_scale [d]``."""
+
+    def __init__(self, cfg: ModelConfig, g: Optional[torch.Generator], device=None):
+        super().__init__()
+        d, H = cfg.d_model, cfg.n_heads
+        dh = d // H
+        dt = DTYPES[cfg.dtype]
+        f32 = torch.float32
+        self.cfg = cfg
+        self.w_gates = _new(g, (d, 4 * d), dt, device)
+        self.r_gates = _new(g, (H, dh, 4 * dh), f32, device, fan_in=dh)
+        dev = self.w_gates.device
+        self.b_gates = _const((4 * d,), 0.0, dev)
+        self.w_out = _new(g, (d, d), dt, device)
+        self.gn_scale = _const((d,), 0.0, dev)
+
+    def cell(self, gx: torch.Tensor, cache: Cache) -> Tuple[torch.Tensor, Cache]:
+        """One step (the reference's ``_slstm_cell``): ``gx [B, 4d]``, the
+        input's part of the pre-activations, and the state -> ``(h [B, d]
+        float32, new state)``. The exponential forget gate is stabilised by
+        ``m``."""
+        B, d = cache["h"].shape
+        H = self.cfg.n_heads
+        h_prev = cache["h"].reshape(B, H, d // H)
+        # the heads' recurrent terms [B, H, 4 dh] are flattened to [B, 4d]
+        # and only then split into i, f, z, o along the last axis, as the
+        # reference splits them (not a per-head, per-gate layout)
+        rec = torch.bmm(h_prev.transpose(0, 1), self.r_gates).transpose(0, 1).reshape(B, 4 * d)
+        pre = gx.to(torch.float32) + rec + self.b_gates
+        it, ft, zt, ot = torch.split(pre, d, dim=-1)
+        m_new = torch.maximum(ft + cache["m"], it)
+        i_g = torch.exp(it - m_new)
+        f_g = torch.exp(ft + cache["m"] - m_new)
+        c_new = f_g * cache["c"] + i_g * torch.tanh(zt)
+        n_new = f_g * cache["n"] + i_g
+        h_new = torch.sigmoid(ot) * c_new / torch.clamp_min(n_new, 1e-6)
+        return h_new, {"h": h_new, "c": c_new, "n": n_new, "m": m_new}
+
+    def out(self, h: torch.Tensor) -> torch.Tensor:
+        """Norm the hidden states ``h [..., d]`` (in the compute dtype) and
+        project out."""
+        return rms_norm(h, self.gn_scale, self.cfg.norm_eps) @ self.w_out
+
+    def prefill(self, x: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+        """The block over a whole sequence ``x [B, S, d]`` by the recurrence,
+        one position a step from the empty state: ``(y [B, S, d], the state
+        at the sequence's end)`` (the reference's ``_slstm_prefill``)."""
+        B, S, _ = x.shape
+        gx = (x @ self.w_gates).to(torch.float32)  # [B, S, 4d], cast once for every step
+        cache = init_slstm_cache(self.cfg, B, device=x.device)
+        hs = []
+        for t in range(S):
+            h, cache = self.cell(gx[:, t], cache)
+            hs.append(h)
+        return self.out(torch.stack(hs, dim=1).to(x.dtype)), cache
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`prefill`'s output alone (the reference's ``slstm_forward``)."""
+        return self.prefill(x)[0]
+
+    def decode(self, x: torch.Tensor, cache: Cache) -> Tuple[torch.Tensor, Cache]:
+        """One token ``x [B, d]``: ``(y [B, d], new state)``."""
+        h, new = self.cell(x @ self.w_gates, cache)
+        return self.out(h.to(x.dtype)), new
+
+
+def init_slstm_cache(cfg: ModelConfig, batch: int, *, device=None) -> Cache:
+    shape, f32 = (batch, cfg.d_model), torch.float32
+    return {
+        "h": torch.zeros(shape, dtype=f32, device=device),
+        "c": torch.zeros(shape, dtype=f32, device=device),
+        "n": torch.zeros(shape, dtype=f32, device=device),
+        "m": torch.full(shape, -1e30, dtype=f32, device=device),
     }

@@ -2,7 +2,8 @@
 training, the KV / SSD caches, prefill and one-token decode.
 
 The port of the reference package's ``repro.models.transformer`` for block
-kinds ``ATTN``, ``ATTN_LOCAL``, ``MAMBA``, ``HYMBA`` and ``HYMBA_LOCAL``.
+kinds ``ATTN``, ``ATTN_LOCAL``, ``MAMBA``, ``HYMBA``, ``HYMBA_LOCAL``,
+``MLSTM`` and ``SLSTM``.
 The reference stacks each pattern position's parameters ``[n_units, ...]``
 and scans over units; PyTorch runs eagerly, so the port unrolls: the model
 is an ``nn.Module`` whose ``layers`` are an ``nn.ModuleList`` in layer order
@@ -12,18 +13,20 @@ follows).
 The cache is ``{"pos": int, "layers": [per-layer dict]}``; a layer's entry
 holds ``"kv"`` (``k``, ``v [B, size, Hkv, hd]``, a ring of ``window`` slots
 on sliding-window layers) and, for SSD heads, ``"ssm"`` (``C``, ``n``,
-``m``). ``pos`` is a Python int, so the ring slot and the valid length of a
-decode step need no copy from the device. :func:`prefill` and
+``m``); an xLSTM layer's holds ``"cell"`` (the mLSTM's ``C``, ``n``, ``m``,
+the sLSTM's ``h``, ``c``, ``n``, ``m``). ``pos`` is a Python int, so the
+ring slot and the valid length of a decode step need no copy from the
+device. :func:`prefill` and
 :func:`decode_step` update the cache in place (KV slots written into the
-cache tensors, SSD states replaced in the dict, ``pos`` advanced) and
-return it.
+cache tensors, SSD and xLSTM states replaced in the dict, ``pos``
+advanced) and return it.
 
 :func:`forward` is the training forward, ``(logits [B, S, V], aux)``; under
 ``cfg.remat`` each layer runs inside ``torch.utils.checkpoint`` (the
 reference's ``jax.checkpoint`` of its scanned unit, a whole pattern of
 layers: the port checkpoints each layer of it, which recomputes the same
 values), so its activations are recomputed in the backward instead of kept.
-The SSD state at a sequence's end is computed by prefill only.
+The SSD and xLSTM states at a sequence's end are computed by prefill only.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ Cache = Dict[str, Any]
 _ATTN_KINDS = (BlockKind.ATTN, BlockKind.ATTN_LOCAL, BlockKind.HYMBA, BlockKind.HYMBA_LOCAL)
 _HYMBA = (BlockKind.HYMBA, BlockKind.HYMBA_LOCAL)
 _LOCAL = (BlockKind.ATTN_LOCAL, BlockKind.HYMBA_LOCAL)
+_XLSTM = (BlockKind.MLSTM, BlockKind.SLSTM)
 
 
 def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
@@ -62,12 +66,14 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.frontend:
         raise B.unported(f"the {cfg.frontend} frontend")
     for kind in set(cfg.layer_kinds):
-        if kind not in _ATTN_KINDS + (BlockKind.MAMBA,):
+        if kind not in _ATTN_KINDS + (BlockKind.MAMBA,) + _XLSTM:
             raise B.unported(f"block kind {kind!r}")
 
 
 class Layer(nn.Module):
-    """One layer: ``norm1``, attention and/or SSD heads, ``norm2``, the MLP."""
+    """One layer: ``norm1``, attention and/or SSD heads, ``norm2``, the MLP;
+    or, for the xLSTM kinds, ``norm1`` and the ``mlstm`` or ``slstm`` cell,
+    which carries its own projections (no ``norm2``, no MLP)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, g: Optional[torch.Generator], device=None):
         super().__init__()
@@ -83,10 +89,20 @@ class Layer(nn.Module):
                 self.mamba = B.Mamba(cfg, g, device)
         elif kind == BlockKind.MAMBA:
             self.mamba = B.Mamba(cfg, g, device)
+        elif kind == BlockKind.MLSTM:
+            self.mlstm = B.MLSTM(cfg, g, device)
+        elif kind == BlockKind.SLSTM:
+            self.slstm = B.SLSTM(cfg, g, device)
         else:
             raise B.unported(f"block kind {kind!r}")
-        self.norm2 = zeros()
-        self.mlp = B.MLP(cfg, g, device)
+        if kind not in _XLSTM:
+            self.norm2 = zeros()
+            self.mlp = B.MLP(cfg, g, device)
+
+    @property
+    def cell(self) -> nn.Module:
+        """The xLSTM layer's cell (``mlstm`` or ``slstm``)."""
+        return self.mlstm if self.kind == BlockKind.MLSTM else self.slstm
 
 
 class Transformer(nn.Module):
@@ -132,6 +148,10 @@ def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dev
             cfg, batch, max_len, window=_window(cfg, kind), device=device)
     if kind in _HYMBA + (BlockKind.MAMBA,):
         c["ssm"] = B.init_mamba_cache(cfg, batch, device=device)
+    if kind == BlockKind.MLSTM:
+        c["cell"] = B.init_mlstm_cache(cfg, batch, device=device)
+    if kind == BlockKind.SLSTM:
+        c["cell"] = B.init_slstm_cache(cfg, batch, device=device)
     return c
 
 
@@ -174,9 +194,14 @@ def _ssd(layer: Layer, h: torch.Tensor, c: Optional[Cache]) -> torch.Tensor:
 
 def _block(layer: Layer, x: torch.Tensor, tables, c: Optional[Cache] = None) -> torch.Tensor:
     """One layer over a whole sequence; with a cache ``c`` (prefill) its
-    keys, values and SSD state go there."""
+    keys, values and SSD or xLSTM state go there."""
     cfg = layer.cfg
     h = rms_norm(x, layer.norm1, cfg.norm_eps)
+    if layer.kind in _XLSTM:
+        if c is None:
+            return x + layer.cell(h)
+        y, c["cell"] = layer.cell.prefill(h)
+        return x + y
     if layer.kind in _ATTN_KINDS:
         a, k, v = layer.attn(h, tables[_local_theta(cfg, layer.window)], window=layer.window)
         if c is not None:
@@ -230,6 +255,9 @@ def prefill(params: Transformer, batch: Dict[str, torch.Tensor], cfg: ModelConfi
 def _block_decode(layer: Layer, x: torch.Tensor, c: Cache, pos: int, tables) -> torch.Tensor:
     cfg = layer.cfg
     h = rms_norm(x, layer.norm1, cfg.norm_eps)
+    if layer.kind in _XLSTM:
+        y, c["cell"] = layer.cell.decode(h, c["cell"])
+        return x + y
     if layer.kind in _ATTN_KINDS:
         a = layer.attn.decode(h, c["kv"], tables[_local_theta(cfg, layer.window)], pos=pos)
         if layer.kind in _HYMBA:

@@ -31,7 +31,9 @@ entry in float32, 8e-3 (two bf16 steps, each side rounds its output once)
 in bf16; flash's lse within 1e-5 where finite and +inf on the same rows.
 bf16 SSD (``normalize=False``) runs the tensor-core mLSTM kernel, held
 also to its rounding model ``ref.mlstm_chunk_tc`` elementwise: one bf16
-step of the element (2^-7 of it) plus 2^-10 of max|model|.
+step of the element (2^-7 of it) plus 2^-10 of max|model|. Past Dk 64
+(xLSTM's 512-wide heads) every call runs the Dk-tiled kernel, held to the
+same limits as the CUDA-core one.
 bf16 inputs run the forward, dq and dk/dv on the tensor cores (p and ds
 rounded to bf16 before their products); the forward keeps the limits
 above, on 64-aligned and on unaligned inputs (a head dim off a multiple of
@@ -612,7 +614,7 @@ def test_ssd_mma_kernel_matches_model_and_plain(B, S, H, Dk, Dv, chunk):
     q, k, v = (_randn(g, B, S, H, d, dtype=bf) for d in (Dk, Dk, Dv))
     dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g) - 2.0)
     ig, fg = torch.log(dt + 1e-9).to("cuda"), (-dt).to("cuda")
-    assert mlstm_chunk.uses_mma(bf, False, chunk)
+    assert mlstm_chunk.uses_mma(bf, False, chunk, Dk)
     before = mlstm_chunk.LAUNCHES["mlstm_chunk"]
     out = ops.mlstm_chunk(q, k, v, ig, fg, chunk=chunk, normalize=False)
     torch.cuda.synchronize()
@@ -623,14 +625,44 @@ def test_ssd_mma_kernel_matches_model_and_plain(B, S, H, Dk, Dv, chunk):
     assert _rel_err(out, want) <= _LLM_TOL[bf]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("normalize,S,H,Dk,Dv,chunk", [
+    (True, 300, 2, 512, 512, 128), (False, 300, 2, 512, 512, 128), (True, 150, 3, 80, 96, 128),
+    (False, 150, 3, 80, 96, 128), (True, 70, 3, 100, 33, 16),
+])
+def test_mlstm_tiled_kernel_matches_plain(normalize, S, H, Dk, Dv, chunk, dtype):
+    """Past Dk 64 (xLSTM's heads: Dk = Dv = 512) the Dk-tiled kernel runs,
+    and only it, whatever the flag and dtype."""
+    _need_cuda()
+    B = 2
+    g = torch.Generator().manual_seed(S + Dk)
+    q, k = _randn(g, B, S, H, Dk, dtype=dtype), _randn(g, B, S, H, Dk, dtype=dtype)
+    v = _randn(g, B, S, H, Dv, dtype=dtype)
+    ig = torch.randn(B, S, H, generator=g).to("cuda")
+    if normalize:
+        fg = (torch.randn(B, S, H, generator=g) + 3.0).to("cuda")
+    else:
+        fg = -torch.rand(B, S, H, generator=g).to("cuda") * 0.5
+        ig = torch.log(torch.rand(B, S, H, generator=g) * 0.5 + 1e-3).to("cuda")
+    assert mlstm_chunk.uses_tiled(Dk) and not mlstm_chunk.uses_mma(dtype, normalize, chunk, Dk)
+    before = dict(mlstm_chunk.LAUNCHES)
+    out = ops.mlstm_chunk(q, k, v, ig, fg, chunk=chunk, normalize=normalize)
+    torch.cuda.synchronize()
+    assert mlstm_chunk.LAUNCHES == {**before, "mlstm_chunk_tiled": before["mlstm_chunk_tiled"] + 1}
+    want = ref.mlstm_chunk_chunked(q, k, v, ig, fg, chunk=chunk, normalize=normalize)
+    tol = 1e-4 if dtype == torch.float32 else _LLM_TOL[dtype]
+    assert out.dtype == dtype and _rel_err(out, want) <= tol
+
+
 def test_llm_kernels_refuse_shapes_past_their_limits():
     _need_cuda()
-    assert flash_attention.limits() == 64 and mlstm_chunk.limits()[0] == 64
+    assert flash_attention.limits() == 64 and mlstm_chunk.limits() == (512, 128)
     q = torch.zeros(1, 8, 2, 80, device="cuda")
     with pytest.raises(ValueError, match="D <= 64"):
         flash_attention.flash_attention_cuda(q, q, q)
     g = torch.zeros(1, 8, 2, device="cuda")
-    with pytest.raises(ValueError, match="Dk <= 64"):
+    q = torch.zeros(1, 8, 2, 520, device="cuda")
+    with pytest.raises(ValueError, match="Dk <= 512"):
         mlstm_chunk.mlstm_chunk_cuda(q, q, q, g, g)
     with pytest.raises(ValueError, match="query heads per KV head"):
         decode_attention.decode_attention_cuda(

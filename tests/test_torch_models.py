@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as ref_config
 from repro.configs import get_smoke_config as ref_smoke_config
 from repro.models import model as ref_model
 from repro_torch import configs, convert
@@ -42,7 +43,7 @@ def _max_err(a, b):
     return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "tinyllama-1.1b", "mixed"])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "tinyllama-1.1b", "mixed", "xlstm-350m"])
 def test_serving_path_matches_reference(arch):
     cfg_ref, cfg = _configs(arch)
     assert cfg_ref.param_count() == cfg.param_count()
@@ -88,7 +89,7 @@ def test_cache_conversion_round_trips():
         assert np.array_equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "mixed"])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "mixed", "xlstm-350m"])
 def test_decode_continues_prefill(arch):
     """Prefill over S + 1 tokens gives the logits of prefill over S then one
     decode step (the port's own consistency check, which the card repeats
@@ -136,10 +137,15 @@ def test_entry_points_want_cuda_unless_asked_for_cpu(monkeypatch):
         model.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
 
 
-@pytest.mark.parametrize("kind", [BlockKind.MOE, BlockKind.MLSTM, BlockKind.SLSTM])
-def test_unported_block_kinds_raise(kind):
-    cfg = dataclasses.replace(configs.get_smoke_config("tinyllama-1.1b"),
-                              block_pattern=(kind,), n_experts=4, n_experts_active=2)
+# a block kind, the encoder-decoder stack (as seamless-m4t-large-v2 sets it)
+# and a vision frontend (as internvl2-2b sets it), each still unported
+@pytest.mark.parametrize("unported", [
+    dict(block_pattern=(BlockKind.MOE,), n_experts=4, n_experts_active=2),
+    dict(encoder_layers=2),
+    dict(frontend="vision", frontend_tokens=16, frontend_dim=96),
+], ids=["moe", "encoder_decoder", "vision_frontend"])
+def test_unported_block_kinds_raise(unported):
+    cfg = dataclasses.replace(configs.get_smoke_config("tinyllama-1.1b"), **unported)
     with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
         model.init_params(0, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
@@ -156,9 +162,15 @@ def test_configs_carry_the_published_widths():
         **{f: getattr(cfg, f) for f in ("n_layers", "d_model", "n_heads", "n_kv_heads",
                                         "head_dim", "d_ff", "vocab_size", "ssm_state",
                                         "window")}).param_count()
-    assert sorted(configs.list_archs()) == ["hymba-1.5b", "tinyllama-1.1b"]
+    x = configs.get_config("xlstm-350m")
+    assert (x.d_model, x.n_heads, x.n_kv_heads, x.hd, x.d_ff, x.vocab_size, x.ssm_expand,
+            x.n_layers, x.tie_embeddings) == (1024, 4, 4, 256, 0, 50304, 2, 24, False)
+    assert x.block_pattern == (BlockKind.MLSTM,) * 7 + (BlockKind.SLSTM,)
+    assert x.source == "arXiv:2405.04517"
+    assert x.param_count() == 521_798_656 == ref_config("xlstm-350m").param_count()
+    assert sorted(configs.list_archs()) == ["hymba-1.5b", "tinyllama-1.1b", "xlstm-350m"]
     with pytest.raises(KeyError):
-        configs.get_config("xlstm-350m")
+        configs.get_config("qwen2.5-14b")  # the reference has it; the port not yet
 
 
 def test_blocks_match_reference_blocks():
