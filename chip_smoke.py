@@ -111,7 +111,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    forward, float32 the CUDA-core one; decode reports its splits of the
    cache and blocks; bf16 SSD runs the tensor-core mLSTM kernel, held also
    to its rounding model ``ref.mlstm_chunk_tc``, with its blocks, waves,
-   registers and shared memory);
+   registers and shared memory); then head dim 128: the flash forward's
+   width-128 instances on the same ragged cases at D 128, 96 and 77 and on
+   pointers off 16 bytes (float32 and bf16), decode attention at D 128 with
+   GQA groups 1, 2, 4 and 5 on ragged lengths and on qwen2-moe-a2.7b's
+   2,112-slot cache; both timed (CUDA events and device time) at
+   qwen2-moe-a2.7b's shapes (16 / 16 heads) and the dense D = 128 configs'
+   (qwen2.5-14b 40 / 8, minitron-8b 32 / 8, gemma3-27b 32 / 16 at its
+   1,024 window) beside bound, plain and SDPA;
 13. llm_serve — hymba-1.5b at full width (bf16, random weights from a seed):
    8 prompts of 2,048 tokens through ``make_prefill_step``, then 64 greedy
    ``make_serve_step`` steps, with tokens/s, launches per run, peak memory
@@ -135,6 +142,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    the same inputs in float32 (held to its limit), end to end in float32
    and bf16 (reported, bf16 as a share of its limit, beside the float32
    prefill's response to a 1e-7 perturbation of the embedding);
+13c. llm_moe — qwen2-moe-a2.7b's serving path: one MoE layer at full
+   width in float32, the card against the CPU path (2 x 128 tokens, 4
+   decode steps, logits and the KV cache); the model at full width (bf16,
+   14.3e9 parameters, random weights from a seed): 8 x 2,048 prompt tokens
+   and 64 greedy decode steps, tokens/s, peak memory, launches per run (24
+   flash forward a prefill, 24 decode attention a step, nothing else), the
+   (token, choice) pairs the prefill's MoE dropped per layer, device time
+   by kernel of a prefill and a decode step; decode against prefill layer
+   by layer in float32 on the same inputs, held where the prefill dropped
+   none of the last token's pairs (the rest counted and reported), and end
+   to end in bf16 (reported against its limit); then both again with room
+   in every expert's queue (capacity factor E / k), where nothing drops and
+   every layer is held;
 14. llm_train_kernels — the flash-attention backward kernels (dq, dk/dv)
    against their plain version on ragged cases (GQA groups of 1, 2 and 8, a
    window, ``q_offset``, dead rows beside live ones, an odd head dim,
@@ -200,6 +220,8 @@ from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.serve import ServeConfig, SimRequest, SimServer, synthetic_workload  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.models import model as llm  # noqa: E402
+from repro_torch.models import transformer as llm_stack  # noqa: E402
+from repro_torch.models.blocks import MoE, init_attention_cache  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.models.config import BlockKind  # noqa: E402
 from repro_torch.data.tokens import TokenStream, TokenStreamConfig  # noqa: E402
@@ -334,6 +356,12 @@ def phase_build() -> dict:
                   if "bank_" in k}
     emit("build", kernel="bank_fused_kernel, bank_tick_kernel", ptxas=bank_ptxas,
          blocks_per_sm=grid_tick.bank_occupancy())
+    # the bf16 forward's registers, spills and blocks an SM at both widths
+    fwd_ptxas = {k: v for k, v in ptxas_by_kernel(_build.build_logs.get("flash_attention", "")).items()
+                 if k.startswith("flash_fwd")}
+    emit("build", kernel="flash_fwd_mma_kernel, flash_fwd_kernel", ptxas=fwd_ptxas,
+         blocks_per_sm={w: occupancy[k] for w, k in (("64", "flash_attention_fwd"),
+                                                     ("128", "flash_attention_fwd_d128"))})
     # the bf16 dq kernel's registers, spills and blocks an SM on their own line
     dq_ptxas = {k: v for k, v in ptxas_by_kernel(_build.build_logs.get("flash_attention", "")).items()
                 if k.startswith("flash_bwd_dq_mma_kernel")}
@@ -1668,6 +1696,9 @@ def phase_optimize(dev) -> dict:
 # the LLM substrate's serving path (hymba-1.5b)
 # ---------------------------------------------------------------------------
 HYMBA = "hymba-1.5b"
+QWEN_MOE = "qwen2-moe-a2.7b"
+# the dense configs at head dim 128: their attention shapes in llm_kernels
+DENSE_D128 = ("qwen2.5-14b", "minitron-8b", "gemma3-27b")
 LLM_B, LLM_S, LLM_NEW = 8, 2048, 64
 # kernel vs plain, relative to max|plain|: both sum in float32 in another
 # order (online vs full softmax, chunked recurrence vs its plain replay);
@@ -1714,6 +1745,36 @@ def row_rel_err(got, want) -> float:
     g, w = got.double(), want.double()
     scale, diff = w.abs().amax(-1), (g - w).abs().amax(-1)
     return float(torch.where(scale > 0, diff / scale.clamp_min(1e-300), diff).max())
+
+
+# flash's ragged cases, (label, (B, Sq, Skv, Hq, Hkv, D), kwargs): GQA, a
+# window, a q_offset, S off the 64-row tile, non-causal, rows with no key (a
+# window shorter than the gap q_offset leaves), alone and beside rows that
+# keep some in one 64-row tile, an odd head dim
+FLASH_CASES = (
+    ("gqa", (2, 100, 100, 6, 2, 64), dict()),
+    ("window", (2, 130, 130, 4, 4, 32), dict(window=17)),
+    ("q_offset", (1, 40, 90, 6, 3, 20), dict(window=24, q_offset=50)),
+    ("non_causal", (2, 77, 50, 2, 1, 48), dict(causal=False)),
+    ("dead_rows", (1, 30, 20, 2, 2, 16), dict(window=4, q_offset=40)),
+    ("mixed_dead_rows", (1, 30, 20, 2, 2, 16), dict(window=8, q_offset=10)),
+    ("odd_d", (2, 70, 70, 4, 2, 17), dict()),
+)
+
+
+# the same cases past D 64, on the forward's width-128 instances: D 128
+# (GQA groups 5 and 2, qwen2-moe's group 1), D 96 (cp.async staging of 12
+# of 16 chunks) and D 77 (off a multiple of 8: plain loads)
+FLASH_D128_CASES = (
+    ("D128 gqa", (2, 100, 100, 10, 2, 128), dict()),
+    ("D128 window", (2, 130, 130, 4, 4, 128), dict(window=17)),
+    ("D128 q_offset", (1, 40, 90, 6, 3, 128), dict(window=24, q_offset=50)),
+    ("D128 non_causal", (2, 77, 50, 4, 2, 128), dict(causal=False)),
+    ("D128 dead_rows", (1, 30, 20, 2, 2, 128), dict(window=4, q_offset=40)),
+    ("D128 mixed_dead_rows", (1, 30, 20, 2, 2, 128), dict(window=8, q_offset=10)),
+    ("D96", (2, 70, 70, 4, 2, 96), dict()),
+    ("D77", (2, 70, 70, 4, 1, 77), dict(window=9)),
+)
 
 
 def flash_case(B, Sq, Skv, Hq, Hkv, D, dtype, seed, dev):
@@ -1851,18 +1912,7 @@ def phase_llm_kernels(dev) -> dict:
     cfg = configs.get_config(HYMBA)
     errs = {"flash_attention_fwd": 0.0, "decode_attention": 0.0, "mlstm_chunk": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        # flash: GQA, a window, a q_offset, S off the 64-row tile, non-causal,
-        # rows with no key (a window shorter than the gap q_offset leaves),
-        # alone and beside rows that keep some in one 64-row tile
-        for label, shape, kw in (
-            ("gqa", (2, 100, 100, 6, 2, 64), dict()),
-            ("window", (2, 130, 130, 4, 4, 32), dict(window=17)),
-            ("q_offset", (1, 40, 90, 6, 3, 20), dict(window=24, q_offset=50)),
-            ("non_causal", (2, 77, 50, 2, 1, 48), dict(causal=False)),
-            ("dead_rows", (1, 30, 20, 2, 2, 16), dict(window=4, q_offset=40)),
-            ("mixed_dead_rows", (1, 30, 20, 2, 2, 16), dict(window=8, q_offset=10)),
-            ("odd_d", (2, 70, 70, 4, 2, 17), dict()),
-        ):
+        for label, shape, kw in FLASH_CASES:
             errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], check_flash(
                 label, *flash_case(*shape, dtype, seed=shape[1], dev=dev), dtype, **kw))
         # pointers off 16 bytes: the bf16 kernel stages its tiles by plain loads
@@ -1917,24 +1967,7 @@ def phase_llm_kernels(dev) -> dict:
             f"main {label}", q, k, v, bf, window=window))
         check_flash(f"main {label}", *(x.float() for x in (q, k, v)), torch.float32,
                     window=window)
-        ms, _ = timed(lambda: flash_attention.flash_attention_cuda(q, k, v, window=window), 5)
-        plain_ms, _ = timed(lambda: ref.flash_attention(q, k, v, window=window), 2)
-        pairs = B * Hq * attention_pairs(S, S, True, window)
-        ops_ = 4 * D * pairs
-        bytes_ = nbytes(q, k, v) + nbytes(q) + 4 * B * Hq * S
-        b_ms, b_by = bound(bytes_, ops_)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        if window is None:
-            lib = lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)
-        else:
-            i = torch.arange(S, device=dev)
-            band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - W)
-            lib = lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=band, enable_gqa=True)
-        lib_ms, _ = timed(lib, 10)
-        flash_rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                                 library_ms=lib_ms, ops=ops_, bytes=bytes_)
+        flash_rows[label] = flash_timing(q, k, v, window)
         emit("llm_kernels", kernel="flash_attention_fwd", timing=label, card=smi(),
              shape=[B, S, Hq, Hkv, D], window=window,
              library="F.scaled_dot_product_attention(enable_gqa=True)", **flash_rows[label])
@@ -1943,50 +1976,8 @@ def phase_llm_kernels(dev) -> dict:
 
     dec_rows = {}
     for label, size in (("global", S + LLM_NEW), ("ring", W)):
-        g = torch.Generator().manual_seed(size)
-        qd = torch.randn((B, Hq, D), generator=g).to(dev).to(bf)
-        kc, vc = (torch.randn((B, size, Hkv, D), generator=g).to(dev).to(bf) for _ in range(2))
-        lengths = torch.full((B,), size, dtype=torch.int32, device=dev)
-        out = decode_attention.decode_attention_cuda(qd, kc, vc, lengths)
-        err = rel_err(f"decode main {label}", out,
-                      ref.decode_attention(qd, kc, vc, lengths), LLM_TOL[bf])
-        check_decode_repeats(f"main {label}", out, qd, kc, vc, lengths)
-        errs["decode_attention"] = max(errs["decode_attention"], err)
-        # the kernel (~0.02 ms) is faster than its host call: its time and
-        # SDPA's are device time under the profiler, the calls' own wall per
-        # call (CUDA events over a loop) beside them. A decode step reads
-        # each layer's cache once, cold: the timed calls cycle through
-        # copies of the cache that together pass the 50 MB L2 (the same
-        # cache again, L2-warm, beside it)
-        n_copies = -(-128 * 2 ** 20 // nbytes(kc, vc))
-        copies = itertools.cycle([(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(n_copies)])
-        kernel = lambda: decode_attention.decode_attention_cuda(qd, *next(copies), lengths)
-        ms = device_ms(kernel, 200, "decode_kernel")
-        warm_ms = device_ms(lambda: decode_attention.decode_attention_cuda(qd, kc, vc, lengths), 200,
-                            "decode_kernel")
-        call_ms, _ = timed(kernel, 200)
-        plain_ms = device_ms(lambda: ref.decode_attention(qd, kc, vc, lengths), 5)
-        bytes_ = nbytes(qd, kc, vc, lengths) + nbytes(qd)
-        ops_ = 4 * D * B * Hq * size
-        b_ms, b_by = bound(bytes_, ops_)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = lambda: sdpa(qd[:, :, None, :], *(x.transpose(1, 2) for x in next(copies)),
-                           enable_gqa=True)
-        lib_ms = device_ms(lib, 200)
-        lib_warm_ms = device_ms(lambda: sdpa(qd[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2),
-                                             enable_gqa=True), 200)
-        lib_call_ms, _ = timed(lib, 200)
-        del copies
-        dec_rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                               library_ms=lib_ms, bytes=bytes_, max_rel_err=err,
-                               ms_l2_warm=warm_ms, library_ms_l2_warm=lib_warm_ms,
-                               call_ms=call_ms, library_call_ms=lib_call_ms,
-                               clock="device time (torch.profiler), cache cold in L2")
-        splits = decode_attention.splits(B, size, Hq, Hkv, D, bf)
-        emit("llm_kernels", kernel="decode_attention", timing=label, card=smi(),
-             cache=[B, size, Hkv, D], splits=splits, blocks=B * Hkv * splits,
-             repeats_bitwise=True,
-             library="F.scaled_dot_product_attention(enable_gqa=True)", **dec_rows[label])
+        dec_rows[label] = decode_timing(f"main {label}", B, size, Hq, Hkv, D, seed=size, dev=dev)
+        errs["decode_attention"] = max(errs["decode_attention"], dec_rows[label]["max_rel_err"])
     res["decode_attention"] = dict(dec_rows["global"], ring=dec_rows["ring"])
 
     H, Dk, Dv, chunk = cfg.n_heads, cfg.ssm_state, cfg.ssm_expand * cfg.d_model // cfg.n_heads, 128
@@ -2017,8 +2008,162 @@ def phase_llm_kernels(dev) -> dict:
          **res["mlstm_chunk"])
     for name, e in errs.items():
         res[name]["max_abs_err"] = e
+    res.update(llm_kernels_d128(dev))
     torch.cuda.synchronize()
     return res
+
+
+def flash_timing(q, k, v, window) -> dict:
+    """The bf16 forward at a causal shape (and ``window``), timed by CUDA
+    events and under ``torch.profiler`` beside its bound, the plain version
+    and SDPA (a band mask for a window)."""
+    B, S, Hq, D = q.shape
+    kernel = lambda: flash_attention.flash_attention_cuda(q, k, v, window=window)
+    ms, _ = timed(kernel, 5)
+    plain_ms, _ = timed(lambda: ref.flash_attention(q, k, v, window=window), 2)
+    pairs = B * Hq * attention_pairs(S, S, True, window)
+    ops_ = 4 * D * pairs
+    bytes_ = nbytes(q, k, v) + nbytes(q) + 4 * B * Hq * S
+    b_ms, b_by = bound(bytes_, ops_)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window is None:
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:
+        i = torch.arange(S, device=q.device)
+        band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band, enable_gqa=True)
+    lib_ms, _ = timed(lib, 10)
+    return dict(ms=ms, device_ms=device_ms(kernel, 5, "flash_fwd"), plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                library_device_ms=device_ms(lib, 5), ops=ops_, bytes=bytes_)
+
+
+def decode_timing(label, B, size, Hq, Hkv, D, seed, dev) -> dict:
+    """The bf16 decode kernel on a full cache of ``size`` slots: held to
+    the plain version (and to itself on a second call), then timed beside
+    its bound, the plain version and SDPA."""
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(seed)
+    qd = torch.randn((B, Hq, D), generator=g).to(dev).to(bf)
+    kc, vc = (torch.randn((B, size, Hkv, D), generator=g).to(dev).to(bf) for _ in range(2))
+    lengths = torch.full((B,), size, dtype=torch.int32, device=dev)
+    out = decode_attention.decode_attention_cuda(qd, kc, vc, lengths)
+    err = rel_err(f"decode {label}", out, ref.decode_attention(qd, kc, vc, lengths), LLM_TOL[bf])
+    check_decode_repeats(label, out, qd, kc, vc, lengths)
+    # the kernel (~0.02 ms) is faster than its host call: its time and
+    # SDPA's are device time under the profiler, the calls' own wall per
+    # call (CUDA events over a loop) beside them. A decode step reads each
+    # layer's cache once, cold: the timed calls cycle through copies of the
+    # cache that together pass the 50 MB L2 (the same cache again, L2-warm,
+    # beside it)
+    n_copies = -(-128 * 2 ** 20 // nbytes(kc, vc))
+    copies = itertools.cycle([(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(n_copies)])
+    kernel = lambda: decode_attention.decode_attention_cuda(qd, *next(copies), lengths)
+    ms = device_ms(kernel, 200, "decode_kernel")
+    warm_ms = device_ms(lambda: decode_attention.decode_attention_cuda(qd, kc, vc, lengths), 200,
+                        "decode_kernel")
+    call_ms, _ = timed(kernel, 200)
+    plain_ms = device_ms(lambda: ref.decode_attention(qd, kc, vc, lengths), 5)
+    bytes_ = nbytes(qd, kc, vc, lengths) + nbytes(qd)
+    ops_ = 4 * D * B * Hq * size
+    b_ms, b_by = bound(bytes_, ops_)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = lambda: sdpa(qd[:, :, None, :], *(x.transpose(1, 2) for x in next(copies)),
+                       enable_gqa=True)
+    lib_ms = device_ms(lib, 200)
+    lib_warm_ms = device_ms(lambda: sdpa(qd[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2),
+                                         enable_gqa=True), 200)
+    lib_call_ms, _ = timed(lib, 200)
+    del copies
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib_ms, bytes=bytes_, max_rel_err=err,
+               ms_l2_warm=warm_ms, library_ms_l2_warm=lib_warm_ms,
+               call_ms=call_ms, library_call_ms=lib_call_ms,
+               clock="device time (torch.profiler), cache cold in L2")
+    splits = decode_attention.splits(B, size, Hq, Hkv, D, bf)
+    emit("llm_kernels", kernel="decode_attention", timing=label, card=smi(),
+         cache=[B, size, Hkv, D], group=Hq // Hkv, splits=splits, blocks=B * Hkv * splits,
+         repeats_bitwise=True,
+         library="F.scaled_dot_product_attention(enable_gqa=True)", **row)
+    return row
+
+
+def llm_kernels_d128(dev) -> dict:
+    """The flash forward's and decode attention's head dim 128 (the
+    forward's width-128 instances): ragged cases, float32 and bf16, then
+    qwen2-moe-a2.7b's serving shapes and the dense D = 128 configs'
+    attention shapes (bf16), timed. Keys ``flash_attention_fwd_d128`` and
+    ``decode_attention_d128``."""
+    bf = torch.bfloat16
+    moe = configs.get_config(QWEN_MOE)
+    flash_err = dec_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, shape, kw in FLASH_D128_CASES:
+            flash_err = max(flash_err, check_flash(
+                label, *flash_case(*shape, dtype, seed=shape[1] + shape[5], dev=dev), dtype, **kw))
+        for label, shape in (("unaligned", (2, 100, 100, 6, 2, 128)),
+                             ("unaligned odd_d", (1, 70, 70, 4, 2, 100))):
+            flash_err = max(flash_err, check_flash(label, *(unaligned(x) for x in flash_case(
+                *shape, dtype, seed=shape[5], dev=dev)), dtype))
+        # decode: groups 1, 2, 4 and 5 on ragged lengths (0 and the full
+        # cache among them), then qwen2-moe's 2,112-slot cache (16 / 16)
+        g = torch.Generator().manual_seed(128)
+        for G in (1, 2, 4, 5):
+            dec_err = max(dec_err, check_decode_case(f"D128 G{G}", 5, 300, 2 * G, 2, 128,
+                                                     [1, 300, 0, 77, 250], dtype, g, dev))
+        size = LLM_S + LLM_NEW
+        dec_err = max(dec_err, check_decode_case(
+            f"D128 {QWEN_MOE} ragged", LLM_B, size, moe.n_heads, moe.n_kv_heads, moe.hd,
+            [0, 1, 63, 64, 1000, size - 65, size - 1, size], dtype, g, dev))
+    res = {}
+    # qwen2-moe-a2.7b's prefill shape (16 / 16 heads, causal), bf16 and the
+    # same values in float32; then the dense configs' (qwen2.5-14b 40 / 8,
+    # minitron-8b 32 / 8, gemma3-27b's local layers 32 / 16 at the 1,024
+    # window), bf16
+    shapes = [(QWEN_MOE, moe.n_heads, moe.n_kv_heads, None)]
+    shapes += [(a, c.n_heads, c.n_kv_heads, c.window) for a, c in
+               ((a, configs.get_config(a)) for a in DENSE_D128)]
+    rows = {}
+    for arch, Hq, Hkv, window in shapes:
+        q, k, v = flash_case(LLM_B, LLM_S, LLM_S, Hq, Hkv, 128, bf, seed=Hq + Hkv, dev=dev)
+        flash_err = max(flash_err, check_flash(f"{arch} prefill", q, k, v, bf, window=window))
+        if arch == QWEN_MOE:
+            check_flash(f"{arch} prefill", *(x.float() for x in (q, k, v)), torch.float32)
+        rows[arch] = flash_timing(q, k, v, window)
+        emit("llm_kernels", kernel="flash_attention_fwd", timing=f"{arch} prefill", card=smi(),
+             shape=[LLM_B, LLM_S, Hq, Hkv, 128], window=window, kernel_name="flash_fwd_mma_kernel",
+             width=128, library="F.scaled_dot_product_attention(enable_gqa=True)", **rows[arch])
+        del q, k, v
+    res["flash_attention_fwd_d128"] = dict(rows[QWEN_MOE], max_abs_err=flash_err,
+                                           **{a: rows[a] for a in DENSE_D128})
+    drows = {}
+    for arch, Hq, Hkv, _ in shapes:
+        drows[arch] = decode_timing(f"{arch} decode", LLM_B, LLM_S + LLM_NEW, Hq, Hkv, 128,
+                                    seed=Hq, dev=dev)
+        dec_err = max(dec_err, drows[arch]["max_rel_err"])
+    res["decode_attention_d128"] = dict(drows[QWEN_MOE], max_abs_err=dec_err,
+                                        **{a: drows[a] for a in DENSE_D128})
+    return res
+
+
+def check_decode_case(label, B, S, Hq, Hkv, D, lengths, dtype, g, dev) -> float:
+    """The decode kernel against the plain version on random q and cache
+    and ``lengths``; a sequence of length 0 gets 0; a second call the same
+    bits. Returns the max relative error."""
+    q = torch.randn((B, Hq, D), generator=g).to(dev).to(dtype)
+    kc, vc = (torch.randn((B, S, Hkv, D), generator=g).to(dev).to(dtype) for _ in range(2))
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    out = decode_attention.decode_attention_cuda(q, kc, vc, lengths)
+    err = rel_err(f"decode {label}", out, ref.decode_attention(q, kc, vc, lengths), LLM_TOL[dtype])
+    if any(float(out[b].abs().max()) != 0.0 for b in range(B) if int(lengths[b]) == 0):
+        raise AssertionError(f"decode {label}: a sequence with no valid position is not 0")
+    check_decode_repeats(label, out, q, kc, vc, lengths)
+    emit("llm_kernels", kernel="decode_attention", case=label, dtype=str(dtype),
+         lengths=lengths.tolist(), cache=[B, S, Hkv, D], group=Hq // Hkv, max_rel_err=err,
+         splits=decode_attention.splits(B, S, Hq, Hkv, D, dtype), repeats_bitwise=True)
+    return err
 
 
 def llm_counts() -> dict:
@@ -2448,6 +2593,255 @@ def phase_llm_xlstm(dev) -> dict:
     run.update(decode_vs_prefill_by_layer=max(layer_errs), decode_vs_prefill=err32,
                decode_vs_prefill_noise_floor=noise32, decode_vs_prefill_bf16=err16,
                decode_vs_prefill_bf16_share_of_tol=err16 / SERVE_BF16_TOL)
+    res["serve"] = run
+    del net
+    torch.cuda.synchronize()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# qwen2-moe-a2.7b's serving path: GQA attention at head dim 128 (the flash
+# forward's width-128 instance, decode attention) and the MoE block
+# ---------------------------------------------------------------------------
+# the float32 card-against-CPU check: one MoE layer at full width, a short
+# prompt and a few decode steps
+MOE_CHECK_B, MOE_CHECK_S, MOE_CHECK_STEPS = 2, 128, 4
+
+
+@contextlib.contextmanager
+def moe_routes():
+    """Inside, every ``MoE.route`` call's result is appended to the yielded
+    list."""
+    seen, orig = [], MoE.route
+
+    def recorded(self, x):
+        r = orig(self, x)
+        seen.append(r)
+        return r
+
+    MoE.route = recorded
+    try:
+        yield seen
+    finally:
+        MoE.route = orig
+
+
+@contextlib.contextmanager
+def moe_capacity_factor(net, factor: float):
+    """Inside, every MoE block of ``net`` routes with capacity factor
+    ``factor`` (the same weights)."""
+    blocks_ = [m for m in net.modules() if isinstance(m, MoE)]
+    saved = [m.cfg for m in blocks_]
+    for m in blocks_:
+        m.cfg = dataclasses.replace(m.cfg, moe_capacity_factor=factor)
+    try:
+        yield
+    finally:
+        for m, c in zip(blocks_, saved):
+            m.cfg = c
+
+
+def moe_layer_decode_vs_prefill(net, tokens, s: int) -> dict:
+    """For each layer of an MoE ``net``, in float32 (a copy of the layer at
+    a time) on the same inputs (the hidden states of a float32 prefill over
+    ``tokens [b, s + 1]``): the layer's contribution at position ``s`` by a
+    decode step after a prefill over the first ``s`` positions, against its
+    prefill over all ``s + 1``. The prefill's MoE groups the whole sequence,
+    where the last token's pairs come last in every expert's queue, and a
+    decode step groups the token alone (capacity 1, nothing dropped): a
+    layer is held to SERVE_F32_TOL only where the prefill dropped none of
+    the last token's pairs; the rest are reported. Beside it, end to end in
+    float32 without holding the model in float32: the decode path's own
+    hidden state at position ``s`` carried through every layer (each
+    decode step on the cache of the full prefill's first ``s`` positions,
+    which the last token does not change), its logits against the full
+    prefill's (reported)."""
+    cfg = net.cfg
+    k = cfg.n_experts_active
+    held, excluded = [], []
+    with torch.no_grad():
+        x = net.embed[tokens].float()
+        x_dec = x[:, s]
+        b = tokens.shape[0]
+        full_t = net.rope_tables(torch.arange(s + 1, device=x.device))
+        part_t = net.rope_tables(torch.arange(s, device=x.device))
+        step_t = net.rope_tables(torch.full((1,), s, device=x.device))
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        for i, layer in enumerate(net.layers):
+            l32 = copy.deepcopy(layer).float()
+            with moe_routes() as routes:
+                y_full, _ = llm_stack._block(l32, x, full_t)
+            last_dropped = int((~routes[0].keep[:, -k:]).sum())
+            cache = {"kv": init_attention_cache(cfg32, b, s + 1, device=x.device)}
+            llm_stack._block(l32, x[:, :s], part_t, cache)
+            y_step = llm_stack._block_decode(l32, x[:, s], cache, s, step_t)
+            x_dec = llm_stack._block_decode(l32, x_dec, cache, s, step_t)
+            got, want = y_step - x[:, s], y_full[:, s] - x[:, s]
+            if last_dropped:
+                excluded.append(dict(layer=i, last_token_pairs_dropped=last_dropped,
+                                     max_rel_err=float((got.double() - want.double()).abs().max())
+                                     / float(want.abs().max())))
+            else:
+                held.append(rel_err(f"moe layer {i} decode vs prefill", got, want, SERVE_F32_TOL))
+            x = y_full
+            del l32
+        head = net.head.float()
+        logits = [rms_norm(h, net.final_norm, cfg.norm_eps) @ head for h in (x[:, s], x_dec)]
+    end_to_end = float((logits[1] - logits[0]).abs().max()) / float(logits[0].abs().max())
+    return dict(held_max_rel_err=held, excluded=excluded, float32_end_to_end=end_to_end)
+
+
+def phase_llm_moe(dev) -> dict:
+    """qwen2-moe-a2.7b's serving path on the card: (1) one MoE layer at full
+    width in float32, the card against the CPU path; (2) the model at full
+    width in bf16 (random weights from a seed): prefill 8 x 2,048 tokens and
+    64 greedy decode steps, launches counted from 0 a run, the pairs the
+    prefill's MoE dropped per layer, device time by kernel; (3) decode
+    against prefill, layer by layer in float32 (held where the prefill
+    dropped none of the last token's pairs) and end to end in bf16
+    (reported against SERVE_BF16_TOL), at the config's capacity and again
+    at a capacity that drops nothing, where every layer is held."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = configs.get_config(QWEN_MOE)
+    B, S, N = LLM_B, LLM_S, LLM_NEW
+    res = {}
+    # 1. float32, one MoE layer at full width: the card against the CPU
+    #    path, logits of the prompt and of each decode step, the KV cache
+    cfg1 = dataclasses.replace(cfg, n_layers=1, dtype="float32")
+    cpu_net = llm.init_params(1, cfg1, device="cpu")
+    card_net = copy.deepcopy(cpu_net).to(dev)
+    B2, S2, steps = MOE_CHECK_B, MOE_CHECK_S, MOE_CHECK_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (B2, S2 + steps),
+                         generator=torch.Generator().manual_seed(7))
+    caches = [llm.init_cache(cfg1, B2, S2 + steps, device=dev),
+              llm.init_cache(cfg1, B2, S2 + steps, device="cpu")]
+    prefill1, step1 = llm.make_prefill_step(cfg1), llm.make_serve_step(cfg1)
+    got, caches[0] = prefill1(card_net, caches[0], {"tokens": toks[:, :S2].to(dev)})
+    want, caches[1] = prefill1(cpu_net, caches[1], {"tokens": toks[:, :S2]})
+    errs = [rel_err("moe card vs CPU prefill", got.cpu(), want, SERVE_F32_TOL)]
+    for i in range(steps):
+        got, caches[0] = step1(card_net, caches[0], toks[:, S2 + i].to(dev))
+        want, caches[1] = step1(cpu_net, caches[1], toks[:, S2 + i])
+        errs.append(rel_err(f"moe card vs CPU step {i}", got.cpu(), want, SERVE_F32_TOL))
+    kv_err = max(rel_err(f"moe card vs CPU cache {n}", caches[0]["layers"][0]["kv"][n].cpu(),
+                         caches[1]["layers"][0]["kv"][n], SERVE_F32_TOL) for n in ("k", "v"))
+    emit("llm_moe", check="card vs CPU path, float32", layers=cfg1.n_layers, batch=B2,
+         prompt=S2, steps=steps, max_rel_err_by_step=errs, kv_max_rel_err=kv_err,
+         tol=SERVE_F32_TOL)
+    res["card_vs_cpu"] = max(errs + [kv_err])
+    del cpu_net, card_net, caches
+
+    # 2. qwen2-moe-a2.7b at full width, bf16
+    t0 = time.perf_counter()
+    net = llm.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in net.parameters())
+    prefill, step = llm.make_prefill_step(cfg), llm.make_serve_step(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1),
+                           generator=torch.Generator().manual_seed(0)).to(dev)
+    batch = {"tokens": tokens[:, :S]}
+    logits, cache = prefill(net, llm.init_cache(cfg, B, S + N, device=dev), batch)  # warm-up
+    greedy_decode(step, net, cache, logits, 2)
+    del cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cache = llm.init_cache(cfg, B, S + N, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(net, cache, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    by_run = {"prefill": llm_counts()}
+    first = logits.argmax(-1)
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = greedy_decode(step, net, cache, logits, N)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    by_run["decode"] = llm_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(logits.shape) != (B, cfg.vocab_size) or not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"moe serve logits not finite [{B}, {cfg.vocab_size}]")
+    if cache["pos"] != S + N:
+        raise AssertionError(f"moe cache pos {cache['pos']} after {S} + {N} tokens")
+    zero = {k_: 0 for k_ in llm_counts()}
+    want = {"prefill": {**zero, "flash_attention_fwd": cfg.n_layers},
+            "decode": {**zero, "decode_attention": cfg.n_layers * N}}
+    if by_run != want:
+        raise AssertionError(f"moe launches {by_run}, expected {want}")
+    graph = [t for t in (logits, *(x for c in cache["layers"] for d in c.values()
+                                   for x in d.values())) if t.requires_grad]
+    if graph:
+        raise AssertionError(f"moe serving recorded an autograd graph on {len(graph)} outputs")
+    # the (token, choice) pairs the prefill's MoE dropped, per layer, in a
+    # second prefill
+    with moe_routes() as routes:
+        prefill(net, llm.init_cache(cfg, B, S + N, device=dev), batch)
+    dropped = [int((~r.keep).sum()) for r in routes]
+    run = dict(layers=cfg.n_layers, params=n_params, param_count=cfg.param_count(), batch=B,
+               prompt=S, new_tokens=N, init_s=init_s, prefill_s=prefill_s,
+               prefill_tokens_per_s=B * S / prefill_s, decode_s=decode_s,
+               decode_ms_per_step=decode_s / N * 1e3, decode_tokens_per_s=B * N / decode_s,
+               peak_memory_gb=peak / 1e9, launches_by_run=by_run, first_tokens=first.tolist(),
+               capacity=routes[0].capacity, pairs=B * S * cfg.n_experts_active,
+               dropped_pairs_by_layer=dropped)
+    emit("llm_moe", card=smi(), **run)
+    # device time by kernel of one prefill and one decode step, beside the
+    # unprofiled walls
+    prof = {}
+    for label, fn, wall in (
+        ("prefill", lambda: prefill(net, llm.init_cache(cfg, B, S + N, device=dev), batch),
+         prefill_s),
+        ("decode_step", lambda: step(net, cache, logits.argmax(-1)), decode_s / N),
+    ):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+            fn()
+            torch.cuda.synchronize()
+        rows = device_rows(pr)
+        dev_s = sum(r[1] for r in rows) / 1e6
+        kern = lambda tag: sum(r[1] for r in rows if tag in r[0]) / 1e6
+        prof[label] = dict(device_s=dev_s, wall_s=wall, busy_share=dev_s / wall,
+                           flash_s=kern("flash_fwd"), decode_attention_s=kern("decode_kernel"),
+                           device_launches=sum(r[2] for r in rows),
+                           top=[[k_[:70], us / 1e6, n] for k_, us, n in rows[:10]])
+        emit("llm_moe", profile=label, **prof[label])
+    run["profile"] = prof
+    del cache
+
+    # 3. decode against prefill, 2 prompts: layer by layer in float32 on
+    #    the same inputs, then end to end in bf16; first at the config's
+    #    capacity, then again with room for every pair (capacity factor
+    #    E / k: an expert's queue holds the whole sequence), where no layer
+    #    is excluded
+    B1 = 2
+    no_drop = cfg.n_experts / cfg.n_experts_active
+    checks = {}
+    for label, factor in (("capacity", cfg.moe_capacity_factor), ("no_drop", no_drop)):
+        with moe_capacity_factor(net, factor):
+            layers = moe_layer_decode_vs_prefill(net, tokens[:B1], S)
+            full16, step16 = decode_vs_prefill(cfg, net, tokens[:B1], S, dev)
+        if label == "no_drop" and layers["excluded"]:
+            raise AssertionError(f"moe decode vs prefill at capacity factor {factor}: "
+                                 f"{len(layers['excluded'])} layers dropped pairs")
+        err16 = float((step16 - full16).abs().max()) / float(full16.abs().max())
+        checks[label] = dict(
+            capacity_factor=factor, float32_by_layer_max_rel_err=layers["held_max_rel_err"],
+            float32_by_layer_tol=SERVE_F32_TOL, layers_held=len(layers["held_max_rel_err"]),
+            layers_excluded=len(layers["excluded"]), excluded=layers["excluded"],
+            float32_end_to_end=layers["float32_end_to_end"], bf16_decode_vs_bf16_prefill=err16, bf16_tol=SERVE_BF16_TOL,
+            bf16_share_of_tol=err16 / SERVE_BF16_TOL, bf16_within_tol=err16 <= SERVE_BF16_TOL,
+            argmax_agreement_bf16=float((step16.argmax(-1) == full16.argmax(-1)).float().mean()))
+        emit("llm_moe", check="decode vs prefill on the card", routing=label, tokens=S + 1,
+             batch=B1, **checks[label])
+    run.update(decode_vs_prefill_by_layer={k_: max(v_["float32_by_layer_max_rel_err"], default=None)
+                                           for k_, v_ in checks.items()},
+               decode_vs_prefill_layers_excluded=checks["capacity"]["layers_excluded"],
+               decode_vs_prefill_bf16={k_: v_["bf16_decode_vs_bf16_prefill"]
+                                       for k_, v_ in checks.items()})
     res["serve"] = run
     del net
     torch.cuda.synchronize()
@@ -3019,6 +3413,7 @@ def main() -> int:
     llm_times = timed_phase("llm_kernels", phase_llm_kernels, dev)
     serve = timed_phase("llm_serve", phase_llm_serve, dev)
     xlstm = timed_phase("llm_xlstm", phase_llm_xlstm, dev)
+    moe = timed_phase("llm_moe", phase_llm_moe, dev)
     train_times = timed_phase("llm_train_kernels", phase_llm_train_kernels, dev)
     train = timed_phase("llm_train", phase_llm_train, dev)
     kernels = []
@@ -3103,6 +3498,24 @@ def main() -> int:
             max_abs_err=max(t["max_abs_err"], train_times.get(name, t)["max_abs_err"]),
             ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"], **extra,
+        ))
+    # the flash forward's and decode attention's width-128 instances:
+    # qwen2-moe-a2.7b's prefill and decode runs (every launch there is at
+    # head dim 128)
+    for name, kernel, src in (
+            ("flash_attention_fwd_d128", "flash_attention_fwd", "flash_attention.cu"),
+            ("decode_attention_d128", "decode_attention", "decode_attention.cu")):
+        t = llm_times[name]
+        by_run = {f"{QWEN_MOE}_{run}": n[kernel]
+                  for run, n in moe["serve"]["launches_by_run"].items()}
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
+            replaces=llm_replaces[kernel], launches=sum(by_run.values()), launches_by_run=by_run,
+            max_abs_err=t["max_abs_err"], ms=t["ms"], device_ms=t.get("device_ms"),
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"],
+            dense_configs={a: {k_: t[a][k_] for k_ in ("ms", "bound_ms", "library_ms")}
+                           for a in DENSE_D128},
         ))
     # the Dk-tiled mLSTM kernel: xlstm-350m's prefill and decode runs
     t = xlstm["kernel"]

@@ -3,11 +3,14 @@
 
 The port's copies of the reference package's ``repro.configs`` modules for
 the architectures whose block kinds it supports (attention, sliding-window
-attention, mamba-style SSD heads, hymba's parallel pair, and xLSTM's mLSTM
-and sLSTM blocks). Each module
-defines ``CONFIG`` (the published numbers) and ``smoke_config()`` (a reduced
-same-family config for CPU tests). The other architectures of the reference
-need block kinds no slice has ported yet (ROADMAP A.12).
+attention, the mixture of experts, mamba-style SSD heads, hymba's parallel
+pair, and xLSTM's mLSTM and sLSTM blocks). Each module defines ``CONFIG``
+(the published numbers) and ``smoke_config()`` (a reduced same-family
+config for CPU tests). The reference's other architectures need the
+encoder-decoder stack or a modality frontend, which no slice has ported
+yet (ROADMAP A.12). qwen3-moe-235b-a22b is registered, but at full width
+it fits no single card (470 GB in bf16) and its 16 query heads a KV head
+pass the decode kernel's 8 (ROADMAP B): it runs at its smoke config.
 """
 from __future__ import annotations
 
@@ -19,7 +22,12 @@ from repro_torch.models.config import ModelConfig
 __all__ = ["get_config", "get_smoke_config", "list_archs"]
 
 _ARCHS = {
+    "qwen2.5-14b": "qwen2_5_14b",
     "tinyllama-1.1b": "tinyllama_1_1b",
+    "minitron-8b": "minitron_8b",
+    "gemma3-27b": "gemma3_27b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "hymba-1.5b": "hymba_1_5b",
     "xlstm-350m": "xlstm_350m",
 }

@@ -11,10 +11,16 @@
 // 0), as the TPU kernel emits it for its backward. Inputs are float32 or
 // bf16; every sum runs in float32 and out is written in the input's type.
 //
+// The forward takes head dims up to 128 (the reference's Pallas kernel pads
+// D to 128 lanes), each kernel compiled at two widths: D <= 64 runs the
+// width-64 instance, 64 < D <= 128 the width-128 one. The backward takes D
+// <= 64.
+//
 // What bounds it on this card. At the serving path's shapes (B 8, S 2,048,
 // 25 query and 5 KV heads, D 64) the work is 4 B Hq D (S^2 / 2) = 1.1e11
 // operations against 2 x 42 MB of q/k/v/out: operations, ~0.11 ms at the
-// bf16 tensor-core peak.
+// bf16 tensor-core peak; at qwen2-moe-a2.7b's (16 / 16 heads, D 128)
+// 1.37e11, ~0.14 ms.
 //
 // Two kernels compute it. bf16 inputs, the serving and training paths',
 // run flash_fwd_mma_kernel on the tensor cores (mma.sync, ldmatrix,
@@ -22,8 +28,8 @@
 // design). float32 inputs run flash_fwd_kernel, described here: float32
 // fused multiply-adds on the CUDA cores (TF32 stays off), so it runs near
 // the 67 TFLOP/s fp32 rate at best. A block owns 64 query rows of one
-// (batch, head), one thread per row; the row's scaled query and its
-// float32 accumulator sit in registers.
+// (batch, head), one thread per row at D <= 64 and two at D <= 128; the
+// row's scaled query and its float32 accumulator sit in registers.
 // The block walks the key tiles of 32 that the causal and window band can
 // reach (tiles wholly outside it contribute p = 0 and are skipped, which is
 // exact and cuts a sliding-window layer's work by about a quarter at S =
@@ -46,9 +52,11 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kRows = 64;  // query rows per block, one thread each
-constexpr int kTile = 32;  // keys per staged tile
-constexpr int kMaxD = 64;  // head dims up to 64, padded to 64
+constexpr int kRows = 64;      // query rows per block
+constexpr int kTile = 32;      // keys per staged tile
+constexpr int kMaxD = 64;      // the backward's head dims, and the forward's narrow width
+constexpr int kMaxDFwd = 128;  // the forward's head dims (its wide width)
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -69,28 +77,40 @@ struct FlashArgs {
   float scale;
 };
 
-// DP: the head dim's register width (zeros past d); one width, 64, is
-// built: every config the port serves has head_dim 64, and each width is
-// a large unrolled body that adds its share to the build time.
+// DP: the head dim's register width (zeros past d), 64 or 128. At 128 two
+// neighbouring threads share a row (kP = 2), each holding 64 of its dims, the
+// float4 chunks 2 c + part, so a thread keeps as many registers as at 64 (q
+// and acc spill at 128 a thread) and the two threads of a row read
+// neighbouring 16 B of a staged row; each score is finished by one shuffle,
+// which leaves the same sum in both. At 64 (kP = 1) a thread owns its row.
+template <int kP>
+__device__ __forceinline__ int fwd_dim(int i, int part) {
+  return 4 * ((i / 4) * kP + part) + (i % 4);
+}
+
 template <typename T, int DP>
-__global__ void __launch_bounds__(kRows) flash_fwd_kernel(FlashArgs a) {
+__global__ void __launch_bounds__(kRows * (DP / 64)) flash_fwd_kernel(FlashArgs a) {
+  constexpr int kP = DP / 64;      // threads a row
+  constexpr int kOwnF = DP / kP;   // dims a thread holds
   __shared__ __align__(16) float ks[kTile][DP];
   __shared__ __align__(16) float vs[kTile][DP];
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.hq / a.hkv);
-  const int row = tile * kRows + threadIdx.x;
+  const int part = threadIdx.x % kP;
+  const int row = tile * kRows + threadIdx.x / kP;
   const bool live = row < a.sq;
   const int qpos = row + a.q_offset;
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
 
-  float qr[DP], acc[DP];
+  float qr[kOwnF], acc[kOwnF];
   const size_t qoff = (((size_t)b * a.sq + row) * a.hq + h) * a.d;
 #pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    qr[d] = (live && d < a.d) ? __fmul_rn(to_f32(q[qoff + d]), a.scale) : 0.0f;
-    acc[d] = 0.0f;
+  for (int i = 0; i < kOwnF; ++i) {
+    const int d = fwd_dim<kP>(i, part);
+    qr[i] = (live && d < a.d) ? __fmul_rn(to_f32(q[qoff + d]), a.scale) : 0.0f;
+    acc[i] = 0.0f;
   }
   float m = kNeg, l = 0.0f;
 
@@ -102,7 +122,7 @@ __global__ void __launch_bounds__(kRows) flash_fwd_kernel(FlashArgs a) {
 
   for (int k0 = (k_lo / kTile) * kTile; k0 < k_hi; k0 += kTile) {
     __syncthreads();  // the previous tile's readers are done
-    for (int i = threadIdx.x; i < kTile * DP; i += kRows) {
+    for (int i = threadIdx.x; i < kTile * DP; i += kRows * kP) {
       const int j = i / DP, d = i % DP, kp = k0 + j;
       const bool ok = kp < a.skv && d < a.d;
       const size_t off = (((size_t)b * a.skv + kp) * a.hkv + hk) * a.d + d;
@@ -115,15 +135,20 @@ __global__ void __launch_bounds__(kRows) flash_fwd_kernel(FlashArgs a) {
 #pragma unroll
     for (int j = 0; j < kTile; ++j) s[j] = 0.0f;
 #pragma unroll
-    for (int d = 0; d < DP; d += 4) {
+    for (int c = 0; c < kOwnF; c += 4) {
+      const int d = fwd_dim<kP>(c, part);
 #pragma unroll
       for (int j = 0; j < kTile; ++j) {
         const float4 kk = *reinterpret_cast<const float4*>(&ks[j][d]);
-        s[j] = __fmaf_rn(qr[d], kk.x, s[j]);
-        s[j] = __fmaf_rn(qr[d + 1], kk.y, s[j]);
-        s[j] = __fmaf_rn(qr[d + 2], kk.z, s[j]);
-        s[j] = __fmaf_rn(qr[d + 3], kk.w, s[j]);
+        s[j] = __fmaf_rn(qr[c], kk.x, s[j]);
+        s[j] = __fmaf_rn(qr[c + 1], kk.y, s[j]);
+        s[j] = __fmaf_rn(qr[c + 2], kk.z, s[j]);
+        s[j] = __fmaf_rn(qr[c + 3], kk.w, s[j]);
       }
+    }
+    if constexpr (kP == 2) {
+#pragma unroll
+      for (int j = 0; j < kTile; ++j) s[j] = __fadd_rn(s[j], __shfl_xor_sync(kFull, s[j], 1));
     }
     float mcur = kNeg;
 #pragma unroll
@@ -145,16 +170,16 @@ __global__ void __launch_bounds__(kRows) flash_fwd_kernel(FlashArgs a) {
     }
     l = __fmaf_rn(l, alpha, psum);
 #pragma unroll
-    for (int d = 0; d < DP; ++d) acc[d] = __fmul_rn(acc[d], alpha);
+    for (int i = 0; i < kOwnF; ++i) acc[i] = __fmul_rn(acc[i], alpha);
 #pragma unroll
     for (int j = 0; j < kTile; ++j) {
 #pragma unroll
-      for (int d = 0; d < DP; d += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(&vs[j][d]);
-        acc[d] = __fmaf_rn(s[j], vv.x, acc[d]);
-        acc[d + 1] = __fmaf_rn(s[j], vv.y, acc[d + 1]);
-        acc[d + 2] = __fmaf_rn(s[j], vv.z, acc[d + 2]);
-        acc[d + 3] = __fmaf_rn(s[j], vv.w, acc[d + 3]);
+      for (int c = 0; c < kOwnF; c += 4) {
+        const float4 vv = *reinterpret_cast<const float4*>(&vs[j][fwd_dim<kP>(c, part)]);
+        acc[c] = __fmaf_rn(s[j], vv.x, acc[c]);
+        acc[c + 1] = __fmaf_rn(s[j], vv.y, acc[c + 1]);
+        acc[c + 2] = __fmaf_rn(s[j], vv.z, acc[c + 2]);
+        acc[c + 3] = __fmaf_rn(s[j], vv.w, acc[c + 3]);
       }
     }
     m = mnew;
@@ -164,17 +189,20 @@ __global__ void __launch_bounds__(kRows) flash_fwd_kernel(FlashArgs a) {
   T* out = static_cast<T*>(a.out);
   const float lc = fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    if (d < a.d) out[qoff + d] = from_f32<T>(l > 0.0f ? __fdiv_rn(acc[d], lc) : 0.0f);
+  for (int i = 0; i < kOwnF; ++i) {
+    const int d = fwd_dim<kP>(i, part);
+    if (d < a.d) out[qoff + d] = from_f32<T>(l > 0.0f ? __fdiv_rn(acc[i], lc) : 0.0f);
   }
-  a.lse[((size_t)b * a.hq + h) * a.sq + row] =
-      l > 0.0f ? m + logf(fmaxf(l, 1e-30f)) : INFINITY;
+  if (part == 0) {
+    a.lse[((size_t)b * a.hq + h) * a.sq + row] =
+        l > 0.0f ? m + logf(fmaxf(l, 1e-30f)) : INFINITY;
+  }
 }
 
 template <typename T, int DP>
 int launch(const FlashArgs& a, int batch, cudaStream_t stream) {
   const dim3 grid((a.sq + kRows - 1) / kRows, a.hq, batch);
-  flash_fwd_kernel<T, DP><<<grid, kRows, 0, stream>>>(a);
+  flash_fwd_kernel<T, DP><<<grid, kRows * (DP / 64), 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -239,7 +267,6 @@ constexpr int kOwn = 4 * kChunks;              // dims a thread holds (16)
 constexpr int kBwdRows = 64;                   // dq: query rows a block
 constexpr int kBwdKeys = 64;                   // dk/dv: keys a block
 constexpr int kBwdTile = 32;                   // staged keys (dq) or query rows (dk/dv)
-constexpr unsigned kFull = 0xffffffffu;
 
 // dim of a thread's i-th owned value: chunk c = (i / 4) kParts + part
 __device__ __forceinline__ int own_dim(int i, int part) {
@@ -492,6 +519,16 @@ __global__ void __launch_bounds__(kBwdKeys * kParts) flash_bwd_dkv_kernel(BwdArg
 // heaviest first under a causal mask. dk/dv keeps the float32 kernel's GQA
 // design: a block walks every query head of its KV head's group and writes
 // dk and dv once, with no atomics, so the result repeats bit for bit.
+//
+// The forward at 64 < D <= 128 (qwen2-moe-a2.7b and the other D = 128
+// configs) runs the same kernel at width 128 (the DP parameter): a staged
+// row is 256 B, sixteen 16-B chunks, XOR-swizzled over their low three bits
+// as at 64 (each half of a row keeps to its own eight bank groups); each
+// warp keeps Q as 8 k-steps of A fragments (32 registers) and O as 16 C
+// fragments (64 floats). Its tiles (Q, and two stages of K and V) take 80 KB,
+// past the 48 KB of static shared memory, so both widths take them as
+// dynamic shared memory, and the width-128 instances raise their limit
+// once (fwd_mma_prepare): two blocks an SM there, against four at 64.
 // ===========================================================================
 constexpr int kFwdWarps = 4;                 // forward and dq: query rows a block, 16 a warp
 constexpr int kFwdRows = 16 * kFwdWarps;
@@ -500,6 +537,8 @@ constexpr int kDkvKeys = 64;                  // dk/dv: keys a block, 16 a warp
 constexpr int kDkvThreads = 2 * kDkvKeys;
 constexpr int kDkvSub = 16;                   // dk/dv: staged query rows a pass over the registers
 constexpr int kMmaTile = 64;                  // rows a staged tile holds (keys or query rows)
+// the backward's staged rows (width kMaxD); the helpers below take the
+// width DP as a template parameter, the forward's 64 or 128
 constexpr int kLd = kMaxD;                    // a staged row: 64 bf16, 8 chunks of 16 B
 constexpr int kNk = kMaxD / 16;               // k-steps of 16 over the zero-filled head dim
 constexpr int kRowBytes = 2 * kLd;
@@ -508,10 +547,11 @@ constexpr int kTileBytes = kMmaTile * kRowBytes;
 typedef __nv_bfloat16 bf16;
 
 // element offset of 16-B chunk c (8 bf16) of staged row r, swizzled
-__device__ __forceinline__ int swz(int r, int c) { return r * kLd + ((c ^ (r & 7)) << 3); }
+template <int DP = kMaxD>
+__device__ __forceinline__ int swz(int r, int c) { return r * DP + ((c ^ (r & 7)) << 3); }
 
 // This lane's byte offsets into a staged tile for the two ldmatrix
-// patterns. Chunk c of row r sits at r * 128 + ((c ^ (r & 7)) << 4); each
+// patterns. Chunk c of row r sits at r * 2 DP + ((c ^ (r & 7)) << 4); each
 // pattern starts at a row that is a multiple of 8, so r & 7 is the lane's
 // l7, and a k-step's chunk 2 kk + bit enters as (32 kk) ^ ((bit ^ l7) << 4).
 //  - rows: lane rows l7 + 8 l16, chunk 2 kk + l8 (B, k = head dim);
@@ -520,86 +560,92 @@ struct Lanes {
   uint32_t rows, xrows, cols, xcols;
 };
 
+template <int DP = kMaxD>
 __device__ __forceinline__ Lanes lanes() {
   const uint32_t lane = threadIdx.x & 31, l7 = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
-  return Lanes{(l7 + 8 * l16) * kRowBytes, (l8 ^ l7) << 4, (l7 + 8 * l8) * kRowBytes,
+  return Lanes{(l7 + 8 * l16) * 2 * DP, (l8 ^ l7) << 4, (l7 + 8 * l8) * 2 * DP,
                (l16 ^ l7) << 4};
 }
 
 // A fragments of the 16 staged rows from row0, every k-step
+template <int DP = kMaxD>
 __device__ __forceinline__ void load_a(uint32_t tile, int row0, const Lanes& ln,
                                        uint32_t (*a)[4]) {
 #pragma unroll
-  for (int kk = 0; kk < kNk; ++kk) {
-    ldsm_x4(tile + row0 * kRowBytes + ln.cols + ((32 * kk) ^ ln.xcols), a[kk]);
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    ldsm_x4(tile + row0 * 2 * DP + ln.cols + ((32 * kk) ^ ln.xcols), a[kk]);
   }
 }
 
 // B fragments, k = head dim (k-step kk), n = staged rows n0 .. n0 + 15 (K
 // in Q K^T; Q and dout in K Q^T and V dout^T): b[0..1] for rows n0..,
 // b[2..3] for n0 + 8..
+template <int DP = kMaxD>
 __device__ __forceinline__ void load_b_rows(uint32_t tile, int n0, int kk, const Lanes& ln,
                                             uint32_t* b) {
-  ldsm_x4(tile + n0 * kRowBytes + ln.rows + ((32 * kk) ^ ln.xrows), b);
+  ldsm_x4(tile + n0 * 2 * DP + ln.rows + ((32 * kk) ^ ln.xrows), b);
 }
 
 // B fragments, k = staged rows k0 .. k0 + 15, n = head dims 16 jp ..
 // 16 jp + 15 (V in P V; dout and Q in dV and dK): b[0..1] for dims 16 jp..,
 // b[2..3] for 16 jp + 8..
+template <int DP = kMaxD>
 __device__ __forceinline__ void load_b_cols(uint32_t tile, int k0, int jp, const Lanes& ln,
                                             uint32_t* b) {
-  ldsm_x4_t(tile + k0 * kRowBytes + ln.cols + ((32 * jp) ^ ln.xcols), b);
+  ldsm_x4_t(tile + k0 * 2 * DP + ln.cols + ((32 * jp) ^ ln.xcols), b);
 }
 
 // Stage rows r0 .. r0 + kRows - 1 of a [rows, stride] bf16 slice (row r at
-// g + r stride) into a swizzled tile: the first d of each row's 64 columns,
+// g + r stride) into a swizzled tile: the first d of each row's DP columns,
 // rows at or past n_rows zero. kVec (d % 8 == 0, 16-B aligned rows): each
-// thread copies chunk tid % 8 of every (kThreads / 8)-th row by cp.async,
-// the padding chunks past d / 8 zeroed once by zero_pad; else plain loads
-// of every column, zeros past d.
-template <bool kVec, int kRows, int kThreads>
+// thread copies chunk tid % (DP / 8) of every (kThreads / (DP / 8))-th row
+// by cp.async, the padding chunks past d / 8 zeroed once by zero_pad; else
+// plain loads of every column, zeros past d.
+template <bool kVec, int kRows, int kThreads, int DP = kMaxD>
 __device__ __forceinline__ void stage_tile(bf16* tile, const bf16* g, int r0, int n_rows,
                                            size_t stride, int d) {
+  constexpr int kC = DP / 8;  // 16-B chunks a row
   if (kVec) {
-    const int c = threadIdx.x & 7;
+    const int c = threadIdx.x % kC;
     if (c < (d >> 3)) {
       const uint32_t base = smem_addr(tile);
 #pragma unroll
-      for (int i = 0; i < kRows * 8 / kThreads; ++i) {
-        const int r = (threadIdx.x >> 3) + i * (kThreads / 8);
+      for (int i = 0; i < kRows * kC / kThreads; ++i) {
+        const int r = threadIdx.x / kC + i * (kThreads / kC);
         const bool ok = r0 + r < n_rows;
-        cp_async16(base + r * kRowBytes + ((c ^ (r & 7)) << 4),
+        cp_async16(base + r * 2 * DP + ((c ^ (r & 7)) << 4),
                    ok ? g + (size_t)(r0 + r) * stride + 8 * c : g, ok);
       }
     }
   } else {
-    for (int i = threadIdx.x; i < kRows * kLd; i += kThreads) {
-      const int r = i / kLd, col = i % kLd;
+    for (int i = threadIdx.x; i < kRows * DP; i += kThreads) {
+      const int r = i / DP, col = i % DP;
       const bool ok = r0 + r < n_rows && col < d;
-      tile[swz(r, col >> 3) + (col & 7)] =
+      tile[swz<DP>(r, col >> 3) + (col & 7)] =
           ok ? g[(size_t)(r0 + r) * stride + col] : __float2bfloat16(0.0f);
     }
   }
 }
 
 // zero the chunks past d / 8 of n_rows consecutive staged rows
+template <int DP = kMaxD>
 __device__ __forceinline__ void zero_pad(bf16* rows, int n_rows, int d) {
-  const int cpr = d >> 3, pad = 8 - cpr;
+  const int cpr = d >> 3, pad = DP / 8 - cpr;
   if (pad == 0) return;
   for (int i = threadIdx.x; i < n_rows * pad; i += blockDim.x) {
     const int r = i / pad, c = cpr + i % pad;
-    *reinterpret_cast<uint4*>(rows + swz(r, c)) = make_uint4(0, 0, 0, 0);
+    *reinterpret_cast<uint4*>(rows + swz<DP>(r, c)) = make_uint4(0, 0, 0, 0);
   }
 }
 
-// store a warp's 16 x 64 float32 C fragments (times mul) as bf16 rows
+// store a warp's 16 x DP float32 C fragments (times mul) as bf16 rows
 // row0 .. of a [rows, stride] slice, rows < n_rows, columns < d
-template <bool kVec>
+template <bool kVec, int DP = kMaxD>
 __device__ __forceinline__ void store_rows(bf16* g, float (*c)[4], int row0, int n_rows,
                                            size_t stride, int d, float mul0, float mul1) {
   const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < 2 * kNk; ++j) {
+  for (int j = 0; j < DP / 8; ++j) {
     const int col = 8 * j + 2 * t;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -618,11 +664,21 @@ __device__ __forceinline__ void store_rows(bf16* g, float (*c)[4], int row0, int
   }
 }
 
-template <bool kVec>
+// the forward's tiles: Q [kFwdRows, DP], then two stages of K and of V
+// [kMmaTile, DP], bf16
+template <int DP>
+constexpr size_t fwd_smem_bytes() {
+  return (size_t)2 * DP * (kFwdRows + 4 * kMmaTile);
+}
+
+template <bool kVec, int DP>
 __global__ void __launch_bounds__(kFwdThreads) flash_fwd_mma_kernel(FlashArgs a) {
-  __shared__ __align__(128) bf16 qs[kFwdRows * kLd];
-  __shared__ __align__(128) bf16 ks[2][kMmaTile * kLd];
-  __shared__ __align__(128) bf16 vs[2][kMmaTile * kLd];
+  constexpr int kNkD = DP / 16;                 // k-steps of 16 over the head dim
+  constexpr int kTileB = kMmaTile * 2 * DP;     // bytes a staged K or V tile
+  extern __shared__ __align__(128) unsigned char fwd_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(fwd_smem);  // [kFwdRows * DP]
+  bf16* ks = qs + kFwdRows * DP;                 // [2][kMmaTile * DP]
+  bf16* vs = ks + 2 * kMmaTile * DP;             // [2][kMmaTile * DP]
   const int b = blockIdx.x / a.hq, h = blockIdx.x % a.hq;
   const int hk = h / (a.hq / a.hkv);
   const int tile = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
@@ -631,7 +687,7 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_mma_kernel(FlashArgs a)
   const bf16* kg = static_cast<const bf16*>(a.k) + ((size_t)b * a.skv * a.hkv + hk) * a.d;
   const bf16* vg = static_cast<const bf16*>(a.v) + ((size_t)b * a.skv * a.hkv + hk) * a.d;
   const size_t q_stride = (size_t)a.hq * a.d, kv_stride = (size_t)a.hkv * a.d;
-  const Lanes ln = lanes();
+  const Lanes ln = lanes<DP>();
   const uint32_t ks_a = smem_addr(ks), vs_a = smem_addr(vs);
 
   // the key range any row of this tile can keep
@@ -644,14 +700,14 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_mma_kernel(FlashArgs a)
   const int n_tiles = k_hi > k_first ? (k_hi - k_first + kMmaTile - 1) / kMmaTile : 0;
 
   if (kVec) {
-    zero_pad(qs, kFwdRows, a.d);
-    zero_pad(&ks[0][0], 2 * kMmaTile, a.d);
-    zero_pad(&vs[0][0], 2 * kMmaTile, a.d);
+    zero_pad<DP>(qs, kFwdRows, a.d);
+    zero_pad<DP>(ks, 2 * kMmaTile, a.d);
+    zero_pad<DP>(vs, 2 * kMmaTile, a.d);
   }
-  stage_tile<kVec, kFwdRows, kFwdThreads>(qs, qg, row_lo, a.sq, q_stride, a.d);
+  stage_tile<kVec, kFwdRows, kFwdThreads, DP>(qs, qg, row_lo, a.sq, q_stride, a.d);
   if (n_tiles > 0) {
-    stage_tile<kVec, kMmaTile, kFwdThreads>(ks[0], kg, k_first, a.skv, kv_stride, a.d);
-    stage_tile<kVec, kMmaTile, kFwdThreads>(vs[0], vg, k_first, a.skv, kv_stride, a.d);
+    stage_tile<kVec, kMmaTile, kFwdThreads, DP>(ks, kg, k_first, a.skv, kv_stride, a.d);
+    stage_tile<kVec, kMmaTile, kFwdThreads, DP>(vs, vg, k_first, a.skv, kv_stride, a.d);
   }
   cp_async_commit();
 
@@ -661,34 +717,36 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_mma_kernel(FlashArgs a)
   const int qpos0 = r0 + a.q_offset, qpos1 = qpos0 + 8;
   const float scale2 = __fmul_rn(a.scale, kLog2e);  // p = 2^(scale2 (s - m))
   float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;
-  float o[2 * kNk][4];
+  float o[2 * kNkD][4];
 #pragma unroll
-  for (int j = 0; j < 2 * kNk; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
-  uint32_t qa[kNk][4];
+  for (int j = 0; j < 2 * kNkD; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  uint32_t qa[kNkD][4];
 
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = k_first + it * kMmaTile;
     if (it + 1 < n_tiles) {
       const int st = (it + 1) & 1;
-      stage_tile<kVec, kMmaTile, kFwdThreads>(ks[st], kg, k0 + kMmaTile, a.skv, kv_stride, a.d);
-      stage_tile<kVec, kMmaTile, kFwdThreads>(vs[st], vg, k0 + kMmaTile, a.skv, kv_stride, a.d);
+      stage_tile<kVec, kMmaTile, kFwdThreads, DP>(ks + st * kMmaTile * DP, kg, k0 + kMmaTile,
+                                                  a.skv, kv_stride, a.d);
+      stage_tile<kVec, kMmaTile, kFwdThreads, DP>(vs + st * kMmaTile * DP, vg, k0 + kMmaTile,
+                                                  a.skv, kv_stride, a.d);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if (it == 0) load_a(smem_addr(qs), warp * 16, ln, qa);
-    const uint32_t kt = ks_a + (it & 1) * kTileBytes, vt = vs_a + (it & 1) * kTileBytes;
+    if (it == 0) load_a<DP>(smem_addr(qs), warp * 16, ln, qa);
+    const uint32_t kt = ks_a + (it & 1) * kTileB, vt = vs_a + (it & 1) * kTileB;
 
     // S = Q K^T: 16 rows x 64 keys, float32
     float s[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
 #pragma unroll
-    for (int kk = 0; kk < kNk; ++kk) {
+    for (int kk = 0; kk < kNkD; ++kk) {
 #pragma unroll
       for (int jp = 0; jp < 4; ++jp) {
         uint32_t bb[4];
-        load_b_rows(kt, 16 * jp, kk, ln, bb);
+        load_b_rows<DP>(kt, 16 * jp, kk, ln, bb);
         mma16816(s[2 * jp], qa[kk], bb[0], bb[1]);
         mma16816(s[2 * jp + 1], qa[kk], bb[2], bb[3]);
       }
@@ -742,7 +800,7 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_mma_kernel(FlashArgs a)
     m0 = mn0;
     m1 = mn1;
 #pragma unroll
-    for (int j = 0; j < 2 * kNk; ++j) {
+    for (int j = 0; j < 2 * kNkD; ++j) {
       o[j][0] = __fmul_rn(o[j][0], al0);
       o[j][1] = __fmul_rn(o[j][1], al0);
       o[j][2] = __fmul_rn(o[j][2], al1);
@@ -754,9 +812,9 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_mma_kernel(FlashArgs a)
       uint32_t pa[4];
       c_to_a(s, kk, pa);
 #pragma unroll
-      for (int jp = 0; jp < kNk; ++jp) {
+      for (int jp = 0; jp < kNkD; ++jp) {
         uint32_t bb[4];
-        load_b_cols(vt, 16 * kk, jp, ln, bb);
+        load_b_cols<DP>(vt, 16 * kk, jp, ln, bb);
         mma16816(o[2 * jp], pa, bb[0], bb[1]);
         mma16816(o[2 * jp + 1], pa, bb[2], bb[3]);
       }
@@ -772,7 +830,7 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_mma_kernel(FlashArgs a)
   l1 = __fadd_rn(l1, __shfl_xor_sync(kFull, l1, 2));
   const float inv0 = l0 > 0.0f ? __fdiv_rn(1.0f, l0) : 0.0f;
   const float inv1 = l1 > 0.0f ? __fdiv_rn(1.0f, l1) : 0.0f;
-  store_rows<kVec>(static_cast<bf16*>(a.out) + ((size_t)b * a.sq * a.hq + h) * a.d, o,
+  store_rows<kVec, DP>(static_cast<bf16*>(a.out) + ((size_t)b * a.sq * a.hq + h) * a.d, o,
                         row_lo + warp * 16, a.sq, q_stride, a.d, inv0, inv1);
   if (t == 0) {
     float* lse = a.lse + ((size_t)b * a.hq + h) * a.sq;
@@ -1106,6 +1164,38 @@ __global__ void __launch_bounds__(kFwdThreads) flash_bwd_dq_mma_kernel(BwdArgs a
 // cp.async and the paired stores need d % 8 == 0 and 16-B aligned bases
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// The width-DP forward's tiles past 48 KB need the kernel's dynamic shared
+// memory limit raised, once an instance.
+template <bool kVec, int DP>
+int fwd_mma_prepare() {
+  if (fwd_smem_bytes<DP>() <= 48 * 1024) return 0;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_kernel<kVec, DP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)fwd_smem_bytes<DP>());
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  return 0;
+}
+
+template <bool kVec, int DP>
+int launch_fwd_mma(const FlashArgs& a, int batch, cudaStream_t stream) {
+  const int err = fwd_mma_prepare<kVec, DP>();
+  if (err != 0) return err;
+  const dim3 grid(batch * a.hq, (a.sq + kFwdRows - 1) / kFwdRows);
+  flash_fwd_mma_kernel<kVec, DP><<<grid, kFwdThreads, fwd_smem_bytes<DP>(), stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_fwd(const FlashArgs& a, int batch, int dtype, bool vec, cudaStream_t stream) {
+  if (dtype == 0) return launch<float, DP>(a, batch, stream);
+  return vec ? launch_fwd_mma<true, DP>(a, batch, stream)
+             : launch_fwd_mma<false, DP>(a, batch, stream);
+}
+
 bool bwd_shape_ok(int batch, int sq, int skv, int hq, int hkv, int d, int dtype) {
   return batch >= 1 && sq >= 1 && skv >= 1 && hkv >= 1 && hq % hkv == 0 && d >= 1 &&
          d <= kMaxD && (dtype == 0 || dtype == 1) && (long long)batch * hq <= 0x7fffffffLL &&
@@ -1116,17 +1206,23 @@ bool bwd_shape_ok(int batch, int sq, int skv, int hq, int hkv, int d, int dtype)
 
 extern "C" {
 
-// Largest head dim the kernel takes.
-int flash_attention_limits(int* max_d) {
-  *max_d = kMaxD;
+// Largest head dims the forward and the backward take.
+int flash_attention_limits(int* max_d_fwd, int* max_d_bwd) {
+  *max_d_fwd = kMaxDFwd;
+  *max_d_bwd = kMaxD;
   return 0;
 }
 
 // Blocks an SM holds of the bf16 tensor-core kernels (cp.async builds):
-// forward, dq, dk/dv. Returns a cudaError_t.
-int flash_attention_mma_occupancy(int* fwd, int* dq, int* dkv) {
+// the forward at widths 64 and 128, dq, dk/dv. Returns a cudaError_t.
+int flash_attention_mma_occupancy(int* fwd, int* fwd128, int* dq, int* dkv) {
   int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      fwd, flash_fwd_mma_kernel<true>, kFwdThreads, 0);
+      fwd, flash_fwd_mma_kernel<true, kMaxD>, kFwdThreads, fwd_smem_bytes<kMaxD>());
+  if (err != 0) return err;
+  err = fwd_mma_prepare<true, kMaxDFwd>();
+  if (err != 0) return err;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      fwd128, flash_fwd_mma_kernel<true, kMaxDFwd>, kFwdThreads, fwd_smem_bytes<kMaxDFwd>());
   if (err != 0) return err;
   err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       dq, flash_bwd_dq_mma_kernel<true>, kFwdThreads, 0);
@@ -1135,29 +1231,26 @@ int flash_attention_mma_occupancy(int* fwd, int* dq, int* dkv) {
       dkv, flash_bwd_dkv_mma_kernel<true>, kDkvThreads, 0);
 }
 
-// dtype: 0 float32 (flash_fwd_kernel), 1 bfloat16 (flash_fwd_mma_kernel).
+// dtype: 0 float32 (flash_fwd_kernel), 1 bfloat16 (flash_fwd_mma_kernel);
+// d <= 64 runs the width-64 instances, 64 < d <= 128 the width-128 ones.
 // window < 0: none. Returns a cudaError_t.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v, void* out,
                                float* lse, int batch, int sq, int skv, int hq, int hkv,
                                int d, int causal, int window, int q_offset, float scale,
                                int dtype, void* stream) {
-  if (batch < 1 || sq < 1 || skv < 1 || hkv < 1 || hq % hkv != 0 || d < 1 || d > kMaxD ||
+  if (batch < 1 || sq < 1 || skv < 1 || hkv < 1 || hq % hkv != 0 || d < 1 || d > kMaxDFwd ||
       (dtype != 0 && dtype != 1) || batch > 65535 || hq > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype == 1 &&
+      ((long long)batch * hq > 0x7fffffffLL || (sq + kFwdRows - 1) / kFwdRows > 65535)) {
     return (int)cudaErrorInvalidValue;
   }
   FlashArgs a{q, k, v, out, lse, sq, skv, hq, hkv, d, causal, window, q_offset, scale};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float, kMaxD>(a, batch, s);
-  if ((long long)batch * hq > 0x7fffffffLL || (sq + kFwdRows - 1) / kFwdRows > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid(batch * hq, (sq + kFwdRows - 1) / kFwdRows);
-  if (d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out)) {
-    flash_fwd_mma_kernel<true><<<grid, kFwdThreads, 0, s>>>(a);
-  } else {
-    flash_fwd_mma_kernel<false><<<grid, kFwdThreads, 0, s>>>(a);
-  }
-  return (int)cudaGetLastError();
+  const bool vec = d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
+  return d <= kMaxD ? launch_fwd<kMaxD>(a, batch, dtype, vec, s)
+                    : launch_fwd<kMaxDFwd>(a, batch, dtype, vec, s);
 }
 
 // The backward's first kernel: dq, and delta for the second. dtype: 0

@@ -12,7 +12,8 @@ summed in the kernel). bf16 inputs run all three on the tensor cores
 (``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``,
 ``flash_bwd_dkv_mma_kernel``: bf16 operands, float32 sums, p and ds rounded
 to bf16 before their products); float32 inputs run float32 CUDA-core
-kernels. Each
+kernels. The forward takes head dims up to 128 (compiled at widths 64 and
+128), the backward up to 64 (:func:`limits`). Each
 takes CUDA tensors in float32 or bf16, checks
 their device, dtype, shape and contiguity, allocates its outputs with
 ``torch.empty``, launches on the current stream and raises if the launch is
@@ -82,29 +83,30 @@ def _lib() -> ctypes.CDLL:
         for name in ("flash_attention_bwd_dq_launch", "flash_attention_bwd_dkv_launch"):
             getattr(lib, name).argtypes = [_P] * 8 + [_I] * 9 + [_F, _I, _P]
             getattr(lib, name).restype = _I
-        lib.flash_attention_limits.argtypes = [ctypes.POINTER(_I)]
+        lib.flash_attention_limits.argtypes = [ctypes.POINTER(_I)] * 2
         lib.flash_attention_limits.restype = _I
-        lib.flash_attention_mma_occupancy.argtypes = [ctypes.POINTER(_I)] * 3
+        lib.flash_attention_mma_occupancy.argtypes = [ctypes.POINTER(_I)] * 4
         lib.flash_attention_mma_occupancy.restype = _I
         lib._repro_bound = True
     return lib
 
 
-def limits() -> int:
-    """The kernel's largest head dim."""
-    d = _I()
-    _lib().flash_attention_limits(ctypes.byref(d))
-    return d.value
+def limits() -> Tuple[int, int]:
+    """The largest head dims of the forward and of the backward kernels."""
+    fwd, bwd = _I(), _I()
+    _lib().flash_attention_limits(ctypes.byref(fwd), ctypes.byref(bwd))
+    return fwd.value, bwd.value
 
 
 def mma_occupancy() -> Dict[str, int]:
-    """Blocks an SM holds of the bf16 tensor-core kernels (forward, dq,
-    dk/dv), from the CUDA occupancy calculator."""
-    vals = [_I() for _ in range(3)]
+    """Blocks an SM holds of the bf16 tensor-core kernels (the forward at
+    widths 64 and 128, dq, dk/dv), from the CUDA occupancy calculator."""
+    vals = [_I() for _ in range(4)]
     err = _lib().flash_attention_mma_occupancy(*(ctypes.byref(x) for x in vals))
     if err != 0:
         raise RuntimeError(f"flash_attention occupancy query failed: cudaError_t {err}")
-    names = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    names = ("flash_attention_fwd", "flash_attention_fwd_d128", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
     return {n: x.value for n, x in zip(names, vals)}
 
 
@@ -118,14 +120,16 @@ def _shapes(q: torch.Tensor, k: torch.Tensor, window: Optional[int], what: str):
     return (*q.shape, k.shape[1], k.shape[2])
 
 
-def _check_shapes(shapes, q: torch.Tensor, k: torch.Tensor, what: str) -> None:
-    """Raise unless the kernels take these shapes (after the tensors' own
-    checks: this loads the library)."""
+def _check_shapes(shapes, q: torch.Tensor, k: torch.Tensor, what: str, backward: bool) -> None:
+    """Raise unless the forward (or, with ``backward``, the backward)
+    kernels take these shapes (after the tensors' own checks: this loads the
+    library); the message names the limit that refused."""
     B, Sq, Hq, D, Skv, Hkv = shapes
-    max_d = limits()
+    max_d = limits()[1 if backward else 0]
+    limit = "the backward's" if backward else "the forward's"
     if Hkv < 1 or Hq % Hkv or not 1 <= D <= max_d or min(B, Sq, Skv) < 1:
         raise ValueError(
-            f"{what} kernel takes D <= {max_d} and Hq a multiple of Hkv, "
+            f"{what} kernel takes D <= {max_d} ({limit} limit) and Hq a multiple of Hkv, "
             f"non-empty: got q {tuple(q.shape)}, k {tuple(k.shape)}"
         )
 
@@ -147,14 +151,14 @@ def flash_attention_cuda(
     q_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out [B, Sq, Hq, D] in q's dtype, lse [B, Hq, Sq] float32)`` on the
-    card; ``D <= limits()`` (64), ``Hq`` a multiple of ``Hkv``."""
+    card; ``D <= limits()[0]`` (128), ``Hq`` a multiple of ``Hkv``."""
     code = dtype_code(q)
     shapes = _shapes(q, k, window, "flash_attention")
     B, Sq, Hq, D, Skv, Hkv = shapes
     ptrs = [check_tensor("q", q, (B, Sq, Hq, D), q.dtype),
             check_tensor("k", k, (B, Skv, Hkv, D), q.dtype),
             check_tensor("v", v, (B, Skv, Hkv, D), q.dtype)]
-    _check_shapes(shapes, q, k, "flash_attention")
+    _check_shapes(shapes, q, k, "flash_attention", backward=False)
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     err = _lib().flash_attention_fwd_launch(
@@ -178,7 +182,7 @@ def _bwd_inputs(q, k, v, lse, dout, window, what):
                 v=check_tensor("v", v, (B, Skv, Hkv, D), q.dtype),
                 dout=check_tensor("dout", dout, (B, Sq, Hq, D), q.dtype),
                 lse=check_tensor("lse", lse, (B, Hq, Sq), torch.float32))
-    _check_shapes(shapes, q, k, what)
+    _check_shapes(shapes, q, k, what, backward=True)
     return code, shapes, ptrs
 
 
@@ -195,9 +199,9 @@ def flash_attention_bwd_dq_cuda(
     scale: Optional[float] = None,
     q_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The backward's first kernel: ``(dq [B, Sq, Hq, D] in q's dtype,
-    delta [B, Hq, Sq] float32)``, ``delta = sum_d dout out`` for
-    :func:`flash_attention_bwd_dkv_cuda`."""
+    """The backward's first kernel (``D <= limits()[1]``, 64): ``(dq [B, Sq,
+    Hq, D] in q's dtype, delta [B, Hq, Sq] float32)``, ``delta = sum_d dout
+    out`` for :func:`flash_attention_bwd_dkv_cuda`."""
     code, (B, Sq, Hq, D, Skv, Hkv), p = _bwd_inputs(q, k, v, lse, dout, window,
                                                      "flash_attention backward")
     o = check_tensor("out", out, (B, Sq, Hq, D), q.dtype)

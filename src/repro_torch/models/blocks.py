@@ -1,8 +1,9 @@
 """Layer blocks of the serving path: GQA attention (full or sliding
-window), the gated MLP, mamba-style SSD heads and xLSTM's mLSTM and sLSTM
-cells, each with its full-sequence forward and its one-token decode.
+window), the gated MLP, the mixture of experts, mamba-style SSD heads and
+xLSTM's mLSTM and sLSTM cells, each with its full-sequence forward and its
+one-token decode.
 
-The port of the attention, MLP, SSD and xLSTM parts of the reference
+The port of the attention, MLP, MoE, SSD and xLSTM parts of the reference
 package's ``repro.models.blocks``. Each block is an ``nn.Module`` whose
 parameters carry the reference's names (``wq``, ``w_gate``, ``w_in``,
 ``r_gates``, ...), so :mod:`repro_torch.convert` maps the reference's
@@ -24,14 +25,16 @@ Conventions, as in the reference:
   xLSTM's mLSTM the ``normalize=True`` case; both run on its kernels
   (:func:`repro_torch.kernels.ops.mlstm_chunk`);
 - the sLSTM has no kernel, as the reference has none: its recurrence is a
-  Python loop over positions in torch ops (the reference's ``lax.scan``).
+  Python loop over positions in torch ops (the reference's ``lax.scan``);
+- the MoE's expert products are plain batched matrix products (``einsum``
+  over ``[B, E, C, d]`` buffers), as the reference leaves them to XLA.
 
-MoE, cross-attention and the modality frontends are not ported yet
-(ROADMAP A.12): :func:`unported` names them.
+Cross-attention and the modality frontends are not ported yet (ROADMAP
+A.12): :func:`unported` names them.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +47,8 @@ from repro_torch.models.config import ModelConfig
 __all__ = [
     "Attention",
     "MLP",
+    "MoE",
+    "MoERoute",
     "Mamba",
     "MLSTM",
     "SLSTM",
@@ -63,7 +68,7 @@ Tables = Tuple[torch.Tensor, torch.Tensor]  # rope (cos, sin)
 def unported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP A.12: the LLM "
-        "substrate's MoE, encoder-decoder and frontend blocks)"
+        "substrate's encoder-decoder and frontend blocks)"
     )
 
 
@@ -158,11 +163,14 @@ def init_attention_cache(
 # gated MLP
 # ===========================================================================
 class MLP(nn.Module):
-    """SwiGLU MLP: ``w_gate``, ``w_up [d, ff]``, ``w_down [ff, d]``."""
+    """SwiGLU MLP: ``w_gate``, ``w_up [d, ff]``, ``w_down [ff, d]``, ``ff``
+    the config's ``d_ff`` unless ``d_ff`` is given (the MoE's shared
+    experts)."""
 
-    def __init__(self, cfg: ModelConfig, g: Optional[torch.Generator], device=None):
+    def __init__(self, cfg: ModelConfig, g: Optional[torch.Generator], device=None,
+                 d_ff: Optional[int] = None):
         super().__init__()
-        d, ff = cfg.d_model, cfg.d_ff
+        d, ff = cfg.d_model, d_ff or cfg.d_ff
         dt = DTYPES[cfg.dtype]
         self.w_gate = _new(g, (d, ff), dt, device)
         self.w_up = _new(g, (d, ff), dt, device)
@@ -170,6 +178,110 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return (F.silu(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
+
+
+# ===========================================================================
+# mixture of experts (capacity-based dispatch)
+# ===========================================================================
+class MoERoute(NamedTuple):
+    """The router's choices for ``x [B, S, d]``, ``T = S * k`` (token, choice)
+    pairs a sequence in token-major order."""
+
+    gates: torch.Tensor    # [B, S, k] float32, renormalised to sum 1
+    experts: torch.Tensor  # [B, S, k] int64, by descending probability
+    rank: torch.Tensor     # [B, T] int64: the pair's place in its expert's queue
+    keep: torch.Tensor     # [B, T] bool: rank < capacity (the rest are dropped)
+    capacity: int
+    aux: torch.Tensor      # [] float32 Switch-style load-balance loss
+
+
+class MoE(nn.Module):
+    """Top-k routed experts with a per-sequence capacity, plus shared
+    experts behind a sigmoid gate: ``router [d, E]`` (float32), ``w_gate``,
+    ``w_up [E, d, ffe]``, ``w_down [E, ffe, d]``, and with
+    ``n_shared_experts``, ``shared`` (an :class:`MLP` of ``n_shared * ffe``)
+    and ``shared_gate [d, 1]``.
+
+    The port of the reference's ``moe_forward``. Its two lowerings
+    (``moe_dispatch`` "onehot" and "sort") drop the same pairs: a pair's
+    rank in its expert's queue follows the flattened token-major ``S * k``
+    order in both (the one-hot cumsum, the stable argsort). The port
+    computes that function once, by index: each kept pair's token is
+    gathered into its slot of ``[B, E, C, d]``, the experts run on the
+    buffers as batched products (empty slots are zero rows, which the gated
+    MLP maps to zero), each pair's result is gathered back and weighted by
+    its gate. The k weighted results of a token are summed in float32 and
+    rounded once to the model's dtype, as the one-hot combine does (its
+    gates rounded to that dtype first); the sort lowering adds them in the
+    model's dtype, which differs in bf16 by that dtype's rounding."""
+
+    def __init__(self, cfg: ModelConfig, g: Optional[torch.Generator], device=None):
+        super().__init__()
+        d, E = cfg.d_model, cfg.n_experts
+        ffe = cfg.d_ff_expert or cfg.d_ff
+        dt = DTYPES[cfg.dtype]
+        self.cfg = cfg
+        self.router = _new(g, (d, E), torch.float32, device)
+        self.w_gate = _new(g, (E, d, ffe), dt, device, fan_in=d)
+        self.w_up = _new(g, (E, d, ffe), dt, device, fan_in=d)
+        self.w_down = _new(g, (E, ffe, d), dt, device, fan_in=ffe)
+        if cfg.n_shared_experts:
+            self.shared = MLP(cfg, g, device, d_ff=cfg.n_shared_experts * ffe)
+            self.shared_gate = _new(g, (d, 1), dt, device)
+
+    def route(self, x: torch.Tensor) -> MoERoute:
+        """Softmax over the experts in float32, the top k renormalised, each
+        pair's rank in its expert's queue, and the load-balance loss."""
+        B, S, _ = x.shape
+        E, k = self.cfg.n_experts, self.cfg.n_experts_active
+        probs = torch.softmax(x.to(torch.float32) @ self.router, dim=-1)  # [B, S, E]
+        # the top k by a stable descending sort: on exact ties the lower
+        # expert first, as jax.lax.top_k takes them (torch.topk promises no
+        # order among ties)
+        vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gates, experts = vals[..., :k], order[..., :k]
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        flat = experts.reshape(B, S * k)
+        onehot = F.one_hot(flat, E)  # [B, T, E]
+        rank = (torch.cumsum(onehot, dim=1) - onehot).gather(2, flat[..., None])[..., 0]
+        # the slots an expert takes from one sequence, as the reference
+        # computes them (Python's round, half to even)
+        capacity = int(max(1, round(S * k * self.cfg.moe_capacity_factor / E)))
+        density = onehot.sum((0, 1)).to(torch.float32) / (B * S)
+        aux = E * torch.sum(density * probs.mean(dim=(0, 1)))
+        return MoERoute(gates, experts, rank, rank < capacity, capacity, aux)
+
+    def experts(self, h: torch.Tensor) -> torch.Tensor:
+        """``[B, E, C, d]`` -> ``[B, E, C, d]``: each expert's gated MLP on its
+        buffer."""
+        a = torch.einsum("becd,edf->becf", h, self.w_gate)
+        u = torch.einsum("becd,edf->becf", h, self.w_up)
+        return torch.einsum("becf,efd->becd", F.silu(a) * u, self.w_down)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``x [B, S, d]`` -> ``(out [B, S, d], aux)``; a decode step passes
+        ``[B, 1, d]``, each sequence its own group."""
+        B, S, d = x.shape
+        E, k = self.cfg.n_experts, self.cfg.n_experts_active
+        r = self.route(x)
+        C = r.capacity
+        slot = r.experts.reshape(B, S * k) * C + r.rank  # [B, T]
+        rows = torch.arange(B, device=x.device)[:, None]
+        # the token in every buffer slot, S (a zero row) where none; the
+        # dropped pairs all go to slot E C, cut off after
+        src = torch.full((B, E * C + 1), S, dtype=torch.int64, device=x.device)
+        tok = torch.arange(S * k, device=x.device).div(k, rounding_mode="floor")
+        src.scatter_(1, torch.where(r.keep, slot, E * C), tok.expand(B, -1))
+        padded = torch.cat([x, x.new_zeros(B, 1, d)], dim=1)
+        buf = padded[rows, src[:, :E * C]].view(B, E, C, d)
+        y = self.experts(buf).reshape(B, E * C, d)
+        back = y[rows, torch.where(r.keep, slot, 0)].view(B, S, k, d)
+        w = (r.gates.reshape(B, S * k) * r.keep).to(x.dtype).view(B, S, k)
+        out = torch.einsum("bsk,bskd->bsd", w.to(torch.float32),
+                           back.to(torch.float32)).to(x.dtype)
+        if self.cfg.n_shared_experts:
+            out = out + self.shared(x) * torch.sigmoid(x @ self.shared_gate)
+        return out, r.aux
 
 
 # ===========================================================================

@@ -2,8 +2,8 @@
 training, the KV / SSD caches, prefill and one-token decode.
 
 The port of the reference package's ``repro.models.transformer`` for block
-kinds ``ATTN``, ``ATTN_LOCAL``, ``MAMBA``, ``HYMBA``, ``HYMBA_LOCAL``,
-``MLSTM`` and ``SLSTM``.
+kinds ``ATTN``, ``ATTN_LOCAL``, ``MOE``, ``MAMBA``, ``HYMBA``,
+``HYMBA_LOCAL``, ``MLSTM`` and ``SLSTM``.
 The reference stacks each pattern position's parameters ``[n_units, ...]``
 and scans over units; PyTorch runs eagerly, so the port unrolls: the model
 is an ``nn.Module`` whose ``layers`` are an ``nn.ModuleList`` in layer order
@@ -12,7 +12,8 @@ follows).
 
 The cache is ``{"pos": int, "layers": [per-layer dict]}``; a layer's entry
 holds ``"kv"`` (``k``, ``v [B, size, Hkv, hd]``, a ring of ``window`` slots
-on sliding-window layers) and, for SSD heads, ``"ssm"`` (``C``, ``n``,
+on sliding-window layers; an MoE layer's cache is its attention's) and, for
+SSD heads, ``"ssm"`` (``C``, ``n``,
 ``m``); an xLSTM layer's holds ``"cell"`` (the mLSTM's ``C``, ``n``, ``m``,
 the sLSTM's ``h``, ``c``, ``n``, ``m``). ``pos`` is a Python int, so the
 ring slot and the valid length of a decode step need no copy from the
@@ -21,7 +22,9 @@ device. :func:`prefill` and
 cache tensors, SSD and xLSTM states replaced in the dict, ``pos``
 advanced) and return it.
 
-:func:`forward` is the training forward, ``(logits [B, S, V], aux)``; under
+:func:`forward` is the training forward, ``(logits [B, S, V], aux)``, aux
+the sum of the MoE layers' load-balance losses (prefill and decode drop
+them, as the reference's do); under
 ``cfg.remat`` each layer runs inside ``torch.utils.checkpoint`` (the
 reference's ``jax.checkpoint`` of its scanned unit, a whole pattern of
 layers: the port checkpoints each layer of it, which recomputes the same
@@ -44,7 +47,8 @@ __all__ = ["Layer", "Transformer", "forward", "init_cache", "prefill", "decode_s
 
 Cache = Dict[str, Any]
 
-_ATTN_KINDS = (BlockKind.ATTN, BlockKind.ATTN_LOCAL, BlockKind.HYMBA, BlockKind.HYMBA_LOCAL)
+_ATTN_KINDS = (BlockKind.ATTN, BlockKind.ATTN_LOCAL, BlockKind.MOE, BlockKind.HYMBA,
+               BlockKind.HYMBA_LOCAL)
 _HYMBA = (BlockKind.HYMBA, BlockKind.HYMBA_LOCAL)
 _LOCAL = (BlockKind.ATTN_LOCAL, BlockKind.HYMBA_LOCAL)
 _XLSTM = (BlockKind.MLSTM, BlockKind.SLSTM)
@@ -71,9 +75,10 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 class Layer(nn.Module):
-    """One layer: ``norm1``, attention and/or SSD heads, ``norm2``, the MLP;
-    or, for the xLSTM kinds, ``norm1`` and the ``mlstm`` or ``slstm`` cell,
-    which carries its own projections (no ``norm2``, no MLP)."""
+    """One layer: ``norm1``, attention and/or SSD heads, ``norm2``, the MLP
+    (the ``moe`` in an MoE layer); or, for the xLSTM kinds, ``norm1`` and the
+    ``mlstm`` or ``slstm`` cell, which carries its own projections (no
+    ``norm2``, no MLP)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, g: Optional[torch.Generator], device=None):
         super().__init__()
@@ -95,7 +100,10 @@ class Layer(nn.Module):
             self.slstm = B.SLSTM(cfg, g, device)
         else:
             raise B.unported(f"block kind {kind!r}")
-        if kind not in _XLSTM:
+        if kind == BlockKind.MOE:
+            self.norm2 = zeros()
+            self.moe = B.MoE(cfg, g, device)
+        elif kind not in _XLSTM:
             self.norm2 = zeros()
             self.mlp = B.MLP(cfg, g, device)
 
@@ -192,16 +200,27 @@ def _ssd(layer: Layer, h: torch.Tensor, c: Optional[Cache]) -> torch.Tensor:
     return y
 
 
-def _block(layer: Layer, x: torch.Tensor, tables, c: Optional[Cache] = None) -> torch.Tensor:
-    """One layer over a whole sequence; with a cache ``c`` (prefill) its
-    keys, values and SSD or xLSTM state go there."""
+def _ffn(layer: Layer, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``(x + the layer's MLP or MoE of norm2(x), the MoE's aux or None)``."""
+    h = rms_norm(x, layer.norm2, layer.cfg.norm_eps)
+    if layer.kind == BlockKind.MOE:
+        m, aux = layer.moe(h)
+        return x + m, aux
+    return x + layer.mlp(h), None
+
+
+def _block(layer: Layer, x: torch.Tensor, tables,
+           c: Optional[Cache] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer over a whole sequence: ``(x, aux)``, aux the MoE's
+    load-balance loss (None for the other kinds); with a cache ``c``
+    (prefill) its keys, values and SSD or xLSTM state go there."""
     cfg = layer.cfg
     h = rms_norm(x, layer.norm1, cfg.norm_eps)
     if layer.kind in _XLSTM:
         if c is None:
-            return x + layer.cell(h)
+            return x + layer.cell(h), None
         y, c["cell"] = layer.cell.prefill(h)
-        return x + y
+        return x + y, None
     if layer.kind in _ATTN_KINDS:
         a, k, v = layer.attn(h, tables[_local_theta(cfg, layer.window)], window=layer.window)
         if c is not None:
@@ -210,8 +229,7 @@ def _block(layer: Layer, x: torch.Tensor, tables, c: Optional[Cache] = None) -> 
             a = 0.5 * (a + _ssd(layer, h, c))
     else:  # MAMBA
         a = _ssd(layer, h, c)
-    x = x + a
-    return x + layer.mlp(rms_norm(x, layer.norm2, cfg.norm_eps))
+    return _ffn(layer, x + a)
 
 
 # ===========================================================================
@@ -220,18 +238,21 @@ def _block(layer: Layer, x: torch.Tensor, tables, c: Optional[Cache] = None) -> 
 def forward(params: Transformer, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward of ``batch["tokens"] [B, S]``: ``(logits [B, S,
-    V], aux)``. ``aux`` is the MoE load-balancing loss, 0 for the block
-    kinds the port runs."""
+    V], aux)``. ``aux`` is the sum of the MoE layers' load-balancing
+    losses, float32 (0 without MoE layers)."""
     tokens = batch["tokens"].to(params.embed.device)
     S = tokens.shape[1]
     x = params.embed[tokens]
     tables = params.rope_tables(torch.arange(S, device=x.device))
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params.layers:
-        x = checkpoint(_block, layer, x, tables, use_reentrant=False) if remat \
+        x, a = checkpoint(_block, layer, x, tables, use_reentrant=False) if remat \
             else _block(layer, x, tables)
+        if a is not None:
+            aux = aux + a
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return x @ params.head, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x @ params.head, aux
 
 
 def prefill(params: Transformer, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -243,7 +264,7 @@ def prefill(params: Transformer, batch: Dict[str, torch.Tensor], cfg: ModelConfi
     x = params.embed[tokens]
     tables = params.rope_tables(torch.arange(S, device=x.device))
     for layer, c in zip(params.layers, cache["layers"]):
-        x = _block(layer, x, tables, c)
+        x, _ = _block(layer, x, tables, c)
     cache["pos"] = S
     x = rms_norm(x[:, -1], params.final_norm, cfg.norm_eps)
     return x @ params.head, cache
@@ -265,8 +286,10 @@ def _block_decode(layer: Layer, x: torch.Tensor, c: Cache, pos: int, tables) -> 
             a = 0.5 * (a + s)
     else:  # MAMBA
         a, c["ssm"] = layer.mamba.decode(h, c["ssm"])
-    x = x + a
-    return x + layer.mlp(rms_norm(x, layer.norm2, cfg.norm_eps))
+    if layer.kind == BlockKind.MOE:  # the token alone, a group of one: [B, 1, d]
+        y, _ = _ffn(layer, (x + a)[:, None])
+        return y[:, 0]
+    return _ffn(layer, x + a)[0]
 
 
 def decode_step(params: Transformer, tokens: torch.Tensor, cache: Cache,

@@ -37,7 +37,10 @@ same limits as the CUDA-core one.
 bf16 inputs run the forward, dq and dk/dv on the tensor cores (p and ds
 rounded to bf16 before their products); the forward keeps the limits
 above, on 64-aligned and on unaligned inputs (a head dim off a multiple of
-8, a pointer off 16 bytes: tiles staged by plain loads).
+8, a pointer off 16 bytes: tiles staged by plain loads), and past D 64 on
+its width-128 instances (D 128, 96, 100, 77) to the same limits. The
+backward takes D <= 64: past it the dq kernel refuses, and
+``ops.FlashAttention``'s backward raises on the card.
 The flash backward kernels (dq, dk/dv) against ``ref.flash_attention_bwd``:
 within 1e-4 of each gradient's largest entry in float32 (the differences
 ``dp - delta`` cancel, so the sums' rounding shows against a smaller
@@ -656,10 +659,14 @@ def test_mlstm_tiled_kernel_matches_plain(normalize, S, H, Dk, Dv, chunk, dtype)
 
 def test_llm_kernels_refuse_shapes_past_their_limits():
     _need_cuda()
-    assert flash_attention.limits() == 64 and mlstm_chunk.limits() == (512, 128)
-    q = torch.zeros(1, 8, 2, 80, device="cuda")
-    with pytest.raises(ValueError, match="D <= 64"):
+    assert flash_attention.limits() == (128, 64) and mlstm_chunk.limits() == (512, 128)
+    q = torch.zeros(1, 8, 2, 129, device="cuda")
+    with pytest.raises(ValueError, match="D <= 128 \\(the forward's limit\\)"):
         flash_attention.flash_attention_cuda(q, q, q)
+    q = torch.zeros(1, 8, 2, 65, device="cuda")
+    out, lse = flash_attention.flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="D <= 64 \\(the backward's limit\\)"):
+        flash_attention.flash_attention_bwd_dq_cuda(q, q, q, out, lse, q)
     g = torch.zeros(1, 8, 2, device="cuda")
     q = torch.zeros(1, 8, 2, 520, device="cuda")
     with pytest.raises(ValueError, match="Dk <= 512"):
@@ -781,6 +788,56 @@ def test_flash_mma_kernels_take_unaligned_inputs(case, shift):
     mags = ref.flash_attention_bwd_magnitudes(q, k, v, out, lse, dout, **kw)
     for name, a, b, b32, mag in zip(("dq", "dk", "dv"), got, want, want32, mags):
         assert _rows_within(a, b, _bf16_bwd_row_limit(b32, mag)), name
+
+
+# (B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset) past D 64, the
+# forward's width-128 instances: qwen2-moe's 16 / 16 heads, GQA (the dense
+# D = 128 configs' groups 5, 4 and 2), a window, a q_offset, rows with no
+# key beside rows that keep some, D 96 (cp.async staging of 12 chunks of
+# 16) and D 100 and 77 (off a multiple of 8: plain loads)
+_FLASH_D128_CASES = [
+    (2, 130, 130, 16, 16, 128, True, None, 0),
+    (1, 100, 100, 10, 2, 128, True, None, 0),
+    (2, 90, 90, 8, 2, 128, True, 17, 0),
+    (1, 40, 90, 4, 2, 128, True, 24, 50),
+    (1, 30, 20, 4, 2, 128, True, 8, 10),
+    (2, 77, 50, 4, 1, 96, False, None, 0),
+    (1, 70, 70, 4, 2, 100, True, None, 0),
+    (1, 70, 70, 2, 2, 77, True, 9, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _FLASH_D128_CASES)
+def test_flash_attention_kernel_matches_plain_past_d64(case, dtype):
+    """The forward at head dims 65-128 against ``ref.flash_attention``, to
+    the D <= 64 limits; in bf16 also on pointers off 16 bytes."""
+    _need_cuda()
+    B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset = case
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    g = torch.Generator().manual_seed(Sq + D)
+    q, k, v = (_randn(g, B, S, H, D, dtype=dtype) for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
+    inputs = [(q, k, v)] + ([tuple(_unaligned(x) for x in (q, k, v))] if dtype == torch.bfloat16 else [])
+    want, want_lse = ref.flash_attention(q, k, v, **kw)
+    fin = torch.isfinite(want_lse)
+    for args in inputs:
+        out, lse = flash_attention.flash_attention_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and _rel_err(out, want) <= _LLM_TOL[dtype]
+        assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+        lse_err = float((lse[fin] - want_lse[fin]).abs().max())
+        assert lse_err <= 1e-5 * max(1.0, float(want_lse[fin].abs().max()))
+
+
+def test_flash_backward_past_d64_raises_on_the_card():
+    """A CUDA flash backward at D 96 raises, naming ROADMAP B; it does not
+    fall back to the plain version."""
+    _need_cuda()
+    g = torch.Generator().manual_seed(96)
+    q, k, v = (_randn(g, 1, 40, 2, 96, dtype=torch.bfloat16).requires_grad_() for _ in range(3))
+    out, _ = ops.flash_attention(q, k, v)
+    with pytest.raises(NotImplementedError, match="ROADMAP B"):
+        out.float().sum().backward()
 
 
 def test_kernels_without_backward_raise_under_grad():

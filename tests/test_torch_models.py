@@ -137,13 +137,12 @@ def test_entry_points_want_cuda_unless_asked_for_cpu(monkeypatch):
         model.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
 
 
-# a block kind, the encoder-decoder stack (as seamless-m4t-large-v2 sets it)
-# and a vision frontend (as internvl2-2b sets it), each still unported
+# the encoder-decoder stack (as seamless-m4t-large-v2 sets it) and a vision
+# frontend (as internvl2-2b sets it), each still unported
 @pytest.mark.parametrize("unported", [
-    dict(block_pattern=(BlockKind.MOE,), n_experts=4, n_experts_active=2),
     dict(encoder_layers=2),
     dict(frontend="vision", frontend_tokens=16, frontend_dim=96),
-], ids=["moe", "encoder_decoder", "vision_frontend"])
+], ids=["encoder_decoder", "vision_frontend"])
 def test_unported_block_kinds_raise(unported):
     cfg = dataclasses.replace(configs.get_smoke_config("tinyllama-1.1b"), **unported)
     with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
@@ -168,9 +167,52 @@ def test_configs_carry_the_published_widths():
     assert x.block_pattern == (BlockKind.MLSTM,) * 7 + (BlockKind.SLSTM,)
     assert x.source == "arXiv:2405.04517"
     assert x.param_count() == 521_798_656 == ref_config("xlstm-350m").param_count()
-    assert sorted(configs.list_archs()) == ["hymba-1.5b", "tinyllama-1.1b", "xlstm-350m"]
+    m = configs.get_config("qwen2-moe-a2.7b")
+    assert (m.d_model, m.n_heads, m.n_kv_heads, m.hd, m.d_ff_expert, m.vocab_size, m.n_layers,
+            m.n_experts, m.n_experts_active, m.n_shared_experts, m.qkv_bias) == (
+        2048, 16, 16, 128, 1408, 151936, 24, 60, 4, 4, True)
+    assert m.layer_kinds == (BlockKind.MOE,) * 24
+    assert m.param_count() == 14_315_735_040 == ref_config("qwen2-moe-a2.7b").param_count()
+    q3 = configs.get_config("qwen3-moe-235b-a22b")
+    assert (q3.n_heads // q3.n_kv_heads, q3.hd, q3.n_experts, q3.n_experts_active) == (16, 128, 128, 8)
+    for arch in ("qwen3-moe-235b-a22b", "qwen2.5-14b", "minitron-8b", "gemma3-27b"):
+        assert dataclasses.asdict(configs.get_config(arch)) == dataclasses.asdict(ref_config(arch)), arch
+        assert configs.get_config(arch).param_count() == ref_config(arch).param_count(), arch
+    assert sorted(configs.list_archs()) == [
+        "gemma3-27b", "hymba-1.5b", "minitron-8b", "qwen2-moe-a2.7b", "qwen2.5-14b",
+        "qwen3-moe-235b-a22b", "tinyllama-1.1b", "xlstm-350m"]
     with pytest.raises(KeyError):
-        configs.get_config("qwen2.5-14b")  # the reference has it; the port not yet
+        configs.get_config("seamless-m4t-large-v2")  # the reference has it; the port not yet
+
+
+# the dense head-dim-128 configs at their smoke widths, and qwen2.5-14b's
+# smoke config opened to head_dim 128 (the plain path at D = 128)
+@pytest.mark.parametrize("arch,overrides", [
+    ("qwen2.5-14b", {}), ("minitron-8b", {}), ("gemma3-27b", {}),
+    ("qwen2.5-14b", dict(head_dim=128)),
+], ids=["qwen2.5-14b", "minitron-8b", "gemma3-27b", "qwen2.5-14b-d128"])
+def test_dense_configs_match_reference(arch, overrides):
+    """A 40-token prefill (past gemma3's 32-slot smoke window) and 4 decode
+    steps, the port's seeded weights carried to the reference's layout,
+    logits within 1e-4 of max|logits|."""
+    cfg_ref = dataclasses.replace(ref_smoke_config(arch), **overrides)
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), **overrides)
+    assert cfg_ref.param_count() == cfg.param_count()
+    net = model.init_params(0, cfg, device="cpu")
+    params = convert.model_params_to_reference(net, cfg)
+    tokens = np.random.default_rng(6).integers(0, cfg.vocab_size, (B, S + 4)).astype(np.int32)
+    ref_logits, ref_cache = jax.jit(ref_model.make_prefill_step(cfg_ref))(
+        params, ref_model.init_cache(cfg_ref, B, MAX_LEN), {"tokens": jnp.asarray(tokens[:, :S])})
+    logits, cache = model.make_prefill_step(cfg)(
+        net, model.init_cache(cfg, B, MAX_LEN, device="cpu"),
+        {"tokens": torch.from_numpy(tokens[:, :S]).long()})
+    scale = float(np.abs(np.asarray(ref_logits)).max())
+    assert _max_err(logits, ref_logits) <= ATOL * scale
+    ref_step, step = jax.jit(ref_model.make_serve_step(cfg_ref)), model.make_serve_step(cfg)
+    for i in range(4):
+        ref_logits, ref_cache = ref_step(params, ref_cache, jnp.asarray(tokens[:, S + i]))
+        logits, cache = step(net, cache, torch.from_numpy(tokens[:, S + i]).long())
+        assert _max_err(logits, ref_logits) <= ATOL * float(np.abs(np.asarray(ref_logits)).max()), i
 
 
 def test_blocks_match_reference_blocks():

@@ -29,6 +29,13 @@ Groups (``--groups``, default all):
   that commit 593f029's leap step ran in its place.
 - ``selu_mlp``, ``mlstm_chunk``: called with this checkout's C signatures,
   so the other sources must export the same two (commit 386eef2 does).
+- ``flash``: the flash-attention forward at head dims up to 64, called
+  with this checkout's C signature of ``flash_attention_fwd_launch``
+  (unchanged since commit 386eef2): on ``chip_smoke.py``'s ragged cases
+  (float32 and bf16, pointers off 16 bytes too) and at hymba-1.5b's
+  serving shapes (bf16, global and the 1,024 window), both builds' out and
+  lse held bitwise to each other (``bitwise_other``), each within
+  ``chip_smoke.py``'s limits of the plain version; the serving shapes timed.
 
 Each kernel is timed as device time under ``torch.profiler``
 (``chip_smoke.device_ms``) in turns: other, this, this, other. One JSON line
@@ -52,7 +59,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from repro_torch.core import engine  # noqa: E402
 from repro_torch.core.scenarios import build_bank  # noqa: E402
-from repro_torch.kernels import _build, grid_tick, mlstm_chunk, ref, selu_mlp  # noqa: E402
+from repro_torch.kernels import _build, flash_attention, grid_tick, mlstm_chunk, ref, selu_mlp  # noqa: E402
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -80,6 +87,9 @@ def build_other(csrc: str, out_dir: str, names) -> dict:
     for name, mod in (("selu_mlp", selu_mlp), ("mlstm_chunk", mlstm_chunk)):
         if name in libs:
             getattr(libs[name], f"{name}_launch").argtypes = getattr(mod._lib(), f"{name}_launch").argtypes
+    if "flash_attention" in libs:
+        libs["flash_attention"].flash_attention_fwd_launch.argtypes = \
+            flash_attention._lib().flash_attention_fwd_launch.argtypes
     if "grid_tick" in libs:
         ours, other = grid_tick._lib(), libs["grid_tick"]
         for fn in ("grid_tick_bank_fused_launch", "grid_tick_bank_launch", "grid_tick_limits"):
@@ -237,6 +247,52 @@ def other_ssd(lib, q, k, v, ig, fg, chunk):
     return out
 
 
+def other_flash(lib, q, k, v, **kw):
+    """``(out, lse)`` of the other build's forward through this checkout's
+    launch arguments."""
+    B, Sq, Hq, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    kw = dict(dict(causal=True, window=None, scale=None, q_offset=0), **kw)
+    err = lib.flash_attention_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        *flash_attention._launch_args(B, Sq, k.shape[1], Hq, k.shape[2], D, kw["causal"],
+                                      kw["window"], kw["q_offset"], kw["scale"],
+                                      flash_attention.dtype_code(q), q))
+    if err != 0:
+        raise RuntimeError(f"other flash_attention launch failed: {err}")
+    return out, lse
+
+
+def ab_flash(other_lib, dev) -> None:
+    """The forward at D <= 64: this build bitwise the other's."""
+    cases = [(label, shape, kw, dtype, False)
+             for dtype in (torch.float32, torch.bfloat16)
+             for label, shape, kw in cs.FLASH_CASES]
+    cases += [("unaligned", (2, 100, 100, 6, 2, 64), {}, dtype, True)
+              for dtype in (torch.float32, torch.bfloat16)]
+    cfg = cs.configs.get_config(cs.HYMBA)
+    main = (cs.LLM_B, cs.LLM_S, cs.LLM_S, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+    cases += [(f"main {w}", main, dict(window=w), torch.bfloat16, False) for w in (None, cfg.window)]
+    for label, shape, kw, dtype, shift in cases:
+        q, k, v = cs.flash_case(*shape, dtype, seed=shape[1], dev=dev)
+        if shift:
+            q, k, v = (cs.unaligned(x) for x in (q, k, v))
+        this = flash_attention.flash_attention_cuda(q, k, v, **kw)
+        other = other_flash(other_lib, q, k, v, **kw)
+        same = all(torch.equal(a, b) for a, b in zip(this, other))
+        err = cs.check_flash(label, q, k, v, dtype, phase="ab_flash", **kw)
+        row = dict(kernel="flash_attention_fwd", case=label, dtype=str(dtype), shape=list(shape),
+                   bitwise_other=same, max_rel_err=err, **kw)
+        if label.startswith("main"):
+            row.update(turns(lambda: other_flash(other_lib, q, k, v, **kw),
+                             lambda: flash_attention.flash_attention_cuda(q, k, v, **kw), 20,
+                             "flash_fwd"))
+        print(json.dumps(row), flush=True)
+        if not same:
+            raise AssertionError(f"flash {label} {dtype}: this build's bits differ from the other's")
+
+
 def turns(other, this, reps, tag, other_tag=None) -> dict:
     """Device ms of each, in turns other, this, this, other (the other's
     kernels named ``other_tag`` where their names differ; "" takes all)."""
@@ -252,14 +308,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, help="the other checkout's kernels/csrc directory")
     ap.add_argument("--groups", nargs="+", default=["bank", "campaign", "selu_mlp", "mlstm_chunk"],
-                    choices=["bank", "campaign", "selu_mlp", "mlstm_chunk"])
+                    choices=["bank", "campaign", "selu_mlp", "mlstm_chunk", "flash"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    names = sorted({{"bank": "grid_tick", "campaign": "grid_tick"}.get(g, g) for g in args.groups})
+    names = sorted({{"bank": "grid_tick", "campaign": "grid_tick",
+                     "flash": "flash_attention"}.get(g, g) for g in args.groups})
     _build.build(names)
     out_dir = os.path.join(ROOT, "build", "ab_other")
     libs = build_other(args.other, out_dir, names)
@@ -267,6 +324,8 @@ def main() -> int:
         ab_bank(libs["grid_tick"], dev)
     if "campaign" in args.groups:
         ab_campaign(libs["grid_tick"], dev)
+    if "flash" in args.groups:
+        ab_flash(libs["flash_attention"], dev)
     if "selu_mlp" in args.groups:
         for n in (4, 37, 4096, 8192):
             x, ws, bs = cs.mlp_net(n, cs.MLP_IN, dev, seed=n)
