@@ -222,7 +222,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.models import model as llm  # noqa: E402
 from repro_torch.models import transformer as llm_stack  # noqa: E402
 from repro_torch.models.blocks import MoE, init_attention_cache  # noqa: E402
-from repro_torch.models.common import rms_norm  # noqa: E402
+from repro_torch.models.common import cross_entropy_loss, rms_norm  # noqa: E402
 from repro_torch.models.config import BlockKind  # noqa: E402
 from repro_torch.data.tokens import TokenStream, TokenStreamConfig  # noqa: E402
 from repro_torch.train import trainer as llm_trainer  # noqa: E402
@@ -362,11 +362,14 @@ def phase_build() -> dict:
     emit("build", kernel="flash_fwd_mma_kernel, flash_fwd_kernel", ptxas=fwd_ptxas,
          blocks_per_sm={w: occupancy[k] for w, k in (("64", "flash_attention_fwd"),
                                                      ("128", "flash_attention_fwd_d128"))})
-    # the bf16 dq kernel's registers, spills and blocks an SM on their own line
-    dq_ptxas = {k: v for k, v in ptxas_by_kernel(_build.build_logs.get("flash_attention", "")).items()
-                if k.startswith("flash_bwd_dq_mma_kernel")}
-    emit("build", kernel="flash_bwd_dq_mma_kernel", ptxas=dq_ptxas,
-         blocks_per_sm=occupancy["flash_attention_bwd_dq"])
+    # the backward's kernels (dq and dk/dv, bf16 and float32): registers,
+    # spills and the bf16 kernels' blocks an SM at both widths
+    flash_ptxas = ptxas_by_kernel(_build.build_logs.get("flash_attention", ""))
+    for part in ("dq", "dkv"):
+        ptxas = {k: v for k, v in flash_ptxas.items() if k.startswith(f"flash_bwd_{part}_")}
+        emit("build", kernel=f"flash_bwd_{part}_mma_kernel, flash_bwd_{part}_kernel", ptxas=ptxas,
+             blocks_per_sm={w: occupancy[f"flash_attention_bwd_{part}{s_}"]
+                            for w, s_ in (("64", ""), ("128", "_d128"))})
     return {"seconds": time.perf_counter() - t0}
 
 
@@ -2880,7 +2883,13 @@ SSD_BWD_CASES = tuple((n, S_, dk, dv) for n in (True, False) for S_ in (100, 300
                       for dk, dv in ((16, 32), (64, 128)))
 # record_function ranges: the profiler may show each as a device-side row
 # spanning its kernels, which the sums of kernel time must not count again
-ANNOTATIONS = ("mlstm_chunk_bwd",)
+ANNOTATIONS = ("mlstm_chunk_bwd", "adamw_update")
+# qwen2-moe-a2.7b's train step: 2 of its 24 layers (the full width does not
+# fit one card with AdamW's moments), 8 x 2,048 tokens as 2 microbatches of
+# 4 x 2,048 (the float32 logits of 8 x 2,048 tokens at vocab 151,936 are
+# 9.96 GB, and with their gradient and the AdamW copies one pass would peak
+# near 70 GB), 1 warm-up and 3 timed steps
+MOE_TRAIN_LAYERS, MOE_TRAIN_ACCUM, MOE_TRAIN_STEPS = 2, 2, 3
 
 
 def bwd_row_limit(want32) -> torch.Tensor:
@@ -3058,11 +3067,110 @@ def ssd_bwd_timing(hy, dev, max_abs_err: float) -> dict:
     return res
 
 
+def bwd_timing(q, k, v, dout, window=None) -> dict:
+    """The bf16 dq and dk/dv kernels at a causal shape (and ``window``),
+    timed by CUDA events beside their bounds (the kept pairs' products at
+    the bf16 tensor-core rate, or their bytes), the plain backward and
+    SDPA's backward (a band mask for a window). Keys ``dq`` and ``dkv``."""
+    B, S, Hq, D = q.shape
+    kw = dict(window=window)
+    out, lse = flash_attention.flash_attention_cuda(q, k, v, **kw)
+    dq_ms, (_, delta) = timed(
+        lambda: flash_attention.flash_attention_bwd_dq_cuda(q, k, v, out, lse, dout, **kw), 5)
+    dkv_ms, _ = timed(
+        lambda: flash_attention.flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, dout, **kw), 5)
+    plain_ms, _ = timed(lambda: ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw), 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    if window is None:
+        graph = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:
+        i = torch.arange(S, device=q.device)
+        band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        graph = sdpa(qt, kt, vt, attn_mask=band, enable_gqa=True)
+    lib_ms, _ = timed(lambda: torch.autograd.grad(graph, (qt, kt, vt), dout.transpose(1, 2),
+                                                  retain_graph=True), 5)
+    product = 2 * D * B * Hq * attention_pairs(S, S, True, window)  # one [pairs x D] product
+    rows = 4 * B * Hq * S  # one float32 [B, Hq, S] row vector
+    res = {}
+    for name, ms, n_products, bytes_ in (
+        # dq: s, dp, dq; reads q, k, v, out, dout, lse; writes dq, delta
+        ("dq", dq_ms, 3, nbytes(q, k, v, out, dout, q) + 2 * rows),
+        # dk/dv: s, dp, dk, dv; reads q, k, v, dout, lse, delta; writes dk, dv
+        ("dkv", dkv_ms, 4, nbytes(q, k, v, dout, k, v) + 2 * rows),
+    ):
+        b_ms, b_by = bound(bytes_, n_products * product)
+        res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms, ops=n_products * product, bytes=bytes_)
+    del graph, qt, kt, vt
+    return res
+
+
+def llm_train_kernels_d128(dev) -> dict:
+    """The flash dq and dk/dv kernels at head dims past 64 (their width-128
+    instances) against the plain backward: the forward's D 128 / 96 / 77
+    ragged cases and pointers off 16 bytes, float32 and bf16; then
+    qwen2-moe-a2.7b's training shape (three seeds) and the dense D = 128
+    configs' attention shapes (qwen2.5-14b 40 / 8, minitron-8b 32 / 8,
+    gemma3-27b's local layers 32 / 16 at the 1,024 window), bf16, each
+    timed (:func:`bwd_timing`). Keys ``flash_attention_bwd_dq_d128`` and
+    ``flash_attention_bwd_dkv_d128``."""
+    bf = torch.bfloat16
+    err = 0.0
+    for dtype in (torch.float32, bf):
+        for label, shape, kw in FLASH_D128_CASES + (
+                ("D128 unaligned", (2, 130, 200, 4, 2, 128), dict(causal=False)),
+                ("D100 unaligned", (1, 70, 70, 4, 2, 100), dict())):
+            q, k, v = flash_case(*shape, dtype, seed=shape[1] + shape[5] + 1, dev=dev)
+            dout = flash_case(shape[0], shape[1], 1, shape[3], 1, shape[5], dtype,
+                              seed=shape[1] + 2, dev=dev)[0]
+            if "unaligned" in label:
+                q, k, v, dout = (unaligned(x) for x in (q, k, v, dout))
+            err = max(err, check_flash_bwd(label, q, k, v, dout, dtype, **kw)["err"])
+    moe = configs.get_config(QWEN_MOE)
+    B, S, D = TRAIN_B, TRAIN_S, moe.hd
+    shares, rows = [], {}
+    for seed, seed_dout in TRAIN_BWD_SEEDS:
+        q, k, v = flash_case(B, S, S, moe.n_heads, moe.n_kv_heads, D, bf, seed=seed, dev=dev)
+        dout = flash_case(B, S, 1, moe.n_heads, 1, D, bf, seed=seed_dout, dev=dev)[0]
+        r = check_flash_bwd(f"{QWEN_MOE} train seed {seed}", q, k, v, dout, bf)
+        err = max(err, r["err"])
+        shares.append(dict(seed=seed, bf16_share_dq_dk_dv=r["bf16_share"]))
+    emit("llm_train_kernels", check=f"bf16 backward row shares at {QWEN_MOE}'s training shape",
+         seeds=shares)
+    rows[QWEN_MOE] = bwd_timing(q, k, v, dout)
+    del q, k, v, dout
+    for arch in DENSE_D128:
+        c = configs.get_config(arch)
+        q, k, v = flash_case(B, S, S, c.n_heads, c.n_kv_heads, D, bf, seed=c.n_heads + 1, dev=dev)
+        dout = flash_case(B, S, 1, c.n_heads, 1, D, bf, seed=c.n_heads + 2, dev=dev)[0]
+        err = max(err, check_flash_bwd(f"{arch} train", q, k, v, dout, bf, window=c.window)["err"])
+        rows[arch] = bwd_timing(q, k, v, dout, c.window)
+        del q, k, v, dout
+    torch.cuda.synchronize()
+    res = {}
+    for part in ("dq", "dkv"):
+        for arch, r in rows.items():
+            c = configs.get_config(arch)
+            emit("llm_train_kernels", kernel=f"flash_attention_bwd_{part}_d128", timing=arch,
+                 card=smi(), shape=[B, S, c.n_heads, c.n_kv_heads, D], causal=True,
+                 window=None if arch == QWEN_MOE else c.window, width=128,
+                 plain="ref.flash_attention_bwd (dq, dk and dv)",
+                 library="backward of F.scaled_dot_product_attention(enable_gqa=True) "
+                         "(dq, dk and dv; a band mask for a window)", **r[part])
+        res[f"flash_attention_bwd_{part}_d128"] = dict(
+            rows[QWEN_MOE][part], max_abs_err=err,
+            dense_configs={a: {k_: rows[a][part][k_] for k_ in ("ms", "bound_ms", "library_ms")}
+                           for a in DENSE_D128})
+    return res
+
+
 def phase_llm_train_kernels(dev) -> dict:
     """The dq and dk/dv kernels against the plain backward on ragged cases
     and at TinyLlama's training shapes (three seeds), the forward there
     too; then each timed with CUDA events beside its bound, the plain
-    version and SDPA's forward and backward."""
+    version and SDPA's forward and backward; Hymba's shapes; the width-128
+    instances (:func:`llm_train_kernels_d128`); the SSD backward."""
     cfg = configs.get_config(TINYLLAMA)
     err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -3104,53 +3212,39 @@ def phase_llm_train_kernels(dev) -> dict:
     fwd_err = max(check_flash("train main", q, k, v, bf, phase="llm_train_kernels"),
                   check_flash("train main", *(x.float() for x in (q, k, v)), torch.float32,
                               phase="llm_train_kernels"))
-    fwd_ms, (out, lse) = timed(lambda: flash_attention.flash_attention_cuda(q, k, v), 10)
-    dq_ms, (_, delta) = timed(
-        lambda: flash_attention.flash_attention_bwd_dq_cuda(q, k, v, out, lse, dout), 5)
-    dkv_ms, _ = timed(
-        lambda: flash_attention.flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, dout), 10)
+    fwd_ms, _ = timed(lambda: flash_attention.flash_attention_cuda(q, k, v), 10)
     fwd_plain_ms, _ = timed(lambda: ref.flash_attention(q, k, v), 2)
-    plain_ms, _ = timed(lambda: ref.flash_attention_bwd(q, k, v, out, lse, dout), 2)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    dout_t = dout.transpose(1, 2)
-    with torch.no_grad():
-        sdpa_fwd_ms, _ = timed(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
-    graph = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
-    lib_ms, _ = timed(lambda: torch.autograd.grad(graph, (qt, kt, vt), dout_t, retain_graph=True), 10)
-    sdpa_fwd_bwd_ms, _ = timed(lambda: torch.autograd.grad(
-        sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), (qt, kt, vt), dout_t), 10)
-    pairs = B * Hq * attention_pairs(S, S, True, None)
-    product = 2 * D * pairs  # one [pairs x D] product
-    rows = 4 * B * Hq * S  # one float32 [B, Hq, S] row vector
-    fwd_bound, fwd_by = bound(nbytes(q, k, v, q) + rows, 2 * product)
+    bwd = bwd_timing(q, k, v, dout)
     res = {}
-    for name, ms, n_products, bytes_ in (
-        # dq: s, dp, dq; reads q, k, v, out, dout, lse; writes dq, delta
-        ("flash_attention_bwd_dq", dq_ms, 3, nbytes(q, k, v, out, dout, q) + 2 * rows),
-        # dk/dv: s, dp, dk, dv; reads q, k, v, dout, lse, delta; writes dk, dv
-        ("flash_attention_bwd_dkv", dkv_ms, 4, nbytes(q, k, v, dout, k, v) + 2 * rows),
-    ):
-        b_ms, b_by = bound(bytes_, n_products * product)
-        res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                         ops=n_products * product, bytes=bytes_, max_abs_err=err)
+    for part in ("dq", "dkv"):
+        name = f"flash_attention_bwd_{part}"
+        res[name] = dict(bwd[part], max_abs_err=err)
         emit("llm_train_kernels", kernel=name, timing="main", card=smi(),
              shape=[B, S, Hq, Hkv, D], causal=True,
              plain="ref.flash_attention_bwd (dq, dk and dv)",
              library="backward of F.scaled_dot_product_attention(is_causal=True, "
                      "enable_gqa=True) (dq, dk and dv)", **res[name])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    with torch.no_grad():
+        sdpa_fwd_ms, _ = timed(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    sdpa_fwd_bwd_ms, _ = timed(lambda: torch.autograd.grad(
+        sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), (qt, kt, vt), dout.transpose(1, 2)), 10)
+    product = 2 * D * B * Hq * attention_pairs(S, S, True, None)  # one [pairs x D] product
+    fwd_bound, fwd_by = bound(nbytes(q, k, v, q) + 4 * B * Hq * S, 2 * product)
     train_fwd = dict(ms=fwd_ms, plain_ms=fwd_plain_ms, bound_ms=fwd_bound, bound_by=fwd_by,
                      library_ms=sdpa_fwd_ms, ops=2 * product)
     emit("llm_train_kernels", kernel="flash_attention_fwd", timing="main (training shapes)",
          card=smi(), shape=[B, S, Hq, Hkv, D], causal=True,
          library="F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)", **train_fwd)
+    dq_ms, dkv_ms = bwd["dq"]["ms"], bwd["dkv"]["ms"]
     fused_ms, _ = bound(0, 5 * product)
     emit("llm_train_kernels", timing="main, whole backward and forward + backward",
          kernels_bwd_ms=dq_ms + dkv_ms, dq_ms=dq_ms, dkv_ms=dkv_ms,
-         bound_ms_fused_5_products=fused_ms, plain_ms=plain_ms, library_bwd_ms=lib_ms,
-         kernels_fwd_bwd_ms=fwd_ms + dq_ms + dkv_ms, library_fwd_ms=sdpa_fwd_ms,
-         library_fwd_bwd_ms=sdpa_fwd_bwd_ms)
-    del q, k, v, out, lse, dout, qt, kt, vt, graph
+         bound_ms_fused_5_products=fused_ms, plain_ms=bwd["dq"]["plain_ms"],
+         library_bwd_ms=bwd["dq"]["library_ms"], kernels_fwd_bwd_ms=fwd_ms + dq_ms + dkv_ms,
+         library_fwd_ms=sdpa_fwd_ms, library_fwd_bwd_ms=sdpa_fwd_bwd_ms)
+    del q, k, v, dout, qt, kt, vt
     torch.cuda.synchronize()
 
     # hymba-1.5b's attention training shapes (25 / 5 heads of 64, group 5),
@@ -3166,6 +3260,7 @@ def phase_llm_train_kernels(dev) -> dict:
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         res[name]["max_abs_err"] = err
     res["flash_attention_fwd"] = dict(max_abs_err=fwd_err, train=train_fwd)
+    res.update(llm_train_kernels_d128(dev))
 
     # the SSD / mLSTM backward (no TPU kernel: ops.MlstmChunk's backward in
     # torch ops), card against CPU path, float32 and bf16 q, k, v
@@ -3184,30 +3279,38 @@ def token_batch(stream, dev) -> dict:
     return {k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
 
 
-def train_launches_want(cfg) -> dict:
-    """Each LLM kernel's launches in one train step of ``cfg``: the flash
-    forward and the SSD kernel once a layer that has them, twice under
-    remat (the backward replays the layer), dq and dk/dv once an attention
-    layer, decode attention never."""
+def train_launches_want(cfg, grad_accum: int = 1) -> dict:
+    """Each LLM kernel's launches in one train step of ``cfg`` over
+    ``grad_accum`` microbatches: a microbatch runs the flash forward and
+    the SSD kernel once a layer that has them, twice under remat (the
+    backward replays the layer), dq and dk/dv once an attention layer (the
+    MoE layers' attention among them), decode attention never."""
     kinds = collections.Counter(cfg.layer_kinds)
     hy = (BlockKind.HYMBA, BlockKind.HYMBA_LOCAL)
-    attn = sum(kinds[k] for k in (BlockKind.ATTN, BlockKind.ATTN_LOCAL) + hy)
+    attn = sum(kinds[k] for k in (BlockKind.ATTN, BlockKind.ATTN_LOCAL, BlockKind.MOE) + hy)
     ssd = sum(kinds[k] for k in (BlockKind.MAMBA,) + hy)
     fwd = 2 if cfg.remat else 1
-    return {"flash_attention_fwd": fwd * attn, "flash_attention_bwd_dq": attn,
-            "flash_attention_bwd_dkv": attn, "decode_attention": 0, "mlstm_chunk": fwd * ssd,
-            "mlstm_chunk_tiled": 0}
+    n = grad_accum
+    return {"flash_attention_fwd": n * fwd * attn, "flash_attention_bwd_dq": n * attn,
+            "flash_attention_bwd_dkv": n * attn, "decode_attention": 0,
+            "mlstm_chunk": n * fwd * ssd, "mlstm_chunk_tiled": 0}
 
 
-def train_run(arch: str, steps: int, dev) -> dict:
-    """``arch`` at full width (bf16, seeded weights, remat on): the
-    trainer's AdamW through ``make_train_step``, 1 warm-up and ``steps``
-    timed steps of 8 x 2,048 tokens from the port's ``TokenStream``, each
-    step's launches counted from 0 and held to :func:`train_launches_want`;
-    then one step under ``torch.profiler``."""
+def train_run(arch: str, steps: int, dev, n_layers=None, grad_accum: int = 1) -> dict:
+    """``arch`` at full width (bf16, seeded weights, remat on; ``n_layers``
+    of its layers where given): the trainer's AdamW through
+    ``make_train_step`` (``grad_accum`` microbatches a step), 1 warm-up and
+    ``steps`` timed steps of 8 x 2,048 tokens from the port's
+    ``TokenStream``, each step's launches counted from 0 and held to
+    :func:`train_launches_want`; then one step under ``torch.profiler``:
+    device time by kernel and by kind (the flash kernels, the matrix
+    products, the index gathers and scatters, the scans, the sorts), the
+    SSD backward's and AdamW's ranges."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = configs.get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     B, S = TRAIN_B, TRAIN_S
     tcfg = llm_trainer.TrainerConfig(total_steps=steps + 2)
     opt = llm_trainer.adamw_config(tcfg)
@@ -3219,7 +3322,7 @@ def train_run(arch: str, steps: int, dev) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in net.parameters())
-    step = llm.make_train_step(cfg, opt)
+    step = llm.make_train_step(cfg, opt, grad_accum=grad_accum)
 
     state, metrics = step(state, token_batch(stream, dev))  # warm-up
     losses, gnorms, walls, launches = [float(metrics["loss"])], [float(metrics["grad_norm"])], [], []
@@ -3241,11 +3344,12 @@ def train_run(arch: str, steps: int, dev) -> dict:
         raise AssertionError(f"{arch} train losses {losses} / grad norms {gnorms} not finite")
     if int(state["step"]) != steps + 1:
         raise AssertionError(f"{arch} train state step {int(state['step'])}")
-    want = train_launches_want(cfg)
+    want = train_launches_want(cfg, grad_accum)
     if any(n != want for n in launches):
         raise AssertionError(f"{arch} launches a step {launches}, expected {want}")
     step_s = sum(walls) / len(walls)
     run = dict(arch=arch, layers=cfg.n_layers, params=n_params, batch=B, seq=S, remat=cfg.remat,
+               grad_accum=grad_accum,
                init_s=init_s, step_s_each=walls, step_s=step_s, tokens_per_s=B * S / step_s,
                losses=losses, grad_norms=gnorms, peak_memory_gb=peak / 1e9,
                launches_per_step=launches[0], launches_total={k: sum(n[k] for n in launches)
@@ -3263,6 +3367,7 @@ def train_run(arch: str, steps: int, dev) -> dict:
     dev_s = sum(r[1] for r in rows) / 1e6
     kern = lambda tag: sum(r[1] for r in rows if tag in r[0]) / 1e6
     ssd_bwd_s = range_device_s(pr, "mlstm_chunk_bwd")
+    kinds = lambda *tags: sum(r[1] for r in rows if any(t in r[0].lower() for t in tags)) / 1e6
     run["profile"] = dict(
         device_s=dev_s, wall_s=step_s, busy_share=dev_s / step_s,
         flash_fwd_s=kern("flash_fwd"), flash_bwd_dq_s=kern("flash_bwd_dq"),
@@ -3270,10 +3375,24 @@ def train_run(arch: str, steps: int, dev) -> dict:
         mlstm_chunk_bwd_s=ssd_bwd_s,
         mlstm_chunk_bwd_share_of_device=ssd_bwd_s / dev_s if dev_s else None,
         mlstm_chunk_bwd_share_of_step=ssd_bwd_s / step_s,
+        adamw_update_s=range_device_s(pr, "adamw_update"),
+        products_s=kinds("gemm", "cutlass", "xmma", "nvjet"),
+        index_gather_scatter_s=kinds("index", "scatter", "gather"),
+        scan_s=kinds("scan"), sort_s=kinds("sort"),
         device_launches=sum(r[2] for r in rows),
         top=[[k_[:70], us / 1e6, n] for k_, us, n in rows[:12]])
+    # the loss alone at a microbatch's shape, by CUDA events: the head's
+    # product and the float32 cross entropy over the vocabulary, forward
+    # and backward (its share of the step: once a microbatch)
+    mb = B // grad_accum
+    x = torch.randn((mb, S, cfg.d_model), generator=torch.Generator().manual_seed(5)).to(dev)
+    x = x.to(net.head.dtype).requires_grad_()
+    targets = batch["tokens"][:mb]
+    loss_ms, _ = timed(lambda: torch.autograd.grad(
+        cross_entropy_loss(x @ net.head, targets), (x, net.head)), 3)
+    run["profile"]["loss_fwd_bwd_s_per_step"] = grad_accum * loss_ms / 1e3
     emit("llm_train", arch=arch, profile="train_step", **run["profile"])
-    del net, state, step, metrics, batch
+    del net, state, step, metrics, batch, x
     torch.cuda.empty_cache()
     return run
 
@@ -3289,6 +3408,8 @@ def card_vs_cpu_step(label: str, cfg2, toks, opt, dev, step: bool = True) -> dic
     cpu_net = llm.init_params(1, cfg2, device="cpu")
     card_net = copy.deepcopy(cpu_net).to(dev)
     on = lambda net_: {"tokens": toks.to(net_.embed.device)}
+    routes = moe_routes_card_vs_cpu(label, card_net, cpu_net, on, cfg2) \
+        if BlockKind.MOE in cfg2.layer_kinds else None
     card = llm.loss_and_grads(card_net, on(card_net), cfg2)
     cpu = llm.loss_and_grads(cpu_net, on(cpu_net), cfg2)
     loss_err = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
@@ -3318,7 +3439,31 @@ def card_vs_cpu_step(label: str, cfg2, toks, opt, dev, step: bool = True) -> dic
          grads=len(grad_errs), loss=outs[1][0], grad_norm=outs[1][1], train_step=step,
          seconds=time.perf_counter() - t0)
     return dict(loss=max(loss_err, step_loss_err), grad_norm=gnorm_err, grad=grad_errs[worst],
-                worst_grad=worst)
+                worst_grad=worst, routes=routes)
+
+
+def moe_routes_card_vs_cpu(label, card_net, cpu_net, on, cfg) -> dict:
+    """Each MoE layer's routing of one forward (no grad) on the card and on
+    the CPU path from the same weights and tokens: the experts chosen and
+    the kept pairs, compared. A router near-tie that cuBLAS and MKL round
+    to different choices is reported by layer and token (not hidden by
+    another seed); the gradients are then held as they come."""
+    seen = {}
+    for where, net_ in (("card", card_net), ("cpu", cpu_net)):
+        with torch.no_grad(), moe_routes() as rs:
+            llm_stack.forward(net_, on(net_), cfg)
+        seen[where] = [(r.experts.cpu(), r.keep.cpu()) for r in rs]
+    k = cfg.n_experts_active
+    flips = []
+    for i, ((e_card, keep_card), (e_cpu, keep_cpu)) in enumerate(zip(seen["card"], seen["cpu"])):
+        tok = (e_card != e_cpu).any(-1) | (keep_card != keep_cpu).view(*e_cpu.shape[:2], k).any(-1)
+        flips += [dict(layer=i, batch=int(b), token=int(t)) for b, t in tok.nonzero().tolist()]
+    out = dict(layers=len(seen["cpu"]), tokens=int(seen["cpu"][0][0].shape[0] *
+                                                     seen["cpu"][0][0].shape[1]),
+               pairs_kept=[int(kp.sum()) for _, kp in seen["cpu"]],
+               tokens_routed_differently=flips[:20], n_tokens_routed_differently=len(flips))
+    emit("llm_train", check=f"{label}: MoE routes, card vs CPU path (float32)", **out)
+    return out
 
 
 def restart_check(arch: str, dev) -> None:
@@ -3350,14 +3495,18 @@ def restart_check(arch: str, dev) -> None:
 
 
 def phase_llm_train(dev) -> dict:
-    """TinyLlama-1.1B and Hymba-1.5B at full width on the card
-    (:func:`train_run`: 5 and 3 timed steps); one float32 step of 2 layers
-    of each against the CPU path (TinyLlama 2 x 256 tokens; Hymba one
-    global and one windowed hybrid layer, 2 x 1,280 tokens, past the window
-    and past S 256); the Trainer's restart continuity at both smoke
-    configs."""
+    """TinyLlama-1.1B and Hymba-1.5B at full width on the card, and
+    qwen2-moe-a2.7b at full width and 2 of its 24 layers
+    (:func:`train_run`: 5, 3 and 3 timed steps, qwen2-moe's as 2
+    microbatches a step); one float32 step of 2 layers of each against the
+    CPU path (TinyLlama and qwen2-moe 2 x 256 tokens, qwen2-moe's routes
+    compared first; Hymba one global and one windowed hybrid layer, 2 x
+    1,280 tokens, past the window and past S 256); the Trainer's restart
+    continuity at the three smoke configs."""
     runs = {TINYLLAMA: train_run(TINYLLAMA, TRAIN_STEPS, dev),
-            HYMBA: train_run(HYMBA, HYMBA_TRAIN_STEPS, dev)}
+            HYMBA: train_run(HYMBA, HYMBA_TRAIN_STEPS, dev),
+            QWEN_MOE: train_run(QWEN_MOE, MOE_TRAIN_STEPS, dev, n_layers=MOE_TRAIN_LAYERS,
+                                grad_accum=MOE_TRAIN_ACCUM)}
     opt = llm_trainer.adamw_config(llm_trainer.TrainerConfig(total_steps=TRAIN_STEPS + 2))
     tiny = configs.get_config(TINYLLAMA)
     toks = torch.randint(0, tiny.vocab_size, (2, 256), generator=torch.Generator().manual_seed(3))
@@ -3368,7 +3517,11 @@ def phase_llm_train(dev) -> dict:
     hy2 = dataclasses.replace(hy, n_layers=2, dtype="float32",
                               block_pattern=(BlockKind.HYMBA, BlockKind.HYMBA_LOCAL))
     runs[HYMBA]["card_vs_cpu"] = card_vs_cpu_step(HYMBA, hy2, toks, opt, dev, step=False)
-    for arch in (TINYLLAMA, HYMBA):
+    moe = configs.get_config(QWEN_MOE)
+    toks = torch.randint(0, moe.vocab_size, (2, 256), generator=torch.Generator().manual_seed(6))
+    moe2 = dataclasses.replace(moe, n_layers=MOE_TRAIN_LAYERS, dtype="float32")
+    runs[QWEN_MOE]["card_vs_cpu"] = card_vs_cpu_step(QWEN_MOE, moe2, toks, opt, dev, step=False)
+    for arch in (TINYLLAMA, HYMBA, QWEN_MOE):
         restart_check(arch, dev)
     torch.cuda.synchronize()
     return runs
@@ -3508,6 +3661,9 @@ def main() -> int:
         t = llm_times[name]
         by_run = {f"{QWEN_MOE}_{run}": n[kernel]
                   for run, n in moe["serve"]["launches_by_run"].items()}
+        if kernel == "flash_attention_fwd":  # qwen2-moe's train run: every launch at D 128
+            by_run[f"{QWEN_MOE}_train_{MOE_TRAIN_STEPS}_steps"] = \
+                train[QWEN_MOE]["launches_total"][kernel]
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=llm_replaces[kernel], launches=sum(by_run.values()), launches_by_run=by_run,
@@ -3529,16 +3685,24 @@ def main() -> int:
         bound_by=t["bound_by"], float32_cuda_core_floor_ms=t["float32_cuda_core_floor_ms"],
         library_ms=t["library_ms"],
     ))
-    for name, line in (("flash_attention_bwd_dq", 287), ("flash_attention_bwd_dkv", 329)):
-        t = train_times[name]
+    # the backward's kernels: the width-64 instances on TinyLlama's and
+    # Hymba's train runs, the width-128 ones on qwen2-moe's (every launch
+    # there at head dim 128)
+    for name, line, archs in (
+            ("flash_attention_bwd_dq", 287, (TINYLLAMA, HYMBA)),
+            ("flash_attention_bwd_dkv", 329, (TINYLLAMA, HYMBA)),
+            ("flash_attention_bwd_dq_d128", 287, (QWEN_MOE,)),
+            ("flash_attention_bwd_dkv_d128", 329, (QWEN_MOE,))):
+        t, kernel = train_times[name], name.removesuffix("_d128")
+        extra = {"dense_configs": t["dense_configs"]} if "dense_configs" in t else {}
         kernels.append(dict(
             name=name, route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces=f"src/repro/kernels/flash_attention.py:{line}",
-            launches=sum(train[a]["launches_total"][name] for a in (TINYLLAMA, HYMBA)),
-            launches_by_run={f"{a}_train_step": train[a]["launches_per_step"][name]
-                             for a in (TINYLLAMA, HYMBA)},
+            launches=sum(train[a]["launches_total"][kernel] for a in archs),
+            launches_by_run={f"{a}_train_step": train[a]["launches_per_step"][kernel]
+                             for a in archs},
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
-            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"], **extra,
         ))
     emit("done", seconds=time.perf_counter() - t0, phase_seconds=seconds)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,6 +11,14 @@ encoder-decoder stack or a modality frontend, which no slice has ported
 yet (ROADMAP A.12). qwen3-moe-235b-a22b is registered, but at full width
 it fits no single card (470 GB in bf16) and its 16 query heads a KV head
 pass the decode kernel's 8 (ROADMAP B): it runs at its smoke config.
+
+Training on the card: tinyllama-1.1b and hymba-1.5b at full width, and
+qwen2-moe-a2.7b at full width and reduced depth (2 of its 24 layers: the
+full depth's weights and AdamW moments, 143 GB, fit no single card). The
+CPU tests hold training at the smoke configs of those three and of
+qwen3-moe-235b-a22b against the reference. The dense D = 128 configs'
+attention backward runs on the card; their full-width training does not
+fit one card (ROADMAP A), and xLSTM training is not ported yet.
 """
 from __future__ import annotations
 

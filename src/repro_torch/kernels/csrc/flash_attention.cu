@@ -11,10 +11,9 @@
 // 0), as the TPU kernel emits it for its backward. Inputs are float32 or
 // bf16; every sum runs in float32 and out is written in the input's type.
 //
-// The forward takes head dims up to 128 (the reference's Pallas kernel pads
-// D to 128 lanes), each kernel compiled at two widths: D <= 64 runs the
-// width-64 instance, 64 < D <= 128 the width-128 one. The backward takes D
-// <= 64.
+// Every kernel here takes head dims up to 128 (the reference's Pallas
+// kernels pad D to 128 lanes), each compiled at two widths: D <= 64 runs the
+// width-64 instance, 64 < D <= 128 the width-128 one.
 //
 // What bounds it on this card. At the serving path's shapes (B 8, S 2,048,
 // 25 query and 5 KV heads, D 64) the work is 4 B Hq D (S^2 / 2) = 1.1e11
@@ -54,8 +53,8 @@ namespace {
 constexpr float kNeg = -1e30f;
 constexpr int kRows = 64;      // query rows per block
 constexpr int kTile = 32;      // keys per staged tile
-constexpr int kMaxD = 64;      // the backward's head dims, and the forward's narrow width
-constexpr int kMaxDFwd = 128;  // the forward's head dims (its wide width)
+constexpr int kNarrow = 64;    // the narrow instances' width (D <= 64)
+constexpr int kMaxD = 128;     // the head dims every kernel takes (the wide instances' width)
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -238,11 +237,14 @@ int launch(const FlashArgs& a, int batch, cudaStream_t stream) {
 // flash_bwd_dkv_mma_kernel, below). A row carries three (dq) or four
 // (dk/dv) head-dim vectors; one thread a row, as the forward has, would take
 // ~200 registers for them alone and spill. So four neighbouring threads share
-// a row, each holding 16 of its 64 dims, and the dot products s and dp are
-// finished with two butterfly shuffles, which leave the same sum in all four
-// lanes. A thread's 16 dims are four float4 chunks strided by four, so the
-// four threads of a row read 64 consecutive bytes of a staged row from shared
-// memory, free of bank conflicts.
+// a row, each holding a quarter of its dims (16 at width 64, 32 at width
+// 128: dk/dv's four vectors are then 128 registers, under the 255 that 256
+// threads a block allow), and the dot products s and dp are finished with
+// two butterfly shuffles, which leave the same sum in all four lanes. A
+// thread's dims are float4 chunks strided by four, so the four threads of a
+// row read 64 consecutive bytes of a staged row from shared memory, free of
+// bank conflicts. The staged tiles, [32 x width] float32, stay static (16
+// KB each at width 128).
 //
 // - flash_bwd_dq_kernel: a block per (batch, query head, 64 query rows),
 //   256 threads. Its prologue computes delta for its rows and writes it out
@@ -262,8 +264,6 @@ int launch(const FlashArgs& a, int batch, cudaStream_t stream) {
 // tail of the grid.
 // ===========================================================================
 constexpr int kParts = 4;                      // threads sharing a row
-constexpr int kChunks = kMaxD / 4 / kParts;    // float4 chunks a thread holds
-constexpr int kOwn = 4 * kChunks;              // dims a thread holds (16)
 constexpr int kBwdRows = 64;                   // dq: query rows a block
 constexpr int kBwdKeys = 64;                   // dk/dv: keys a block
 constexpr int kBwdTile = 32;                   // staged keys (dq) or query rows (dk/dv)
@@ -295,13 +295,14 @@ struct BwdArgs {
   float scale;
 };
 
-// staged rows [kBwdTile][kMaxD] of a: the 16 dims of this thread's part
-// dotted with x, finished over the row's lanes
-__device__ __forceinline__ float staged_dot(const float (*rows)[kMaxD], int j, int part,
+// staged rows [kBwdTile][DP] of a: the DP / kParts dims of this thread's
+// part dotted with x, finished over the row's lanes
+template <int DP>
+__device__ __forceinline__ float staged_dot(const float (*rows)[DP], int j, int part,
                                             const float* x) {
   float acc = 0.0f;
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
+  for (int c = 0; c < DP / 4 / kParts; ++c) {
     const float4 y = *reinterpret_cast<const float4*>(&rows[j][4 * (c * kParts + part)]);
     acc = __fmaf_rn(x[4 * c], y.x, acc);
     acc = __fmaf_rn(x[4 * c + 1], y.y, acc);
@@ -311,11 +312,12 @@ __device__ __forceinline__ float staged_dot(const float (*rows)[kMaxD], int j, i
   return row_sum(acc);
 }
 
-// acc += w * rows[j] over this thread's 16 dims
-__device__ __forceinline__ void staged_axpy(const float (*rows)[kMaxD], int j, int part,
+// acc += w * rows[j] over this thread's DP / kParts dims
+template <int DP>
+__device__ __forceinline__ void staged_axpy(const float (*rows)[DP], int j, int part,
                                             float w, float* acc) {
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
+  for (int c = 0; c < DP / 4 / kParts; ++c) {
     const float4 y = *reinterpret_cast<const float4*>(&rows[j][4 * (c * kParts + part)]);
     acc[4 * c] = __fmaf_rn(w, y.x, acc[4 * c]);
     acc[4 * c + 1] = __fmaf_rn(w, y.y, acc[4 * c + 1]);
@@ -328,10 +330,11 @@ __device__ __forceinline__ bool keeps(const BwdArgs& a, int kp, int qpos) {
   return kp < a.skv && (!a.causal || kp <= qpos) && (a.window < 0 || kp > qpos - a.window);
 }
 
-template <typename T>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kBwdRows * kParts) flash_bwd_dq_kernel(BwdArgs a) {
-  __shared__ __align__(16) float ks[kBwdTile][kMaxD];
-  __shared__ __align__(16) float vs[kBwdTile][kMaxD];
+  constexpr int kOwn = DP / kParts;  // dims a thread holds
+  __shared__ __align__(16) float ks[kBwdTile][DP];
+  __shared__ __align__(16) float vs[kBwdTile][DP];
   const int b = blockIdx.x / a.hq, h = blockIdx.x % a.hq;
   const int hk = h / (a.hq / a.hkv);
   const int tile = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
@@ -371,8 +374,8 @@ __global__ void __launch_bounds__(kBwdRows * kParts) flash_bwd_dq_kernel(BwdArgs
 
   for (int k0 = (k_lo / kBwdTile) * kBwdTile; k0 < k_hi; k0 += kBwdTile) {
     __syncthreads();  // the previous tile's readers are done
-    for (int i = threadIdx.x; i < kBwdTile * kMaxD; i += blockDim.x) {
-      const int j = i / kMaxD, d = i % kMaxD, kp = k0 + j;
+    for (int i = threadIdx.x; i < kBwdTile * DP; i += blockDim.x) {
+      const int j = i / DP, d = i % DP, kp = k0 + j;
       const bool ok = kp < a.skv && d < a.d;
       const size_t off = (((size_t)b * a.skv + kp) * a.hkv + hk) * a.d + d;
       ks[j][d] = ok ? to_f32(k[off]) : 0.0f;
@@ -380,10 +383,10 @@ __global__ void __launch_bounds__(kBwdRows * kParts) flash_bwd_dq_kernel(BwdArgs
     }
     __syncthreads();
     for (int j = 0; j < kBwdTile; ++j) {
-      const float s = staged_dot(ks, j, part, qr);
-      const float dp = staged_dot(vs, j, part, dor);
+      const float s = staged_dot<DP>(ks, j, part, qr);
+      const float dp = staged_dot<DP>(vs, j, part, dor);
       const float p = keeps(a, k0 + j, qpos) ? expf(__fsub_rn(s, lse)) : 0.0f;
-      staged_axpy(ks, j, part, __fmul_rn(p, __fsub_rn(dp, delta)), acc);
+      staged_axpy<DP>(ks, j, part, __fmul_rn(p, __fsub_rn(dp, delta)), acc);
     }
   }
 
@@ -396,10 +399,11 @@ __global__ void __launch_bounds__(kBwdRows * kParts) flash_bwd_dq_kernel(BwdArgs
   }
 }
 
-template <typename T>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kBwdKeys * kParts) flash_bwd_dkv_kernel(BwdArgs a) {
-  __shared__ __align__(16) float qs[kBwdTile][kMaxD];  // scaled queries
-  __shared__ __align__(16) float dos[kBwdTile][kMaxD];
+  constexpr int kOwn = DP / kParts;  // dims a thread holds
+  __shared__ __align__(16) float qs[kBwdTile][DP];  // scaled queries
+  __shared__ __align__(16) float dos[kBwdTile][DP];
   __shared__ float lses[kBwdTile], deltas[kBwdTile];
   const int b = blockIdx.x / a.hkv, hk = blockIdx.x % a.hkv;
   const int group = a.hq / a.hkv;
@@ -435,8 +439,8 @@ __global__ void __launch_bounds__(kBwdKeys * kParts) flash_bwd_dkv_kernel(BwdArg
     const size_t rows = ((size_t)b * a.hq + h) * a.sq;
     for (int i0 = (i_lo / kBwdTile) * kBwdTile; i0 < i_hi; i0 += kBwdTile) {
       __syncthreads();  // the previous tile's readers are done
-      for (int t = threadIdx.x; t < kBwdTile * kMaxD; t += blockDim.x) {
-        const int ii = t / kMaxD, d = t % kMaxD, row = i0 + ii;
+      for (int t = threadIdx.x; t < kBwdTile * DP; t += blockDim.x) {
+        const int ii = t / DP, d = t % DP, row = i0 + ii;
         const bool ok = row < a.sq && d < a.d;
         const size_t off = (((size_t)b * a.sq + row) * a.hq + h) * a.d + d;
         qs[ii][d] = ok ? __fmul_rn(to_f32(q[off]), a.scale) : 0.0f;
@@ -449,11 +453,11 @@ __global__ void __launch_bounds__(kBwdKeys * kParts) flash_bwd_dkv_kernel(BwdArg
       }
       __syncthreads();
       for (int ii = 0; ii < kBwdTile; ++ii) {
-        const float s = staged_dot(qs, ii, part, kr);
-        const float dp = staged_dot(dos, ii, part, vr);
+        const float s = staged_dot<DP>(qs, ii, part, kr);
+        const float dp = staged_dot<DP>(dos, ii, part, vr);
         const float p = keeps(a, key, i0 + ii + a.q_offset) ? expf(__fsub_rn(s, lses[ii])) : 0.0f;
-        staged_axpy(dos, ii, part, p, dv);
-        staged_axpy(qs, ii, part, __fmul_rn(p, __fsub_rn(dp, deltas[ii])), dk);
+        staged_axpy<DP>(dos, ii, part, p, dv);
+        staged_axpy<DP>(qs, ii, part, __fmul_rn(p, __fsub_rn(dp, deltas[ii])), dk);
       }
     }
   }
@@ -520,15 +524,25 @@ __global__ void __launch_bounds__(kBwdKeys * kParts) flash_bwd_dkv_kernel(BwdArg
 // design: a block walks every query head of its KV head's group and writes
 // dk and dv once, with no atomics, so the result repeats bit for bit.
 //
-// The forward at 64 < D <= 128 (qwen2-moe-a2.7b and the other D = 128
-// configs) runs the same kernel at width 128 (the DP parameter): a staged
-// row is 256 B, sixteen 16-B chunks, XOR-swizzled over their low three bits
-// as at 64 (each half of a row keeps to its own eight bank groups); each
-// warp keeps Q as 8 k-steps of A fragments (32 registers) and O as 16 C
-// fragments (64 floats). Its tiles (Q, and two stages of K and V) take 80 KB,
-// past the 48 KB of static shared memory, so both widths take them as
-// dynamic shared memory, and the width-128 instances raise their limit
-// once (fwd_mma_prepare): two blocks an SM there, against four at 64.
+// At 64 < D <= 128 (qwen2-moe-a2.7b and the other D = 128 configs) all
+// three run the same kernels at width 128 (the DP parameter): a staged row
+// is 256 B, sixteen 16-B chunks, XOR-swizzled over their low three bits as
+// at 64 (each half of a row keeps to its own eight bank groups). The
+// forward's warp keeps Q as 8 k-steps of A fragments (32 registers) and O as
+// 16 C fragments (64 floats). Its tiles (Q, and two stages of K and V) take
+// 80 KB, past the 48 KB of static shared memory, so both widths take them as
+// dynamic shared memory, and the width-128 instances raise their limit once
+// (allow_smem): two blocks an SM there, against four at 64. The backward's
+// accumulators double too (dq 16 C fragments; dk and dv 16 each, 128
+// floats), and its held A fragments (Q and dout, or K and V: 64 registers)
+// would push a thread past 255. So at width 128 neither backward kernel
+// holds them: Q and dout (dq), or K and V (dk/dv), stay staged in shared
+// memory of their own for the whole block, and each k-step loads its two A
+// fragments by ldmatrix just before its products, the same values in the
+// same order of products as the held ones. Their tiles (two stages, plus
+// those) take 96 KB, two blocks an SM. Width 64 keeps its registers and its
+// tiles' 33 KB, now dynamic too; its products and sums are unchanged, bit
+// for bit.
 // ===========================================================================
 constexpr int kFwdWarps = 4;                 // forward and dq: query rows a block, 16 a warp
 constexpr int kFwdRows = 16 * kFwdWarps;
@@ -537,17 +551,13 @@ constexpr int kDkvKeys = 64;                  // dk/dv: keys a block, 16 a warp
 constexpr int kDkvThreads = 2 * kDkvKeys;
 constexpr int kDkvSub = 16;                   // dk/dv: staged query rows a pass over the registers
 constexpr int kMmaTile = 64;                  // rows a staged tile holds (keys or query rows)
-// the backward's staged rows (width kMaxD); the helpers below take the
-// width DP as a template parameter, the forward's 64 or 128
-constexpr int kLd = kMaxD;                    // a staged row: 64 bf16, 8 chunks of 16 B
-constexpr int kNk = kMaxD / 16;               // k-steps of 16 over the zero-filled head dim
-constexpr int kRowBytes = 2 * kLd;
-constexpr int kTileBytes = kMmaTile * kRowBytes;
+// the helpers below take the staged rows' width DP (bf16, zero-filled past
+// the head dim) as a template parameter, 64 or 128
 
 typedef __nv_bfloat16 bf16;
 
 // element offset of 16-B chunk c (8 bf16) of staged row r, swizzled
-template <int DP = kMaxD>
+template <int DP>
 __device__ __forceinline__ int swz(int r, int c) { return r * DP + ((c ^ (r & 7)) << 3); }
 
 // This lane's byte offsets into a staged tile for the two ldmatrix
@@ -560,27 +570,32 @@ struct Lanes {
   uint32_t rows, xrows, cols, xcols;
 };
 
-template <int DP = kMaxD>
+template <int DP>
 __device__ __forceinline__ Lanes lanes() {
   const uint32_t lane = threadIdx.x & 31, l7 = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
   return Lanes{(l7 + 8 * l16) * 2 * DP, (l8 ^ l7) << 4, (l7 + 8 * l8) * 2 * DP,
                (l16 ^ l7) << 4};
 }
 
+// the A fragment of the 16 staged rows from row0 at k-step kk
+template <int DP>
+__device__ __forceinline__ void load_a_step(uint32_t tile, int row0, int kk, const Lanes& ln,
+                                            uint32_t* a) {
+  ldsm_x4(tile + row0 * 2 * DP + ln.cols + ((32 * kk) ^ ln.xcols), a);
+}
+
 // A fragments of the 16 staged rows from row0, every k-step
-template <int DP = kMaxD>
+template <int DP>
 __device__ __forceinline__ void load_a(uint32_t tile, int row0, const Lanes& ln,
                                        uint32_t (*a)[4]) {
 #pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    ldsm_x4(tile + row0 * 2 * DP + ln.cols + ((32 * kk) ^ ln.xcols), a[kk]);
-  }
+  for (int kk = 0; kk < DP / 16; ++kk) load_a_step<DP>(tile, row0, kk, ln, a[kk]);
 }
 
 // B fragments, k = head dim (k-step kk), n = staged rows n0 .. n0 + 15 (K
 // in Q K^T; Q and dout in K Q^T and V dout^T): b[0..1] for rows n0..,
 // b[2..3] for n0 + 8..
-template <int DP = kMaxD>
+template <int DP>
 __device__ __forceinline__ void load_b_rows(uint32_t tile, int n0, int kk, const Lanes& ln,
                                             uint32_t* b) {
   ldsm_x4(tile + n0 * 2 * DP + ln.rows + ((32 * kk) ^ ln.xrows), b);
@@ -589,7 +604,7 @@ __device__ __forceinline__ void load_b_rows(uint32_t tile, int n0, int kk, const
 // B fragments, k = staged rows k0 .. k0 + 15, n = head dims 16 jp ..
 // 16 jp + 15 (V in P V; dout and Q in dV and dK): b[0..1] for dims 16 jp..,
 // b[2..3] for 16 jp + 8..
-template <int DP = kMaxD>
+template <int DP>
 __device__ __forceinline__ void load_b_cols(uint32_t tile, int k0, int jp, const Lanes& ln,
                                             uint32_t* b) {
   ldsm_x4_t(tile + k0 * 2 * DP + ln.cols + ((32 * jp) ^ ln.xcols), b);
@@ -601,7 +616,7 @@ __device__ __forceinline__ void load_b_cols(uint32_t tile, int k0, int jp, const
 // thread copies chunk tid % (DP / 8) of every (kThreads / (DP / 8))-th row
 // by cp.async, the padding chunks past d / 8 zeroed once by zero_pad; else
 // plain loads of every column, zeros past d.
-template <bool kVec, int kRows, int kThreads, int DP = kMaxD>
+template <bool kVec, int kRows, int kThreads, int DP>
 __device__ __forceinline__ void stage_tile(bf16* tile, const bf16* g, int r0, int n_rows,
                                            size_t stride, int d) {
   constexpr int kC = DP / 8;  // 16-B chunks a row
@@ -628,7 +643,7 @@ __device__ __forceinline__ void stage_tile(bf16* tile, const bf16* g, int r0, in
 }
 
 // zero the chunks past d / 8 of n_rows consecutive staged rows
-template <int DP = kMaxD>
+template <int DP>
 __device__ __forceinline__ void zero_pad(bf16* rows, int n_rows, int d) {
   const int cpr = d >> 3, pad = DP / 8 - cpr;
   if (pad == 0) return;
@@ -640,7 +655,7 @@ __device__ __forceinline__ void zero_pad(bf16* rows, int n_rows, int d) {
 
 // store a warp's 16 x DP float32 C fragments (times mul) as bf16 rows
 // row0 .. of a [rows, stride] slice, rows < n_rows, columns < d
-template <bool kVec, int DP = kMaxD>
+template <bool kVec, int DP>
 __device__ __forceinline__ void store_rows(bf16* g, float (*c)[4], int row0, int n_rows,
                                            size_t stride, int d, float mul0, float mul1) {
   const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
@@ -839,16 +854,38 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_mma_kernel(FlashArgs a)
   }
 }
 
+// The backward's tiles (dynamic shared memory). At width 64 (kHold: DP <=
+// kNarrow) each warp keeps its block's operand rows (Q and dout, or K and V)
+// as A fragments in registers, staged once through the second stage; at
+// width 128 they keep their own staged tiles and are loaded a k-step at a
+// time.
+
+// dq: two stages of K and of V [kMmaTile, DP], then (width 128) Q and dout
+// [kFwdRows, DP], bf16; delta [kFwdRows] float32
+template <int DP>
+constexpr size_t dq_smem_bytes() {
+  return (size_t)2 * DP * (4 * kMmaTile + (DP <= kNarrow ? 0 : 2 * kFwdRows)) +
+         4 * kFwdRows;
+}
+
+// dk/dv: two stages of Q and of dout [kMmaTile, DP], then (width 128) K and V
+// [kDkvKeys, DP], bf16; two stages of lse and of delta [kMmaTile] float32
+template <int DP>
+constexpr size_t dkv_smem_bytes() {
+  return (size_t)2 * DP * (4 * kMmaTile + (DP <= kNarrow ? 0 : 2 * kDkvKeys)) +
+         4 * 4 * kMmaTile;
+}
+
 // dk/dv: stage query rows i0 .. i0 + 63 of head h (q, dout, lse, delta);
 // lse and delta are 0 past Sq, where the mask keeps nothing
-template <bool kVec>
+template <bool kVec, int DP>
 __device__ __forceinline__ void stage_rows(const BwdArgs& a, bf16* qt, bf16* dt, float* lt,
                                            float* det, int b, int h, int i0) {
   const size_t q_off = ((size_t)b * a.sq * a.hq + h) * a.d, q_stride = (size_t)a.hq * a.d;
-  stage_tile<kVec, kMmaTile, kDkvThreads>(qt, static_cast<const bf16*>(a.q) + q_off, i0, a.sq,
-                                          q_stride, a.d);
-  stage_tile<kVec, kMmaTile, kDkvThreads>(dt, static_cast<const bf16*>(a.dout) + q_off, i0,
-                                          a.sq, q_stride, a.d);
+  stage_tile<kVec, kMmaTile, kDkvThreads, DP>(qt, static_cast<const bf16*>(a.q) + q_off, i0,
+                                              a.sq, q_stride, a.d);
+  stage_tile<kVec, kMmaTile, kDkvThreads, DP>(dt, static_cast<const bf16*>(a.dout) + q_off, i0,
+                                              a.sq, q_stride, a.d);
   if (threadIdx.x < kMmaTile) {
     const int row = i0 + threadIdx.x;
     const bool ok = row < a.sq;
@@ -858,20 +895,30 @@ __device__ __forceinline__ void stage_rows(const BwdArgs& a, bf16* qt, bf16* dt,
   }
 }
 
-template <bool kVec>
+template <bool kVec, int DP>
 __global__ void __launch_bounds__(kDkvThreads) flash_bwd_dkv_mma_kernel(BwdArgs a) {
-  __shared__ __align__(128) bf16 qs[2][kMmaTile * kLd];
-  __shared__ __align__(128) bf16 dos[2][kMmaTile * kLd];
-  __shared__ __align__(16) float lses[2][kMmaTile];
-  __shared__ __align__(16) float dels[2][kMmaTile];
+  constexpr int kNkD = DP / 16;             // k-steps of 16 over the head dim
+  constexpr bool kHold = DP <= kNarrow;
+  constexpr int kTileE = kMmaTile * DP;     // elements of a staged tile
+  extern __shared__ __align__(128) unsigned char bwd_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(bwd_smem);  // [2][kTileE]
+  bf16* dos = qs + 2 * kTileE;                    // [2][kTileE]
+  bf16* kvs = dos + 2 * kTileE;                   // width 128: K, V [kDkvKeys * DP] each
+  float* lses = reinterpret_cast<float*>(kvs + (kHold ? 0 : 2 * kDkvKeys * DP));  // [2][kMmaTile]
+  float* dels = lses + 2 * kMmaTile;              // [2][kMmaTile]
+  // K and V of the block's keys: through stage 0 into registers (kHold), or
+  // in their own tiles
+  bf16* kst = kHold ? qs : kvs;
+  bf16* vst = kHold ? dos : kvs + kDkvKeys * DP;
   const int b = blockIdx.x / a.hkv, hk = blockIdx.x % a.hkv;
   const int group = a.hq / a.hkv;
   const int tile = blockIdx.y;  // under a causal mask the first key tiles see the most rows
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
   const size_t kv_stride = (size_t)a.hkv * a.d;
   const size_t kv_off = ((size_t)b * a.skv * a.hkv + hk) * a.d;
-  const Lanes ln = lanes();
+  const Lanes ln = lanes<DP>();
   const uint32_t qs_a = smem_addr(qs), dos_a = smem_addr(dos);
+  const uint32_t ks_a = smem_addr(kst), vs_a = smem_addr(vst);
 
   // the query rows that can keep any key of this tile
   const int j_lo = tile * kDkvKeys;
@@ -883,49 +930,54 @@ __global__ void __launch_bounds__(kDkvThreads) flash_bwd_dkv_mma_kernel(BwdArgs 
   const int n_it = group * n_qt;
 
   if (kVec) {
-    zero_pad(&qs[0][0], 2 * kMmaTile, a.d);
-    zero_pad(&dos[0][0], 2 * kMmaTile, a.d);
+    zero_pad<DP>(qs, 2 * kMmaTile, a.d);
+    zero_pad<DP>(dos, 2 * kMmaTile, a.d);
+    if (!kHold) zero_pad<DP>(kvs, 2 * kDkvKeys, a.d);
   }
-  // K and V of the block's keys through stage 0, into registers as A
-  // fragments for the whole block
-  stage_tile<kVec, kMmaTile, kDkvThreads>(qs[0], static_cast<const bf16*>(a.k) + kv_off, j_lo,
-                                          a.skv, kv_stride, a.d);
-  stage_tile<kVec, kMmaTile, kDkvThreads>(dos[0], static_cast<const bf16*>(a.v) + kv_off, j_lo,
-                                          a.skv, kv_stride, a.d);
+  stage_tile<kVec, kMmaTile, kDkvThreads, DP>(kst, static_cast<const bf16*>(a.k) + kv_off, j_lo,
+                                              a.skv, kv_stride, a.d);
+  stage_tile<kVec, kMmaTile, kDkvThreads, DP>(vst, static_cast<const bf16*>(a.v) + kv_off, j_lo,
+                                              a.skv, kv_stride, a.d);
   cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t ka[kNk][4], va[kNk][4];
-  load_a(qs_a, warp * 16, ln, ka);
-  load_a(dos_a, warp * 16, ln, va);
-  __syncthreads();
+  uint32_t ka[kHold ? kNkD : 1][4], va[kHold ? kNkD : 1][4];
+  if constexpr (kHold) {
+    cp_async_wait<0>();
+    __syncthreads();
+    load_a<DP>(ks_a, warp * 16, ln, ka);
+    load_a<DP>(vs_a, warp * 16, ln, va);
+    __syncthreads();
+  }
 
-  float dk[2 * kNk][4], dv[2 * kNk][4];
+  float dk[2 * kNkD][4], dv[2 * kNkD][4];
 #pragma unroll
-  for (int j = 0; j < 2 * kNk; ++j) {
+  for (int j = 0; j < 2 * kNkD; ++j) {
     dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.0f;
     dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.0f;
   }
   const float scale2 = __fmul_rn(a.scale, kLog2e);
   const int key0 = j_lo + warp * 16 + gr;  // this lane's keys: key0, key0 + 8
 
-  if (n_it > 0) stage_rows<kVec>(a, qs[0], dos[0], lses[0], dels[0], b, hk * group, i_first);
+  if (n_it > 0) stage_rows<kVec, DP>(a, qs, dos, lses, dels, b, hk * group, i_first);
   cp_async_commit();
   for (int it = 0; it < n_it; ++it) {
     const int st = it & 1;
     if (it + 1 < n_it) {
-      stage_rows<kVec>(a, qs[st ^ 1], dos[st ^ 1], lses[st ^ 1], dels[st ^ 1], b,
-                       hk * group + (it + 1) / n_qt, i_first + ((it + 1) % n_qt) * kMmaTile);
+      const int nx = st ^ 1;
+      stage_rows<kVec, DP>(a, qs + nx * kTileE, dos + nx * kTileE, lses + nx * kMmaTile,
+                           dels + nx * kMmaTile, b, hk * group + (it + 1) / n_qt,
+                           i_first + ((it + 1) % n_qt) * kMmaTile);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
     const int i0 = i_first + (it % n_qt) * kMmaTile;
+    const float* lse_t = lses + st * kMmaTile;
+    const float* del_t = dels + st * kMmaTile;
     // every pair of the block's keys and the tile's rows is kept: no mask
     const bool full = i0 + kMmaTile <= a.sq && j_hi == j_lo + kDkvKeys - 1 &&
                       (!a.causal || j_hi <= i0 + a.q_offset) &&
                       (a.window < 0 || j_lo > i0 + kMmaTile - 1 + a.q_offset - a.window);
-    const uint32_t qt = qs_a + st * kTileBytes, dt = dos_a + st * kTileBytes;
+    const uint32_t qt = qs_a + st * 2 * kTileE, dt = dos_a + st * 2 * kTileE;
     // the tile's rows in passes of kDkvSub
 #pragma unroll
     for (int pass = 0; pass < kMmaTile / kDkvSub; ++pass) {
@@ -938,16 +990,26 @@ __global__ void __launch_bounds__(kDkvThreads) flash_bwd_dkv_mma_kernel(BwdArgs 
         dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
       }
 #pragma unroll
-      for (int kk = 0; kk < kNk; ++kk) {
+      for (int kk = 0; kk < kNkD; ++kk) {
+        uint32_t kf[4], vf[4];
+        const uint32_t* kak = kf;
+        const uint32_t* vak = vf;
+        if constexpr (kHold) {
+          kak = ka[kk];
+          vak = va[kk];
+        } else {
+          load_a_step<DP>(ks_a, warp * 16, kk, ln, kf);
+          load_a_step<DP>(vs_a, warp * 16, kk, ln, vf);
+        }
 #pragma unroll
         for (int jp = 0; jp < kDkvSub / 16; ++jp) {
           uint32_t bb[4];
-          load_b_rows(qt, c0 + 16 * jp, kk, ln, bb);
-          mma16816(s[2 * jp], ka[kk], bb[0], bb[1]);
-          mma16816(s[2 * jp + 1], ka[kk], bb[2], bb[3]);
-          load_b_rows(dt, c0 + 16 * jp, kk, ln, bb);
-          mma16816(dp[2 * jp], va[kk], bb[0], bb[1]);
-          mma16816(dp[2 * jp + 1], va[kk], bb[2], bb[3]);
+          load_b_rows<DP>(qt, c0 + 16 * jp, kk, ln, bb);
+          mma16816(s[2 * jp], kak, bb[0], bb[1]);
+          mma16816(s[2 * jp + 1], kak, bb[2], bb[3]);
+          load_b_rows<DP>(dt, c0 + 16 * jp, kk, ln, bb);
+          mma16816(dp[2 * jp], vak, bb[0], bb[1]);
+          mma16816(dp[2 * jp + 1], vak, bb[2], bb[3]);
         }
       }
       // P^T = exp(scale S^T - lse) where kept, dS^T = P^T (dP^T - delta)
@@ -956,7 +1018,7 @@ __global__ void __launch_bounds__(kDkvThreads) flash_bwd_dkv_mma_kernel(BwdArgs 
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int col = c0 + 8 * j + 2 * t + c;
-          const float lse2 = __fmul_rn(lses[st][col], kLog2e), del = dels[st][col];
+          const float lse2 = __fmul_rn(lse_t[col], kLog2e), del = del_t[col];
           const int row = i0 + col, qpos = row + a.q_offset;
 #pragma unroll
           for (int rr = 0; rr < 2; ++rr) {
@@ -979,12 +1041,12 @@ __global__ void __launch_bounds__(kDkvThreads) flash_bwd_dkv_mma_kernel(BwdArgs 
         c_to_a(s, kq, pa);
         c_to_a(dp, kq, da);
 #pragma unroll
-        for (int jp = 0; jp < kNk; ++jp) {
+        for (int jp = 0; jp < kNkD; ++jp) {
           uint32_t bb[4];
-          load_b_cols(dt, c0 + 16 * kq, jp, ln, bb);
+          load_b_cols<DP>(dt, c0 + 16 * kq, jp, ln, bb);
           mma16816(dv[2 * jp], pa, bb[0], bb[1]);
           mma16816(dv[2 * jp + 1], pa, bb[2], bb[3]);
-          load_b_cols(qt, c0 + 16 * kq, jp, ln, bb);
+          load_b_cols<DP>(qt, c0 + 16 * kq, jp, ln, bb);
           mma16816(dk[2 * jp], da, bb[0], bb[1]);
           mma16816(dk[2 * jp + 1], da, bb[2], bb[3]);
         }
@@ -995,23 +1057,30 @@ __global__ void __launch_bounds__(kDkvThreads) flash_bwd_dkv_mma_kernel(BwdArgs 
   cp_async_wait<0>();
 
   // dk takes scale in float32; both written once, in bf16
-  store_rows<kVec>(static_cast<bf16*>(a.dk) + kv_off, dk, j_lo + warp * 16, a.skv,
-                        kv_stride, a.d, a.scale, a.scale);
-  store_rows<kVec>(static_cast<bf16*>(a.dv) + kv_off, dv, j_lo + warp * 16, a.skv,
-                        kv_stride, a.d, 1.0f, 1.0f);
+  store_rows<kVec, DP>(static_cast<bf16*>(a.dk) + kv_off, dk, j_lo + warp * 16, a.skv,
+                       kv_stride, a.d, a.scale, a.scale);
+  store_rows<kVec, DP>(static_cast<bf16*>(a.dv) + kv_off, dv, j_lo + warp * 16, a.skv,
+                       kv_stride, a.d, 1.0f, 1.0f);
 }
 
 // dq: a block per (batch, query head, 64 query rows), a warp per 16 rows.
-// Q and dout are staged once through the second K/V stage and kept as A
-// fragments; delta (out . dout in float32) is written for dk/dv; K and V
-// stream through the two stages. Per tile: S = Q K^T and dP = dout V^T,
-// P = ex2(scale log2e S - log2e lse) where kept, dS = P (dP - delta) in
-// float32, then dQ += dS K with dS rounded to bf16 from its C fragments.
-template <bool kVec>
+// Q and dout are staged once (at width 64 through the second K/V stage and
+// kept as A fragments; at 128 in their own tiles); delta (out . dout in
+// float32) is written for dk/dv; K and V stream through the two stages. Per
+// tile: S = Q K^T and dP = dout V^T, P = ex2(scale log2e S - log2e lse)
+// where kept, dS = P (dP - delta) in float32, then dQ += dS K with dS
+// rounded to bf16 from its C fragments.
+template <bool kVec, int DP>
 __global__ void __launch_bounds__(kFwdThreads) flash_bwd_dq_mma_kernel(BwdArgs a) {
-  __shared__ __align__(128) bf16 ks[2][kMmaTile * kLd];
-  __shared__ __align__(128) bf16 vs[2][kMmaTile * kLd];
-  __shared__ float dels[kFwdRows];
+  constexpr int kNkD = DP / 16;             // k-steps of 16 over the head dim
+  constexpr bool kHold = DP <= kNarrow;
+  constexpr int kTileE = kMmaTile * DP;     // elements of a staged tile
+  extern __shared__ __align__(128) unsigned char bwd_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(bwd_smem);  // [2][kTileE]
+  bf16* vs = ks + 2 * kTileE;                     // [2][kTileE]
+  bf16* qs = kHold ? ks + kTileE : vs + 2 * kTileE;       // [kFwdRows * DP]
+  bf16* dos = kHold ? vs + kTileE : qs + kFwdRows * DP;   // [kFwdRows * DP]
+  float* dels = reinterpret_cast<float*>(vs + 2 * kTileE + (kHold ? 0 : 2 * kFwdRows * DP));
   const int b = blockIdx.x / a.hq, h = blockIdx.x % a.hq;
   const int hk = h / (a.hq / a.hkv);
   const int tile = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
@@ -1020,8 +1089,9 @@ __global__ void __launch_bounds__(kFwdThreads) flash_bwd_dq_mma_kernel(BwdArgs a
   const bf16* kg = static_cast<const bf16*>(a.k) + ((size_t)b * a.skv * a.hkv + hk) * a.d;
   const bf16* vg = static_cast<const bf16*>(a.v) + ((size_t)b * a.skv * a.hkv + hk) * a.d;
   const size_t kv_stride = (size_t)a.hkv * a.d;
-  const Lanes ln = lanes();
+  const Lanes ln = lanes<DP>();
   const uint32_t ks_a = smem_addr(ks), vs_a = smem_addr(vs);
+  const uint32_t qs_a = smem_addr(qs), dos_a = smem_addr(dos);
 
   // the key range any row of this tile can keep
   const int row_lo = tile * kFwdRows;
@@ -1033,17 +1103,18 @@ __global__ void __launch_bounds__(kFwdThreads) flash_bwd_dq_mma_kernel(BwdArgs a
   const int n_tiles = k_hi > k_first ? (k_hi - k_first + kMmaTile - 1) / kMmaTile : 0;
 
   if (kVec) {
-    zero_pad(&ks[0][0], 2 * kMmaTile, a.d);
-    zero_pad(&vs[0][0], 2 * kMmaTile, a.d);
+    zero_pad<DP>(ks, 2 * kMmaTile, a.d);
+    zero_pad<DP>(vs, 2 * kMmaTile, a.d);
+    if (!kHold) zero_pad<DP>(qs, 2 * kFwdRows, a.d);  // Q and dout, consecutive
   }
-  // Q and dout through stage 1, the first K/V tile into stage 0
-  stage_tile<kVec, kFwdRows, kFwdThreads>(ks[1], static_cast<const bf16*>(a.q) + q_off, row_lo,
-                                          a.sq, q_stride, a.d);
-  stage_tile<kVec, kFwdRows, kFwdThreads>(vs[1], static_cast<const bf16*>(a.dout) + q_off, row_lo,
-                                          a.sq, q_stride, a.d);
+  // Q and dout, the first K/V tile into stage 0
+  stage_tile<kVec, kFwdRows, kFwdThreads, DP>(qs, static_cast<const bf16*>(a.q) + q_off, row_lo,
+                                              a.sq, q_stride, a.d);
+  stage_tile<kVec, kFwdRows, kFwdThreads, DP>(dos, static_cast<const bf16*>(a.dout) + q_off,
+                                              row_lo, a.sq, q_stride, a.d);
   if (n_tiles > 0) {
-    stage_tile<kVec, kMmaTile, kFwdThreads>(ks[0], kg, k_first, a.skv, kv_stride, a.d);
-    stage_tile<kVec, kMmaTile, kFwdThreads>(vs[0], vg, k_first, a.skv, kv_stride, a.d);
+    stage_tile<kVec, kMmaTile, kFwdThreads, DP>(ks, kg, k_first, a.skv, kv_stride, a.d);
+    stage_tile<kVec, kMmaTile, kFwdThreads, DP>(vs, vg, k_first, a.skv, kv_stride, a.d);
   }
   cp_async_commit();
 
@@ -1056,7 +1127,7 @@ __global__ void __launch_bounds__(kFwdThreads) flash_bwd_dq_mma_kernel(BwdArgs a
       const bf16* o = static_cast<const bf16*>(a.out) + off;
       const bf16* dout = static_cast<const bf16*>(a.dout) + off;
 #pragma unroll 8
-      for (int c = 32 * half; c < min(32 * half + 32, a.d); ++c) {
+      for (int c = (DP / 2) * half; c < min((DP / 2) * (half + 1), a.d); ++c) {
         dsum = __fmaf_rn(__bfloat162float(o[c]), __bfloat162float(dout[c]), dsum);
       }
     }
@@ -1068,9 +1139,11 @@ __global__ void __launch_bounds__(kFwdThreads) flash_bwd_dq_mma_kernel(BwdArgs a
   }
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qa[kNk][4], da[kNk][4];
-  load_a(smem_addr(ks[1]), warp * 16, ln, qa);
-  load_a(smem_addr(vs[1]), warp * 16, ln, da);
+  uint32_t qa[kHold ? kNkD : 1][4], da[kHold ? kNkD : 1][4];
+  if constexpr (kHold) {
+    load_a<DP>(qs_a, warp * 16, ln, qa);
+    load_a<DP>(dos_a, warp * 16, ln, da);
+  }
 
   // rows r0 and r0 + 8 of this warp's slab: positions, lse and delta (rows
   // past Sq: lse +inf, so p = 0)
@@ -1081,22 +1154,24 @@ __global__ void __launch_bounds__(kFwdThreads) flash_bwd_dq_mma_kernel(BwdArgs a
   const float nl1 = r0 + 8 < a.sq ? -__fmul_rn(lse[r0 + 8], kLog2e) : -INFINITY;
   const float del0 = dels[warp * 16 + gr], del1 = dels[warp * 16 + gr + 8];
   const float scale2 = __fmul_rn(a.scale, kLog2e);
-  float dq[2 * kNk][4];
+  float dq[2 * kNkD][4];
 #pragma unroll
-  for (int j = 0; j < 2 * kNk; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.0f;
+  for (int j = 0; j < 2 * kNkD; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.0f;
   __syncthreads();  // stage 1 is free for the next tile
 
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = k_first + it * kMmaTile;
     if (it + 1 < n_tiles) {
       const int st = (it + 1) & 1;
-      stage_tile<kVec, kMmaTile, kFwdThreads>(ks[st], kg, k0 + kMmaTile, a.skv, kv_stride, a.d);
-      stage_tile<kVec, kMmaTile, kFwdThreads>(vs[st], vg, k0 + kMmaTile, a.skv, kv_stride, a.d);
+      stage_tile<kVec, kMmaTile, kFwdThreads, DP>(ks + st * kTileE, kg, k0 + kMmaTile, a.skv,
+                                                  kv_stride, a.d);
+      stage_tile<kVec, kMmaTile, kFwdThreads, DP>(vs + st * kTileE, vg, k0 + kMmaTile, a.skv,
+                                                  kv_stride, a.d);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const uint32_t kt = ks_a + (it & 1) * kTileBytes, vt = vs_a + (it & 1) * kTileBytes;
+    const uint32_t kt = ks_a + (it & 1) * 2 * kTileE, vt = vs_a + (it & 1) * 2 * kTileE;
 
     // S = Q K^T and dP = dout V^T: 16 rows x 64 keys, float32
     float s[8][4], dp[8][4];
@@ -1106,16 +1181,26 @@ __global__ void __launch_bounds__(kFwdThreads) flash_bwd_dq_mma_kernel(BwdArgs a
       dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
     }
 #pragma unroll
-    for (int kk = 0; kk < kNk; ++kk) {
+    for (int kk = 0; kk < kNkD; ++kk) {
+      uint32_t qf[4], df[4];
+      const uint32_t* qak = qf;
+      const uint32_t* dak = df;
+      if constexpr (kHold) {
+        qak = qa[kk];
+        dak = da[kk];
+      } else {
+        load_a_step<DP>(qs_a, warp * 16, kk, ln, qf);
+        load_a_step<DP>(dos_a, warp * 16, kk, ln, df);
+      }
 #pragma unroll
       for (int jp = 0; jp < 4; ++jp) {
         uint32_t bb[4];
-        load_b_rows(kt, 16 * jp, kk, ln, bb);
-        mma16816(s[2 * jp], qa[kk], bb[0], bb[1]);
-        mma16816(s[2 * jp + 1], qa[kk], bb[2], bb[3]);
-        load_b_rows(vt, 16 * jp, kk, ln, bb);
-        mma16816(dp[2 * jp], da[kk], bb[0], bb[1]);
-        mma16816(dp[2 * jp + 1], da[kk], bb[2], bb[3]);
+        load_b_rows<DP>(kt, 16 * jp, kk, ln, bb);
+        mma16816(s[2 * jp], qak, bb[0], bb[1]);
+        mma16816(s[2 * jp + 1], qak, bb[2], bb[3]);
+        load_b_rows<DP>(vt, 16 * jp, kk, ln, bb);
+        mma16816(dp[2 * jp], dak, bb[0], bb[1]);
+        mma16816(dp[2 * jp + 1], dak, bb[2], bb[3]);
       }
     }
     // P = exp(scale S - lse) where kept (the mask only where the tile is not
@@ -1145,9 +1230,9 @@ __global__ void __launch_bounds__(kFwdThreads) flash_bwd_dq_mma_kernel(BwdArgs a
       uint32_t dsa[4];
       c_to_a(s, kk, dsa);
 #pragma unroll
-      for (int jp = 0; jp < kNk; ++jp) {
+      for (int jp = 0; jp < kNkD; ++jp) {
         uint32_t bb[4];
-        load_b_cols(kt, 16 * kk, jp, ln, bb);
+        load_b_cols<DP>(kt, 16 * kk, jp, ln, bb);
         mma16816(dq[2 * jp], dsa, bb[0], bb[1]);
         mma16816(dq[2 * jp + 1], dsa, bb[2], bb[3]);
       }
@@ -1157,27 +1242,41 @@ __global__ void __launch_bounds__(kFwdThreads) flash_bwd_dq_mma_kernel(BwdArgs a
   cp_async_wait<0>();
 
   // dq takes scale in float32, written once in bf16
-  store_rows<kVec>(static_cast<bf16*>(a.dq) + q_off, dq, row_lo + warp * 16, a.sq, q_stride,
-                   a.d, a.scale, a.scale);
+  store_rows<kVec, DP>(static_cast<bf16*>(a.dq) + q_off, dq, row_lo + warp * 16, a.sq, q_stride,
+                       a.d, a.scale, a.scale);
 }
 
 // cp.async and the paired stores need d % 8 == 0 and 16-B aligned bases
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// The width-DP forward's tiles past 48 KB need the kernel's dynamic shared
-// memory limit raised, once an instance.
+// A kernel whose tiles pass 48 KB needs its dynamic shared memory limit
+// raised, once an instance (*done records it).
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t bytes, bool* done) {
+  if (bytes <= 48 * 1024 || *done) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  *done = true;
+  return 0;
+}
+
 template <bool kVec, int DP>
 int fwd_mma_prepare() {
-  if (fwd_smem_bytes<DP>() <= 48 * 1024) return 0;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_kernel<kVec, DP>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)fwd_smem_bytes<DP>());
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
-  return 0;
+  static bool done = false;
+  return allow_smem(flash_fwd_mma_kernel<kVec, DP>, fwd_smem_bytes<DP>(), &done);
+}
+
+template <bool kVec, int DP>
+int dq_mma_prepare() {
+  static bool done = false;
+  return allow_smem(flash_bwd_dq_mma_kernel<kVec, DP>, dq_smem_bytes<DP>(), &done);
+}
+
+template <bool kVec, int DP>
+int dkv_mma_prepare() {
+  static bool done = false;
+  return allow_smem(flash_bwd_dkv_mma_kernel<kVec, DP>, dkv_smem_bytes<DP>(), &done);
 }
 
 template <bool kVec, int DP>
@@ -1196,6 +1295,44 @@ int launch_fwd(const FlashArgs& a, int batch, int dtype, bool vec, cudaStream_t 
              : launch_fwd_mma<false, DP>(a, batch, stream);
 }
 
+template <bool kVec, int DP>
+int launch_dq_mma(const BwdArgs& a, int batch, cudaStream_t s) {
+  const int err = dq_mma_prepare<kVec, DP>();
+  if (err != 0) return err;
+  const dim3 grid(batch * a.hq, (a.sq + kFwdRows - 1) / kFwdRows);
+  flash_bwd_dq_mma_kernel<kVec, DP><<<grid, kFwdThreads, dq_smem_bytes<DP>(), s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_dq(const BwdArgs& a, int batch, int dtype, bool vec, cudaStream_t s) {
+  if (dtype == 0) {
+    const dim3 grid(batch * a.hq, (a.sq + kBwdRows - 1) / kBwdRows);
+    flash_bwd_dq_kernel<float, DP><<<grid, kBwdRows * kParts, 0, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  return vec ? launch_dq_mma<true, DP>(a, batch, s) : launch_dq_mma<false, DP>(a, batch, s);
+}
+
+template <bool kVec, int DP>
+int launch_dkv_mma(const BwdArgs& a, int batch, cudaStream_t s) {
+  const int err = dkv_mma_prepare<kVec, DP>();
+  if (err != 0) return err;
+  const dim3 grid(batch * a.hkv, (a.skv + kDkvKeys - 1) / kDkvKeys);
+  flash_bwd_dkv_mma_kernel<kVec, DP><<<grid, kDkvThreads, dkv_smem_bytes<DP>(), s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_dkv(const BwdArgs& a, int batch, int dtype, bool vec, cudaStream_t s) {
+  if (dtype == 0) {
+    const dim3 grid(batch * a.hkv, (a.skv + kBwdKeys - 1) / kBwdKeys);
+    flash_bwd_dkv_kernel<float, DP><<<grid, kBwdKeys * kParts, 0, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  return vec ? launch_dkv_mma<true, DP>(a, batch, s) : launch_dkv_mma<false, DP>(a, batch, s);
+}
+
 bool bwd_shape_ok(int batch, int sq, int skv, int hq, int hkv, int d, int dtype) {
   return batch >= 1 && sq >= 1 && skv >= 1 && hkv >= 1 && hq % hkv == 0 && d >= 1 &&
          d <= kMaxD && (dtype == 0 || dtype == 1) && (long long)batch * hq <= 0x7fffffffLL &&
@@ -1206,29 +1343,38 @@ bool bwd_shape_ok(int batch, int sq, int skv, int hq, int hkv, int d, int dtype)
 
 extern "C" {
 
-// Largest head dims the forward and the backward take.
+// Largest head dims the forward and the backward take (both 128).
 int flash_attention_limits(int* max_d_fwd, int* max_d_bwd) {
-  *max_d_fwd = kMaxDFwd;
+  *max_d_fwd = kMaxD;
   *max_d_bwd = kMaxD;
   return 0;
 }
 
 // Blocks an SM holds of the bf16 tensor-core kernels (cp.async builds):
-// the forward at widths 64 and 128, dq, dk/dv. Returns a cudaError_t.
-int flash_attention_mma_occupancy(int* fwd, int* fwd128, int* dq, int* dkv) {
-  int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      fwd, flash_fwd_mma_kernel<true, kMaxD>, kFwdThreads, fwd_smem_bytes<kMaxD>());
-  if (err != 0) return err;
-  err = fwd_mma_prepare<true, kMaxDFwd>();
-  if (err != 0) return err;
-  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      fwd128, flash_fwd_mma_kernel<true, kMaxDFwd>, kFwdThreads, fwd_smem_bytes<kMaxDFwd>());
-  if (err != 0) return err;
-  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      dq, flash_bwd_dq_mma_kernel<true>, kFwdThreads, 0);
-  if (err != 0) return err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      dkv, flash_bwd_dkv_mma_kernel<true>, kDkvThreads, 0);
+// the forward, dq and dk/dv, each at widths 64 and 128 (out[0..5] in that
+// order). Returns a cudaError_t.
+int flash_attention_mma_occupancy(int* out) {
+  int err = fwd_mma_prepare<true, kMaxD>();
+  if (err == 0) err = dq_mma_prepare<true, kMaxD>();
+  if (err == 0) err = dkv_mma_prepare<true, kMaxD>();
+  const struct {
+    const void* fn;
+    int threads;
+    size_t smem;
+  } kernels[6] = {
+      {(const void*)flash_fwd_mma_kernel<true, kNarrow>, kFwdThreads, fwd_smem_bytes<kNarrow>()},
+      {(const void*)flash_fwd_mma_kernel<true, kMaxD>, kFwdThreads, fwd_smem_bytes<kMaxD>()},
+      {(const void*)flash_bwd_dq_mma_kernel<true, kNarrow>, kFwdThreads, dq_smem_bytes<kNarrow>()},
+      {(const void*)flash_bwd_dq_mma_kernel<true, kMaxD>, kFwdThreads, dq_smem_bytes<kMaxD>()},
+      {(const void*)flash_bwd_dkv_mma_kernel<true, kNarrow>, kDkvThreads,
+       dkv_smem_bytes<kNarrow>()},
+      {(const void*)flash_bwd_dkv_mma_kernel<true, kMaxD>, kDkvThreads, dkv_smem_bytes<kMaxD>()},
+  };
+  for (int i = 0; i < 6 && err == 0; ++i) {
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + i, kernels[i].fn,
+                                                             kernels[i].threads, kernels[i].smem);
+  }
+  return err;
 }
 
 // dtype: 0 float32 (flash_fwd_kernel), 1 bfloat16 (flash_fwd_mma_kernel);
@@ -1238,7 +1384,7 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v, void
                                float* lse, int batch, int sq, int skv, int hq, int hkv,
                                int d, int causal, int window, int q_offset, float scale,
                                int dtype, void* stream) {
-  if (batch < 1 || sq < 1 || skv < 1 || hkv < 1 || hq % hkv != 0 || d < 1 || d > kMaxDFwd ||
+  if (batch < 1 || sq < 1 || skv < 1 || hkv < 1 || hq % hkv != 0 || d < 1 || d > kMaxD ||
       (dtype != 0 && dtype != 1) || batch > 65535 || hq > 65535) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1249,13 +1395,14 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v, void
   FlashArgs a{q, k, v, out, lse, sq, skv, hq, hkv, d, causal, window, q_offset, scale};
   cudaStream_t s = (cudaStream_t)stream;
   const bool vec = d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
-  return d <= kMaxD ? launch_fwd<kMaxD>(a, batch, dtype, vec, s)
-                    : launch_fwd<kMaxDFwd>(a, batch, dtype, vec, s);
+  return d <= kNarrow ? launch_fwd<kNarrow>(a, batch, dtype, vec, s)
+                      : launch_fwd<kMaxD>(a, batch, dtype, vec, s);
 }
 
 // The backward's first kernel: dq, and delta for the second. dtype: 0
-// float32 (flash_bwd_dq_kernel), 1 bfloat16 (flash_bwd_dq_mma_kernel).
-// window < 0: none. Returns a cudaError_t.
+// float32 (flash_bwd_dq_kernel), 1 bfloat16 (flash_bwd_dq_mma_kernel); d <=
+// 64 runs the width-64 instances, 64 < d <= 128 the width-128 ones. window <
+// 0: none. Returns a cudaError_t.
 int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
                                   const void* out, const void* dout, const float* lse,
                                   float* delta, void* dq, int batch, int sq, int skv, int hq,
@@ -1265,25 +1412,16 @@ int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
   BwdArgs a{q, k, v, out, dout, lse, delta, dq, nullptr, nullptr,
             sq, skv, hq, hkv, d, causal, window, q_offset, scale};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    const dim3 grid(batch * hq, (sq + kBwdRows - 1) / kBwdRows);
-    flash_bwd_dq_kernel<float><<<grid, kBwdRows * kParts, 0, s>>>(a);
-  } else {
-    const dim3 grid(batch * hq, (sq + kFwdRows - 1) / kFwdRows);
-    if (d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) &&
-        aligned16(dq)) {
-      flash_bwd_dq_mma_kernel<true><<<grid, kFwdThreads, 0, s>>>(a);
-    } else {
-      flash_bwd_dq_mma_kernel<false><<<grid, kFwdThreads, 0, s>>>(a);
-    }
-  }
-  return (int)cudaGetLastError();
+  const bool vec = d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+                   aligned16(dout) && aligned16(dq);
+  return d <= kNarrow ? launch_dq<kNarrow>(a, batch, dtype, vec, s)
+                      : launch_dq<kMaxD>(a, batch, dtype, vec, s);
 }
 
 // The backward's second kernel: dk and dv from delta, which the dq kernel
 // wrote; launch it after that one on the same stream. dtype: 0 float32
-// (flash_bwd_dkv_kernel), 1 bfloat16 (flash_bwd_dkv_mma_kernel). Returns a
-// cudaError_t.
+// (flash_bwd_dkv_kernel), 1 bfloat16 (flash_bwd_dkv_mma_kernel); widths as
+// dq's. Returns a cudaError_t.
 int flash_attention_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                    const void* dout, const float* lse, const float* delta,
                                    void* dk, void* dv, int batch, int sq, int skv, int hq,
@@ -1293,19 +1431,10 @@ int flash_attention_bwd_dkv_launch(const void* q, const void* k, const void* v,
   BwdArgs a{q, k, v, nullptr, dout, lse, const_cast<float*>(delta), nullptr, dk, dv,
             sq, skv, hq, hkv, d, causal, window, q_offset, scale};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    const dim3 grid(batch * hkv, (skv + kBwdKeys - 1) / kBwdKeys);
-    flash_bwd_dkv_kernel<float><<<grid, kBwdKeys * kParts, 0, s>>>(a);
-  } else {
-    const dim3 grid(batch * hkv, (skv + kDkvKeys - 1) / kDkvKeys);
-    if (d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) &&
-        aligned16(dk) && aligned16(dv)) {
-      flash_bwd_dkv_mma_kernel<true><<<grid, kDkvThreads, 0, s>>>(a);
-    } else {
-      flash_bwd_dkv_mma_kernel<false><<<grid, kDkvThreads, 0, s>>>(a);
-    }
-  }
-  return (int)cudaGetLastError();
+  const bool vec = d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+                   aligned16(dout) && aligned16(dk) && aligned16(dv);
+  return d <= kNarrow ? launch_dkv<kNarrow>(a, batch, dtype, vec, s)
+                      : launch_dkv<kMaxD>(a, batch, dtype, vec, s);
 }
 
 }  // extern "C"

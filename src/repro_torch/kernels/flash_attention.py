@@ -12,9 +12,9 @@ summed in the kernel). bf16 inputs run all three on the tensor cores
 (``flash_fwd_mma_kernel``, ``flash_bwd_dq_mma_kernel``,
 ``flash_bwd_dkv_mma_kernel``: bf16 operands, float32 sums, p and ds rounded
 to bf16 before their products); float32 inputs run float32 CUDA-core
-kernels. The forward takes head dims up to 128 (compiled at widths 64 and
-128), the backward up to 64 (:func:`limits`). Each
-takes CUDA tensors in float32 or bf16, checks
+kernels. All three take head dims up to 128 (:func:`limits`), each compiled
+at widths 64 (D <= 64) and 128. Each takes CUDA tensors in float32 or bf16,
+checks
 their device, dtype, shape and contiguity, allocates its outputs with
 ``torch.empty``, launches on the current stream and raises if the launch is
 refused. :data:`LAUNCHES` counts each kernel's launches. The plain versions
@@ -85,7 +85,7 @@ def _lib() -> ctypes.CDLL:
             getattr(lib, name).restype = _I
         lib.flash_attention_limits.argtypes = [ctypes.POINTER(_I)] * 2
         lib.flash_attention_limits.restype = _I
-        lib.flash_attention_mma_occupancy.argtypes = [ctypes.POINTER(_I)] * 4
+        lib.flash_attention_mma_occupancy.argtypes = [ctypes.POINTER(_I)]
         lib.flash_attention_mma_occupancy.restype = _I
         lib._repro_bound = True
     return lib
@@ -99,15 +99,16 @@ def limits() -> Tuple[int, int]:
 
 
 def mma_occupancy() -> Dict[str, int]:
-    """Blocks an SM holds of the bf16 tensor-core kernels (the forward at
-    widths 64 and 128, dq, dk/dv), from the CUDA occupancy calculator."""
-    vals = [_I() for _ in range(4)]
-    err = _lib().flash_attention_mma_occupancy(*(ctypes.byref(x) for x in vals))
+    """Blocks an SM holds of the bf16 tensor-core kernels (the forward, dq
+    and dk/dv, each at widths 64 and 128), from the CUDA occupancy
+    calculator."""
+    names = [f"flash_attention_{k}{w}" for k in ("fwd", "bwd_dq", "bwd_dkv")
+             for w in ("", "_d128")]
+    vals = (_I * len(names))()
+    err = _lib().flash_attention_mma_occupancy(vals)
     if err != 0:
         raise RuntimeError(f"flash_attention occupancy query failed: cudaError_t {err}")
-    names = ("flash_attention_fwd", "flash_attention_fwd_d128", "flash_attention_bwd_dq",
-             "flash_attention_bwd_dkv")
-    return {n: x.value for n, x in zip(names, vals)}
+    return dict(zip(names, vals))
 
 
 def _shapes(q: torch.Tensor, k: torch.Tensor, window: Optional[int], what: str):
@@ -199,7 +200,7 @@ def flash_attention_bwd_dq_cuda(
     scale: Optional[float] = None,
     q_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The backward's first kernel (``D <= limits()[1]``, 64): ``(dq [B, Sq,
+    """The backward's first kernel (``D <= limits()[1]``, 128): ``(dq [B, Sq,
     Hq, D] in q's dtype, delta [B, Hq, Sq] float32)``, ``delta = sum_d dout
     out`` for :func:`flash_attention_bwd_dkv_cuda`."""
     code, (B, Sq, Hq, D, Skv, Hkv), p = _bwd_inputs(q, k, v, lse, dout, window,

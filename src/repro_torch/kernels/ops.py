@@ -14,10 +14,8 @@ mirrors the reference package's ``repro.kernels.ops``.
 its forward is the dispatch above and saves ``(q, k, v, out, lse)``, its
 backward the plain :func:`ref.flash_attention_bwd` on a CPU tensor and the
 dq and dk/dv kernels on a CUDA tensor, as the reference's custom VJP
-``flash_attention_pallas`` runs its two Pallas backward kernels. The
-forward kernel takes head dims up to 128, the backward kernels up to 64:
-past that a CUDA backward raises (ROADMAP B) rather than run the plain
-version.
+``flash_attention_pallas`` runs its two Pallas backward kernels. All three
+kernels take head dims up to 128; past that the forward already refuses.
 :func:`decode_attention` has no backward kernel yet (ROADMAP A.12): on a CUDA
 tensor it raises when grad mode is on and an input requires grad, rather
 than return an output cut from the graph.
@@ -454,12 +452,6 @@ class FlashAttention(torch.autograd.Function):
         else:
             from repro_torch.kernels import flash_attention as _k
 
-            max_d = _k.limits()[1]
-            if q.shape[-1] > max_d:
-                raise NotImplementedError(
-                    f"flash_attention backward: the CUDA kernels take head dims up to {max_d}, "
-                    f"got {q.shape[-1]} (ROADMAP B: the flash dq and dk/dv at D = 128, with "
-                    "the D = 128 configs' training)")
             dq, dk, dv = _k.flash_attention_bwd_cuda(
                 q, k, v, out, lse, dout.to(q.dtype).contiguous(), **ctx.kw)
         want = ctx.needs_input_grad

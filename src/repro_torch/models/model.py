@@ -160,7 +160,8 @@ def make_train_step(
             loss, metrics, grads = loss_and_grads(net, batch, cfg)
 
         new_state = {"step": state["step"] + 1}
-        with torch.no_grad():
+        # the update's range lets a profile of the step read its device time
+        with torch.no_grad(), torch.profiler.record_function("adamw_update"):
             if compress:
                 grads, new_state["grad_error"] = compress_grads(grads, state.get("grad_error"))
                 grads = decompress_grads(grads)

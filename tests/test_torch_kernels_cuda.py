@@ -39,9 +39,10 @@ rounded to bf16 before their products); the forward keeps the limits
 above, on 64-aligned and on unaligned inputs (a head dim off a multiple of
 8, a pointer off 16 bytes: tiles staged by plain loads), and past D 64 on
 its width-128 instances (D 128, 96, 100, 77) to the same limits. The
-backward takes D <= 64: past it the dq kernel refuses, and
-``ops.FlashAttention``'s backward raises on the card.
-The flash backward kernels (dq, dk/dv) against ``ref.flash_attention_bwd``:
+backward takes D <= 128 as well: past it the dq kernel refuses.
+The flash backward kernels (dq, dk/dv) against ``ref.flash_attention_bwd``,
+at D <= 64 and on their width-128 instances (the forward's D 128, 96, 100
+and 77 cases, aligned and in bf16 off 16 bytes):
 within 1e-4 of each gradient's largest entry in float32 (the differences
 ``dp - delta`` cancel, so the sums' rounding shows against a smaller
 result), and row by row within 1e-4 of the row's max|plain| plus 1e-5 of
@@ -57,15 +58,18 @@ in split order in the same launch: one launch a call, the same bits from
 call to call. The decode kernel has no backward: on the card it raises
 when an input requires grad. The mLSTM kernel's gradient is
 ``ops.MlstmChunk``'s backward in torch ops, held on the card to the CPU
-path's within 1e-4 of each gradient's max."""
+path's within 1e-4 of each gradient's max. The MoE block's backward (its
+dispatch gathers scatter-add a token's slots) gives the same bits on two
+runs, at qwen2-moe-a2.7b's full width in bf16."""
 import pytest
 import torch
 
-from repro_torch import Fleet
+from repro_torch import Fleet, configs
 from repro_torch.core import engine
 from repro_torch.core.scenarios import build_bank
 from repro_torch.kernels import decode_attention, flash_attention, grid_tick, mlstm_chunk
 from repro_torch.kernels import ops, ref, selu_mlp
+from repro_torch.models import blocks
 
 pytestmark = pytest.mark.cuda
 
@@ -659,14 +663,13 @@ def test_mlstm_tiled_kernel_matches_plain(normalize, S, H, Dk, Dv, chunk, dtype)
 
 def test_llm_kernels_refuse_shapes_past_their_limits():
     _need_cuda()
-    assert flash_attention.limits() == (128, 64) and mlstm_chunk.limits() == (512, 128)
+    assert flash_attention.limits() == (128, 128) and mlstm_chunk.limits() == (512, 128)
     q = torch.zeros(1, 8, 2, 129, device="cuda")
     with pytest.raises(ValueError, match="D <= 128 \\(the forward's limit\\)"):
         flash_attention.flash_attention_cuda(q, q, q)
-    q = torch.zeros(1, 8, 2, 65, device="cuda")
-    out, lse = flash_attention.flash_attention_cuda(q, q, q)
-    with pytest.raises(ValueError, match="D <= 64 \\(the backward's limit\\)"):
-        flash_attention.flash_attention_bwd_dq_cuda(q, q, q, out, lse, q)
+    lse = torch.zeros(1, 2, 8, device="cuda")
+    with pytest.raises(ValueError, match="D <= 128 \\(the backward's limit\\)"):
+        flash_attention.flash_attention_bwd_dq_cuda(q, q, q, q, lse, q)
     g = torch.zeros(1, 8, 2, device="cuda")
     q = torch.zeros(1, 8, 2, 520, device="cuda")
     with pytest.raises(ValueError, match="Dk <= 512"):
@@ -712,15 +715,18 @@ def _bf16_bwd_row_limit(want32, magnitude=None):
 _BWD_CASES = _FLASH_CASES + [(2, 150, 150, 16, 2, 64, True, None, 0)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", _BWD_CASES)
-def test_flash_bwd_kernels_match_plain(case, dtype):
-    _need_cuda()
+def _check_flash_bwd(case, dtype, shift=False):
+    """dq, dk and dv of the two kernels against the plain backward, to
+    the float32 limits and the bf16 rounding model; one launch each; the
+    same bits through ``ops.flash_attention``'s autograd (aligned inputs).
+    ``shift``: every tensor off 16 bytes."""
     B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset = case
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     g = torch.Generator().manual_seed(Sq + 1)
     q, k, v = (_randn(g, B, S, H, D, dtype=dtype) for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
     dout = _randn(g, B, Sq, Hq, D, dtype=dtype)
+    if shift:
+        q, k, v, dout = (_unaligned(x) for x in (q, k, v, dout))
     out, lse = flash_attention.flash_attention_cuda(q, k, v, **kw)
     before = dict(flash_attention.LAUNCHES)
     got = flash_attention.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
@@ -740,12 +746,21 @@ def test_flash_bwd_kernels_match_plain(case, dtype):
         assert _rows_within(a32, b32, _bwd_row_limit(b32)), name
         if dtype == torch.bfloat16:
             assert _rows_within(a, b, _bf16_bwd_row_limit(b32, mag)), name
+    if shift:
+        return
     # the same kernels from autograd through ops.flash_attention: bitwise
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     out2, _ = ops.flash_attention(*leaves, **kw)
     assert torch.equal(out2.detach(), out)
     for name, a, b in zip("qkv", torch.autograd.grad(out2, leaves, dout), got):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _BWD_CASES)
+def test_flash_bwd_kernels_match_plain(case, dtype):
+    _need_cuda()
+    _check_flash_bwd(case, dtype)
 
 
 def _unaligned(x):
@@ -829,15 +844,41 @@ def test_flash_attention_kernel_matches_plain_past_d64(case, dtype):
         assert lse_err <= 1e-5 * max(1.0, float(want_lse[fin].abs().max()))
 
 
-def test_flash_backward_past_d64_raises_on_the_card():
-    """A CUDA flash backward at D 96 raises, naming ROADMAP B; it does not
-    fall back to the plain version."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _FLASH_D128_CASES)
+def test_flash_bwd_kernels_match_plain_past_d64(case, dtype):
+    """dq and dk/dv at head dims 65-128 (the width-128 instances: D 128,
+    96, and 100 and 77 off a multiple of 8) to the D <= 64 limits; in bf16
+    also on pointers off 16 bytes."""
     _need_cuda()
-    g = torch.Generator().manual_seed(96)
-    q, k, v = (_randn(g, 1, 40, 2, 96, dtype=torch.bfloat16).requires_grad_() for _ in range(3))
-    out, _ = ops.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="ROADMAP B"):
-        out.float().sum().backward()
+    _check_flash_bwd(case, dtype)
+    if dtype == torch.bfloat16:
+        _check_flash_bwd(case, dtype, shift=True)
+
+
+def test_moe_backward_gives_the_same_bits_twice():
+    """One qwen2-moe-a2.7b MoE block at full width in bf16 (60 experts, top
+    4, capacity 1.25 with pairs dropped): forward and backward twice on the
+    same input give the same output, aux and gradients bit for bit (the
+    dispatch gather's backward adds a token's up to 4 slots)."""
+    _need_cuda()
+    cfg = configs.get_config("qwen2-moe-a2.7b")
+    moe = blocks.MoE(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    g = torch.Generator().manual_seed(1)
+    x = _randn(g, 2, 1024, cfg.d_model, dtype=torch.bfloat16)
+    w = _randn(g, 2, 1024, cfg.d_model, dtype=torch.float32)
+    assert not bool(moe.route(x).keep.all())  # pairs dropped
+    runs = []
+    for _ in range(2):
+        xl = x.clone().requires_grad_()
+        out, aux = moe(xl)
+        leaves = [xl, *moe.parameters()]
+        runs.append((out, aux, torch.autograd.grad((out.float() * w).sum() + aux, leaves)))
+    (out0, aux0, g0), (out1, aux1, g1) = runs
+    assert torch.equal(out0, out1) and torch.equal(aux0, aux1)
+    names = ["x"] + [n for n, _ in moe.named_parameters()]
+    for name, a, b in zip(names, g0, g1):
+        assert torch.equal(a, b), name
 
 
 def test_kernels_without_backward_raise_under_grad():

@@ -41,7 +41,9 @@ def _rel_err(got, want) -> float:
 
 # the reference test's cases (tests/test_kernels.py, the backward kernels
 # against autodiff: GQA, a window, a q_offset), plus a tile with dead and
-# live rows (window 8, q_offset 10) and one whose every row is dead
+# live rows (window 8, q_offset 10) and one whose every row is dead; then
+# head dims past 64, where the card runs the width-128 kernels: D 96 with
+# GQA, and D 128 (the MoE and dense configs') with a window and a q_offset
 FLASH_CASES = [
     (1, 64, 64, 4, 2, 32, None, 0),
     (2, 100, 100, 2, 2, 64, None, 0),
@@ -49,6 +51,8 @@ FLASH_CASES = [
     (1, 64, 128, 2, 2, 32, None, 64),
     (1, 30, 20, 2, 2, 16, 8, 10),
     (1, 30, 20, 2, 2, 16, 4, 40),
+    (1, 64, 64, 4, 2, 96, None, 0),
+    (1, 64, 96, 2, 1, 128, 40, 32),
 ]
 
 

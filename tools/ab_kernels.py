@@ -29,13 +29,18 @@ Groups (``--groups``, default all):
   that commit 593f029's leap step ran in its place.
 - ``selu_mlp``, ``mlstm_chunk``: called with this checkout's C signatures,
   so the other sources must export the same two (commit 386eef2 does).
-- ``flash``: the flash-attention forward at head dims up to 64, called
-  with this checkout's C signature of ``flash_attention_fwd_launch``
-  (unchanged since commit 386eef2): on ``chip_smoke.py``'s ragged cases
-  (float32 and bf16, pointers off 16 bytes too) and at hymba-1.5b's
-  serving shapes (bf16, global and the 1,024 window), both builds' out and
-  lse held bitwise to each other (``bitwise_other``), each within
-  ``chip_smoke.py``'s limits of the plain version; the serving shapes timed.
+- ``flash``: the flash-attention forward and backward (dq, then dk/dv) at
+  head dims up to 64, called with this checkout's C signatures of
+  ``flash_attention_fwd_launch``, ``flash_attention_bwd_dq_launch`` and
+  ``flash_attention_bwd_dkv_launch`` (unchanged since commit 386eef2): on
+  ``chip_smoke.py``'s ragged cases (float32 and bf16, pointers off 16 bytes
+  too), at hymba-1.5b's serving shapes (bf16, global and the 1,024 window)
+  and at tinyllama-1.1b's training shape (bf16, B 8, S 2,048, 32 / 4
+  heads), both builds' out and lse, then dq, delta, dk and dv (each build's
+  backward on this build's out and lse) held bitwise to each other
+  (``bitwise_other``), the forward within ``chip_smoke.py``'s limits of
+  the plain version; the serving shapes' forward and the training shape's
+  dq and dk/dv timed.
 
 Each kernel is timed as device time under ``torch.profiler``
 (``chip_smoke.device_ms``) in turns: other, this, this, other. One JSON line
@@ -88,8 +93,10 @@ def build_other(csrc: str, out_dir: str, names) -> dict:
         if name in libs:
             getattr(libs[name], f"{name}_launch").argtypes = getattr(mod._lib(), f"{name}_launch").argtypes
     if "flash_attention" in libs:
-        libs["flash_attention"].flash_attention_fwd_launch.argtypes = \
-            flash_attention._lib().flash_attention_fwd_launch.argtypes
+        for fn in ("flash_attention_fwd_launch", "flash_attention_bwd_dq_launch",
+                   "flash_attention_bwd_dkv_launch"):
+            getattr(libs["flash_attention"], fn).argtypes = \
+                getattr(flash_attention._lib(), fn).argtypes
     if "grid_tick" in libs:
         ours, other = grid_tick._lib(), libs["grid_tick"]
         for fn in ("grid_tick_bank_fused_launch", "grid_tick_bank_launch", "grid_tick_limits"):
@@ -264,8 +271,34 @@ def other_flash(lib, q, k, v, **kw):
     return out, lse
 
 
+def other_flash_bwd(lib, q, k, v, out, lse, dout, **kw):
+    """``(dq, delta, dk, dv)`` of the other build's two backward kernels
+    through this checkout's launch arguments."""
+    B, Sq, Hq, D = q.shape
+    kw = dict(dict(causal=True, window=None, scale=None, q_offset=0), **kw)
+    args = flash_attention._launch_args(B, Sq, k.shape[1], Hq, k.shape[2], D, kw["causal"],
+                                        kw["window"], kw["q_offset"], kw["scale"],
+                                        flash_attention.dtype_code(q), q)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    ptr = lambda *xs: [x.data_ptr() for x in xs]
+    for fn, ptrs in (("flash_attention_bwd_dq_launch", ptr(q, k, v, out, dout, lse, delta, dq)),
+                     ("flash_attention_bwd_dkv_launch", ptr(q, k, v, dout, lse, delta, dk, dv))):
+        err = getattr(lib, fn)(*ptrs, *args)
+        if err != 0:
+            raise RuntimeError(f"other {fn} failed: {err}")
+    return dq, delta, dk, dv
+
+
+def this_flash_bwd(q, k, v, out, lse, dout, **kw):
+    """``(dq, delta, dk, dv)`` of this build's two backward kernels."""
+    dq, delta = flash_attention.flash_attention_bwd_dq_cuda(q, k, v, out, lse, dout, **kw)
+    return (dq, delta, *flash_attention.flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, dout, **kw))
+
+
 def ab_flash(other_lib, dev) -> None:
-    """The forward at D <= 64: this build bitwise the other's."""
+    """The forward and the backward at D <= 64: this build bitwise the
+    other's."""
     cases = [(label, shape, kw, dtype, False)
              for dtype in (torch.float32, torch.bfloat16)
              for label, shape, kw in cs.FLASH_CASES]
@@ -274,22 +307,36 @@ def ab_flash(other_lib, dev) -> None:
     cfg = cs.configs.get_config(cs.HYMBA)
     main = (cs.LLM_B, cs.LLM_S, cs.LLM_S, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
     cases += [(f"main {w}", main, dict(window=w), torch.bfloat16, False) for w in (None, cfg.window)]
+    tiny = cs.configs.get_config(cs.TINYLLAMA)
+    cases.append(("train", (cs.TRAIN_B, cs.TRAIN_S, cs.TRAIN_S, tiny.n_heads, tiny.n_kv_heads,
+                            tiny.hd), {}, torch.bfloat16, False))
     for label, shape, kw, dtype, shift in cases:
         q, k, v = cs.flash_case(*shape, dtype, seed=shape[1], dev=dev)
+        dout = cs.flash_case(shape[0], shape[1], 1, shape[3], 1, shape[5], dtype,
+                             seed=shape[1] + 1, dev=dev)[0]
         if shift:
-            q, k, v = (cs.unaligned(x) for x in (q, k, v))
+            q, k, v, dout = (cs.unaligned(x) for x in (q, k, v, dout))
         this = flash_attention.flash_attention_cuda(q, k, v, **kw)
         other = other_flash(other_lib, q, k, v, **kw)
         same = all(torch.equal(a, b) for a, b in zip(this, other))
+        this_bwd = this_flash_bwd(q, k, v, *this, dout, **kw)
+        other_bwd = other_flash_bwd(other_lib, q, k, v, *this, dout, **kw)
+        same_bwd = [bool(torch.equal(a, b)) for a, b in zip(this_bwd, other_bwd)]
         err = cs.check_flash(label, q, k, v, dtype, phase="ab_flash", **kw)
         row = dict(kernel="flash_attention_fwd", case=label, dtype=str(dtype), shape=list(shape),
-                   bitwise_other=same, max_rel_err=err, **kw)
+                   bitwise_other=same, bitwise_other_dq_delta_dk_dv=same_bwd, max_rel_err=err,
+                   **kw)
         if label.startswith("main"):
             row.update(turns(lambda: other_flash(other_lib, q, k, v, **kw),
                              lambda: flash_attention.flash_attention_cuda(q, k, v, **kw), 20,
                              "flash_fwd"))
+        if label == "train":
+            for part in ("dq", "dkv"):
+                row[part] = turns(lambda: other_flash_bwd(other_lib, q, k, v, *this, dout, **kw),
+                                  lambda: this_flash_bwd(q, k, v, *this, dout, **kw), 10,
+                                  f"flash_bwd_{part}")
         print(json.dumps(row), flush=True)
-        if not same:
+        if not (same and all(same_bwd)):
             raise AssertionError(f"flash {label} {dtype}: this build's bits differ from the other's")
 
 
