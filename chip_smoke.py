@@ -125,23 +125,30 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    and device time by kernel under ``torch.profiler``; decode against
    prefill on the card, and the card against the CPU path in float32 (one
    pattern unit of 8 layers, 2 x 1,280 tokens, 8 decode steps);
-13b. llm_xlstm — xlstm-350m's serving path: the Dk-tiled mLSTM kernel
-   (``mlstm_chunk_tiled_kernel``, every call past Dk 64) against
-   ``ref.mlstm_chunk_chunked`` at Dk 80 and 512 (both flags, float32 and
-   bf16, S off the chunk), then at the prefill's shape (B 8, S 2,048, H 4,
-   Dk = Dv = 512, bf16) timed by CUDA events and device time beside its
-   bound, its float32 floor and the plain version, with registers, blocks
-   an SM and waves; a float32 xLSTM of one mLSTM and one sLSTM layer at
+13b. llm_xlstm — xlstm-350m's serving path past Dk 64: the tensor-core
+   pair (``mlstm_wide_state_kernel`` then ``mlstm_wide_out_kernel``, bf16
+   with chunks a multiple of 16, either flag) against its rounding model
+   ``ref.mlstm_chunk_tc`` and, with the Dk-tiled kernel
+   (``mlstm_chunk_tiled_kernel``: float32, and bf16 off the multiple of
+   16), against ``ref.mlstm_chunk_chunked`` at Dk 80, 100, 128 and 512
+   (both flags, S off the chunk, element staging at Dk 100 / Dv 33), each
+   call's launches held to its route; then at the prefill's shape (B 8, S
+   2,048, H 4, Dk = Dv = 512): the pair in bf16 timed by CUDA events and
+   each kernel's device time beside its own bound and the cell's, the
+   float32 floor and the plain version, with registers, spills, shared
+   memory, blocks an SM, waves and its SASS's HMMA count; the tiled kernel
+   likewise in float32; a float32 xLSTM of one mLSTM and one sLSTM layer at
    full width on the card against the CPU path (2 x 256 tokens, 8 decode
-   steps; logits and every cache leaf); xlstm-350m at full width (bf16,
-   random weights from a seed): 8 x 2,048 prompt tokens and 64 greedy
-   decode steps, tokens/s, peak memory, launches per run (21 tiled
-   launches a prefill, 0 a decode step, no attention), the sLSTM loops'
-   share of a prefill's wall, device busy share of a prefill and a decode
-   step under ``torch.profiler``; decode against prefill: layer by layer on
-   the same inputs in float32 (held to its limit), end to end in float32
-   and bf16 (reported, bf16 as a share of its limit, beside the float32
-   prefill's response to a 1e-7 perturbation of the embedding);
+   steps; logits and every cache leaf; one tiled launch); xlstm-350m at
+   full width (bf16, random weights from a seed): 8 x 2,048 prompt tokens
+   and 64 greedy decode steps, tokens/s, peak memory, launches per run (21
+   of each of the pair a prefill, 0 a decode step, no attention), the
+   sLSTM loops' share of a prefill's wall, device busy share of a prefill
+   and a decode step under ``torch.profiler``; decode against prefill:
+   layer by layer on the same inputs in float32 (held to its limit), end
+   to end in float32 and bf16 (reported, bf16 as a share of its limit,
+   beside the float32 prefill's response to a 1e-7 perturbation of the
+   embedding);
 13c. llm_moe — qwen2-moe-a2.7b's serving path: one MoE layer at full
    width in float32, the card against the CPU path (2 x 128 tokens, 4
    decode steps, logits and the KV cache); the model at full width (bf16,
@@ -195,6 +202,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -383,6 +391,30 @@ def ptxas_by_kernel(log: str) -> dict:
             name = m.group(1) + (m.group(2) or "")
         elif name and ("spill" in ln or "Used" in ln):
             out.setdefault(name, []).append(ln.strip())
+    return out
+
+
+def sass_counts(source: str) -> dict:
+    """Instructions by kernel of a built source's SASS (``cuobjdump -sass``):
+    all, tensor-core products (``HMMA``, ``HGMMA``) and local-memory
+    accesses; empty where the toolkit has no ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(_build._lib_path(source))], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : \S*?([A-Za-z_]+kernel)", ln)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {"instructions": 0, "HMMA": 0, "HGMMA": 0, "local": 0})
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", ln):
+            row = out[name]
+            row["instructions"] += 1
+            for op in ("HMMA", "HGMMA"):
+                row[op] += bool(re.search(rf"\b{op}\.", ln))
+            row["local"] += bool(re.search(r"\b(LDL|STL)\b", ln))
     return out
 
 
@@ -1836,8 +1868,11 @@ def mlstm_case(B, S, H, Dk, Dv, normalize, dtype, seed, dev):
 
 
 def mlstm_model_share(out, model) -> float:
-    """The largest share of the tensor-core SSD kernel's limit against its
-    rounding model (``ref.mlstm_chunk_tc``): elementwise, one bf16 step of
+    """The largest share of a tensor-core mLSTM kernel's limit against its
+    rounding model (``ref.mlstm_chunk_tc``, the SSD kernel and, past Dk 64,
+    the pair under either flag: the normaliser divides both sides' numerators
+    by values taken in float32 from the same unrounded sums, so one limit
+    serves both flags): elementwise, one bf16 step of
     the element (2^-7 of it: each side rounds its float32 result once, and
     a rounded S_intra, kw or C may land one step apart where the two
     float32 values straddle a rounding boundary) plus 2^-10 of max|model|
@@ -1859,18 +1894,19 @@ def check_mlstm(label, args, dtype, chunk, normalize, phase="llm_kernels", abs_e
     if abs_errs is not None:
         abs_errs.append(abs_err)
     Dk = args[0].shape[-1]
-    mma = mlstm_chunk.uses_mma(dtype, normalize, chunk, Dk)
+    wide = mlstm_chunk.uses_wide(dtype, chunk, Dk)
+    mma = wide or mlstm_chunk.uses_mma(dtype, normalize, chunk, Dk)
     extra = {}
     if mma:
-        share = mlstm_model_share(out, ref.mlstm_chunk_tc(*args, chunk=chunk))
+        share = mlstm_model_share(out, ref.mlstm_chunk_tc(*args, chunk=chunk, normalize=normalize))
         if not share <= 1.0:
             raise AssertionError(f"mlstm {label}: {share} of the rounding model's limit")
         extra = dict(model_limit_share=share)
-    tiled = mlstm_chunk.uses_tiled(Dk)
-    emit(phase, kernel="mlstm_chunk_tiled" if tiled else "mlstm_chunk", case=label,
-         dtype=str(dtype), normalize=normalize, chunk=chunk, q=list(args[0].shape),
-         v=list(args[2].shape), max_rel_err=err, max_abs_err=abs_err, tol=tol,
-         tensor_cores=mma, **extra)
+    kernel = ("mlstm_wide" if wide else
+              "mlstm_chunk_tiled" if mlstm_chunk.uses_tiled(dtype, chunk, Dk) else "mlstm_chunk")
+    emit(phase, kernel=kernel, case=label, dtype=str(dtype), normalize=normalize, chunk=chunk,
+         q=list(args[0].shape), v=list(args[2].shape), max_rel_err=err, max_abs_err=abs_err,
+         tol=tol, tensor_cores=mma, **extra)
     return err
 
 
@@ -2240,11 +2276,9 @@ def phase_llm_serve(dev) -> dict:
         raise AssertionError(f"serve logits not finite [{B}, {cfg.vocab_size}]")
     if cache["pos"] != S + N:
         raise AssertionError(f"cache pos {cache['pos']} after {S} + {N} tokens")
-    no_bwd = {"flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
-    want = {"prefill": {"flash_attention_fwd": cfg.n_layers, "mlstm_chunk": cfg.n_layers,
-                        "mlstm_chunk_tiled": 0, "decode_attention": 0, **no_bwd},
-            "decode": {"flash_attention_fwd": 0, "mlstm_chunk": 0, "mlstm_chunk_tiled": 0,
-                       "decode_attention": cfg.n_layers * N, **no_bwd}}
+    zero = {k_: 0 for k_ in llm_counts()}
+    want = {"prefill": {**zero, "flash_attention_fwd": cfg.n_layers, "mlstm_chunk": cfg.n_layers},
+            "decode": {**zero, "decode_attention": cfg.n_layers * N}}
     if by_run != want:
         raise AssertionError(f"launches {by_run}, expected {want}")
     # the parameters require grad; serving must record no autograd graph
@@ -2339,14 +2373,20 @@ def phase_llm_serve(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# xlstm-350m's serving path: the mLSTM on the Dk-tiled kernel, the sLSTM's
-# loop in torch ops
+# xlstm-350m's serving path: the mLSTM on the tensor-core pair past Dk 64
+# (float32 on the Dk-tiled kernel), the sLSTM's loop in torch ops
 # ---------------------------------------------------------------------------
 XLSTM = "xlstm-350m"
-# the Dk-tiled kernel against ref.mlstm_chunk_chunked: (normalize, S, H, Dk,
-# Dv), S off the 128-chunk (a padded last chunk), float32 and bf16
+# past Dk 64 against ref.mlstm_chunk_chunked: (normalize, S, H, Dk, Dv), S
+# off the 128-chunk (a padded last chunk); float32 runs the Dk-tiled kernel,
+# bf16 the tensor-core pair
 TILED_CASES = ((True, 150, 3, 80, 96), (False, 150, 3, 80, 96),
                (True, 300, 2, 512, 512), (False, 300, 2, 512, 512))
+# the pair alone, bf16 (normalize, S, H, Dk, Dv, chunk): element staging (Dk
+# 100, Dv 33) at 16-chunks; Dk 128 at 64-chunks; and off the multiple of 16,
+# the case that stays on the Dk-tiled kernel in bf16
+WIDE_CASES = ((True, 70, 3, 100, 33, 16), (True, 200, 2, 128, 64, 64))
+TILED_BF16_CASE = (True, 150, 3, 80, 96, 120)
 # a float32 xLSTM at full width, one mLSTM and one sLSTM layer: prompt and
 # decode steps of the card against the CPU path
 XLSTM_CHECK_B, XLSTM_CHECK_S, XLSTM_CHECK_STEPS = 2, 256, 8
@@ -2397,53 +2437,116 @@ def layer_decode_vs_prefill(net, tokens, s: int) -> list:
 
 
 def phase_llm_xlstm(dev) -> dict:
-    """xlstm-350m's serving path on the card: (1) the Dk-tiled mLSTM kernel
-    against its plain version (Dk 80 and 512, both flags, float32 and
-    bf16, padded last chunks) and timed at the prefill's shape beside its
-    bound; (2) a float32 xLSTM of one mLSTM and one sLSTM layer at full
-    width, the card against the CPU path; (3) xlstm-350m at full width in
-    bf16: prefill 8 x 2,048 tokens and 64 greedy decode steps, launches
-    counted from 0 a run, the sLSTM loop's share of the prefill, device
-    busy share; (4) decode against prefill, float32 and bf16."""
+    """xlstm-350m's serving path on the card: (1) past Dk 64, the tensor-core
+    pair (bf16) and the Dk-tiled kernel (float32) against their plain
+    version (Dk 80 and 512, both flags, padded last chunks), the pair also
+    against its rounding model, each timed at the prefill's shape beside
+    its bound; (2) a float32 xLSTM of one mLSTM and one sLSTM layer at full
+    width, the card against the CPU path (launches counted); (3) xlstm-350m
+    at full width in bf16: prefill 8 x 2,048 tokens and 64 greedy decode
+    steps, launches counted from 0 a run, the sLSTM loop's share of the
+    prefill, device busy share; (4) decode against prefill, float32 and
+    bf16."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = configs.get_config(XLSTM)
     res = {}
-    # 1. the kernel
-    errs, abs_errs = [], []
-    for dtype in (torch.float32, torch.bfloat16):
-        for normalize, S_, H_, Dk, Dv in TILED_CASES:
-            args = mlstm_case(2, S_, H_, Dk, Dv, normalize, dtype, seed=S_ + Dk, dev=dev)
-            errs.append(check_mlstm(f"S={S_} Dk={Dk} Dv={Dv}", args, dtype, 128, normalize,
-                                    phase="llm_xlstm", abs_errs=abs_errs))
     bf = torch.bfloat16
+    # 1. the kernels
+    errs = {"wide": [], "tiled": []}
+    abs_errs = {"wide": [], "tiled": []}
+    cases = [(dtype, normalize, S_, H_, Dk, Dv, 128) for dtype in (torch.float32, bf)
+             for normalize, S_, H_, Dk, Dv in TILED_CASES]
+    cases += [(bf, *c) for c in WIDE_CASES] + [(bf, *TILED_BF16_CASE)]
+    for dtype, normalize, S_, H_, Dk, Dv, ch in cases:
+        route = "wide" if mlstm_chunk.uses_wide(dtype, ch, Dk) else "tiled"
+        if route == "tiled" and not mlstm_chunk.uses_tiled(dtype, ch, Dk):
+            raise AssertionError(f"mlstm Dk {Dk} chunk {ch} {dtype}: neither route past Dk 64")
+        args = mlstm_case(2, S_, H_, Dk, Dv, normalize, dtype, seed=S_ + Dk, dev=dev)
+        before = dict(mlstm_chunk.LAUNCHES)
+        errs[route].append(check_mlstm(f"S={S_} Dk={Dk} Dv={Dv} chunk={ch}", args, dtype, ch,
+                                       normalize, phase="llm_xlstm", abs_errs=abs_errs[route]))
+        ran = {k_: n - before[k_] for k_, n in mlstm_chunk.LAUNCHES.items() if n != before[k_]}
+        want = ({"mlstm_wide_state": 1, "mlstm_wide_out": 1} if route == "wide"
+                else {"mlstm_chunk_tiled": 1})
+        if ran != want:
+            raise AssertionError(f"mlstm Dk {Dk} chunk {ch} {dtype}: launches {ran}, expected {want}")
     B, S, N = LLM_B, LLM_S, LLM_NEW
     H, chunk = cfg.n_heads, 128
     Dk = Dv = cfg.ssm_expand * cfg.d_model // H
+    n_ch = -(-S // chunk)
+    ops_ = mlstm_ops(B, S, H, Dk, Dv, chunk)
+    build_log = ptxas_by_kernel(_build.build_logs.get("mlstm_chunk", ""))
+    sass = sass_counts("mlstm_chunk")
+    slots = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the pair at the prefill's shape (bf16)
     args = mlstm_case(B, S, H, Dk, Dv, True, bf, seed=17, dev=dev)
-    errs.append(check_mlstm("main mLSTM", args, bf, chunk, True, phase="llm_xlstm",
-                            abs_errs=abs_errs))
+    errs["wide"].append(check_mlstm("main mLSTM", args, bf, chunk, True, phase="llm_xlstm",
+                                    abs_errs=abs_errs["wide"]))
     cell = lambda: mlstm_chunk.mlstm_chunk_cuda(*args, chunk=chunk, normalize=True)
     ms, _ = timed(cell, 10)
-    dev_ms = device_ms(cell, 5, "mlstm_chunk_tiled")
     plain_ms, _ = timed(lambda: ref.mlstm_chunk_chunked(*args, chunk=chunk, normalize=True), 2)
-    ops_ = mlstm_ops(B, S, H, Dk, Dv, chunk)
+    b_ms, b_by = bound(nbytes(*args) + nbytes(args[2]), ops_)
+    occ = mlstm_chunk.wide_occupancy()
+    n_sl = -(-Dv // 64)
+    z_bytes = B * S * H * Dv * 4
+    side_bytes = (4 + n_sl) * B * H * n_ch * chunk * 4  # the gates' record and q . n shares
+    # each kernel's own work: the state kernel reads q, k, v and the gates
+    # and writes z and the record; its products q C and kw^T V over every
+    # chunk's positions. The out kernel reads q, k, v, z and the record and
+    # writes out; its products the causal scores and S V
+    work = {
+        "mlstm_wide_state": (nbytes(*args) + z_bytes + side_bytes,
+                             2 * 2 * B * H * n_ch * chunk * Dk * Dv, B * H * n_sl),
+        "mlstm_wide_out": (nbytes(*args[:3]) + z_bytes + side_bytes + nbytes(args[2]),
+                           2 * B * H * n_ch * chunk * (chunk + 1) // 2 * (Dk + Dv), B * H * n_ch),
+    }
+    kernels = {}
+    for name, (bytes_k, ops_k, blocks) in work.items():
+        kname = f"{name}_kernel"
+        kb_ms, kb_by = bound(bytes_k, ops_k)
+        kernels[name] = dict(
+            kernel_name=kname, device_ms=device_ms(cell, 5, name), bound_ms=kb_ms, bound_by=kb_by,
+            ops=ops_k, bytes=bytes_k, blocks=blocks, blocks_per_sm=occ[kname]["blocks_per_sm"],
+            smem_bytes=occ[kname]["smem_bytes"],
+            waves=blocks / (slots * occ[kname]["blocks_per_sm"]),
+            ptxas=build_log.get(kname), sass=sass.get(kname) or "not measured (no cuobjdump)")
+        if sass and not sass.get(kname, {}).get("HMMA"):
+            raise AssertionError(f"{kname}: no HMMA in its SASS {sass.get(kname)}")
+    res["wide"] = dict(ms=ms, device_ms=sum(k_["device_ms"] for k_ in kernels.values()),
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       float32_cuda_core_floor_ms=ops_ / PEAK_FP32 * 1e3, library_ms=None,
+                       ops=ops_, max_rel_err=max(errs["wide"]),
+                       max_abs_err=max(abs_errs["wide"]), kernels=kernels)
+    emit("llm_xlstm", kernel="mlstm_wide", timing="main mLSTM", card=smi(),
+         shape=[B, S, H, Dk, Dv], chunk=chunk, threads={"mlstm_wide_state_kernel": 512,
+                                                        "mlstm_wide_out_kernel": 256},
+         library="none: no single PyTorch call computes the chunkwise mLSTM cell",
+         **res["wide"])
+    del args
+    # the Dk-tiled kernel at the prefill's shape (float32, its route there)
+    f32 = torch.float32
+    args = mlstm_case(B, S, H, Dk, Dv, True, f32, seed=17, dev=dev)
+    cell = lambda: mlstm_chunk.mlstm_chunk_cuda(*args, chunk=chunk, normalize=True)
+    errs["tiled"].append(check_mlstm("main mLSTM float32", args, f32, chunk, True,
+                                     phase="llm_xlstm", abs_errs=abs_errs["tiled"]))
+    ms, _ = timed(cell, 5)
+    dev_ms = device_ms(cell, 3, "mlstm_chunk_tiled")
+    plain_ms, _ = timed(lambda: ref.mlstm_chunk_chunked(*args, chunk=chunk, normalize=True), 2)
     bytes_ = nbytes(*args) + nbytes(args[2])
-    b_ms, b_by = bound(bytes_, ops_)
-    occ = mlstm_chunk.tiled_occupancy(Dk, bf)
+    t_ms, t_by = max((bytes_ / PEAK_BYTES * 1e3, "bytes"), (ops_ / PEAK_FP32 * 1e3, "operations"))
+    occ = mlstm_chunk.tiled_occupancy(Dk, f32)
     blocks = B * H * -(-Dv // 32)
-    slots = torch.cuda.get_device_properties(dev).multi_processor_count * occ["blocks_per_sm"]
-    ptxas = {k_: v_ for k_, v_ in ptxas_by_kernel(_build.build_logs.get("mlstm_chunk", "")).items()
-             if k_.startswith("mlstm_chunk_tiled_kernel")}
-    res["kernel"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         float32_cuda_core_floor_ms=ops_ / PEAK_FP32 * 1e3, library_ms=None,
-                         ops=ops_, bytes=bytes_, max_rel_err=max(errs), max_abs_err=max(abs_errs))
-    emit("llm_xlstm", kernel="mlstm_chunk_tiled", timing="main mLSTM", card=smi(),
+    res["tiled"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=t_ms, bound_by=t_by,
+                        library_ms=None, ops=ops_, bytes=bytes_, max_rel_err=max(errs["tiled"]),
+                        max_abs_err=max(abs_errs["tiled"]))
+    emit("llm_xlstm", kernel="mlstm_chunk_tiled", timing="main mLSTM float32", card=smi(),
          shape=[B, S, H, Dk, Dv], chunk=chunk, kernel_name="mlstm_chunk_tiled_kernel",
          blocks=blocks, threads=256, blocks_per_sm=occ["blocks_per_sm"],
-         smem_bytes=occ["smem_bytes"], waves=blocks / slots, ptxas=ptxas,
-         library="none: no single PyTorch call computes the chunkwise mLSTM cell",
-         **res["kernel"])
+         smem_bytes=occ["smem_bytes"], waves=blocks / (slots * occ["blocks_per_sm"]),
+         ptxas={k_: v_ for k_, v_ in build_log.items() if k_.startswith("mlstm_chunk_tiled")},
+         sass=sass.get("mlstm_chunk_tiled_kernel") or "not measured (no cuobjdump)",
+         bound_note="float32 on the CUDA cores: operations at 67 TFLOP/s", **res["tiled"])
     del args
 
     # 2. float32, one mLSTM and one sLSTM layer at full width: the card
@@ -2458,6 +2561,7 @@ def phase_llm_xlstm(dev) -> dict:
     caches = [llm.init_cache(cfg2, B2, S2 + steps, device=dev),
               llm.init_cache(cfg2, B2, S2 + steps, device="cpu")]
     prefill2, step2 = llm.make_prefill_step(cfg2), llm.make_serve_step(cfg2)
+    reset_counts()
     got, caches[0] = prefill2(card_net, caches[0], {"tokens": toks[:, :S2].to(dev)})
     want, caches[1] = prefill2(cpu_net, caches[1], {"tokens": toks[:, :S2]})
     logit_errs = [rel_err("xlstm card vs CPU prefill", got.cpu(), want, SERVE_F32_TOL)]
@@ -2474,9 +2578,14 @@ def phase_llm_xlstm(dev) -> dict:
         got, caches[0] = step2(card_net, caches[0], toks[:, S2 + i].to(dev))
         want, caches[1] = step2(cpu_net, caches[1], toks[:, S2 + i])
         logit_errs.append(rel_err(f"xlstm card vs CPU step {i}", got.cpu(), want, SERVE_F32_TOL))
+    # float32 runs the Dk-tiled kernel: one launch, the prefill's mLSTM layer
+    res["float32_launches"] = llm_counts()
+    want_f32 = {**{k_: 0 for k_ in llm_counts()}, "mlstm_chunk_tiled": 1}
+    if res["float32_launches"] != want_f32:
+        raise AssertionError(f"xlstm float32 launches {res['float32_launches']}, expected {want_f32}")
     emit("llm_xlstm", check="card vs CPU path, float32", layers=list(cfg2.layer_kinds),
          batch=B2, prompt=S2, steps=steps, max_rel_err_by_step=logit_errs,
-         cache_max_rel_err=cache_errs, tol=SERVE_F32_TOL)
+         cache_max_rel_err=cache_errs, tol=SERVE_F32_TOL, launches=res["float32_launches"])
     res["card_vs_cpu"] = max(logit_errs + list(cache_errs.values()))
     del cpu_net, card_net, caches
 
@@ -2517,7 +2626,8 @@ def phase_llm_xlstm(dev) -> dict:
         raise AssertionError(f"xlstm cache pos {cache['pos']} after {S} + {N} tokens")
     kinds = collections.Counter(cfg.layer_kinds)
     zero = {k_: 0 for k_ in llm_counts()}
-    want = {"prefill": {**zero, "mlstm_chunk_tiled": kinds[BlockKind.MLSTM]}, "decode": zero}
+    want = {"prefill": {**zero, "mlstm_wide_state": kinds[BlockKind.MLSTM],
+                        "mlstm_wide_out": kinds[BlockKind.MLSTM]}, "decode": zero}
     if by_run != want:
         raise AssertionError(f"xlstm launches {by_run}, expected {want}")
     graph = [t for t in (logits, *(x for c in cache["layers"] for d in c.values()
@@ -2552,9 +2662,9 @@ def phase_llm_xlstm(dev) -> dict:
             torch.cuda.synchronize()
         rows = device_rows(pr)
         dev_s = sum(r[1] for r in rows) / 1e6
-        tiled_s = sum(r[1] for r in rows if "mlstm_chunk_tiled" in r[0]) / 1e6
+        wide_s = sum(r[1] for r in rows if "mlstm_wide" in r[0]) / 1e6
         prof[label] = dict(device_s=dev_s, wall_s=wall, busy_share=dev_s / wall,
-                           mlstm_tiled_s=tiled_s, mlstm_tiled_share_of_device=tiled_s / dev_s,
+                           mlstm_wide_s=wide_s, mlstm_wide_share_of_device=wide_s / dev_s,
                            device_launches=sum(r[2] for r in rows),
                            top=[[k_[:70], us / 1e6, n] for k_, us, n in rows[:10]])
         emit("llm_xlstm", profile=label, **prof[label])
@@ -3293,7 +3403,8 @@ def train_launches_want(cfg, grad_accum: int = 1) -> dict:
     n = grad_accum
     return {"flash_attention_fwd": n * fwd * attn, "flash_attention_bwd_dq": n * attn,
             "flash_attention_bwd_dkv": n * attn, "decode_attention": 0,
-            "mlstm_chunk": n * fwd * ssd, "mlstm_chunk_tiled": 0}
+            "mlstm_chunk": n * fwd * ssd, "mlstm_chunk_tiled": 0, "mlstm_wide_state": 0,
+            "mlstm_wide_out": 0}
 
 
 def train_run(arch: str, steps: int, dev, n_layers=None, grad_accum: int = 1) -> dict:
@@ -3673,17 +3784,30 @@ def main() -> int:
             dense_configs={a: {k_: t[a][k_] for k_ in ("ms", "bound_ms", "library_ms")}
                            for a in DENSE_D128},
         ))
-    # the Dk-tiled mLSTM kernel: xlstm-350m's prefill and decode runs
-    t = xlstm["kernel"]
-    by_run = {f"{XLSTM}_{run}": n["mlstm_chunk_tiled"]
-              for run, n in xlstm["serve"]["launches_by_run"].items()}
+    # past Dk 64: the tensor-core pair on xlstm-350m's prefill and decode
+    # runs (bf16), the Dk-tiled kernel on the float32 card-vs-CPU run
+    t = xlstm["wide"]
+    for name in ("mlstm_wide_state", "mlstm_wide_out"):
+        k = t["kernels"][name]
+        by_run = {f"{XLSTM}_{run}": n[name] for run, n in xlstm["serve"]["launches_by_run"].items()}
+        kernels.append(dict(
+            name=name, route="cuda", source="src/repro_torch/kernels/csrc/mlstm_chunk.cu",
+            replaces=llm_replaces["mlstm_chunk"], launches=sum(by_run.values()),
+            launches_by_run=by_run, max_abs_err=t["max_abs_err"], max_rel_err=t["max_rel_err"],
+            ms=k["device_ms"], pair_ms_events=t["ms"], plain_ms=t["plain_ms"],
+            plain_of="the whole cell (ref.mlstm_chunk_chunked)", bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], cell_bound_ms=t["bound_ms"], library_ms=t["library_ms"],
+        ))
+    t = xlstm["tiled"]
     kernels.append(dict(
         name="mlstm_chunk_tiled", route="cuda", source="src/repro_torch/kernels/csrc/mlstm_chunk.cu",
-        replaces=llm_replaces["mlstm_chunk"], launches=sum(by_run.values()), launches_by_run=by_run,
+        replaces=llm_replaces["mlstm_chunk"], launches=xlstm["float32_launches"]["mlstm_chunk_tiled"],
+        launches_by_run={f"{XLSTM}_float32_card_vs_cpu": xlstm["float32_launches"]["mlstm_chunk_tiled"],
+                         **{f"{XLSTM}_{run}": n["mlstm_chunk_tiled"]
+                            for run, n in xlstm["serve"]["launches_by_run"].items()}},
         max_abs_err=t["max_abs_err"], max_rel_err=t["max_rel_err"], ms=t["ms"],
         device_ms=t["device_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-        bound_by=t["bound_by"], float32_cuda_core_floor_ms=t["float32_cuda_core_floor_ms"],
-        library_ms=t["library_ms"],
+        bound_by=t["bound_by"], library_ms=t["library_ms"], dtype="float32",
     ))
     # the backward's kernels: the width-64 instances on TinyLlama's and
     # Hymba's train runs, the width-128 ones on qwen2-moe's (every launch

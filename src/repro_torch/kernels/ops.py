@@ -586,7 +586,8 @@ def mlstm_chunk(
     ``[B, S, H, Dv]``. On a CPU tensor the plain version in the form the
     reference's CPU path takes (the parallel form up to ``S = 256``, the
     chunked recurrence above); on a CUDA tensor the mLSTM kernels, at any
-    ``Dk`` up to 512 (past 64 the Dk-tiled one, xLSTM's 512-wide heads).
+    ``Dk`` up to 512 (past 64, xLSTM's 512-wide heads, the tensor-core pair
+    in bf16 and the Dk-tiled kernel in float32).
     Differentiable in all five inputs through :class:`MlstmChunk` either
     way."""
     if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 or v.shape[:3] != q.shape[:3]:

@@ -962,17 +962,25 @@ def mlstm_chunk_tc(
     f_gate: torch.Tensor,  # [B, S, H]
     *,
     chunk: int = 128,
+    normalize: bool = False,
+    eps: float = 1e-6,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """The rounding model of the bf16 SSD tensor-core kernel
-    (``csrc/mlstm_chunk.cu`` ``mlstm_ssd_mma_kernel``; ``normalize=False``):
-    :func:`mlstm_chunk_chunked` with the three float32 operands that the
-    kernel rounds to bf16 before a product rounded the same way, and
-    nowhere else: the intra-chunk scores ``S_intra`` before ``S_intra V``,
-    ``kw = k exp(w)`` before ``kw^T V`` and the carried state ``C`` before
-    ``q C`` (``C`` itself stays float32 from chunk to chunk)."""
-    return _mlstm_chunked(q, k, v, i_gate, f_gate, chunk=chunk, eps=0.0,
-                          normalize=False, scale=scale, round_to=torch.bfloat16)
+    """The rounding model of the bf16 tensor-core kernels: the SSD kernel up
+    to ``Dk = 64`` (``csrc/mlstm_chunk.cu`` ``mlstm_ssd_mma_kernel``;
+    ``normalize=False``) and the pair past it (``mlstm_wide_state_kernel``,
+    ``mlstm_wide_out_kernel``; either flag, ``eps`` only with
+    ``normalize``): :func:`mlstm_chunk_chunked` with the three float32
+    operands that the kernels round to bf16 before a product rounded the
+    same way, and nowhere else: the intra-chunk scores ``S_intra`` before
+    ``S_intra V``, ``kw = k exp(w)`` before ``kw^T V`` and the carried state
+    ``C`` before ``q C`` (``C`` itself stays float32 from chunk to chunk).
+    Under ``normalize`` the normaliser's row sums are taken from the float32
+    ``S_intra``, before its rounding, and ``q . n`` from the float32 ``n``,
+    whose update sums the rounded ``kw``; neither ``n`` nor the row sums are
+    rounded."""
+    return _mlstm_chunked(q, k, v, i_gate, f_gate, chunk=chunk, eps=eps, normalize=normalize,
+                          scale=scale, round_to=torch.bfloat16)
 
 
 def _mlstm_chunked(q, k, v, i_gate, f_gate, *, chunk, eps, normalize, scale, round_to):

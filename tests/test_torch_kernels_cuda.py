@@ -639,9 +639,13 @@ def test_ssd_mma_kernel_matches_model_and_plain(B, S, H, Dk, Dv, chunk):
 ])
 def test_mlstm_tiled_kernel_matches_plain(normalize, S, H, Dk, Dv, chunk, dtype):
     """Past Dk 64 (xLSTM's heads: Dk = Dv = 512) the Dk-tiled kernel runs,
-    and only it, whatever the flag and dtype."""
+    and only it, for float32 under either flag; bf16 calls reach it with a
+    chunk that is not a multiple of 16 (here 8 less than the case's), the
+    others run the tensor-core pair (``test_mlstm_wide_kernel_...``)."""
     _need_cuda()
     B = 2
+    if dtype == torch.bfloat16:
+        chunk -= 8
     g = torch.Generator().manual_seed(S + Dk)
     q, k = _randn(g, B, S, H, Dk, dtype=dtype), _randn(g, B, S, H, Dk, dtype=dtype)
     v = _randn(g, B, S, H, Dv, dtype=dtype)
@@ -651,7 +655,8 @@ def test_mlstm_tiled_kernel_matches_plain(normalize, S, H, Dk, Dv, chunk, dtype)
     else:
         fg = -torch.rand(B, S, H, generator=g).to("cuda") * 0.5
         ig = torch.log(torch.rand(B, S, H, generator=g) * 0.5 + 1e-3).to("cuda")
-    assert mlstm_chunk.uses_tiled(Dk) and not mlstm_chunk.uses_mma(dtype, normalize, chunk, Dk)
+    assert mlstm_chunk.uses_tiled(dtype, chunk, Dk) and not mlstm_chunk.uses_wide(dtype, chunk, Dk)
+    assert not mlstm_chunk.uses_mma(dtype, normalize, chunk, Dk)
     before = dict(mlstm_chunk.LAUNCHES)
     out = ops.mlstm_chunk(q, k, v, ig, fg, chunk=chunk, normalize=normalize)
     torch.cuda.synchronize()
@@ -659,6 +664,45 @@ def test_mlstm_tiled_kernel_matches_plain(normalize, S, H, Dk, Dv, chunk, dtype)
     want = ref.mlstm_chunk_chunked(q, k, v, ig, fg, chunk=chunk, normalize=normalize)
     tol = 1e-4 if dtype == torch.float32 else _LLM_TOL[dtype]
     assert out.dtype == dtype and _rel_err(out, want) <= tol
+
+
+# (normalize, B, S, H, Dk, Dv, chunk): xLSTM's Dk = Dv = 512 with S off the
+# chunk; Dk 80, Dv 96 (two Dv slices, the second 32 wide); Dk 100 and Dv 33
+# (element staging) with 16-chunks; Dk 128, Dv 64 with 64-chunks
+_WIDE_CASES = [(True, 2, 300, 2, 512, 512, 128), (False, 2, 300, 2, 512, 512, 128),
+               (True, 2, 150, 3, 80, 96, 128), (False, 2, 150, 3, 80, 96, 128),
+               (True, 2, 70, 3, 100, 33, 16), (True, 1, 200, 2, 128, 64, 64)]
+
+
+@pytest.mark.parametrize("normalize,B,S,H,Dk,Dv,chunk", _WIDE_CASES)
+def test_mlstm_wide_kernel_matches_model_and_plain(normalize, B, S, H, Dk, Dv, chunk):
+    """bf16 past Dk 64 with chunks a multiple of 16 runs the tensor-core pair
+    (one launch of each kernel, no other): within the rounding model's
+    elementwise limit of ``ref.mlstm_chunk_tc`` (with the flag) and 8e-3 of
+    ``ref.mlstm_chunk_chunked``."""
+    _need_cuda()
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(S + Dk)
+    q, k, v = (_randn(g, B, S, H, d, dtype=bf) for d in (Dk, Dk, Dv))
+    ig = torch.randn(B, S, H, generator=g).to("cuda")
+    if normalize:
+        fg = (torch.randn(B, S, H, generator=g) + 3.0).to("cuda")
+    else:
+        fg = -torch.rand(B, S, H, generator=g).to("cuda") * 0.5
+        ig = torch.log(torch.rand(B, S, H, generator=g) * 0.5 + 1e-3).to("cuda")
+    assert mlstm_chunk.uses_wide(bf, chunk, Dk) and not mlstm_chunk.uses_tiled(bf, chunk, Dk)
+    before = dict(mlstm_chunk.LAUNCHES)
+    out = ops.mlstm_chunk(q, k, v, ig, fg, chunk=chunk, normalize=normalize)
+    torch.cuda.synchronize()
+    assert mlstm_chunk.LAUNCHES == {**before, "mlstm_wide_state": before["mlstm_wide_state"] + 1,
+                                    "mlstm_wide_out": before["mlstm_wide_out"] + 1}
+    assert out.dtype == bf and bool(torch.isfinite(out.float()).all())
+    model = ref.mlstm_chunk_tc(q, k, v, ig, fg, chunk=chunk, normalize=normalize)
+    assert _model_share(out, model) <= 1.0
+    want = ref.mlstm_chunk_chunked(q, k, v, ig, fg, chunk=chunk, normalize=normalize)
+    assert _rel_err(out, want) <= _LLM_TOL[bf]
+    # the same bits again (no atomics)
+    assert torch.equal(ops.mlstm_chunk(q, k, v, ig, fg, chunk=chunk, normalize=normalize), out)
 
 
 def test_llm_kernels_refuse_shapes_past_their_limits():

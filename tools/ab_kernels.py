@@ -27,8 +27,18 @@ Groups (``--groups``, default all):
   Then the leap step's sums of that tick's transfers (``bank_sums_kernel``
   at S = 1, bitwise against ``ref.bank_sums``) beside the one-hot matmul
   that commit 593f029's leap step ran in its place.
-- ``selu_mlp``, ``mlstm_chunk``: called with this checkout's C signatures,
-  so the other sources must export the same two (commit 386eef2 does).
+- ``selu_mlp``: called with this checkout's C signature, so the other
+  sources must export the same (commit 386eef2 does).
+- ``mlstm_chunk``: the SSD kernel at hymba-1.5b's serving shape (bf16), then
+  xlstm-350m's prefill shape (B 8, S 2,048, H 4, Dk = Dv = 512, chunk 128,
+  normalize): in bf16 this build's tensor-core pair against the other's
+  kernel (the Dk-tiled one before the pair), both within 8e-3 of
+  ``ref.mlstm_chunk_chunked``, timed in turns; in float32 (the Dk-tiled
+  kernel in both) every output bitwise the other's, at that shape and on
+  ``chip_smoke.py``'s ``TILED_CASES``. The other's ``mlstm_chunk_launch``
+  is called with its own C signature: this checkout's where it exports
+  ``mlstm_chunk_scratch_floats``, else the one without the scratch
+  argument (commits 386eef2 to 152b846).
 - ``flash``: the flash-attention forward and backward (dq, then dk/dv) at
   head dims up to 64, called with this checkout's C signatures of
   ``flash_attention_fwd_launch``, ``flash_attention_bwd_dq_launch`` and
@@ -68,8 +78,11 @@ from repro_torch.kernels import _build, flash_attention, grid_tick, mlstm_chunk,
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float
 # the per-campaign launch's C signature at commit 593f029
 OLD_CAMPAIGN_ARGTYPES = [P] * 3 + [I] + [P] * 3 + [I] + [P] * 3 + [I] * 4 + [P]
+# mlstm_chunk_launch without the scratch argument (commits 386eef2 to 152b846)
+OLD_MLSTM_ARGTYPES = [P] * 6 + [I] * 7 + [F] * 3 + [I, P]
 
 
 def build_other(csrc: str, out_dir: str, names) -> dict:
@@ -89,9 +102,17 @@ def build_other(csrc: str, out_dir: str, names) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"other {name}.cu did not build:\n{log}")
         libs[name] = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
-    for name, mod in (("selu_mlp", selu_mlp), ("mlstm_chunk", mlstm_chunk)):
-        if name in libs:
-            getattr(libs[name], f"{name}_launch").argtypes = getattr(mod._lib(), f"{name}_launch").argtypes
+    if "selu_mlp" in libs:
+        libs["selu_mlp"].selu_mlp_launch.argtypes = selu_mlp._lib().selu_mlp_launch.argtypes
+    if "mlstm_chunk" in libs:
+        other = libs["mlstm_chunk"]
+        other.scratch = hasattr(other, "mlstm_chunk_scratch_floats")
+        if other.scratch:
+            ours = mlstm_chunk._lib().mlstm_chunk_scratch_floats
+            other.mlstm_chunk_scratch_floats.argtypes = ours.argtypes
+            other.mlstm_chunk_scratch_floats.restype = ours.restype
+        other.mlstm_chunk_launch.argtypes = (mlstm_chunk._lib().mlstm_chunk_launch.argtypes
+                                             if other.scratch else OLD_MLSTM_ARGTYPES)
     if "flash_attention" in libs:
         for fn in ("flash_attention_fwd_launch", "flash_attention_bwd_dq_launch",
                    "flash_attention_bwd_dkv_launch"):
@@ -243,12 +264,21 @@ def other_selu(lib, x, ws, bs):
     return out
 
 
-def other_ssd(lib, q, k, v, ig, fg, chunk):
+def other_mlstm(lib, q, k, v, ig, fg, chunk, normalize):
+    """The other build's cell as ``mlstm_chunk_cuda`` launches it, with the
+    other's C signature."""
     B, S, H, Dk = q.shape
-    out = torch.empty((B, S, H, v.shape[-1]), dtype=q.dtype, device=q.device)
-    err = lib.mlstm_chunk_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), ig.data_ptr(),
-                                 fg.data_ptr(), out.data_ptr(), B, S, H, Dk, v.shape[-1], chunk,
-                                 0, 1.0, 1e-6, 0.0, 1, torch.cuda.current_stream().cuda_stream)
+    Dv = v.shape[-1]
+    code = flash_attention.dtype_code(q)
+    out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=q.device)
+    tail = (B, S, H, Dk, Dv, chunk, int(normalize), Dk ** -0.5 if normalize else 1.0, 1e-6,
+            30.0 if normalize else 0.0, code, torch.cuda.current_stream().cuda_stream)
+    ptrs = [x.data_ptr() for x in (q, k, v, ig, fg, out)]
+    if lib.scratch:
+        n = lib.mlstm_chunk_scratch_floats(B, S, H, Dk, Dv, chunk, code)
+        scratch = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
+        ptrs.append(None if scratch is None else scratch.data_ptr())
+    err = lib.mlstm_chunk_launch(*ptrs, *tail)
     if err != 0:
         raise RuntimeError(f"other mlstm_chunk launch failed: {err}")
     return out
@@ -340,6 +370,55 @@ def ab_flash(other_lib, dev) -> None:
             raise AssertionError(f"flash {label} {dtype}: this build's bits differ from the other's")
 
 
+def ab_mlstm(other_lib, dev) -> None:
+    """The SSD kernel at hymba's serving shape; xlstm-350m's prefill shape in
+    bf16 (this build's pair against the other's kernel) and float32 (the
+    Dk-tiled kernel, bitwise), and float32 bitwise on the tiled cases."""
+    bf, f32 = torch.bfloat16, torch.float32
+    ssd = cs.mlstm_case(cs.LLM_B, cs.LLM_S, 25, 16, 128, False, bf, seed=13, dev=dev)
+    want = ref.mlstm_chunk_chunked(*ssd, chunk=128, normalize=False)
+    this = lambda: mlstm_chunk.mlstm_chunk_cuda(*ssd, chunk=128, normalize=False)
+    other = lambda: other_mlstm(other_lib, *ssd, 128, False)
+    row = dict(kernel="mlstm_chunk", shape=[cs.LLM_B, cs.LLM_S, 25, 16, 128], chunk=128,
+               this_rel_err=cs.rel_err("this ssd", this(), want, cs.LLM_TOL[bf]),
+               other_rel_err=cs.rel_err("other ssd", other(), want, cs.LLM_TOL[bf]))
+    row.update(turns(other, this, 20, "mlstm"))
+    print(json.dumps(row), flush=True)
+    del ssd
+
+    cfg = cs.configs.get_config(cs.XLSTM)
+    H = cfg.n_heads
+    D = cfg.ssm_expand * cfg.d_model // H
+    shape = [cs.LLM_B, cs.LLM_S, H, D, D]
+    x = cs.mlstm_case(*shape[:3], D, D, True, bf, seed=17, dev=dev)
+    want = ref.mlstm_chunk_chunked(*x, chunk=128, normalize=True)
+    this = lambda: mlstm_chunk.mlstm_chunk_cuda(*x, chunk=128, normalize=True)
+    other = lambda: other_mlstm(other_lib, *x, 128, True)
+    row = dict(kernel="mlstm past Dk 64, bf16", shape=shape, chunk=128,
+               this_kernels="mlstm_wide_state_kernel, mlstm_wide_out_kernel",
+               this_rel_err=cs.rel_err("this xlstm", this(), want, cs.LLM_TOL[bf]),
+               other_rel_err=cs.rel_err("other xlstm", other(), want, cs.LLM_TOL[bf]))
+    row.update(turns(other, this, 5, "mlstm_wide", other_tag="mlstm_"))
+    print(json.dumps(row), flush=True)
+    del x, want
+
+    same = []
+    cases = [(2, S_, H_, Dk, Dv, normalize) for normalize, S_, H_, Dk, Dv in cs.TILED_CASES]
+    for B, S_, H_, Dk, Dv, normalize in cases + [(*shape[:3], D, D, True)]:
+        x = cs.mlstm_case(B, S_, H_, Dk, Dv, normalize, f32, seed=S_ + Dk, dev=dev)
+        this = mlstm_chunk.mlstm_chunk_cuda(*x, chunk=128, normalize=normalize)
+        same.append(bool(torch.equal(this, other_mlstm(other_lib, *x, 128, normalize))))
+        print(json.dumps(dict(kernel="mlstm_chunk_tiled", dtype="float32", shape=[B, S_, H_, Dk, Dv],
+                              normalize=normalize, bitwise_other=same[-1])), flush=True)
+    row = dict(kernel="mlstm_chunk_tiled", dtype="float32", shape=shape, chunk=128)
+    row.update(turns(lambda: other_mlstm(other_lib, *x, 128, True),
+                     lambda: mlstm_chunk.mlstm_chunk_cuda(*x, chunk=128, normalize=True), 3,
+                     "mlstm_chunk_tiled"))
+    print(json.dumps(row), flush=True)
+    if not all(same):
+        raise AssertionError("mlstm float32: this build's bits differ from the other's")
+
+
 def turns(other, this, reps, tag, other_tag=None) -> dict:
     """Device ms of each, in turns other, this, this, other (the other's
     kernels named ``other_tag`` where their names differ; "" takes all)."""
@@ -385,18 +464,7 @@ def main() -> int:
                              lambda: selu_mlp.selu_mlp_cuda(x, ws, bs), 200, "selu_mlp_kernel"))
             print(json.dumps(row), flush=True)
     if "mlstm_chunk" in args.groups:
-        bf = torch.bfloat16
-        ssd = cs.mlstm_case(cs.LLM_B, cs.LLM_S, 25, 16, 128, False, bf, seed=13, dev=dev)
-        want = ref.mlstm_chunk_chunked(*ssd, chunk=128, normalize=False)
-        row = dict(kernel="mlstm_chunk", shape=[cs.LLM_B, cs.LLM_S, 25, 16, 128], chunk=128,
-                   this_rel_err=cs.rel_err("this ssd", mlstm_chunk.mlstm_chunk_cuda(
-                       *ssd, chunk=128, normalize=False), want, cs.LLM_TOL[bf]),
-                   other_rel_err=cs.rel_err("other ssd", other_ssd(libs["mlstm_chunk"], *ssd, 128),
-                                            want, cs.LLM_TOL[bf]))
-        row.update(turns(lambda: other_ssd(libs["mlstm_chunk"], *ssd, 128),
-                         lambda: mlstm_chunk.mlstm_chunk_cuda(*ssd, chunk=128, normalize=False), 20,
-                         "mlstm"))
-        print(json.dumps(row), flush=True)
+        ab_mlstm(libs["mlstm_chunk"], dev)
     print(cs.smi(), flush=True)
     return 0
 

@@ -4,7 +4,7 @@ checkout's, on one card, in turns: other, this, this, other.
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
     mkdir -p build/parent && git archive <commit> src | tar -x -C build/parent
-    python3 tools/ab_walls.py --other build/parent [--groups fleet campaign section5]
+    python3 tools/ab_walls.py --other build/parent [--groups fleet campaign section5 xlstm]
 
 Each turn is a process of its own that imports one checkout's
 ``repro_torch`` (both packages have that name), builds its kernels into
@@ -23,7 +23,13 @@ last; and
 
 - ``section5``: ``repro_torch.launch.calibrate``'s ``main`` at its
   defaults once, the seconds of each stage between
-  ``torch.cuda.synchronize()`` calls.
+  ``torch.cuda.synchronize()`` calls;
+
+- ``xlstm``: xlstm-350m at full width in bf16 (weights from seed 0): a
+  prefill of 8 x 2,048 tokens and 64 greedy decode steps, one warm-up
+  serve, then ``--reps`` timed ones (each part ending in
+  ``torch.cuda.synchronize()``), with the mLSTM kernels' launches of the
+  last prefill.
 
 One JSON line per turn, a summary line (every wall of each side, and their
 medians), then the card's name and power limit.
@@ -38,7 +44,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUNS = (("tick", "default"), ("tick", "stochastic"), ("leap", "default"), ("leap", "stochastic"))
-GROUPS = ("fleet", "campaign", "section5")
+GROUPS = ("fleet", "campaign", "section5", "xlstm")
 THETA_SECTION5 = (0.02, 36.9, 14.4)  # the Section-5 launcher's ground truth
 
 
@@ -67,6 +73,38 @@ def child(root: str, group: str, n: int, replicas: int, reps: int) -> None:
         path = os.path.join(root, "build", "reports", "ab_section5.json")
         with contextlib.redirect_stdout(io.StringIO()):
             calibrate.main(["--device", "cuda", "--out", path], stage=stage)
+        print(json.dumps(out), flush=True)
+        return
+    if group == "xlstm":
+        from repro_torch import configs
+        from repro_torch.kernels import mlstm_chunk
+        from repro_torch.models import model as llm
+
+        cfg = configs.get_config("xlstm-350m")
+        B, S, N = 8, 2048, 64
+        net = llm.init_params(0, cfg, device="cuda")
+        prefill, step = llm.make_prefill_step(cfg), llm.make_serve_step(cfg)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                               generator=torch.Generator().manual_seed(0)).to("cuda")
+
+        def serve():
+            cache = llm.init_cache(cfg, B, S + N, device="cuda")
+            torch.cuda.synchronize()
+            mlstm_chunk.reset_launches()
+            t0 = time.perf_counter()
+            logits, cache = prefill(net, cache, {"tokens": tokens})
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            launches = dict(mlstm_chunk.LAUNCHES)
+            for _ in range(N):
+                logits, cache = step(net, cache, logits.argmax(-1))
+            torch.cuda.synchronize()
+            return t1 - t0, time.perf_counter() - t1, launches
+
+        serve()  # warm-up
+        rows = [serve() for _ in range(reps)]
+        out["prefill"] = dict(wall_s=[r[0] for r in rows], launches=rows[-1][2])
+        out["decode_64_steps"] = dict(wall_s=[r[1] for r in rows])
         print(json.dumps(out), flush=True)
         return
     if group == "fleet":
