@@ -8,14 +8,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. build   — compile every CUDA source under ``src/repro_torch/kernels/csrc``
    with ``nvcc`` (all at once) and load it; ptxas registers and spills by
-   kernel, the bf16 tensor-core kernels' and the bank kernels' blocks an SM;
+   kernel, the bf16 tensor-core kernels' and the bank kernels' blocks an SM,
+   the wide bank kernels' dynamic shared memory and blocks an SM at the
+   long tail's widest bucket and the serving bench's widest slot bank;
 2. kernels — each bank kernel against its plain PyTorch version on the
    card, on a 7-family bank (bank-wide and per-replica keep/mu/sigma), and
    their wide instances on a scale-3 bank (T 162, P 162): bitwise, since
    both take every sum in the order of the bank's segment lists (the one
    tick also within RTOL/ATOL of the one-hot matmul); the spec's tables,
    built from the host rows, equal to those built from the incidences on
-   the card, the fused window bitwise on both;
+   the card, the fused window bitwise on both; then the wide instances at
+   each shape the main path gives them (the serving bench's widest slot
+   bank and every wide bucket of the long-tail fleet as the bucketed
+   dispatch runs it): one K=32 window, one tick and its sums, bitwise, with
+   the fused kernel's instance by ``grid_tick.wide_occupancy``;
 3. main    — ``Fleet.from_scenarios(n=1024).run(replicas=64)`` (65,536
    elements) in tick and leap mode, default and stochastic params, with the
    kernels' launch counts of each timed run (counts set to 0 just before
@@ -62,8 +68,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    under ``torch.profiler``, and the device's busy share;
 6. timing  — each bank kernel and its plain version at the main path's
    shapes, and each wide instance at the long-tail fleet's widest bucket:
-   the outputs held bitwise against each other, the times taken with CUDA
-   events, beside the least time the card could take;
+   the outputs held bitwise against each other, the times taken as
+   profiler device time and with CUDA events, beside the least time the
+   card could take;
 7. calibrate — the SELU-MLP kernel against its plain version at the
    calibration path's shapes (forward and backward; N = 8,192, 4,096, the
    Section-5 chains' N = 4 and a ragged 37; each bitwise equal),
@@ -87,10 +94,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 9. campaign — ``simulate_batch`` of the Section-5 campaign at B = 2,048,
    tick and leap, default and stochastic background load, with sims/s and
    launches per run (in a leap run one sums launch an event step, one per
-   tick launch); device time by kernel of a stochastic tick (300 ticks) and
-   leap run under ``torch.profiler``; window invariance (K=1 vs K=64,
-   bitwise); card vs CPU path, bitwise; the tick's and the sums launch's
-   device time at the main shape (``torch.profiler``) beside their bounds,
+   tick launch); device time by kernel of a stochastic tick (100 ticks) and
+   leap run (3,000 ticks) under ``torch.profiler``; window invariance (K=1
+   vs K=64 on 64 simulations, the tick run cut at 2,000 ticks, bitwise);
+   card vs CPU path, bitwise (4 simulations, the tick run cut at 500
+   ticks); the tick's and the sums launch's device time at the main shape
+   (``torch.profiler``) beside their bounds,
    the sums beside the one-hot matmul they replace;
 10. section5 — ``repro_torch.launch.calibrate``'s ``main`` at its defaults
    (8,192 presimulated tuples x 4 replicates, 120 epochs, 4 x 8,000 MCMC
@@ -183,9 +192,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    (TinyLlama) or 3 (Hymba) timed steps, with tokens/s, losses, grad norms,
    peak memory, launches per step held to their counts, and one step under
    ``torch.profiler`` (Hymba's SSD backward range and its share); one
-   float32 step of 2 layers of each on the card against the CPU path; the
-   ``Trainer``'s restart continuity on the card at both smoke configs (6
-   steps straight against 3, a restore, 3 more).
+   float32 step of 2 layers of each (qwen2-moe's of 1) on the card against
+   the CPU path; the ``Trainer``'s restart continuity on the card at both
+   smoke configs (6 steps straight against 3, a restore, 3 more).
 
 Then the ``kernels`` line, the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -226,6 +235,7 @@ from repro_torch.kernels import decode_attention, flash_attention, mlstm_chunk  
 from repro_torch.launch import calibrate as calibrate_launcher  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.serve import ServeConfig, SimRequest, SimServer, synthetic_workload  # noqa: E402
+from repro_torch.serve import cache as serve_cache  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.models import model as llm  # noqa: E402
 from repro_torch.models import transformer as llm_stack  # noqa: E402
@@ -364,6 +374,13 @@ def phase_build() -> dict:
                   if "bank_" in k}
     emit("build", kernel="bank_fused_kernel, bank_tick_kernel", ptxas=bank_ptxas,
          blocks_per_sm=grid_tick.bank_occupancy())
+    # the wide instances' registers and spills, and their dynamic shared
+    # memory and blocks an SM at the long tail's widest bucket and the
+    # serving bench's widest slot bank
+    wide_ptxas = {k: v for k, v in bank_ptxas.items() if "_wide_" in k}
+    emit("build", kernel="bank_fused_wide_kernel, bank_tick_wide_kernel, bank_sums_wide_kernel",
+         ptxas=wide_ptxas, occupancy={f"{t}x{p_}x{l}": grid_tick.wide_occupancy(t, p_, l)
+                                      for t, p_, l in ((196, 196, 2), (256, 256, 8))})
     # the bf16 forward's registers, spills and blocks an SM at both widths
     fwd_ptxas = {k: v for k, v in ptxas_by_kernel(_build.build_logs.get("flash_attention", "")).items()
                  if k.startswith("flash_fwd")}
@@ -423,7 +440,9 @@ def phase_kernels(dev) -> dict:
     and their wide instances on a 64-scenario scale-3 bank (T 162, P 162):
     the fused window bitwise on every carry field, the one tick bitwise on
     its three outputs (``remaining`` finite, and ``inf`` as the leap scan
-    calls it), and the sums kernel bitwise on the tick's transfers."""
+    calls it), and the sums kernel bitwise on the tick's transfers; then the
+    wide instances at :func:`wide_main_path_shapes` (one K=32 window of
+    :func:`first_window`, one tick of :func:`tick_inputs` and its sums)."""
     R, K = 8, 16
     errs = {k: 0.0 for k in BANK_KERNELS + WIDE_KERNELS}
     for names, bank in ((BANK_KERNELS, build_bank(n=64, seed=0)),
@@ -459,6 +478,29 @@ def phase_kernels(dev) -> dict:
                 errs[sums] = max(errs[sums], fields["sums_proc"], fields["sums_link"])
                 emit("kernels", kernel=tick, per_replica=per_replica, remaining=label,
                      bitwise=True, S=bank.n_scenarios, R=R, max_abs_err=fields)
+    fused, tick, sums = WIDE_KERNELS
+    for label, spec, p, R_ in wide_main_path_shapes(dev):
+        S, T = spec.size_mb.shape
+        P, L = spec.leg_proc.shape[-1], spec.bandwidth.shape[-1]
+        state, noise, mu, sigma, consts = first_window(spec, p, R_, dev)
+        tables = spec.bank_tables
+        want = ref.grid_tick_bank_window(state, mu, sigma, *consts, leap=False, noise=noise,
+                                         tables=tables)
+        got = ops.grid_tick_bank_fused(state, mu, sigma, *consts, window=32, noise=noise,
+                                       tables=tables)
+        fields = {name: compare(f"{fused} {label} {name}", g_, w_, exact=True)
+                  for name, g_, w_ in zip(ref.BANK_WINDOW_STATE_FIELDS, got, want)}
+        errs[fused] = max(errs[fused], *fields.values())
+        occ = grid_tick.wide_occupancy(T, P, L)
+        emit("kernels", kernel=fused, case=label, bitwise=True, S=S, R=R_, K=32, pads=[T, P, L],
+             instance=f"<{occ['fused_slots']}, {occ['fused_link_slots']}>",
+             max_abs_err=fields, alive_steps=int(got[1].sum()))
+        active, remaining, keep, bg = tick_inputs(spec, p, R_, dev)[:4]
+        fields = check_bank_tick(label, active, remaining, keep, bg, consts, tables)
+        errs[tick] = max(errs[tick], fields["xfer"], fields["proc_xfer"], fields["link_xfer"])
+        errs[sums] = max(errs[sums], fields["sums_proc"], fields["sums_link"])
+        emit("kernels", kernel=tick, case=label, remaining="inf", bitwise=True, S=S, R=R_,
+             max_abs_err=fields)
     torch.cuda.synchronize()
     return errs
 
@@ -1004,7 +1046,9 @@ def phase_profile(dev, main_run: dict) -> dict:
     out = {}
     for leap in (False, True):
         mode = "leap" if leap else "tick"
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # device activity alone: the host's ~100,000 op events of a tick
+        # run cost the profiler tens of seconds and no device time
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fleet.run(replicas=N_REP, leap=leap)
             torch.cuda.synchronize()
         rows = device_rows(prof)
@@ -1091,17 +1135,14 @@ def nbytes(*xs) -> int:
     return sum(x.numel() * x.element_size() for x in xs)
 
 
-def time_bank_kernels(spec, p, R: int, dev, names=BANK_KERNELS) -> dict:
-    """Each bank kernel and its plain version on ``spec`` (a stacked spec
-    on the card) x ``R`` replicas with bank-wide params ``p``: the fused
-    kernel over one K=32 window of the stochastic tick run's first carry,
-    the one-tick kernel with ``remaining = inf`` as the leap scan calls it,
-    the sums kernel on that tick's transfers. The outputs are held against
-    each other, then timed; ``names`` are the rows' names."""
-    S, T = spec.size_mb.shape
-    P, L = spec.leg_proc.shape[-1], spec.bandwidth.shape[-1]
-    K = 32
-    mu, sigma = p.bg_mu[:, None], p.bg_sigma[:, None]
+def first_window(spec, p, R: int, dev, K: int = 32):
+    """``(state, noise, mu, sigma, consts)``: the stochastic tick run's first
+    carry on ``spec`` (a stacked spec on the card) x ``R`` replicas with
+    bank-wide params ``p``, ``K`` noise rows from a seed, and the window's
+    constants in ``ref.grid_tick_bank_window``'s order."""
+    S = spec.size_mb.shape[0]
+    L = spec.bandwidth.shape[-1]
+    mu, sigma = p.bg_mu[:, None].contiguous(), p.bg_sigma[:, None].contiguous()
     consts = (spec.release, spec.dep, spec.bg_period, spec.max_ticks, p.keep_frac,
               spec.bandwidth, spec.leg_proc, spec.proc_link, spec.leg_link)
     c = engine._banked_init_carry(spec, p, torch.zeros((S, R, 2), dtype=torch.int64, device=dev))
@@ -1109,10 +1150,90 @@ def time_bank_kernels(spec, p, R: int, dev, names=BANK_KERNELS) -> dict:
              c.t_start, c.t_end, c.conth, c.conpr, c.bg)
     noise = torch.randn((K, S, R, L), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(0))
+    return state, noise, mu, sigma, consts
+
+
+def tick_inputs(spec, p, R: int, dev):
+    """The one-tick kernel's arguments on ``spec`` x ``R`` replicas as the
+    leap scan calls it (``remaining = inf``): half the valid legs active,
+    random background loads, from a seed."""
+    S, T = spec.size_mb.shape
+    L = spec.bandwidth.shape[-1]
+    f32 = torch.float32
+    g = torch.Generator(device="cpu").manual_seed(2)
+    active = (torch.rand((S, R, T), generator=g) < 0.5).to(dev).to(f32) * spec.leg_valid[:, None].to(f32)
+    remaining = torch.full((S, R, T), float("inf"), dtype=f32, device=dev)
+    bg = torch.rand((S, R, L), generator=g).to(dev)
+    return (active, remaining, p.keep_frac.contiguous(), bg, spec.bandwidth.to(f32),
+            spec.bank_tables)
+
+
+def long_tail_bucket(sub, dev):
+    """``(spec, p, R)``: a bucket ``sub`` of the long-tail fleet as the
+    bucketed dispatch runs it at ``N_REP`` replicas (a singleton bucket
+    folded over its replicas), with bank-wide stochastic params."""
+    fold = engine._replica_fold(N_REP) if sub.n_scenarios == 1 else 1
+    spec = engine._folded_spec(sub, fold, dev) if fold > 1 else engine.bank_spec(sub, dev)
+    p = engine.make_bank_params(sub, bg_mu=2.0, bg_sigma=1.0, device=dev)
+    p = engine.SimParams(*(None if f is None else f.expand((spec.size_mb.shape[0],) + tuple(
+        f.shape[1:])).contiguous() for f in p))
+    return spec, p, N_REP // fold
+
+
+def widest_long_tail(dev):
+    """:func:`long_tail_bucket` of the long-tail fleet's widest bucket (S 3,
+    R 64, T 196, P 196, L 2)."""
+    fleet = Fleet.from_scenarios(**LONG_TAIL, device=dev)
+    return long_tail_bucket(max(fleet.bank.buckets, key=lambda b: b.bank.pad_legs).bank, dev)
+
+
+def wide_main_path_shapes(dev):
+    """``(label, spec, p, R)`` of each shape at which the main path runs
+    the wide instances: the serving bench's widest slot bank and every wide
+    bucket of the long-tail fleet."""
+    out = [("serve_256", *serve_wide_bank(dev))]
+    fleet = Fleet.from_scenarios(**LONG_TAIL, device=dev)
+    for b in fleet.bank.buckets:
+        sub = b.bank
+        if grid_tick._wide(sub.pad_legs, sub.pad_procs, sub.pad_links):
+            out.append((f"long_tail_T{sub.pad_legs}", *long_tail_bucket(sub, dev)))
+    return out
+
+
+def serve_wide_bank(dev):
+    """``(spec, p, R)``: the serving bench's widest slot bank (its requests
+    at pad signature (256, 256, 8), 4 replicas each) with bank-wide
+    stochastic params."""
+    b = SERVE_BENCH
+    wl = synthetic_workload(b["n"], rate=b["rate"], seed=0, scale=b["scale"],
+                            replicas=b["replicas"])
+    sig = (256, 256, 8)
+    pairs = [(r.grid, r.campaign) for _, r in wl
+             if serve_cache.pad_signature(workload.compile_campaign(r.grid, r.campaign)) == sig]
+    bank = Fleet.from_pairs(pairs, pad_floors=sig, device=dev).bank
+    spec = engine.bank_spec(bank, dev)
+    return spec, engine.make_bank_params(bank, bg_mu=2.0, bg_sigma=1.0, device=dev), b["replicas"]
+
+
+def time_bank_kernels(spec, p, R: int, dev, names=BANK_KERNELS) -> dict:
+    """Each bank kernel and its plain version on ``spec`` x ``R`` replicas
+    with bank-wide params ``p``: the fused kernel over one K=32 window of
+    :func:`first_window`, the one-tick kernel with ``remaining = inf`` as
+    the leap scan calls it, the sums kernel on that tick's transfers. The
+    outputs are held against each other, then timed: ``ms`` is profiler
+    device time, ``events_ms`` CUDA events around a loop of calls (which
+    at the wide shapes time the host's launch); ``names`` are the rows'
+    names."""
+    S, T = spec.size_mb.shape
+    P, L = spec.leg_proc.shape[-1], spec.bandwidth.shape[-1]
+    K = 32
+    state, noise, mu, sigma, consts = first_window(spec, p, R, dev, K)
     tables = spec.bank_tables
     f32 = torch.float32
-    args = (state, noise, mu.contiguous(), sigma.contiguous(), *consts[:5], consts[5], tables)
-    fused_ms, got = timed(lambda: grid_tick.grid_tick_bank_fused_cuda(*args), 20)
+    args = (state, noise, mu, sigma, *consts[:6], tables)
+    fused = lambda: grid_tick.grid_tick_bank_fused_cuda(*args)
+    fused_events_ms, got = timed(fused, 20)
+    fused_ms = device_ms(fused, 20, "bank_fused")
     alive_steps = int(got[1].sum())
     plain_fused_ms, want = timed(lambda: ref.grid_tick_bank_window(
         state, mu, sigma, *consts, leap=False, noise=noise, tables=tables), 2)
@@ -1126,13 +1247,11 @@ def time_bank_kernels(spec, p, R: int, dev, names=BANK_KERNELS) -> dict:
     fused_bound = max(fused_bytes / PEAK_BYTES, fused_ops / PEAK_FP32) * 1e3
     fused_by = "bytes" if fused_bytes / PEAK_BYTES >= fused_ops / PEAK_FP32 else "operations"
 
-    g = torch.Generator(device="cpu").manual_seed(2)
-    active = (torch.rand((S, R, T), generator=g) < 0.5).to(dev).to(f32) * spec.leg_valid[:, None].to(f32)
-    remaining = torch.full((S, R, T), float("inf"), dtype=f32, device=dev)
-    bg = torch.rand((S, R, L), generator=g).to(dev)
-    keep = p.keep_frac.contiguous()
-    targs = (active, remaining, keep, bg, spec.bandwidth.to(f32), tables)
-    tick_ms, got = timed(lambda: grid_tick.grid_tick_bank_cuda(*targs), 50)
+    targs = tick_inputs(spec, p, R, dev)
+    active, remaining, keep, bg = targs[:4]
+    tick = lambda: grid_tick.grid_tick_bank_cuda(*targs)
+    tick_events_ms, got = timed(tick, 50)
+    tick_ms = device_ms(tick, 50, "bank_tick")
     plain_tick_ms, want = timed(lambda: ref.grid_tick_bank_indexed(
         active, remaining, keep, bg, spec.bandwidth, spec.leg_proc, spec.proc_link, tables), 5)
     tick_errs = {n: compare(f"tick {n} at {names[1]} shapes", g_, w_, exact=True)
@@ -1159,11 +1278,13 @@ def time_bank_kernels(spec, p, R: int, dev, names=BANK_KERNELS) -> dict:
     sums_bound = max(sums_bytes / PEAK_BYTES, sums_ops / PEAK_FP32) * 1e3
     sums_by = "bytes" if sums_bytes / PEAK_BYTES >= sums_ops / PEAK_FP32 else "operations"
     return {
-        names[0]: dict(ms=fused_ms, plain_ms=plain_fused_ms, bound_ms=fused_bound,
+        names[0]: dict(ms=fused_ms, events_ms=fused_events_ms, plain_ms=plain_fused_ms,
+                       bound_ms=fused_bound,
                        bound_by=fused_by, bytes=fused_bytes, ops=fused_ops,
                        shape=[K, S, R, T, P, L], alive_steps=alive_steps,
                        max_abs_err=fused_errs),
-        names[1]: dict(ms=tick_ms, plain_ms=plain_tick_ms, bound_ms=tick_bound,
+        names[1]: dict(ms=tick_ms, events_ms=tick_events_ms, plain_ms=plain_tick_ms,
+                       bound_ms=tick_bound,
                        bound_by=tick_by, bytes=tick_bytes, ops=tick_ops,
                        shape=[S, R, T, P, L], max_abs_err=tick_errs),
         names[2]: dict(ms=sums_ms, events_ms=sums_events_ms, plain_ms=plain_sums_ms,
@@ -1182,14 +1303,7 @@ def phase_timing(dev) -> dict:
     spec = engine.bank_spec(bank, dev)
     p = engine.make_bank_params(bank, bg_mu=2.0, bg_sigma=1.0, device=dev)
     res = time_bank_kernels(spec, p, N_REP, dev)
-    fleet = Fleet.from_scenarios(**LONG_TAIL, device=dev)
-    sub = max(fleet.bank.buckets, key=lambda b: b.bank.pad_legs).bank
-    fold = engine._replica_fold(N_REP) if sub.n_scenarios == 1 else 1
-    spec = engine._folded_spec(sub, fold, dev) if fold > 1 else engine.bank_spec(sub, dev)
-    p = engine.make_bank_params(sub, bg_mu=2.0, bg_sigma=1.0, device=dev)
-    p = engine.SimParams(*(None if f is None else f.expand((spec.size_mb.shape[0],) + tuple(
-        f.shape[1:])).contiguous() for f in p))
-    res.update(time_bank_kernels(spec, p, N_REP // fold, dev, names=WIDE_KERNELS))
+    res.update(time_bank_kernels(*widest_long_tail(dev), dev, names=WIDE_KERNELS))
     emit("timing", card=smi(), **res)
     return res
 
@@ -1348,12 +1462,12 @@ def phase_calibrate(dev) -> dict:
     )
     emit("calibrate", **res)
 
-    # where the time goes: a 501-step MCMC over every scenario's chains and
-    # two training epochs on the presimulated tuples, profiled
+    # where the time goes: a 201-step MCMC over every scenario's chains and
+    # one training epoch on the presimulated tuples, profiled
     prof = {}
     prof["mcmc"] = profile_steps(
-        lambda: post.theta_star_all(prng.PRNGKey(1, dev), n_samples=400, burn_in=100),
-        501, stages["mcmc"]["seconds"] / (mcmc_steps + 1))
+        lambda: post.theta_star_all(prng.PRNGKey(1, dev), n_samples=150, burn_in=50),
+        201, stages["mcmc"]["seconds"] / (mcmc_steps + 1))
     theta_u = calibration.PriorBox.paper(dev).to_unit(theta)
     x_lo, x_hi = (torch.tensor(v, device=dev) for v in (cfg.x_low, cfg.x_high))
     x_u = torch.clamp((x_sim - x_lo) / (x_hi - x_lo), 0.0, 1.0)
@@ -1361,8 +1475,8 @@ def phase_calibrate(dev) -> dict:
     prof["train"] = profile_steps(
         lambda: classifier.train_classifier(
             prng.PRNGKey(5, dev), classifier.ClassifierConfig(context_dim=post.n_features, lr=cfg.lr),
-            theta_u, x_u, post.features[sid.long()], epochs=2, batch_size=cfg.batch_size),
-        2 * train_steps // cfg.epochs, stages["train"]["seconds"] / train_steps)
+            theta_u, x_u, post.features[sid.long()], epochs=1, batch_size=cfg.batch_size),
+        train_steps // cfg.epochs, stages["train"]["seconds"] / train_steps)
     for name, p_ in prof.items():
         emit("calibrate", profile=name, **p_)
     res["profile"] = prof
@@ -1499,12 +1613,13 @@ def phase_campaign(dev) -> dict:
             emit("campaign", **run)
             runs.append(run)
 
-    # where a run's time goes: the stochastic tick run cut at 300 ticks and
-    # the stochastic leap run, unprofiled wall then device time by kernel
+    # where a run's time goes: the stochastic tick run cut at 100 ticks and
+    # the stochastic leap run at 3,000, unprofiled wall then device time by
+    # kernel
     from torch.profiler import ProfilerActivity, profile
 
     prof = {}
-    for leap, cut in ((False, 300), (True, SECTION5_MAX_TICKS)):
+    for leap, cut in ((False, 100), (True, 3000)):
         s_ = spec._replace(max_ticks=cut)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1532,6 +1647,7 @@ def phase_campaign(dev) -> dict:
         prng.uniform(prng.PRNGKey(1, dev), (64, 3)))
     p64, k64 = mapper(th), prng.split(prng.PRNGKey(2, dev), 64)
     for leap, cut in ((False, 2000), (True, SECTION5_MAX_TICKS)):
+        t0 = time.perf_counter()
         s_ = spec._replace(max_ticks=cut)
         a = engine.simulate_batch(s_, p64, k64, leap=leap, window=1)
         b = engine.simulate_batch(s_, p64, k64, leap=leap, window=64)
@@ -1539,11 +1655,13 @@ def phase_campaign(dev) -> dict:
             compare(f"campaign K-invariance leap={leap} {f}", getattr(b, f), getattr(a, f),
                     exact=True)
         emit("campaign", check="window K=1 vs K=64 bitwise", leap=leap, sims=64,
-             max_ticks=cut, realized_ticks=int(a.ticks.max()))
+             max_ticks=cut, realized_ticks=int(a.ticks.max()), done_legs=int(a.done.sum()),
+             legs=a.done.numel(), seconds=time.perf_counter() - t0)
     # the card against the CPU path: 4 simulations, stochastic theta
     cpu_spec = engine.SimSpec.from_table(table, max_ticks=SECTION5_MAX_TICKS, device="cpu")
     cpu_p = calibration.make_theta_mapper(table, device="cpu")(theta.cpu())
-    for leap, cut in ((False, 1500), (True, SECTION5_MAX_TICKS)):
+    for leap, cut in ((False, 500), (True, SECTION5_MAX_TICKS)):
+        t0 = time.perf_counter()
         g = engine.simulate_batch(spec._replace(max_ticks=cut), params["stochastic"],
                                   keys[:4], leap=leap)
         c = engine.simulate_batch(cpu_spec._replace(max_ticks=cut), cpu_p, keys[:4].cpu(),
@@ -1551,7 +1669,8 @@ def phase_campaign(dev) -> dict:
         errs = {f: compare(f"campaign card vs CPU leap={leap} {f}", getattr(g, f).cpu(),
                            getattr(c, f), exact=True) for f in g._fields}
         emit("campaign", check="card vs CPU path, bitwise", leap=leap, sims=4, max_ticks=cut,
-             max_abs_err=errs)
+             realized_ticks=int(c.ticks.max()), done_legs=int(c.done.sum()), legs=c.done.numel(),
+             max_abs_err=errs, seconds=time.perf_counter() - t0)
 
     # the tick at the main shape, as presimulation's leap calls it: one
     # keep per row, remaining = inf
@@ -3609,11 +3728,11 @@ def phase_llm_train(dev) -> dict:
     """TinyLlama-1.1B and Hymba-1.5B at full width on the card, and
     qwen2-moe-a2.7b at full width and 2 of its 24 layers
     (:func:`train_run`: 5, 3 and 3 timed steps, qwen2-moe's as 2
-    microbatches a step); one float32 step of 2 layers of each against the
-    CPU path (TinyLlama and qwen2-moe 2 x 256 tokens, qwen2-moe's routes
-    compared first; Hymba one global and one windowed hybrid layer, 2 x
-    1,280 tokens, past the window and past S 256); the Trainer's restart
-    continuity at the three smoke configs."""
+    microbatches a step); one float32 step of 2 layers of each (qwen2-moe's
+    of 1) against the CPU path (TinyLlama and qwen2-moe 2 x 256 tokens,
+    qwen2-moe's routes compared first; Hymba one global and one windowed
+    hybrid layer, 2 x 1,280 tokens, past the window and past S 256); the
+    Trainer's restart continuity at the three smoke configs."""
     runs = {TINYLLAMA: train_run(TINYLLAMA, TRAIN_STEPS, dev),
             HYMBA: train_run(HYMBA, HYMBA_TRAIN_STEPS, dev),
             QWEN_MOE: train_run(QWEN_MOE, MOE_TRAIN_STEPS, dev, n_layers=MOE_TRAIN_LAYERS,
@@ -3630,8 +3749,8 @@ def phase_llm_train(dev) -> dict:
     runs[HYMBA]["card_vs_cpu"] = card_vs_cpu_step(HYMBA, hy2, toks, opt, dev, step=False)
     moe = configs.get_config(QWEN_MOE)
     toks = torch.randint(0, moe.vocab_size, (2, 256), generator=torch.Generator().manual_seed(6))
-    moe2 = dataclasses.replace(moe, n_layers=MOE_TRAIN_LAYERS, dtype="float32")
-    runs[QWEN_MOE]["card_vs_cpu"] = card_vs_cpu_step(QWEN_MOE, moe2, toks, opt, dev, step=False)
+    moe1 = dataclasses.replace(moe, n_layers=1, dtype="float32")
+    runs[QWEN_MOE]["card_vs_cpu"] = card_vs_cpu_step(QWEN_MOE, moe1, toks, opt, dev, step=False)
     for arch in (TINYLLAMA, HYMBA, QWEN_MOE):
         restart_check(arch, dev)
     torch.cuda.synchronize()
@@ -3701,7 +3820,7 @@ def main() -> int:
             replaces=replaces[name.removesuffix("_wide")], launches=sum(by_run.values()),
             launches_by_run=by_run,
             max_abs_err=max(errs.get(name, 0.0), *t["max_abs_err"].values()),
-            ms=t["ms"], plain_ms=t["plain_ms"],
+            ms=t["ms"], events_ms=t["events_ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t.get("library_ms"),
             shape=t["shape"],
         ))

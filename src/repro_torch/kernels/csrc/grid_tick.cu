@@ -15,9 +15,9 @@
 //     src/repro/kernels/ref.py:307 for a bank, src/repro/core/engine.py:220
 //     for one campaign), in the order of the other two.
 // Past the bank limits (T <= 128, P <= 128, L <= 32) the three run
-// bank_fused_wide_kernel, bank_tick_wide_kernel and bank_sums_wide_kernel:
-// the same routines on tables in dynamic shared memory, up to T <= 1,024,
-// P <= 1,024, L <= 256 a scenario (see "Wide tables" below).
+// bank_fused_wide_kernel, bank_tick_wide_kernel and bank_sums_wide_kernel,
+// on tables in dynamic shared memory, up to T <= 1,024, P <= 1,024, L <=
+// 256 a scenario (see "Wide tables" below).
 //
 // What bounds them on the card. Per element and tick the work is a few
 // hundred scalar operations on ~T legs, P processes and L links, so neither
@@ -68,13 +68,25 @@
 //
 // Wide tables. Past the bank limits the bit masks would not fit (P x T / 32
 // words: 128 KB at a 1,024-leg campaign), so the wide kernels stage the
-// packed lists alone in dynamic shared memory, keep the first 128 legs of a
-// lane in its 4 register slots and read the legs past them from device
-// memory into the warp's shared row, and take the counts as integer walks
-// of the lists over the warp's ballots (exact, so in any order). The fused
-// one keeps the carry of the legs past the slots, and every link's, in the
-// element's rows of its output in device memory. Their float sums are the
-// same routines in the same order.
+// packed lists alone in dynamic shared memory and work in list order:
+// position k of the process lists is entry k of proc_legs, so a process's
+// legs are the run of positions [proc_ptr[p], proc_ptr[p + 1]), and a
+// link's processes the run [link_proc_ptr[l], link_proc_ptr[l + 1]) of
+// the link lists. A count is the popcount of a run of ballot words taken
+// by position (run_counts), and a sum folds a contiguous row gathered in
+// list order (run_sum, run_sums): the same terms in the same order as
+// segment_sums, with no lane walking a list through its indices. The
+// one-tick and sums kernels gather their rows into list order in shared
+// memory, a lane-strided pass each. The fused kernel, which runs K ticks,
+// stages the list order once (WideOrder, which also places the legs and
+// processes in no list) and holds the legs and processes at positions
+// lane, lane + 32, ... in up to 8 register slots and its links in
+// registers (templated on the slots), so at T, P <= 256 and L <= 32
+// nothing of the carry touches device memory inside the tick loop; every
+// per-slot step loads for all slots before it computes, so one warp's
+// slots overlap their latencies. Its general instance takes the rest:
+// links to 256, and the legs past 256 keep their carry in the element's
+// rows of the output in device memory.
 //
 // Rounding follows the plain PyTorch version (repro_torch/kernels/ref.py):
 // every float operation is written as an explicit round-to-nearest intrinsic
@@ -83,6 +95,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -96,8 +110,8 @@ constexpr int kProcWords = kMaxP / kWarp;
 // staged once per block. ~5 KB of tables and ~1.8 KB of scratch a warp.
 constexpr int kBankWarps = 4;
 // The wide kernels' limits: a scenario (or one campaign) of up to 1,024 legs
-// and processes and 256 links (~78 KB of dynamic shared memory at the limits,
-// ~113 KB for the fused kernel's larger warp rows).
+// and processes and 256 links (~154 KB of dynamic shared memory at the limits
+// for the one-tick and sums kernels, ~107 KB for the fused kernel).
 constexpr int kWideT = 1024;
 constexpr int kWideP = 1024;
 constexpr int kWideL = 256;
@@ -172,7 +186,6 @@ __host__ __device__ inline int bank_table_words(int T, int P, int L) {
 
 // One scenario's tables, staged once per block.
 struct ScenarioTables {
-  static constexpr bool kWide = false;
   int proc_of_leg[kMaxT];
   int link_of_leg[kMaxT];
   int proc_ptr[kMaxP + 1];
@@ -196,53 +209,43 @@ struct WarpScratch {
 // The wide kernels' view of one scenario's tables in dynamic shared memory
 // (the packed lists, no masks).
 struct WideTables {
-  static constexpr bool kWide = true;
   const int* proc_of_leg;
   const int* link_of_leg;
   const int* proc_ptr;
   const int* proc_legs;
   const int* link_proc_ptr;
   const int* link_procs;
-  int n_proc;
 };
 
-// The wide kernels' per-warp rows in dynamic shared memory: WarpScratch's,
-// and the warp's ballot of the active legs, one word per 32 legs.
-struct WideScratch {
-  float* x;
-  int* threads;
-  float* px;
-  float* ppbw;
-  float* lx;
-  unsigned* act;
+// The wide one-tick and sums kernels' rows of a warp in dynamic shared
+// memory. By leg: the tick's active flags (the sums kernel's values), keeps,
+// remaining and transfers; the values to sum gathered by position in the
+// process lists; by process, the active legs and the sums; the sums
+// gathered by position in the link lists; by link, the per-process
+// bandwidth; the ballots of the active legs and of the active processes by
+// position.
+struct WideRows {
+  float* a;       // [T]
+  float* keep;    // [T]
+  float* rem;     // [T]
+  float* x;       // [T]
+  float* xs;      // [T]
+  int* thr;       // [P]
+  float* px;      // [P]
+  float* pxs;     // [P]
+  float* ppbw;    // [L]
+  unsigned* aw;   // [ceil(T / 32)]
+  unsigned* pw;   // [ceil(P / 32)]
 };
 
-// One element's rows in device memory, for what a lane's registers do not
-// hold under wide tables: the legs past its slots, every link.
-struct LegRows {
-  const float* active;     // [T]
-  const float* keep;       // [T]
-  const float* remaining;  // [T]
-  const float* bg;         // [L]
-  const float* bw;         // [L]
-};
-
-__host__ __device__ inline int wide_scratch_words(int T, int P, int L) {
-  return T + 2 * P + 2 * L + (T + kWarp - 1) / kWarp;
+__host__ __device__ inline int wide_row_words(int T, int P, int L) {
+  return 5 * T + 3 * P + L + (T + kWarp - 1) / kWarp + (P + kWarp - 1) / kWarp;
 }
 
-// The wide fused kernel's per-warp rows: WideScratch's, then the active flag
-// of each leg (float) and the warp's ballot of the done legs, one word per
-// 32 legs.
-__host__ __device__ inline int wide_fused_scratch_words(int T, int P, int L) {
-  return wide_scratch_words(T, P, L) + T + (T + kWarp - 1) / kWarp;
-}
-
-// Dynamic shared memory of a wide block: the packed tables, n_proc, and
-// kBankWarps scratch rows of warp_words words each.
+// Dynamic shared memory of a wide block: the packed tables and kBankWarps
+// rows of warp_words words each.
 __host__ __device__ inline size_t wide_smem_bytes(int T, int P, int L, int warp_words) {
-  return sizeof(int) * ((size_t)bank_table_words(T, P, L) + 1 +
-                        (size_t)kBankWarps * warp_words);
+  return sizeof(int) * ((size_t)bank_table_words(T, P, L) + (size_t)kBankWarps * warp_words);
 }
 
 // 1 + the last process in any list of the staged lists, for one thread's
@@ -252,8 +255,8 @@ __host__ __device__ inline size_t wide_smem_bytes(int T, int P, int L, int warp_
 // mask and its link's process mask: every entry at once, so no thread walks
 // a list. A listed leg's process is its proc_of_leg; an entry's link is
 // found in the link pointers (at most kMaxL + 1 of them).
-template <bool kMasks, class Tb>
-__device__ void scan_lists(Tb& tb, int* n_proc, int P, int L) {
+template <bool kMasks>
+__device__ void scan_lists(ScenarioTables& tb, int* n_proc, int P, int L) {
   int np = 0;
   const int n_legs = tb.proc_ptr[P];
   for (int k = threadIdx.x; k < n_legs; k += blockDim.x) {
@@ -303,14 +306,12 @@ __device__ void stage_tables(ScenarioTables& tb, const int* tables, int s, int T
   __syncthreads();
 }
 
-// The wide kernels' staging: the packed lists copied into smem, n_proc
-// (as ScenarioTables') in the word after them.
+// The wide kernels' staging: the packed lists copied into smem (every
+// thread of the block; its barrier publishes what the block wrote before).
 __device__ WideTables stage_wide_tables(int* smem, const int* tables, int s, int T, int P, int L) {
   const int words = bank_table_words(T, P, L);
   const int* src = tables + (size_t)s * words;
-  int* n_proc = smem + words;
   for (int i = threadIdx.x; i < words; i += blockDim.x) smem[i] = src[i];
-  if (threadIdx.x == 0) *n_proc = 1;
   WideTables tb;
   tb.proc_of_leg = smem;
   tb.link_of_leg = smem + T;
@@ -319,24 +320,27 @@ __device__ WideTables stage_wide_tables(int* smem, const int* tables, int s, int
   tb.link_proc_ptr = tb.proc_legs + T;
   tb.link_procs = tb.link_proc_ptr + L + 1;
   __syncthreads();
-  scan_lists<false>(tb, n_proc, P, L);
-  __syncthreads();
-  tb.n_proc = *n_proc;
   return tb;
 }
 
-// Warp `warp`'s rows, after the tables and n_proc (warp_words a warp).
-__device__ WideScratch wide_scratch(int* smem, int warp, int T, int P, int L, int warp_words) {
-  float* row = reinterpret_cast<float*>(smem + bank_table_words(T, P, L) + 1) +
-               (size_t)warp * warp_words;
-  WideScratch ws;
-  ws.x = row;
-  ws.threads = reinterpret_cast<int*>(row + T);
-  ws.px = row + T + P;
-  ws.ppbw = ws.px + P;
-  ws.lx = ws.ppbw + L;
-  ws.act = reinterpret_cast<unsigned*>(ws.lx + L);
-  return ws;
+// Warp `warp`'s rows of the wide one-tick and sums kernels, after the
+// tables.
+__device__ WideRows wide_rows(int* smem, int warp, int T, int P, int L) {
+  float* row = reinterpret_cast<float*>(smem + bank_table_words(T, P, L)) +
+               (size_t)warp * wide_row_words(T, P, L);
+  WideRows w;
+  w.a = row;
+  w.keep = w.a + T;
+  w.rem = w.keep + T;
+  w.x = w.rem + T;
+  w.xs = w.x + T;
+  w.thr = reinterpret_cast<int*>(w.xs + T);
+  w.px = reinterpret_cast<float*>(w.thr + P);
+  w.pxs = w.px + P;
+  w.ppbw = w.pxs + P;
+  w.aw = reinterpret_cast<unsigned*>(w.ppbw + L);
+  w.pw = w.aw + (T + kWarp - 1) / kWarp;
+  return w;
 }
 
 // Bit i of the per-slot ballots b (bit k of b[j] is leg 32 j + k).
@@ -352,8 +356,7 @@ __device__ inline bool ballot_bit(const unsigned (&b)[kSlots], int i) {
 // The float segment sums of one element's per-leg values ws.x, in list
 // order from 0.0: ws.px[p] over the legs of process p (p < n_proc), ws.lx[l]
 // over the sums of the processes of link l.
-template <class Tb, class Ws>
-__device__ void segment_sums(const Tb& tb, Ws& ws, int lane, int L) {
+__device__ void segment_sums(const ScenarioTables& tb, WarpScratch& ws, int lane, int L) {
   for (int p = lane; p < tb.n_proc; p += kWarp) {
     float acc = 0.f;
     for (int k = tb.proc_ptr[p]; k < tb.proc_ptr[p + 1]; ++k) {
@@ -380,75 +383,39 @@ __device__ inline float per_proc_bw(int campaign, float bg, float bw) {
 
 // The fair share of one tick for one element, from the lane's active flags
 // av to its transfers xf and the warp's ws.px and ws.lx. av, keep, rem hold
-// the lane's legs in its slots; bgv and bwv the lane's link. Under wide
-// tables the legs past the slots and every link come from `more`, and the
-// transfers of the former stay in ws.x.
-template <int kSlots, class Tb, class Ws>
-__device__ void fair_share(const Tb& tb, Ws& ws,
+// the lane's legs in its slots; bgv and bwv the lane's link.
+template <int kSlots>
+__device__ void fair_share(const ScenarioTables& tb, WarpScratch& ws,
                            const float (&av)[kSlots], const float (&keep)[kSlots],
                            const float (&rem)[kSlots], float (&xf)[kSlots],
-                           float bgv, float bwv, const LegRows& more, int lane, int T, int L) {
+                           float bgv, float bwv, int lane, int T, int L) {
   unsigned act[kSlots];
   #pragma unroll
   for (int j = 0; j < kSlots; ++j) act[j] = __ballot_sync(kFull, av[j] > 0.f);
   const int np = tb.n_proc;
-  if constexpr (!Tb::kWide) {
-    // active legs per process (popcounts under its leg mask), and a ballot
-    // of the active processes per word of 32
-    unsigned pact[kProcWords];
+  // active legs per process (popcounts under its leg mask), and a ballot
+  // of the active processes per word of 32
+  unsigned pact[kProcWords];
+  #pragma unroll
+  for (int w = 0; w < kProcWords; ++w) {
+    pact[w] = 0u;
+    if (w * kWarp < np) {  // warp-uniform
+      const int p = w * kWarp + lane;
+      int c = 0;
+      if (p < np) {
+        #pragma unroll
+        for (int j = 0; j < kSlots; ++j) c += __popc(act[j] & tb.leg_mask[p][j]);
+        ws.threads[p] = c;
+      }
+      pact[w] = __ballot_sync(kFull, c > 0);
+    }
+  }
+  // active campaign processes per link, fair share per process
+  if (lane < L) {
+    int c = 0;
     #pragma unroll
-    for (int w = 0; w < kProcWords; ++w) {
-      pact[w] = 0u;
-      if (w * kWarp < np) {  // warp-uniform
-        const int p = w * kWarp + lane;
-        int c = 0;
-        if (p < np) {
-          #pragma unroll
-          for (int j = 0; j < kSlots; ++j) c += __popc(act[j] & tb.leg_mask[p][j]);
-          ws.threads[p] = c;
-        }
-        pact[w] = __ballot_sync(kFull, c > 0);
-      }
-    }
-    // active campaign processes per link, fair share per process
-    if (lane < L) {
-      int c = 0;
-      #pragma unroll
-      for (int w = 0; w < kProcWords; ++w) c += __popc(pact[w] & tb.proc_mask[lane][w]);
-      ws.ppbw[lane] = per_proc_bw(c, bgv, bwv);
-    }
-  } else {
-    // the warp's ballot of every leg: the slots', then 32 legs at a time
-    // past them; then each count an integer walk of a list over it
-    const int words = (T + kWarp - 1) / kWarp;
-    if (lane == 0) {
-      #pragma unroll
-      for (int j = 0; j < kSlots; ++j) {
-        if (j < words) ws.act[j] = act[j];
-      }
-    }
-    for (int w = kSlots; w < words; ++w) {  // warp-uniform
-      const int i = w * kWarp + lane;
-      const unsigned b = __ballot_sync(kFull, i < T && more.active[i] > 0.f);
-      if (lane == 0) ws.act[w] = b;
-    }
-    __syncwarp();
-    for (int p = lane; p < np; p += kWarp) {
-      int c = 0;
-      for (int k = tb.proc_ptr[p]; k < tb.proc_ptr[p + 1]; ++k) {
-        const int leg = tb.proc_legs[k];
-        c += (ws.act[leg / kWarp] >> (leg % kWarp)) & 1u;
-      }
-      ws.threads[p] = c;
-    }
-    __syncwarp();
-    for (int l = lane; l < L; l += kWarp) {
-      int c = 0;
-      for (int k = tb.link_proc_ptr[l]; k < tb.link_proc_ptr[l + 1]; ++k) {
-        c += ws.threads[tb.link_procs[k]] > 0 ? 1 : 0;
-      }
-      ws.ppbw[l] = per_proc_bw(c, more.bg[l], more.bw[l]);
-    }
+    for (int w = 0; w < kProcWords; ++w) c += __popc(pact[w] & tb.proc_mask[lane][w]);
+    ws.ppbw[lane] = per_proc_bw(c, bgv, bwv);
   }
   __syncwarp();
   #pragma unroll
@@ -462,24 +429,14 @@ __device__ void fair_share(const Tb& tb, Ws& ws,
       ws.x[i] = xf[j];
     }
   }
-  if constexpr (Tb::kWide) {
-    for (int i = lane + kSlots * kWarp; i < T; i += kWarp) {
-      const float threads_leg = fmaxf(__int2float_rn(ws.threads[tb.proc_of_leg[i]]), 1.f);
-      const float chunk = __fdiv_rn(
-          __fmul_rn(__fmul_rn(more.active[i], more.keep[i]), ws.ppbw[tb.link_of_leg[i]]),
-          threads_leg);
-      ws.x[i] = fminf(more.remaining[i], chunk);
-    }
-  }
   __syncwarp();
   segment_sums(tb, ws, lane, L);
 }
 
 // One element's per-process and per-link sums out: processes past the last
 // one in any list sum nothing.
-template <class Tb, class Ws>
-__device__ void write_sums(const Tb& tb, const Ws& ws, float* proc, float* link, size_t e,
-                           int lane, int P, int L) {
+__device__ void write_sums(const ScenarioTables& tb, const WarpScratch& ws, float* proc,
+                           float* link, size_t e, int lane, int P, int L) {
   for (int p = lane; p < P; p += kWarp) proc[e * P + p] = p < tb.n_proc ? ws.px[p] : 0.f;
   for (int l = lane; l < L; l += kWarp) link[e * L + l] = ws.lx[l];
 }
@@ -580,7 +537,7 @@ bank_fused_kernel(FusedArgs g) {
       av[j] = act ? 1.f : 0.f;
       xf[j] = 0.f;
     }
-    fair_share(tb, ws, av, keep, rem, xf, bgv, bwv, LegRows{}, lane, T, L);
+    fair_share(tb, ws, av, keep, rem, xf, bgv, bwv, lane, T, L);
     #pragma unroll
     for (int j = 0; j < kSlots; ++j) {
       int i = lane + j * kWarp;
@@ -624,39 +581,293 @@ bank_fused_kernel(FusedArgs g) {
   if (lane < L) g.bg_out[link0 + lane] = bgv;
 }
 
-// bank_fused_kernel on wide tables (past T 128, P 128 or L 32), tables in
-// dynamic shared memory as bank_tick_wide_kernel stages them. A lane holds
-// its first kMaxSlots legs in registers as the narrow kernel does; the legs
-// past them and every link live in the element's rows of the output carry
-// in device memory, copied from the input once and then updated in place,
-// each entry by the one lane that owns it (leg i by lane i % 32, link l by
-// lane l % 32), so no entry is read by a lane that did not write it. The
-// warp's shared rows hold each leg's active flag (what fair_share reads
-// past the slots) and the ballot of the done legs (the dependency check).
+// The wide fused kernel's view of a scenario in list order. Position q of
+// leg_at is the q-th entry of the process lists, so the legs of process p
+// are the run of positions [proc_ptr[p], proc_ptr[p + 1]); the legs in no
+// list follow, in ascending order. proc_at does the same over the link
+// lists (the processes of link l: [link_proc_ptr[l], link_proc_ptr[l + 1]));
+// pos_of_leg and pos_of_proc invert the two.
+struct WideOrder {
+  int* leg_at;       // [T]
+  int* pos_of_leg;   // [T]
+  int* proc_at;      // [P]
+  int* pos_of_proc;  // [P]
+};
+
+// Gives the members of [0, n) with no position yet (pos < 0) the positions
+// from `next` on, in ascending order: one warp, a ballot a word of 32.
+__device__ void place_rest(int* pos, int* at, int n, int next, int lane) {
+  for (int i0 = 0; i0 < n; i0 += kWarp) {  // warp-uniform
+    const int i = i0 + lane;
+    const bool rest = i < n && pos[i] < 0;
+    const unsigned b = __ballot_sync(kFull, rest);
+    if (rest) {
+      const int q = next + __popc(b & ((1u << lane) - 1u));
+      pos[i] = q;
+      at[q] = i;
+    }
+    next += __popc(b);
+  }
+}
+
+// Stages the list order of a scenario whose tables tb are staged (every
+// thread of the block).
+__device__ WideOrder stage_wide_order(int* words, const WideTables& tb, int T, int P, int L) {
+  WideOrder o{words, words + T, words + 2 * T, words + 2 * T + P};
+  for (int i = threadIdx.x; i < T; i += blockDim.x) o.pos_of_leg[i] = -1;
+  for (int i = threadIdx.x; i < P; i += blockDim.x) o.pos_of_proc[i] = -1;
+  __syncthreads();
+  const int n_legs = tb.proc_ptr[P], n_procs = tb.link_proc_ptr[L];
+  for (int k = threadIdx.x; k < n_legs; k += blockDim.x) {
+    o.leg_at[k] = tb.proc_legs[k];
+    o.pos_of_leg[tb.proc_legs[k]] = k;
+  }
+  for (int k = threadIdx.x; k < n_procs; k += blockDim.x) {
+    o.proc_at[k] = tb.link_procs[k];
+    o.pos_of_proc[tb.link_procs[k]] = k;
+  }
+  __syncthreads();
+  if (threadIdx.x < kWarp) {
+    place_rest(o.pos_of_leg, o.leg_at, T, n_legs, threadIdx.x);
+    place_rest(o.pos_of_proc, o.proc_at, P, n_procs, threadIdx.x);
+  }
+  __syncthreads();
+  return o;
+}
+
+// The wide fused kernel's per-warp rows, by leg position q and process
+// position r: each leg's transfer, each process's active legs and sum, each
+// link's per-process bandwidth and sum; the ballots of the active legs, of
+// the done legs (read past the slots) and of the active processes, one
+// word per 32 positions; the active flags of the legs past the slots.
+struct FusedRows {
+  float* xs;      // [T]
+  int* thr;       // [P]
+  float* pxs;     // [P]
+  float* ppbw;    // [L]
+  float* lx;      // [L]
+  unsigned* aw;   // [ceil(T / 32)]
+  unsigned* dw;   // [ceil(T / 32)]
+  unsigned* pw;   // [ceil(P / 32)]
+  float* avp;     // [T - kWidePast]
+};
+
+// Leg (and process) slots a lane of the wide fused kernel holds at most:
+// the legs past them live in device memory, the processes past them read
+// their runs from shared memory.
+constexpr int kWideSlots = 8;
+constexpr int kWidePast = kWideSlots * kWarp;
+
+__host__ __device__ inline int wide_fused_warp_words(int T, int P, int L) {
+  const int words = (T + kWarp - 1) / kWarp;
+  return T + 2 * P + 2 * L + 2 * words + (P + kWarp - 1) / kWarp +
+         (T > kWidePast ? T - kWidePast : 0);
+}
+
+// Dynamic shared memory of the wide fused kernel: wide_smem_bytes' and the
+// list order.
+__host__ __device__ inline size_t wide_fused_smem_bytes(int T, int P, int L) {
+  return wide_smem_bytes(T, P, L, wide_fused_warp_words(T, P, L)) + sizeof(int) * (2 * T + 2 * P);
+}
+
+__device__ FusedRows fused_rows(int* base, int warp, int T, int P, int L) {
+  const int words = (T + kWarp - 1) / kWarp;
+  float* row = reinterpret_cast<float*>(base) + (size_t)warp * wide_fused_warp_words(T, P, L);
+  FusedRows w;
+  w.xs = row;
+  w.thr = reinterpret_cast<int*>(row + T);
+  w.pxs = row + T + P;
+  w.ppbw = w.pxs + P;
+  w.lx = w.ppbw + L;
+  w.aw = reinterpret_cast<unsigned*>(w.lx + L);
+  w.dw = w.aw + words;
+  w.pw = w.dw + words;
+  w.avp = reinterpret_cast<float*>(w.pw + (P + kWarp - 1) / kWarp);
+  return w;
+}
+
+// b[i] for a runtime i < N, from registers.
+template <int N>
+__device__ inline unsigned pick(const unsigned (&b)[N], int i) {
+  unsigned v = b[0];
+  #pragma unroll
+  for (int j = 1; j < N; ++j) v = i == j ? b[j] : v;
+  return v;
+}
+
+// The set bits of positions [b, e) of the ballot word at position `word`
+// x 32 (bits, its value).
+__device__ inline int word_count(unsigned bits, int word, int b, int e) {
+  const int lo = max(b - word * kWarp, 0), hi = min(e - word * kWarp, kWarp);
+  const unsigned m = hi - lo >= kWarp ? kFull : ((1u << max(hi - lo, 0)) - 1u) << lo;
+  return __popc(bits & m);
+}
+
+// The set bits of the runs of positions [b[i], e[i]) of the ballot words w,
+// every run of the lane at once: the first word of every run in lockstep,
+// then, only where a run of the lane spans more, its other words.
+template <int N>
+__device__ inline void run_counts(const unsigned* w, const int (&b)[N], const int (&e)[N],
+                                  int (&c)[N]) {
+  bool more = false;
+  #pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int word = b[i] / kWarp;
+    c[i] = word_count(e[i] > b[i] ? w[word] : 0u, word, b[i], e[i]);
+    more |= e[i] > (word + 1) * kWarp;
+  }
+  if (more) {
+    #pragma unroll
+    for (int i = 0; i < N; ++i) {
+      for (int word = b[i] / kWarp + 1; word * kWarp < e[i]; ++word) {
+        c[i] += word_count(w[word], word, b[i], e[i]);
+      }
+    }
+  }
+}
+
+// acc + row[b] + ... + row[e - 1], one term at a time in order, the loads
+// of 16 terms issued ahead of their adds.
+__device__ inline float run_sum(const float* row, int b, int e, float acc) {
+  int k = b;
+  for (; k + 16 <= e; k += 16) {
+    float v[16];
+    #pragma unroll
+    for (int u = 0; u < 16; ++u) v[u] = row[k + u];
+    #pragma unroll
+    for (int u = 0; u < 16; ++u) acc = __fadd_rn(acc, v[u]);
+  }
+  #pragma unroll 4
+  for (; k < e; ++k) acc = __fadd_rn(acc, row[k]);
+  return acc;
+}
+
+// row[b[i]] + ... + row[e[i] - 1] for every run of the lane, one term at a
+// time from 0.0 in order: the first two terms of every run in lockstep (a
+// term past a run adds +0.0, which leaves a sum from 0.0 unchanged, since
+// such a sum is never -0.0), then, only where a run of the lane is longer,
+// its rest by run_sum.
+template <int N>
+__device__ inline void run_sums(const float* row, const int (&b)[N], const int (&e)[N],
+                                float (&out)[N]) {
+  constexpr int kHead = 2;
+  bool more = false;
+  #pragma unroll
+  for (int i = 0; i < N; ++i) {
+    out[i] = 0.f;
+    more |= e[i] - b[i] > kHead;
+  }
+  #pragma unroll
+  for (int t = 0; t < kHead; ++t) {
+    float v[N];
+    #pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = b[i] + t < e[i] ? row[b[i] + t] : 0.f;
+    #pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = __fadd_rn(out[i], v[i]);
+  }
+  if (more) {
+    #pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (e[i] - b[i] > kHead) out[i] = run_sum(row, b[i] + kHead, e[i], out[i]);
+    }
+  }
+}
+
+// Whether the leg at position d >= 0 is done: from the slots' ballots,
+// word d / 32 of which lane d / 32 holds as `mine`, past them (kGeneral)
+// from the warp's row.
+template <bool kGeneral>
+__device__ inline bool done_at(unsigned mine, const unsigned* dw, int d, int past) {
+  const unsigned word = __shfl_sync(kFull, mine, (d / kWarp) % kWarp);
+  if (kGeneral && d >= past) return (dw[d / kWarp] >> (d % kWarp)) & 1u;
+  return (word >> (d % kWarp)) & 1u;
+}
+
+// num / d for d >= 1, as __fdiv_rn: a zero num (an inactive leg's share)
+// is its own quotient, and takes no division, whose check sends a zero
+// dividend down its slow path.
+__device__ inline float share_div(float num, float d) {
+  const bool zero = num == 0.f;
+  const float q = __fdiv_rn(zero ? 1.f : num, d);
+  return zero ? num : q;
+}
+
+// bank_fused_kernel on wide tables (past T 128, P 128 or L 32). A lane holds
+// the legs at positions lane, lane + 32, ... of the list order (WideOrder)
+// in kSlots register slots, the runs of the processes at positions lane,
+// lane + 32, ... (kSlots of them) and every link lane, lane + 32, ...
+// (kLinkSlots) in registers, so on T <= 256, P <= 256, L <= 32 (kLinkSlots
+// = 1) nothing of the carry touches device memory inside the tick loop.
+// In list order a process's legs and a link's processes are runs of
+// positions, so a count is the popcount of a run of ballot words and a sum
+// runs over a contiguous row: no lane walks a list through its indices.
+// kLinkSlots = 8 is the general instance: up to 256 links, processes past
+// 256 read their runs from shared memory, and the legs past the 256 slots
+// keep their carry in the element's rows of the output in device memory
+// (copied from the input once, then updated in place by the lane that
+// owns the position).
+template <int kSlots, int kLinkSlots>
 __global__ void __launch_bounds__(kBankWarps * kWarp)
 bank_fused_wide_kernel(FusedArgs g) {
   extern __shared__ int smem[];
+  constexpr bool kGeneral = kLinkSlots > 1;
+  constexpr int kPast = kSlots * kWarp;  // the first leg position past the slots
+  constexpr int kProcSlots = kSlots;
   const int s = blockIdx.x;
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const int r = blockIdx.y * kBankWarps + warp;
   const bool live = r < g.R;  // warp-uniform
   const int T = g.T, P = g.P, L = g.L;
-  constexpr int kSlots = kMaxSlots;
-  constexpr int kPast = kSlots * kWarp;  // the first leg past the slots
 
   const size_t e = (size_t)s * g.R + r;
   const size_t leg0 = e * T;
   const size_t link0 = e * L;
   const float* keep_row = g.keep + (size_t)s * (g.keep_rstride ? (size_t)g.R * T : T)
                           + (size_t)r * g.keep_rstride;
+  const size_t bg_off = (size_t)s * (g.bg_rstride ? (size_t)g.R * L : L)
+                        + (size_t)r * g.bg_rstride;
+  const size_t noise_stride = (size_t)g.S * g.R * L;
+  // the lane's links, loaded before the block stages its tables
+  float bgv[kLinkSlots], mu[kLinkSlots], sigma[kLinkSlots], bwv[kLinkSlots], z[kLinkSlots];
+  int per[kLinkSlots];
+  #pragma unroll
+  for (int m = 0; m < kLinkSlots; ++m) {
+    const int l = lane + m * kWarp;
+    bgv[m] = mu[m] = sigma[m] = bwv[m] = z[m] = 0.f;
+    per[m] = 1;
+    if (live && l < L) {
+      bgv[m] = g.bg[link0 + l];
+      mu[m] = g.mu[bg_off + l];
+      sigma[m] = g.sigma[bg_off + l];
+      bwv[m] = g.bw[(size_t)s * L + l];
+      per[m] = g.period[(size_t)s * L + l];
+      z[m] = g.noise[link0 + l];
+    }
+  }
+  int tc = 0, steps = 0, mt = 0;
+  if (live) {
+    tc = g.t[e];
+    steps = g.steps[e];
+    mt = g.max_ticks[s];
+  }
+  const WideTables tb = stage_wide_tables(smem, g.tables, s, T, P, L);
+  int* order_words = smem + bank_table_words(T, P, L);
+  const WideOrder o = stage_wide_order(order_words, tb, T, P, L);
+  if (!live) return;  // no block barrier follows
+  const FusedRows w = fused_rows(order_words + 2 * T + 2 * P, warp, T, P, L);
+  const int words = (T + kWarp - 1) / kWarp;
+
+  // the lane's legs: carry, constants, and where their process, link and
+  // dependency sit
   float rem[kSlots], cth[kSlots], cpr[kSlots], keep[kSlots];
-  int tst[kSlots], ten[kSlots], rel[kSlots], dp[kSlots];
+  int tst[kSlots], ten[kSlots], rel[kSlots], dpos[kSlots], rp[kSlots], lol[kSlots];
   bool dn[kSlots], st[kSlots];
   #pragma unroll
   for (int j = 0; j < kSlots; ++j) {
-    int i = lane + j * kWarp;
-    if (live && i < T) {
+    const int q = lane + j * kWarp;
+    if (q < T) {
+      const int i = o.leg_at[q];
       rem[j] = g.remaining[leg0 + i];
       cth[j] = g.conth[leg0 + i];
       cpr[j] = g.conpr[leg0 + i];
@@ -666,129 +877,262 @@ bank_fused_wide_kernel(FusedArgs g) {
       dn[j] = g.done[leg0 + i] != 0;
       st[j] = g.started[leg0 + i] != 0;
       rel[j] = g.release[(size_t)s * T + i];
-      dp[j] = g.dep[(size_t)s * T + i];
+      const int d = g.dep[(size_t)s * T + i];
+      dpos[j] = d < 0 ? -1 : o.pos_of_leg[d];
+      rp[j] = o.pos_of_proc[tb.proc_of_leg[i]];
+      lol[j] = tb.link_of_leg[i];
     } else {  // lane slots past the last leg are inert and born done
       rem[j] = cth[j] = cpr[j] = keep[j] = 0.f;
-      tst[j] = ten[j] = rel[j] = 0;
-      dp[j] = -1;
+      tst[j] = ten[j] = rel[j] = rp[j] = lol[j] = 0;
+      dpos[j] = -1;
       dn[j] = true;
       st[j] = false;
     }
   }
-  int tc = 0, steps = 0, mt = 0;
-  if (live) {
-    tc = g.t[e];
-    steps = g.steps[e];
-    mt = g.max_ticks[s];
-    for (int i = lane + kPast; i < T; i += kWarp) {
-      const size_t o = leg0 + i;
-      g.remaining_out[o] = g.remaining[o];
-      g.done_out[o] = g.done[o];
-      g.started_out[o] = g.started[o];
-      g.t_start_out[o] = g.t_start[o];
-      g.t_end_out[o] = g.t_end[o];
-      g.conth_out[o] = g.conth[o];
-      g.conpr_out[o] = g.conpr[o];
+  // the runs of the lane's processes and links
+  int pb[kProcSlots], pe[kProcSlots], lb[kLinkSlots], le[kLinkSlots];
+  #pragma unroll
+  for (int i = 0; i < kProcSlots; ++i) {
+    const int q = lane + i * kWarp;
+    pb[i] = pe[i] = 0;
+    if (q < P) {
+      pb[i] = tb.proc_ptr[o.proc_at[q]];
+      pe[i] = tb.proc_ptr[o.proc_at[q] + 1];
     }
-    for (int l = lane; l < L; l += kWarp) g.bg_out[link0 + l] = g.bg[link0 + l];
   }
-  const WideTables tb = stage_wide_tables(smem, g.tables, s, T, P, L);
-  if (!live) return;  // no block barrier follows
-  const int words = (T + kWarp - 1) / kWarp;
-  WideScratch ws = wide_scratch(smem, warp, T, P, L, wide_fused_scratch_words(T, P, L));
-  float* av_row = reinterpret_cast<float*>(ws.act + words);
-  unsigned* dwords = reinterpret_cast<unsigned*>(av_row + T);
-  const size_t bg_off = (size_t)s * (g.bg_rstride ? (size_t)g.R * L : L)
-                        + (size_t)r * g.bg_rstride;
-  const size_t noise_stride = (size_t)g.S * g.R * L;
-  const LegRows more{av_row, keep_row, g.remaining_out + leg0, g.bg_out + link0,
-                     g.bw + (size_t)s * L};
+  #pragma unroll
+  for (int m = 0; m < kLinkSlots; ++m) {
+    const int l = lane + m * kWarp;
+    lb[m] = l < L ? tb.link_proc_ptr[l] : 0;
+    le[m] = l < L ? tb.link_proc_ptr[l + 1] : 0;
+  }
+  if constexpr (kGeneral) {
+    for (int q = lane + kPast; q < T; q += kWarp) {
+      const size_t i = leg0 + o.leg_at[q];
+      g.remaining_out[i] = g.remaining[i];
+      g.done_out[i] = g.done[i];
+      g.started_out[i] = g.started[i];
+      g.t_start_out[i] = g.t_start[i];
+      g.t_end_out[i] = g.t_end[i];
+      g.conth_out[i] = g.conth[i];
+      g.conpr_out[i] = g.conpr[i];
+    }
+  }
 
+  // each link's phase in its refresh period, tc % period, carried
+  int phase[kLinkSlots];
+  #pragma unroll
+  for (int m = 0; m < kLinkSlots; ++m) phase[m] = tc % per[m];
+  const int pwords = (P + kWarp - 1) / kWarp;
+
+  // Every per-slot step below loads for all slots first and branches on no
+  // slot, so the slots' latencies overlap: an inert slot (past T) is done,
+  // inactive and reads entry 0. The "tick_timers:" lines mark the start of
+  // the tick loop, where each section of a tick ends and the end of the
+  // loop, for tools/tick_timers.py; they compile to nothing and stay with
+  // the sections they close.
+  // tick_timers: start
   for (int k = 0; k < g.K; ++k) {
-    // the done ballot of every leg: the slots', then 32 legs at a time past
-    // them (legs past T count as done)
+    // the done ballot of every position: the slots', then past them 32 at
+    // a time from device memory (positions past T count as done)
+    unsigned dball[kSlots];
     unsigned all_done = kFull;
     #pragma unroll
     for (int j = 0; j < kSlots; ++j) {
-      const unsigned b = __ballot_sync(kFull, dn[j]);
-      if (lane == 0 && j < words) dwords[j] = b;
-      all_done &= b;
+      dball[j] = __ballot_sync(kFull, dn[j]);
+      all_done &= dball[j];
     }
-    for (int w = kSlots; w < words; ++w) {  // warp-uniform
-      const int i = w * kWarp + lane;
-      const unsigned b = __ballot_sync(kFull, i >= T || g.done_out[leg0 + i] != 0);
-      if (lane == 0) dwords[w] = b;
-      all_done &= b;
+    if constexpr (kGeneral) {
+      for (int v = kSlots; v < words; ++v) {  // warp-uniform
+        const int q = v * kWarp + lane;
+        const unsigned b = __ballot_sync(kFull, q >= T || g.done_out[leg0 + o.leg_at[q]] != 0);
+        if (lane == 0) w.dw[v] = b;
+        all_done &= b;
+      }
     }
     if (tc >= mt || all_done == kFull) break;  // dead elements never change again
-    __syncwarp();
+    // tick_timers: done_ballot
 
-    for (int l = lane; l < L; l += kWarp) {
-      const size_t b = bg_off + l;
-      const float z = g.noise[(size_t)k * noise_stride + link0 + l];
-      const float fresh = fmaxf(__fmaf_rn(g.sigma[b], z, g.mu[b]), 0.f);
-      if (tc % g.period[(size_t)s * L + l] == 0) g.bg_out[link0 + l] = fresh;
+    #pragma unroll
+    for (int m = 0; m < kLinkSlots; ++m) {
+      const float fresh = fmaxf(__fmaf_rn(sigma[m], z[m], mu[m]), 0.f);
+      if (phase[m] == 0) bgv[m] = fresh;
+      phase[m] = phase[m] + 1 == per[m] ? 0 : phase[m] + 1;
+      // the next tick's normal, loaded while this tick runs
+      if (k + 1 < g.K && lane + m * kWarp < L) {
+        z[m] = g.noise[(size_t)(k + 1) * noise_stride + link0 + lane + m * kWarp];
+      }
     }
+    if constexpr (kGeneral) __syncwarp();  // w.dw
+    // tick_timers: bg_refresh
+    // active legs, and their ballots by position
+    const unsigned done_mine = pick(dball, lane);
     float av[kSlots], xf[kSlots];
+    unsigned ab[kSlots];
     #pragma unroll
     for (int j = 0; j < kSlots; ++j) {
-      int i = lane + j * kWarp;
-      bool act = false;
-      if (i < T) {
-        bool dep_ok = dp[j] < 0 || ((dwords[dp[j] / kWarp] >> (dp[j] % kWarp)) & 1u);
-        act = !dn[j] && rel[j] <= tc && dep_ok;
-      }
+      const bool dep_ok =
+          (dpos[j] < 0) | done_at<kGeneral>(done_mine, w.dw, max(dpos[j], 0), kPast);
+      const bool act = !dn[j] & (rel[j] <= tc) & dep_ok;
       av[j] = act ? 1.f : 0.f;
-      xf[j] = 0.f;
+      ab[j] = __ballot_sync(kFull, act);
     }
-    for (int i = lane + kPast; i < T; i += kWarp) {
-      const int d = g.dep[(size_t)s * T + i];
-      const bool dep_ok = d < 0 || ((dwords[d / kWarp] >> (d % kWarp)) & 1u);
-      const bool act = g.done_out[leg0 + i] == 0 && g.release[(size_t)s * T + i] <= tc && dep_ok;
-      av_row[i] = act ? 1.f : 0.f;
+    if (lane < min(words, kSlots)) w.aw[lane] = pick(ab, lane);
+    if constexpr (kGeneral) {
+      for (int v = kSlots; v < words; ++v) {  // warp-uniform
+        const int q = v * kWarp + lane;
+        const int i = q < T ? o.leg_at[q] : 0;
+        const int d = q < T ? g.dep[(size_t)s * T + i] : -1;
+        const bool dep_ok =
+            (d < 0) | done_at<kGeneral>(done_mine, w.dw, o.pos_of_leg[max(d, 0)], kPast);
+        bool act = false;
+        if (q < T) {
+          act = g.done_out[leg0 + i] == 0 && g.release[(size_t)s * T + i] <= tc && dep_ok;
+          w.avp[q - kPast] = act ? 1.f : 0.f;
+        }
+        const unsigned b = __ballot_sync(kFull, act);
+        if (lane == 0) w.aw[v] = b;
+      }
     }
     __syncwarp();
-    fair_share(tb, ws, av, keep, rem, xf, 0.f, 0.f, more, lane, T, L);
+    // tick_timers: activity
+    // active legs per process (popcounts of its run), a ballot of the
+    // active processes by position
+    int pc[kProcSlots];
+    unsigned pb_act[kProcSlots];
+    run_counts(w.aw, pb, pe, pc);
+    #pragma unroll
+    for (int i = 0; i < kProcSlots; ++i) {
+      pb_act[i] = __ballot_sync(kFull, pc[i] > 0);  // a slot past P counts 0
+      if (lane + i * kWarp < P) w.thr[lane + i * kWarp] = pc[i];
+    }
+    if (lane < min(pwords, kProcSlots)) w.pw[lane] = pick(pb_act, lane);
+    if constexpr (kGeneral) {
+      for (int i = kProcSlots; i < pwords; ++i) {  // warp-uniform
+        const int q = lane + i * kWarp;
+        int c[1] = {0}, b[1] = {0}, e1[1] = {0};
+        if (q < P) {
+          b[0] = tb.proc_ptr[o.proc_at[q]];
+          e1[0] = tb.proc_ptr[o.proc_at[q] + 1];
+        }
+        run_counts(w.aw, b, e1, c);
+        if (q < P) w.thr[q] = c[0];
+        const unsigned bt = __ballot_sync(kFull, c[0] > 0);
+        if (lane == 0) w.pw[i] = bt;
+      }
+    }
+    __syncwarp();
+    // tick_timers: proc_counts
+    // active processes per link, fair share per process
+    int lc[kLinkSlots];
+    run_counts(w.pw, lb, le, lc);
+    #pragma unroll
+    for (int m = 0; m < kLinkSlots; ++m) {
+      const int l = lane + m * kWarp;
+      if (l < L) w.ppbw[l] = per_proc_bw(lc[m], bgv[m], bwv[m]);
+    }
+    __syncwarp();
+    // tick_timers: link_counts
+    // the transfers, by position
+    float thr_leg[kSlots], pp[kSlots];
     #pragma unroll
     for (int j = 0; j < kSlots; ++j) {
-      int i = lane + j * kWarp;
-      if (i < T) {
-        float own_proc = ws.px[tb.proc_of_leg[i]];
-        float own_link = ws.lx[tb.link_of_leg[i]];
-        cth[j] = __fadd_rn(cth[j], __fmul_rn(av[j], __fsub_rn(own_proc, xf[j])));
-        cpr[j] = __fadd_rn(cpr[j], __fmul_rn(av[j], __fsub_rn(own_link, own_proc)));
-        rem[j] = __fsub_rn(rem[j], xf[j]);
-        bool act = av[j] > 0.f;
-        if (act && !st[j]) tst[j] = tc;
-        st[j] = st[j] || act;
-        if (act && rem[j] <= 1e-6f) {
-          dn[j] = true;
-          ten[j] = tc + 1;
+      thr_leg[j] = __int2float_rn(w.thr[rp[j]]);
+      pp[j] = w.ppbw[lol[j]];
+    }
+    #pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      const float chunk = share_div(__fmul_rn(__fmul_rn(av[j], keep[j]), pp[j]),
+                                    fmaxf(thr_leg[j], 1.f));
+      xf[j] = fminf(rem[j], chunk);
+    }
+    #pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      if (lane + j * kWarp < T) w.xs[lane + j * kWarp] = xf[j];
+    }
+    if constexpr (kGeneral) {
+      for (int q = lane + kPast; q < T; q += kWarp) {
+        const int i = o.leg_at[q];
+        const float threads_leg =
+            fmaxf(__int2float_rn(w.thr[o.pos_of_proc[tb.proc_of_leg[i]]]), 1.f);
+        const float chunk = share_div(
+            __fmul_rn(__fmul_rn(w.avp[q - kPast], keep_row[i]), w.ppbw[tb.link_of_leg[i]]),
+            threads_leg);
+        w.xs[q] = fminf(g.remaining_out[leg0 + i], chunk);
+      }
+    }
+    __syncwarp();
+    // tick_timers: shares
+    // the sums, in list order from 0.0: a process over its legs' run, a
+    // link over its processes'
+    float ps[kProcSlots];
+    run_sums(w.xs, pb, pe, ps);
+    #pragma unroll
+    for (int i = 0; i < kProcSlots; ++i) {
+      if (lane + i * kWarp < P) w.pxs[lane + i * kWarp] = ps[i];
+    }
+    if constexpr (kGeneral) {
+      for (int q = lane + kProcSlots * kWarp; q < P; q += kWarp) {
+        const int p = o.proc_at[q];
+        w.pxs[q] = run_sum(w.xs, tb.proc_ptr[p], tb.proc_ptr[p + 1], 0.f);
+      }
+    }
+    __syncwarp();
+    // tick_timers: proc_sums
+    float ls[kLinkSlots];
+    run_sums(w.pxs, lb, le, ls);
+    #pragma unroll
+    for (int m = 0; m < kLinkSlots; ++m) {
+      if (lane + m * kWarp < L) w.lx[lane + m * kWarp] = ls[m];
+    }
+    __syncwarp();
+    // tick_timers: link_sums
+    float own_proc[kSlots], own_link[kSlots];
+    #pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      own_proc[j] = w.pxs[rp[j]];
+      own_link[j] = w.lx[lol[j]];
+    }
+    #pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      cth[j] = __fadd_rn(cth[j], __fmul_rn(av[j], __fsub_rn(own_proc[j], xf[j])));
+      cpr[j] = __fadd_rn(cpr[j], __fmul_rn(av[j], __fsub_rn(own_link[j], own_proc[j])));
+      rem[j] = __fsub_rn(rem[j], xf[j]);
+      const bool act = av[j] > 0.f;
+      if (act && !st[j]) tst[j] = tc;
+      st[j] = st[j] || act;
+      if (act && rem[j] <= 1e-6f) {
+        dn[j] = true;
+        ten[j] = tc + 1;
+      }
+    }
+    // tick_timers: slot_update
+    if constexpr (kGeneral) {
+      for (int q = lane + kPast; q < T; q += kWarp) {
+        const int i = o.leg_at[q];
+        const size_t x = leg0 + i;
+        const float a = w.avp[q - kPast];
+        const float own_p = w.pxs[o.pos_of_proc[tb.proc_of_leg[i]]];
+        const float own_l = w.lx[tb.link_of_leg[i]];
+        g.conth_out[x] = __fadd_rn(g.conth_out[x], __fmul_rn(a, __fsub_rn(own_p, w.xs[q])));
+        g.conpr_out[x] = __fadd_rn(g.conpr_out[x], __fmul_rn(a, __fsub_rn(own_l, own_p)));
+        const float rm = __fsub_rn(g.remaining_out[x], w.xs[q]);
+        g.remaining_out[x] = rm;
+        const bool act = a > 0.f;
+        if (act && g.started_out[x] == 0) g.t_start_out[x] = tc;
+        if (act) g.started_out[x] = 1;
+        if (act && rm <= 1e-6f) {
+          g.done_out[x] = 1;
+          g.t_end_out[x] = tc + 1;
         }
       }
     }
-    for (int i = lane + kPast; i < T; i += kWarp) {
-      const size_t o = leg0 + i;
-      const float a = av_row[i];
-      const float x = ws.x[i];
-      const float own_proc = ws.px[tb.proc_of_leg[i]];
-      const float own_link = ws.lx[tb.link_of_leg[i]];
-      g.conth_out[o] = __fadd_rn(g.conth_out[o], __fmul_rn(a, __fsub_rn(own_proc, x)));
-      g.conpr_out[o] = __fadd_rn(g.conpr_out[o], __fmul_rn(a, __fsub_rn(own_link, own_proc)));
-      const float rm = __fsub_rn(g.remaining_out[o], x);
-      g.remaining_out[o] = rm;
-      const bool act = a > 0.f;
-      if (act && g.started_out[o] == 0) g.t_start_out[o] = tc;
-      if (act) g.started_out[o] = 1;
-      if (act && rm <= 1e-6f) {
-        g.done_out[o] = 1;
-        g.t_end_out[o] = tc + 1;
-      }
-    }
+    // tick_timers: past_update
     tc += 1;
     steps += 1;
-    __syncwarp();  // the next tick rewrites the scratch rows
+    __syncwarp();  // the next tick rewrites the rows
   }
+  // tick_timers: save
 
   if (lane == 0) {
     g.t_out[e] = tc;
@@ -796,16 +1140,21 @@ bank_fused_wide_kernel(FusedArgs g) {
   }
   #pragma unroll
   for (int j = 0; j < kSlots; ++j) {
-    int i = lane + j * kWarp;
-    if (i < T) {
-      g.remaining_out[leg0 + i] = rem[j];
-      g.done_out[leg0 + i] = dn[j] ? 1 : 0;
-      g.started_out[leg0 + i] = st[j] ? 1 : 0;
-      g.t_start_out[leg0 + i] = tst[j];
-      g.t_end_out[leg0 + i] = ten[j];
-      g.conth_out[leg0 + i] = cth[j];
-      g.conpr_out[leg0 + i] = cpr[j];
+    const int q = lane + j * kWarp;
+    if (q < T) {
+      const size_t i = leg0 + o.leg_at[q];
+      g.remaining_out[i] = rem[j];
+      g.done_out[i] = dn[j] ? 1 : 0;
+      g.started_out[i] = st[j] ? 1 : 0;
+      g.t_start_out[i] = tst[j];
+      g.t_end_out[i] = ten[j];
+      g.conth_out[i] = cth[j];
+      g.conpr_out[i] = cpr[j];
     }
+  }
+  #pragma unroll
+  for (int m = 0; m < kLinkSlots; ++m) {
+    if (lane + m * kWarp < L) g.bg_out[link0 + lane + m * kWarp] = bgv[m];
   }
 }
 
@@ -827,19 +1176,15 @@ __device__ void load_tick_legs(const TickArgs& g, bool live, int lane, size_t le
   }
 }
 
-// One tick's outputs of element e: the slots' transfers, under wide tables
-// those past them from ws.x, then the sums.
-template <int kSlots, class Tb, class Ws>
-__device__ void write_tick(const TickArgs& g, const Tb& tb, const Ws& ws,
+// One tick's outputs of element e: the slots' transfers, then the sums.
+template <int kSlots>
+__device__ void write_tick(const TickArgs& g, const ScenarioTables& tb, const WarpScratch& ws,
                            const float (&xf)[kSlots], size_t e, int lane) {
   const size_t leg0 = e * g.T;
   #pragma unroll
   for (int j = 0; j < kSlots; ++j) {
     int i = lane + j * kWarp;
     if (i < g.T) g.xfer[leg0 + i] = xf[j];
-  }
-  if constexpr (Tb::kWide) {
-    for (int i = lane + kSlots * kWarp; i < g.T; i += kWarp) g.xfer[leg0 + i] = ws.x[i];
   }
   write_sums(tb, ws, g.proc_xfer, g.link_xfer, e, lane, g.P, g.L);
 }
@@ -869,33 +1214,7 @@ bank_tick_kernel(TickArgs g) {
   stage_tables<true>(tb, g.tables, s, T, g.P, L);
   if (!live) return;
   WarpScratch& ws = scratch[warp];
-  fair_share(tb, ws, av, keep, rem, xf, bgv, bwv, LegRows{}, lane, T, L);
-  write_tick(g, tb, ws, xf, e, lane);
-}
-
-// bank_tick_kernel on wide tables: kMaxSlots slots a lane, the legs past
-// them and every link read from device memory.
-__global__ void __launch_bounds__(kBankWarps * kWarp)
-bank_tick_wide_kernel(TickArgs g) {
-  extern __shared__ int smem[];
-  const int s = blockIdx.x;
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int r = blockIdx.y * kBankWarps + warp;
-  const bool live = r < g.R;  // warp-uniform
-  const int T = g.T, P = g.P, L = g.L;
-
-  const size_t e = (size_t)s * g.R + r;
-  const float* keep_row = g.keep + (size_t)s * (g.keep_rstride ? (size_t)g.R * T : T)
-                          + (size_t)r * g.keep_rstride;
-  float av[kMaxSlots], keep[kMaxSlots], rem[kMaxSlots], xf[kMaxSlots];
-  load_tick_legs(g, live, lane, e * T, keep_row, av, keep, rem, xf);
-  const WideTables tb = stage_wide_tables(smem, g.tables, s, T, P, L);
-  if (!live) return;
-  WideScratch ws = wide_scratch(smem, warp, T, P, L, wide_scratch_words(T, P, L));
-  const LegRows more{g.active + e * T, keep_row, g.remaining + e * T, g.bg + e * L,
-                     g.bw + (size_t)s * L};
-  fair_share(tb, ws, av, keep, rem, xf, 0.f, 0.f, more, lane, T, L);
+  fair_share(tb, ws, av, keep, rem, xf, bgv, bwv, lane, T, L);
   write_tick(g, tb, ws, xf, e, lane);
 }
 
@@ -922,7 +1241,99 @@ bank_sums_kernel(SumsArgs g) {
   write_sums(tb, ws, g.proc, g.link, e, lane, g.P, g.L);
 }
 
-// bank_sums_kernel on wide tables.
+// The per-process and per-link sums of the values x (by leg) of element e
+// under wide tables, into proc and link: x gathered in list order, each
+// process's sum a fold of its run from 0.0, the process sums gathered in
+// link-list order, each link's sum a fold of its run from 0.0. The same
+// terms in the same order as segment_sums; a process in no list sums
+// nothing.
+__device__ void wide_sums(const WideTables& tb, const WideRows& w, const float* x, float* proc,
+                          float* link, size_t e, int lane, int P, int L) {
+  const int n_legs = tb.proc_ptr[P], n_procs = tb.link_proc_ptr[L];
+  for (int k = lane; k < n_legs; k += kWarp) w.xs[k] = x[tb.proc_legs[k]];
+  __syncwarp();
+  for (int p = lane; p < P; p += kWarp) {
+    const float sum = run_sum(w.xs, tb.proc_ptr[p], tb.proc_ptr[p + 1], 0.f);
+    w.px[p] = sum;
+    proc[e * P + p] = sum;
+  }
+  __syncwarp();
+  for (int k = lane; k < n_procs; k += kWarp) w.pxs[k] = w.px[tb.link_procs[k]];
+  __syncwarp();
+  for (int l = lane; l < L; l += kWarp) {
+    link[e * L + l] = run_sum(w.pxs, tb.link_proc_ptr[l], tb.link_proc_ptr[l + 1], 0.f);
+  }
+}
+
+// bank_tick_kernel on wide tables, in list order: the element's rows
+// staged by leg before the block stages its tables, the ballot of the
+// active legs by position, each process's count the popcount of its run,
+// the ballot of the active processes by position in the link lists, each
+// link's count the popcount of its run; the shares by leg, then wide_sums.
+__global__ void __launch_bounds__(kBankWarps * kWarp)
+bank_tick_wide_kernel(TickArgs g) {
+  extern __shared__ int smem[];
+  const int s = blockIdx.x;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int r = blockIdx.y * kBankWarps + warp;
+  const bool live = r < g.R;  // warp-uniform
+  const int T = g.T, P = g.P, L = g.L;
+
+  const size_t e = (size_t)s * g.R + r;
+  const float* keep_row = g.keep + (size_t)s * (g.keep_rstride ? (size_t)g.R * T : T)
+                          + (size_t)r * g.keep_rstride;
+  const WideRows w = wide_rows(smem, warp, T, P, L);
+  if (live) {
+    for (int i = lane; i < T; i += kWarp) {
+      w.a[i] = g.active[e * T + i];
+      w.keep[i] = keep_row[i];
+      w.rem[i] = g.remaining[e * T + i];
+    }
+  }
+  const WideTables tb = stage_wide_tables(smem, g.tables, s, T, P, L);  // publishes the rows
+  if (!live) return;
+  const int n_legs = tb.proc_ptr[P], n_procs = tb.link_proc_ptr[L];
+  for (int v = 0; v * kWarp < n_legs; ++v) {  // warp-uniform
+    const int k = v * kWarp + lane;
+    const unsigned b = __ballot_sync(kFull, k < n_legs && w.a[tb.proc_legs[k]] > 0.f);
+    if (lane == 0) w.aw[v] = b;
+  }
+  __syncwarp();
+  for (int p = lane; p < P; p += kWarp) {
+    const int b[1] = {tb.proc_ptr[p]}, en[1] = {tb.proc_ptr[p + 1]};
+    int c[1];
+    run_counts(w.aw, b, en, c);
+    w.thr[p] = c[0];
+  }
+  __syncwarp();
+  for (int v = 0; v * kWarp < n_procs; ++v) {  // warp-uniform
+    const int k = v * kWarp + lane;
+    const unsigned b = __ballot_sync(kFull, k < n_procs && w.thr[tb.link_procs[k]] > 0);
+    if (lane == 0) w.pw[v] = b;
+  }
+  __syncwarp();
+  for (int l = lane; l < L; l += kWarp) {
+    const int b[1] = {tb.link_proc_ptr[l]}, en[1] = {tb.link_proc_ptr[l + 1]};
+    int c[1];
+    run_counts(w.pw, b, en, c);
+    w.ppbw[l] = per_proc_bw(c[0], g.bg[e * L + l], g.bw[(size_t)s * L + l]);
+  }
+  __syncwarp();
+  for (int i = lane; i < T; i += kWarp) {
+    const float threads_leg = fmaxf(__int2float_rn(w.thr[tb.proc_of_leg[i]]), 1.f);
+    const float chunk = share_div(
+        __fmul_rn(__fmul_rn(w.a[i], w.keep[i]), w.ppbw[tb.link_of_leg[i]]), threads_leg);
+    const float x = fminf(w.rem[i], chunk);
+    w.x[i] = x;
+    g.xfer[e * T + i] = x;
+  }
+  __syncwarp();
+  wide_sums(tb, w, w.x, g.proc_xfer, g.link_xfer, e, lane, P, L);
+}
+
+// bank_sums_kernel on wide tables: the element's values staged by leg
+// before the block stages its tables, then wide_sums.
 __global__ void __launch_bounds__(kBankWarps * kWarp)
 bank_sums_wide_kernel(SumsArgs g) {
   extern __shared__ int smem[];
@@ -933,14 +1344,13 @@ bank_sums_wide_kernel(SumsArgs g) {
   const bool live = r < g.R;  // warp-uniform
   const int T = g.T, P = g.P, L = g.L;
   const size_t e = (size_t)s * g.R + r;
-  WideScratch ws = wide_scratch(smem, warp, T, P, L, wide_scratch_words(T, P, L));
+  const WideRows w = wide_rows(smem, warp, T, P, L);
   if (live) {
-    for (int i = lane; i < T; i += kWarp) ws.x[i] = g.v[e * T + i];
+    for (int i = lane; i < T; i += kWarp) w.a[i] = g.v[e * T + i];
   }
-  const WideTables tb = stage_wide_tables(smem, g.tables, s, T, P, L);  // publishes ws.x too
+  const WideTables tb = stage_wide_tables(smem, g.tables, s, T, P, L);  // publishes w.a
   if (!live) return;
-  segment_sums(tb, ws, lane, L);
-  write_sums(tb, ws, g.proc, g.link, e, lane, P, L);
+  wide_sums(tb, w, w.a, g.proc, g.link, e, lane, P, L);
 }
 
 // Launches kernel<ceil(T / 32)> (kSlots = 1 .. 4).
@@ -961,17 +1371,64 @@ inline bool bad_shape(int S, int R, int T, int P, int L) {
          R < 1 || (R + kBankWarps - 1) / kBankWarps > 65535;
 }
 
-// Launches a wide kernel with its dynamic shared memory, raising the
-// kernel's limit past the default 48 KB where it needs more.
-template <class Args>
-int wide_launch(void (*kernel)(Args), const Args& g, dim3 grid, int T, int P, int L,
-                int warp_words, void* stream) {
-  const size_t smem = wide_smem_bytes(T, P, L, warp_words);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
+using FusedKernel = void (*)(FusedArgs);
+
+// Whether the wide fused kernel runs its general instance <8, 8> at these
+// pads, and else its slots: max(4, ceil(T / 32), ceil(P / 32)).
+inline bool wide_general(int T, int P, int L) {
+  return T > kWidePast || P > kWidePast || L > kWarp;
+}
+inline int wide_slots(int T, int P) {
+  const int slots = ((T > P ? T : P) + kWarp - 1) / kWarp;
+  return slots < 4 ? 4 : slots;
+}
+
+// The wide fused kernel's instance for a scenario's pads: wide_slots leg
+// and process slots and one link slot on T <= 256, P <= 256, L <= 32, else
+// the general instance.
+FusedKernel wide_fused_kernel(int T, int P, int L) {
+  if (wide_general(T, P, L)) return bank_fused_wide_kernel<kWideSlots, kWideSlots>;
+  switch (wide_slots(T, P)) {
+    case 5: return bank_fused_wide_kernel<5, 1>;
+    case 6: return bank_fused_wide_kernel<6, 1>;
+    case 7: return bank_fused_wide_kernel<7, 1>;
+    case 8: return bank_fused_wide_kernel<8, 1>;
+    default: return bank_fused_wide_kernel<4, 1>;
   }
+}
+
+// Raises every wide kernel's dynamic shared-memory limit past the default
+// 48 KB to what it takes at the wide limits, once a device (at the first
+// wide launch there), not on every launch.
+cudaError_t raise_wide_limits() {
+  static std::atomic<unsigned long long> raised{0};  // a bit a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= 64 || (raised.load() >> dev) & 1ull) return err;
+  const int fused = (int)wide_fused_smem_bytes(kWideT, kWideP, kWideL);
+  const int plain = (int)wide_smem_bytes(kWideT, kWideP, kWideL,
+                                         wide_row_words(kWideT, kWideP, kWideL));
+  for (FusedKernel k : {bank_fused_wide_kernel<4, 1>, bank_fused_wide_kernel<5, 1>,
+                        bank_fused_wide_kernel<6, 1>, bank_fused_wide_kernel<7, 1>,
+                        bank_fused_wide_kernel<8, 1>,
+                        bank_fused_wide_kernel<kWideSlots, kWideSlots>}) {
+    if (err == cudaSuccess) err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, fused);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(bank_tick_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plain);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(bank_sums_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plain);
+  }
+  if (err == cudaSuccess) raised |= 1ull << dev;
+  return err;
+}
+
+// Launches a wide kernel with smem bytes of dynamic shared memory.
+template <class Args>
+int wide_launch(void (*kernel)(Args), const Args& g, dim3 grid, size_t smem, void* stream) {
+  const cudaError_t err = raise_wide_limits();
+  if (err != cudaSuccess) return (int)err;
   kernel<<<grid, kBankWarps * kWarp, smem, (cudaStream_t)stream>>>(g);
   return 0;
 }
@@ -1015,6 +1472,31 @@ int grid_tick_bank_occupancy(int T, int* fused_blocks, int* tick_blocks, int* wa
   return err;
 }
 
+// The wide instances at T legs, P processes and L links: the fused
+// kernel's instance <fused_slots, fused_link_slots>, its dynamic shared
+// memory and blocks resident on one SM, and the same of the one-tick
+// kernel (the sums kernel takes the one-tick kernel's shared memory).
+int grid_tick_wide_occupancy(int T, int P, int L, int* fused_slots, int* fused_link_slots,
+                             int* fused_smem, int* fused_blocks, int* tick_smem,
+                             int* tick_blocks) {
+  if (bad_shape(1, 1, T, P, L)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = raise_wide_limits();
+  *fused_slots = wide_general(T, P, L) ? kWideSlots : wide_slots(T, P);
+  *fused_link_slots = wide_general(T, P, L) ? kWideSlots : 1;
+  *fused_smem = (int)wide_fused_smem_bytes(T, P, L);
+  *tick_smem = (int)wide_smem_bytes(T, P, L, wide_row_words(T, P, L));
+  const int threads = kBankWarps * kWarp;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(fused_blocks, wide_fused_kernel(T, P, L),
+                                                        threads, *fused_smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(tick_blocks, bank_tick_wide_kernel,
+                                                        threads, *tick_smem);
+  }
+  return (int)err;
+}
+
 int grid_tick_bank_fused_launch(
     const int* t, const int* steps, const float* remaining,
     const unsigned char* done, const unsigned char* started,
@@ -1038,8 +1520,8 @@ int grid_tick_bank_fused_launch(
   if (fits_bank(T, P, L)) {
     BANK_LAUNCH(bank_fused_kernel, T, grid, stream, g)
   } else {
-    const int err = wide_launch(bank_fused_wide_kernel, g, grid, T, P, L,
-                                wide_fused_scratch_words(T, P, L), stream);
+    const int err = wide_launch(wide_fused_kernel(T, P, L), g, grid,
+                                wide_fused_smem_bytes(T, P, L), stream);
     if (err != 0) return err;
   }
   return (int)cudaGetLastError();
@@ -1059,8 +1541,8 @@ int grid_tick_bank_launch(
   if (fits_bank(T, P, L)) {
     BANK_LAUNCH(bank_tick_kernel, T, grid, stream, g)
   } else {
-    const int err = wide_launch(bank_tick_wide_kernel, g, grid, T, P, L,
-                                 wide_scratch_words(T, P, L), stream);
+    const int err = wide_launch(bank_tick_wide_kernel, g, grid,
+                                wide_smem_bytes(T, P, L, wide_row_words(T, P, L)), stream);
     if (err != 0) return err;
   }
   return (int)cudaGetLastError();
@@ -1075,8 +1557,8 @@ int grid_tick_bank_sums_launch(const float* v, const int* tables, float* proc,
   if (fits_bank(T, P, L)) {
     bank_sums_kernel<<<grid, kBankWarps * kWarp, 0, (cudaStream_t)stream>>>(g);
   } else {
-    const int err = wide_launch(bank_sums_wide_kernel, g, grid, T, P, L,
-                                 wide_scratch_words(T, P, L), stream);
+    const int err = wide_launch(bank_sums_wide_kernel, g, grid,
+                                wide_smem_bytes(T, P, L, wide_row_words(T, P, L)), stream);
     if (err != 0) return err;
   }
   return (int)cudaGetLastError();

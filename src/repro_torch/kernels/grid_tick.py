@@ -43,6 +43,7 @@ __all__ = [
     "reset_launches",
     "limits",
     "bank_occupancy",
+    "wide_occupancy",
     "campaign_limits",
     "grid_tick_cuda",
     "grid_tick_sums_cuda",
@@ -87,6 +88,8 @@ def _lib() -> ctypes.CDLL:
             fn.restype = _I
         lib.grid_tick_bank_occupancy.argtypes = [_I] + [ctypes.POINTER(_I)] * 3
         lib.grid_tick_bank_occupancy.restype = _I
+        lib.grid_tick_wide_occupancy.argtypes = [_I] * 3 + [ctypes.POINTER(_I)] * 6
+        lib.grid_tick_wide_occupancy.restype = _I
         lib._repro_bound = True
     return lib
 
@@ -118,6 +121,20 @@ def bank_occupancy() -> Dict[str, object]:
         out["tick"][f"T<={legs}"] = tick.value
         out["warps_per_block"] = warps.value
     return out
+
+
+def wide_occupancy(T: int, P: int, L: int) -> Dict[str, int]:
+    """The wide instances at a scenario's pads on the current card: the
+    fused kernel's instance (its leg and link slots a lane), dynamic shared
+    memory (bytes) and blocks resident on one SM, and the one-tick
+    kernel's shared memory and blocks."""
+    out = [_I() for _ in range(6)]
+    err = _lib().grid_tick_wide_occupancy(T, P, L, *(ctypes.byref(x) for x in out))
+    if err != 0:
+        raise RuntimeError(f"grid_tick_wide_occupancy failed: cudaError_t {err}")
+    keys = ("fused_slots", "fused_link_slots", "fused_smem", "fused_blocks_per_sm", "tick_smem",
+            "tick_blocks_per_sm")
+    return {k: x.value for k, x in zip(keys, out)}
 
 
 @functools.lru_cache(maxsize=None)

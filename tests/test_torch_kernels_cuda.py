@@ -61,6 +61,8 @@ when an input requires grad. The mLSTM kernel's gradient is
 path's within 1e-4 of each gradient's max. The MoE block's backward (its
 dispatch gathers scatter-add a token's slots) gives the same bits on two
 runs, at qwen2-moe-a2.7b's full width in bf16."""
+import functools
+
 import pytest
 import torch
 
@@ -155,32 +157,82 @@ def _check_bank_launches(state, mu, sigma, consts, noise, tables, K):
         assert grid_tick.LAUNCHES[name] == before[name] + 2, name
 
 
+@functools.lru_cache(maxsize=None)
+def _wide_bank(source):
+    """A bank past the bank limits: a scale-3 bank (T 162, P 162), the
+    long-tail fleet's widest bucket (T 196, P 196, L 2: links of 79 to 98
+    processes) or the serving bench's widest slot bank (its requests at pad
+    signature (256, 256, 8))."""
+    if source == "scale3":
+        return build_bank(n=64, seed=0, scale=3.0)
+    if source == "widest_bucket":
+        fleet = Fleet.from_scenarios(n=256, seed=0, scale=3.0, n_buckets=8, device="cpu")
+        return max(fleet.bank.buckets, key=lambda b: b.bank.pad_legs).bank
+    from repro_torch.core.workload import compile_campaign
+    from repro_torch.serve import synthetic_workload
+    from repro_torch.serve.cache import pad_signature
+
+    sig = (256, 256, 8)
+    pairs = [(r.grid, r.campaign) for _, r in synthetic_workload(64, rate=200.0, seed=0, scale=4.0,
+                                                                 replicas=4)
+             if pad_signature(compile_campaign(r.grid, r.campaign)) == sig]
+    return Fleet.from_pairs(pairs, pad_floors=sig, device="cpu").bank
+
+
+@pytest.mark.parametrize("K", [1, 7, 32])
 @pytest.mark.parametrize("per_replica", [False, True])
-def test_wide_bank_kernels_at_long_tail_pads(per_replica):
-    """A scale-3 fleet pads past the bank limits (T 162, P 162): the wide
-    fused window, tick and sums bitwise against the plain versions."""
-    _need_cuda()
-    bank = build_bank(n=64, seed=0, scale=3.0)
-    assert grid_tick._wide(bank.pad_legs, bank.pad_procs, bank.pad_links)
-    _check_bank_kernels(bank, R=4, K=16, per_replica=per_replica)
-
-
-@pytest.mark.parametrize("K", [1, 24])
-def test_wide_bank_kernels_on_a_random_wide_table(K):
-    """Random scenarios of 700 legs, 300 processes and 40 links (dependency
-    chains, releases, per-replica keep and moments): the wide instances
+@pytest.mark.parametrize("source", ["scale3", "widest_bucket", "serve_bank"])
+def test_wide_bank_kernels_at_long_tail_pads(source, per_replica, K):
+    """Banks the repo runs past the bank limits, on the wide fused kernel's
+    register path (T 162, 196, 256): the wide fused window, tick and sums
     bitwise against the plain versions."""
     _need_cuda()
-    S, R, T, P, L = 3, 5, 700, 300, 40
+    bank = _wide_bank(source)
+    assert grid_tick._wide(bank.pad_legs, bank.pad_procs, bank.pad_links)
+    _check_bank_kernels(bank, R=8, K=K, per_replica=per_replica)
+
+
+def _long_list_campaign(T, P, L, seed):
+    """:func:`_random_campaign` with one process of at least 64 legs and one
+    link of at least 125 processes."""
+    g = torch.Generator().manual_seed(seed)
+    proc = torch.randint(1, P, (T,), generator=g)
+    proc[torch.randperm(T, generator=g)[:64]] = 0
+    link = torch.randint(1, L, (P,), generator=g)
+    link[torch.randperm(P, generator=g)[:125]] = 0
+    lp = torch.nn.functional.one_hot(proc, P).float()
+    pl = torch.nn.functional.one_hot(link, L).float()
+    return lp, pl, lp @ pl
+
+
+# (T, P, L, incidences): the register path's first slot past the narrow
+# kernel's (T 129) and its last (T 256); past the slots (T 257, 700);
+# long lists; one link; 33 links (the general instance at few legs)
+WIDE_TABLES = {
+    "T129": (129, 100, 3, "random"),
+    "T256": (256, 256, 8, "random"),
+    "T257": (257, 200, 8, "random"),
+    "T700": (700, 300, 40, "random"),
+    "long_lists": (250, 160, 2, "long"),
+    "L1": (200, 150, 1, "random"),
+    "L33": (120, 90, 33, "random"),
+}
+
+
+def _random_wide_window(table, R, K, per_replica, dev, S=3):
+    """A carry six plain ticks into random scenarios of ``WIDE_TABLES[table]``
+    (dependency chains, releases), bank-wide or per-replica keep and
+    moments, ``K`` noise rows and the tables, on ``dev``."""
+    T, P, L, kind = WIDE_TABLES[table]
     g = torch.Generator().manual_seed(11)
-    inc = [_random_campaign(T, P, L, seed=20 + s) for s in range(S)]
-    dev = torch.device("cuda")
+    make = _long_list_campaign if kind == "long" else _random_campaign
+    inc = [make(T, P, L, seed=20 + s) for s in range(S)]
     lp, pl, ll = (torch.stack(m).to(dev) for m in zip(*inc))
     dep = torch.full((S, T), -1, dtype=torch.int32)
     chained = torch.rand((S, T), generator=g) < 0.3
     parent = (torch.rand((S, T), generator=g) * torch.arange(T)).to(torch.int32)
     dep = torch.where(chained & (torch.arange(T) > 0), parent, dep)
-    keep = (0.9 + 0.1 * torch.rand((S, R, T), generator=g))
+    keep = 0.9 + 0.1 * torch.rand((S, R, T) if per_replica else (S, T), generator=g)
     consts = (
         torch.randint(0, 6, (S, T), generator=g, dtype=torch.int32),  # release
         dep,
@@ -195,8 +247,9 @@ def test_wide_bank_kernels_on_a_random_wide_table(K):
     state = (z(i32, S, R), z(i32, S, R), (5 + 60 * torch.rand((S, R, T), generator=g)).to(dev),
              z(torch.bool, S, R, T), z(torch.bool, S, R, T), z(i32, S, R, T), z(i32, S, R, T),
              z(f32, S, R, T), z(f32, S, R, T), z(f32, S, R, L))
-    mu = (1 + torch.rand((S, R, L), generator=g)).to(dev)
-    sigma = torch.full((S, R, L), 1.0, device=dev)
+    moments = (S, R, L) if per_replica else (S, 1, L)
+    mu = (1 + torch.rand(moments, generator=g)).to(dev)
+    sigma = (0.5 + torch.rand(moments, generator=g)).to(dev)
     tables = ref.bank_index_tables(lp, pl, ll)
     warm = torch.randn((6, S, R, L), generator=g).to(dev)
     state = ref.grid_tick_bank_window(state, mu, sigma, *consts, leap=False, noise=warm,
@@ -204,7 +257,20 @@ def test_wide_bank_kernels_on_a_random_wide_table(K):
     state = (state[0], torch.zeros_like(state[1])) + tuple(state[2:])
     assert bool(state[3].any()) and not bool(state[3].all())
     noise = torch.randn((K, S, R, L), generator=g).to(dev)
-    _check_bank_launches(state, mu, sigma, consts, noise, tables, K)
+    return state, mu, sigma, consts, noise, tables
+
+
+@pytest.mark.parametrize("K", [1, 7, 32])
+@pytest.mark.parametrize("per_replica", [False, True])
+@pytest.mark.parametrize("table", list(WIDE_TABLES))
+def test_wide_bank_kernels_on_a_random_wide_table(table, per_replica, K):
+    """Random scenarios past the bank limits (``WIDE_TABLES``): the wide
+    instances bitwise against the plain versions."""
+    _need_cuda()
+    args = _random_wide_window(table, 5, K, per_replica, torch.device("cuda"))
+    T, P, L = args[-1].shape[1:]
+    assert grid_tick._wide(T, P, L)
+    _check_bank_launches(*args, K)
 
 
 @pytest.mark.parametrize("K", [1, 7, 32])

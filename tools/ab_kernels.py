@@ -10,13 +10,18 @@ Run from the root of a checkout on a machine with an NVIDIA GPU:
 
 Groups (``--groups``, default all):
 
-- ``bank``: the banked simulator's fused window (``bank_fused_kernel``, one
-  K = 32 window of the stochastic tick run's first carry) and one tick
-  (``bank_tick_kernel``, ``remaining = inf`` as the leap scan calls it) at
-  the main path's shapes (1,024 scenarios x 64 replicas). Both builds run
-  through this checkout's wrappers (the other's library swapped in), so the
-  other sources must export the same C signatures (commit 593f029 does);
-  both bitwise against the plain versions.
+- ``bank``: the banked simulator's fused window (one K = 32 window of the
+  stochastic tick run's first carry), one tick (``remaining = inf`` as the
+  leap scan calls it) and the sums of its transfers: first on their wide
+  instances (``bank_fused_wide_kernel``, ``bank_tick_wide_kernel``,
+  ``bank_sums_wide_kernel``) at the long-tail fleet's widest bucket (S 3,
+  R 64, T 196, P 196, L 2) and at the serving bench's widest slot bank (T
+  256, P 256, L 8), then (``bank_fused_kernel``, ``bank_tick_kernel``,
+  ``bank_sums_kernel``) at the main path's shapes (1,024 scenarios x 64
+  replicas). Both builds run through this checkout's wrappers (the other's
+  library swapped in), so the other sources must export the same C
+  signatures of the three launches (commit 593f029 does); both bitwise
+  against the plain versions and each other.
 - ``campaign``: one per-campaign tick at its main shape (B = 2,048
   simulations of the Section-5 campaign, one keep per row, ``remaining =
   inf`` as presimulation's leap calls it). This build runs
@@ -53,8 +58,9 @@ Groups (``--groups``, default all):
   dq and dk/dv timed.
 
 Each kernel is timed as device time under ``torch.profiler``
-(``chip_smoke.device_ms``) in turns: other, this, this, other. One JSON line
-per shape, then the card's name and power limit.
+(``chip_smoke.device_ms``) in turns: other, this, this, other (the bank
+groups also by CUDA events, ``events``). One JSON line per shape, then the
+card's name and power limit.
 """
 from __future__ import annotations
 
@@ -120,7 +126,8 @@ def build_other(csrc: str, out_dir: str, names) -> dict:
                 getattr(flash_attention._lib(), fn).argtypes
     if "grid_tick" in libs:
         ours, other = grid_tick._lib(), libs["grid_tick"]
-        for fn in ("grid_tick_bank_fused_launch", "grid_tick_bank_launch", "grid_tick_limits"):
+        for fn in ("grid_tick_bank_fused_launch", "grid_tick_bank_launch", "grid_tick_bank_sums_launch",
+                   "grid_tick_limits", "grid_tick_campaign_limits"):
             getattr(other, fn).argtypes = getattr(ours, fn).argtypes
         if hasattr(other, "grid_tick_campaign_launch"):
             other.grid_tick_campaign_launch.argtypes = OLD_CAMPAIGN_ARGTYPES
@@ -143,50 +150,59 @@ def held(label, got, want, names, exact: bool) -> float:
     return max(cs.compare(f"{label} {n}", g, w, exact=exact) for n, g, w in zip(names, got, want))
 
 
-def ab_bank(other_lib, dev) -> None:
-    """B.1's full window and B.2's tick at the main path's shapes."""
-    bank = build_bank(n=cs.N_SCEN, seed=0)
-    S, R, K = cs.N_SCEN, cs.N_REP, 32
-    T, L = bank.pad_legs, bank.pad_links
-    spec = engine.bank_spec(bank, dev)
-    p = engine.make_bank_params(bank, bg_mu=2.0, bg_sigma=1.0, device=dev)
-    mu, sigma = p.bg_mu[:, None].contiguous(), p.bg_sigma[:, None].contiguous()
-    consts = (spec.release, spec.dep, spec.bg_period, spec.max_ticks, p.keep_frac,
-              spec.bandwidth, spec.leg_proc, spec.proc_link, spec.leg_link)
-    c = engine._banked_init_carry(spec, p, torch.zeros((S, R, 2), dtype=torch.int64, device=dev))
-    state = (c.t, torch.zeros_like(c.t), c.remaining, c.done, c.started,
-             c.t_start, c.t_end, c.conth, c.conpr, c.bg)
-    noise = torch.randn((K, S, R, L), device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(0))
+def ab_window(label, spec, p, R, other_lib, dev, reps) -> None:
+    """One K = 32 window of the fused kernel (``chip_smoke.first_window``),
+    one tick (``remaining = inf``, ``chip_smoke.tick_inputs``) and the sums
+    of its transfers on ``spec`` x ``R`` replicas: each build bitwise the
+    plain versions and the other build, then timed in turns by device time
+    and by CUDA events. ``reps`` calls a timing of the fused, tick and sums
+    kernels."""
+    S, T = spec.size_mb.shape
+    P, L = spec.leg_proc.shape[-1], spec.bandwidth.shape[-1]
+    state, noise, mu, sigma, consts = cs.first_window(spec, p, R, dev)
     tables = spec.bank_tables
     want = ref.grid_tick_bank_window(state, mu, sigma, *consts, leap=False, noise=noise,
                                      tables=tables)
-    fields = ref.BANK_WINDOW_STATE_FIELDS
-    this = lambda: grid_tick.grid_tick_bank_fused_cuda(state, noise, mu, sigma, *consts[:6], tables)
-    other = through(other_lib, this)
-    row = dict(kernel="bank_fused_kernel", shape=[K, S, R, T, bank.pad_procs, L],
-               alive_steps=int(want[1].sum()),
-               this_bitwise=held("this fused", this(), want, fields, exact=True) == 0.0,
-               other_bitwise=held("other fused", other(), want, fields, exact=True) == 0.0)
-    row.update(turns(other, this, 5, "bank_fused_kernel"))
-    print(json.dumps(row), flush=True)
+    targs = cs.tick_inputs(spec, p, R, dev)
+    active, remaining, keep, bg = targs[:4]
+    want_tick = ref.grid_tick_bank_indexed(active, remaining, keep, bg, spec.bandwidth,
+                                           spec.leg_proc, spec.proc_link, tables)
+    v = want_tick[0]
+    calls = (
+        ("bank_fused", lambda: grid_tick.grid_tick_bank_fused_cuda(state, noise, mu, sigma,
+                                                                   *consts[:6], tables),
+         want, ref.BANK_WINDOW_STATE_FIELDS, [32, S, R, T, P, L]),
+        ("bank_tick", lambda: grid_tick.grid_tick_bank_cuda(*targs), want_tick,
+         ("xfer", "proc_xfer", "link_xfer"), [S, R, T, P, L]),
+        ("bank_sums", lambda: grid_tick.grid_tick_bank_sums_cuda(v, tables), want_tick[1:],
+         ("proc", "link"), [S, R, T, P, L]),
+    )
+    for (tag, this, plain, names, shape), n in zip(calls, reps):
+        other = through(other_lib, this)
+        got_this, got_other = this(), other()
+        row = dict(kernel=tag, case=label, shape=shape,
+                   this_bitwise=held(f"this {tag}", got_this, plain, names, exact=True) == 0.0,
+                   other_bitwise=held(f"other {tag}", got_other, plain, names, exact=True) == 0.0,
+                   bitwise_other=all(torch.equal(a, b) for a, b in zip(got_this, got_other)))
+        if tag == "bank_fused":
+            row["alive_steps"] = int(plain[1].sum())
+        row.update(turns(other, this, n, tag))
+        row["events"] = event_turns(other, this, n)
+        print(json.dumps(row), flush=True)
+        if not row["bitwise_other"]:
+            raise AssertionError(f"{tag} {label}: this build's bits differ from the other's")
 
-    g = torch.Generator(device="cpu").manual_seed(2)
-    active = ((torch.rand((S, R, T), generator=g) < 0.5).to(dev).float()
-              * spec.leg_valid[:, None].float())
-    remaining = torch.full((S, R, T), float("inf"), device=dev)
-    bg = torch.rand((S, R, L), generator=g).to(dev)
-    keep = p.keep_frac.contiguous()
-    want = ref.grid_tick_bank_indexed(active, remaining, keep, bg, spec.bandwidth,
-                                      spec.leg_proc, spec.proc_link, tables)
-    names = ("xfer", "proc_xfer", "link_xfer")
-    this = lambda: grid_tick.grid_tick_bank_cuda(active, remaining, keep, bg, spec.bandwidth, tables)
-    other = through(other_lib, this)
-    row = dict(kernel="bank_tick_kernel", shape=[S, R, T, bank.pad_procs, L],
-               this_bitwise=held("this tick", this(), want, names, exact=True) == 0.0,
-               other_bitwise=held("other tick", other(), want, names, exact=True) == 0.0)
-    row.update(turns(other, this, 50, "bank_tick_kernel"))
-    print(json.dumps(row), flush=True)
+
+def ab_bank(other_lib, dev) -> None:
+    """The bank kernels' wide instances at the long-tail fleet's widest
+    bucket and at the serving bench's widest slot bank, then the bank
+    kernels at the main path's shapes (1,024 scenarios x 64 replicas)."""
+    ab_window("long_tail_widest", *cs.widest_long_tail(dev), other_lib, dev, (20, 50, 50))
+    ab_window("serve_256", *cs.serve_wide_bank(dev), other_lib, dev, (20, 50, 50))
+    bank = build_bank(n=cs.N_SCEN, seed=0)
+    spec = engine.bank_spec(bank, dev)
+    p = engine.make_bank_params(bank, bg_mu=2.0, bg_sigma=1.0, device=dev)
+    ab_window("main", spec, p, cs.N_REP, other_lib, dev, (5, 50, 50))
 
 
 def old_campaign_tables(lp, pl, ll) -> torch.Tensor:
@@ -417,6 +433,13 @@ def ab_mlstm(other_lib, dev) -> None:
     print(json.dumps(row), flush=True)
     if not all(same):
         raise AssertionError("mlstm float32: this build's bits differ from the other's")
+
+
+def event_turns(other, this, reps) -> dict:
+    """CUDA-event ms of each (``chip_smoke.timed``), in turns other, this,
+    this, other."""
+    o1, t1, t2, o2 = (cs.timed(fn, reps)[0] for fn in (other, this, this, other))
+    return dict(other_ms=[o1, o2], this_ms=[t1, t2])
 
 
 def turns(other, this, reps, tag, other_tag=None) -> dict:

@@ -4,7 +4,7 @@ checkout's, on one card, in turns: other, this, this, other.
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
     mkdir -p build/parent && git archive <commit> src | tar -x -C build/parent
-    python3 tools/ab_walls.py --other build/parent [--groups fleet campaign section5 xlstm]
+    python3 tools/ab_walls.py --other build/parent [--groups fleet long_tail campaign section5 xlstm]
 
 Each turn is a process of its own that imports one checkout's
 ``repro_torch`` (both packages have that name), builds its kernels into
@@ -12,6 +12,9 @@ that checkout's ``build/``, and times, by group (``--groups``, default
 ``fleet``):
 
 - ``fleet``: ``Fleet.from_scenarios(n=1024).run(replicas=64)``;
+- ``long_tail``: the long-tail fleet, ``Fleet.from_scenarios(n=256,
+  scale=3.0, n_buckets=8).run(replicas=64)``, whose widest buckets run the
+  wide kernels (its warm-up runs 4 replicas);
 - ``campaign``: ``simulate_batch`` of the Section-5 campaign
   (``wlcg_production_workload(seed=0)``, max_ticks 30,000) at B = 2,048;
 
@@ -44,7 +47,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUNS = (("tick", "default"), ("tick", "stochastic"), ("leap", "default"), ("leap", "stochastic"))
-GROUPS = ("fleet", "campaign", "section5", "xlstm")
+GROUPS = ("fleet", "long_tail", "campaign", "section5", "xlstm")
 THETA_SECTION5 = (0.02, 36.9, 14.4)  # the Section-5 launcher's ground truth
 
 
@@ -114,6 +117,13 @@ def child(root: str, group: str, n: int, replicas: int, reps: int) -> None:
         stochastic = fleet.params(bg_mu=2.0, bg_sigma=1.0)
         params = {"default": fleet.params(), "stochastic": stochastic}
         run = lambda p, leap, short=False: fleet.run(p, replicas=replicas, leap=leap)
+    elif group == "long_tail":
+        from repro_torch import Fleet
+
+        fleet = Fleet.from_scenarios(n=256, seed=0, scale=3.0, n_buckets=8, device="cuda")
+        params = {"default": fleet.params(), "stochastic": fleet.params(bg_mu=2.0, bg_sigma=1.0)}
+        run = lambda p, leap, short=False: fleet.run(p, replicas=4 if short else replicas,
+                                                     leap=leap)
     else:
         from repro_torch.core import calibration, engine, prng, workload
 
