@@ -127,7 +127,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    2,112-slot cache; both timed (CUDA events and device time) at
    qwen2-moe-a2.7b's shapes (16 / 16 heads) and the dense D = 128 configs'
    (qwen2.5-14b 40 / 8, minitron-8b 32 / 8, gemma3-27b 32 / 16 at its
-   1,024 window) beside bound, plain and SDPA;
+   1,024 window) beside bound, plain and SDPA; then the flash forward at
+   seamless-m4t-large-v2's shapes without a mask (its encoder, 1,024 frames
+   over 1,024; its cross-attention, 2,048 prompt positions over 1,024
+   frames, and in decode one query row over them) and internvl2-2b's causal
+   prefill (16 / 8 heads of 128), bf16 and the same values in float32, each
+   timed beside bound, plain and SDPA on the same call;
 13. llm_serve — hymba-1.5b at full width (bf16, random weights from a seed):
    8 prompts of 2,048 tokens through ``make_prefill_step``, then 64 greedy
    ``make_serve_step`` steps, with tokens/s, launches per run, peak memory
@@ -171,6 +176,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    to end in bf16 (reported against its limit); then both again with room
    in every expert's queue (capacity factor E / k), where nothing drops and
    every layer is held;
+13d. llm_encdec — seamless-m4t-large-v2 (24 encoder layers over 1,024
+   speech frames, 24 decoder layers with cross-attention) and internvl2-2b
+   (256 image embeddings in front of the prompt): each at full width and 2
+   decoder (and encoder) layers in float32 on the card against the CPU path
+   (2 x 320 tokens, 4 decode steps; logits and every cache tensor,
+   ``cross_kv`` too); then at full width and depth in bf16 (random weights
+   and frontend inputs from a seed): 8 x 2,048 prompt tokens and 64 greedy
+   decode steps, tokens/s, peak memory, launches per run (seamless: 72
+   flash a prefill, 24 flash at one query row and 24 decode attention a
+   step; internvl2: 24 flash a prefill, 24 decode a step), device time of
+   a prefill and a decode step; decode against prefill layer by layer in
+   float32 (held) and end to end in bf16 (reported against its limit);
 14. llm_train_kernels — the flash-attention backward kernels (dq, dk/dv)
    against their plain version on ragged cases (GQA groups of 1, 2 and 8, a
    window, ``q_offset``, dead rows beside live ones, an odd head dim,
@@ -206,6 +223,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import functools
 import io
 import itertools
 import json
@@ -283,11 +301,17 @@ MLP_IN, MLP_HIDDEN, MLP_DEPTH = 15, 128, 4
 THETA_TRUE = (0.05, 40.0, 20.0)
 
 
+# the process's start: every JSON line carries its seconds since then ("t")
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, "t": time.perf_counter() - T_START, **fields}), flush=True)
 
 
+@functools.lru_cache(maxsize=None)
 def smi() -> str:
+    """The card's name and power limit (``nvidia-smi``), read once a run."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -995,25 +1019,28 @@ def phase_parity(dev) -> None:
     compare("Eq.-1 coefficients card vs CPU", coef_g, coef_c, exact=False, rtol=1e-4, atol=1e-6)
 
 
-def device_rows(prof):
+def device_rows(prof, averages=None):
     """``(name, device us, count)`` of a profile's device-side events
     (kernels, copies), largest first: the CPU-side op events carry their
-    kernels' time too and would count it twice."""
+    kernels' time too and would count it twice. ``averages``: the
+    profile's ``key_averages()`` where the caller has them already (each
+    call walks every event again)."""
     dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
         e, "self_cuda_time_total", 0)
     return sorted(
-        ((e.key, dev_us(e), e.count) for e in prof.key_averages()
+        ((e.key, dev_us(e), e.count) for e in averages or prof.key_averages()
          if str(e.device_type).endswith("CUDA") and dev_us(e) > 0
          and e.key not in ANNOTATIONS),
         key=lambda r: -r[1],
     )
 
 
-def range_device_s(prof, name: str) -> float:
+def range_device_s(averages, name: str) -> float:
     """Device seconds of the kernels launched inside the
-    ``torch.profiler.record_function(name)`` ranges of a profile."""
+    ``torch.profiler.record_function(name)`` ranges of a profile, from its
+    ``key_averages()``."""
     total = lambda e: getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-    return max((total(e) for e in prof.key_averages()
+    return max((total(e) for e in averages
                 if e.key == name and not str(e.device_type).endswith("CUDA")), default=0) / 1e6
 
 
@@ -1024,7 +1051,7 @@ def profile_steps(fn, steps: int, wall_per_step: float) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events alone
         fn()
         torch.cuda.synchronize()
     rows = device_rows(prof)
@@ -1626,7 +1653,7 @@ def phase_campaign(dev) -> dict:
         engine.simulate_batch(s_, params["stochastic"], keys, leap=leap)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+        with profile(activities=[ProfilerActivity.CUDA]) as pr:  # device events alone
             engine.simulate_batch(s_, params["stochastic"], keys, leap=leap)
             torch.cuda.synchronize()
         rows = device_rows(pr)
@@ -1851,6 +1878,7 @@ def phase_optimize(dev) -> dict:
 # ---------------------------------------------------------------------------
 HYMBA = "hymba-1.5b"
 QWEN_MOE = "qwen2-moe-a2.7b"
+SEAMLESS, INTERNVL = "seamless-m4t-large-v2", "internvl2-2b"
 # the dense configs at head dim 128: their attention shapes in llm_kernels
 DENSE_D128 = ("qwen2.5-14b", "minitron-8b", "gemma3-27b")
 LLM_B, LLM_S, LLM_NEW = 8, 2048, 64
@@ -2167,28 +2195,31 @@ def phase_llm_kernels(dev) -> dict:
     for name, e in errs.items():
         res[name]["max_abs_err"] = e
     res.update(llm_kernels_d128(dev))
+    res.update(llm_kernels_encdec(dev))
     torch.cuda.synchronize()
     return res
 
 
-def flash_timing(q, k, v, window) -> dict:
-    """The bf16 forward at a causal shape (and ``window``), timed by CUDA
-    events and under ``torch.profiler`` beside its bound, the plain version
-    and SDPA (a band mask for a window)."""
-    B, S, Hq, D = q.shape
-    kernel = lambda: flash_attention.flash_attention_cuda(q, k, v, window=window)
+def flash_timing(q, k, v, window, causal=True) -> dict:
+    """The bf16 forward at a shape (causal with Sq = Skv, or without a mask
+    at any Sq, Skv; and ``window``), timed by CUDA events and under
+    ``torch.profiler`` beside its bound, the plain version and SDPA (a band
+    mask for a window)."""
+    B, Sq, Hq, D = q.shape
+    Skv = k.shape[1]
+    kernel = lambda: flash_attention.flash_attention_cuda(q, k, v, causal=causal, window=window)
     ms, _ = timed(kernel, 5)
-    plain_ms, _ = timed(lambda: ref.flash_attention(q, k, v, window=window), 2)
-    pairs = B * Hq * attention_pairs(S, S, True, window)
+    plain_ms, _ = timed(lambda: ref.flash_attention(q, k, v, causal=causal, window=window), 2)
+    pairs = B * Hq * attention_pairs(Sq, Skv, causal, window)
     ops_ = 4 * D * pairs
-    bytes_ = nbytes(q, k, v) + nbytes(q) + 4 * B * Hq * S
+    bytes_ = nbytes(q, k, v) + nbytes(q) + 4 * B * Hq * Sq
     b_ms, b_by = bound(bytes_, ops_)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if window is None:
         lib = lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
     else:
-        i = torch.arange(S, device=q.device)
+        i = torch.arange(Sq, device=q.device)
         band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
         lib = lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=band, enable_gqa=True)
@@ -2306,6 +2337,50 @@ def llm_kernels_d128(dev) -> dict:
     return res
 
 
+def encdec_flash_shapes():
+    """The flash forward's shapes on the encoder-decoder and vision paths,
+    ``(label, (B, Sq, Skv, Hq, Hkv, D), causal)`` from the configs:
+    seamless-m4t-large-v2's encoder (frames over frames), its
+    cross-attention in prefill (the prompt over the frames) and in decode
+    (one query row over the frames), all without a mask; internvl2-2b's
+    causal self-attention (GQA 2 at D 128)."""
+    sm, iv = configs.get_config(SEAMLESS), configs.get_config(INTERNVL)
+    F, heads = sm.frontend_tokens, (sm.n_heads, sm.n_kv_heads, sm.hd)
+    return (("seamless encoder", (LLM_B, F, F, *heads), False),
+            ("seamless cross", (LLM_B, LLM_S, F, *heads), False),
+            ("seamless decode cross", (LLM_B, 1, F, *heads), False),
+            ("internvl2 prefill", (LLM_B, LLM_S, LLM_S, iv.n_heads, iv.n_kv_heads, iv.hd), True))
+
+
+def llm_kernels_encdec(dev) -> dict:
+    """The flash forward at the encoder-decoder's and the vision config's
+    shapes, held to its plain version in bf16 and on the same values in
+    float32, then timed in bf16 beside bound, plain and SDPA on the same
+    call; decode attention likewise at both configs' 2,112-slot caches
+    (:func:`decode_timing`). Keys ``flash_attention_fwd_encdec`` and
+    ``decode_attention_encdec``: a row a shape by label, and
+    ``max_abs_err`` (the largest bf16 relative error)."""
+    bf = torch.bfloat16
+    rows, err = {}, 0.0
+    for label, shape, causal in encdec_flash_shapes():
+        q, k, v = flash_case(*shape, bf, seed=shape[1] + shape[2], dev=dev)
+        err = max(err, check_flash(label, q, k, v, bf, causal=causal))
+        check_flash(label, *(x.float() for x in (q, k, v)), torch.float32, causal=causal)
+        rows[label] = flash_timing(q, k, v, None, causal=causal)
+        emit("llm_kernels", kernel="flash_attention_fwd", timing=label, card=smi(),
+             shape=list(shape), causal=causal, width=64 if shape[5] <= 64 else 128,
+             library="F.scaled_dot_product_attention(enable_gqa=True)", **rows[label])
+        del q, k, v
+    drows = {}
+    for label, arch in (("seamless decode", SEAMLESS), ("internvl2 decode", INTERNVL)):
+        c = configs.get_config(arch)
+        drows[label] = decode_timing(label, LLM_B, LLM_S + LLM_NEW, c.n_heads, c.n_kv_heads,
+                                     c.hd, seed=c.hd, dev=dev)
+    derr = max(r["max_rel_err"] for r in drows.values())
+    return {"flash_attention_fwd_encdec": dict(rows, max_abs_err=err),
+            "decode_attention_encdec": dict(drows, max_abs_err=derr)}
+
+
 def check_decode_case(label, B, S, Hq, Hkv, D, lengths, dtype, g, dev) -> float:
     """The decode kernel against the plain version on random q and cache
     and ``lengths``; a sequence of length 0 gets 0; a second call the same
@@ -2324,6 +2399,13 @@ def check_decode_case(label, B, S, Hq, Hkv, D, lengths, dtype, g, dev) -> float:
     return err
 
 
+def seeded_pair(cfg, dev, seed: int = 1):
+    """``(card model, CPU model)`` with the same seeded random weights, drawn
+    on the card (the host's generator takes seconds a billion numbers)."""
+    card_net = llm.init_params(seed, cfg, device=dev)
+    return card_net, copy.deepcopy(card_net).to("cpu")
+
+
 def llm_counts() -> dict:
     out = {}
     for k in LLM_KERNELS:
@@ -2338,16 +2420,21 @@ def greedy_decode(step, net, cache, logits, n: int):
     return logits, cache
 
 
-def decode_vs_prefill(cfg, net, tokens, s: int, dev):
+def decode_vs_prefill(cfg, net, tokens, s: int, dev, frontend=None):
     """The float32 logits of position ``s`` two ways: a prefill over the
     ``s + 1`` tokens, and a prefill over the first ``s`` then one decode
-    step of token ``s``."""
+    step of the token at position ``s`` (with a vision prefix of ``n``
+    embeddings, ``frontend``, that is token ``s - n``: the prefix shifts
+    the prompt by ``n`` positions; an encoder-decoder's frames feed both
+    prefills)."""
     b = tokens.shape[0]
+    extra = {} if frontend is None else {"frontend_embeds": frontend}
+    shift = frontend.shape[1] if frontend is not None and cfg.frontend == "vision" else 0
     full, _ = llm.make_prefill_step(cfg)(
-        net, llm.init_cache(cfg, b, s + 1, device=dev), {"tokens": tokens})
+        net, llm.init_cache(cfg, b, s + 1, device=dev), {"tokens": tokens, **extra})
     cache = llm.init_cache(cfg, b, s + 1, device=dev)
-    _, cache = llm.make_prefill_step(cfg)(net, cache, {"tokens": tokens[:, :s]})
-    stepped, _ = llm.make_serve_step(cfg)(net, cache, tokens[:, s])
+    _, cache = llm.make_prefill_step(cfg)(net, cache, {"tokens": tokens[:, :s], **extra})
+    stepped, _ = llm.make_serve_step(cfg)(net, cache, tokens[:, s - shift])
     return full.float(), stepped.float()
 
 
@@ -2421,7 +2508,7 @@ def phase_llm_serve(dev) -> dict:
         ("decode_step", lambda: step(net, cache, logits.argmax(-1)), decode_s / N),
     ):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+        with profile(activities=[ProfilerActivity.CUDA]) as pr:  # device events alone
             fn()
             torch.cuda.synchronize()
         rows = device_rows(pr)
@@ -2467,8 +2554,7 @@ def phase_llm_serve(dev) -> dict:
     #    layers, 1 global and 7 local), 2 x 1,280 tokens (past the window),
     #    then 8 decode steps, the same tokens on both sides
     cfg8 = dataclasses.replace(cfg, n_layers=cfg.pattern_len, dtype="float32")
-    cpu_net = llm.init_params(1, cfg8, device="cpu")
-    card_net = copy.deepcopy(cpu_net).to(dev)
+    card_net, cpu_net = seeded_pair(cfg8, dev)
     B2, S2, steps = 2, 1280, 8
     toks = torch.randint(0, cfg.vocab_size, (B2, S2 + steps),
                          generator=torch.Generator().manual_seed(2))
@@ -2672,8 +2758,7 @@ def phase_llm_xlstm(dev) -> dict:
     #    against the CPU path, logits and every cache leaf
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32",
                                block_pattern=(BlockKind.MLSTM, BlockKind.SLSTM))
-    cpu_net = llm.init_params(1, cfg2, device="cpu")
-    card_net = copy.deepcopy(cpu_net).to(dev)
+    card_net, cpu_net = seeded_pair(cfg2, dev)
     B2, S2, steps = XLSTM_CHECK_B, XLSTM_CHECK_S, XLSTM_CHECK_STEPS
     toks = torch.randint(0, cfg.vocab_size, (B2, S2 + steps),
                          generator=torch.Generator().manual_seed(5))
@@ -2941,8 +3026,7 @@ def phase_llm_moe(dev) -> dict:
     # 1. float32, one MoE layer at full width: the card against the CPU
     #    path, logits of the prompt and of each decode step, the KV cache
     cfg1 = dataclasses.replace(cfg, n_layers=1, dtype="float32")
-    cpu_net = llm.init_params(1, cfg1, device="cpu")
-    card_net = copy.deepcopy(cpu_net).to(dev)
+    card_net, cpu_net = seeded_pair(cfg1, dev)
     B2, S2, steps = MOE_CHECK_B, MOE_CHECK_S, MOE_CHECK_STEPS
     toks = torch.randint(0, cfg.vocab_size, (B2, S2 + steps),
                          generator=torch.Generator().manual_seed(7))
@@ -3030,7 +3114,7 @@ def phase_llm_moe(dev) -> dict:
         ("decode_step", lambda: step(net, cache, logits.argmax(-1)), decode_s / N),
     ):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+        with profile(activities=[ProfilerActivity.CUDA]) as pr:  # device events alone
             fn()
             torch.cuda.synchronize()
         rows = device_rows(pr)
@@ -3077,6 +3161,220 @@ def phase_llm_moe(dev) -> dict:
     res["serve"] = run
     del net
     torch.cuda.synchronize()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder stack (seamless-m4t-large-v2) and the vision frontend
+# (internvl2-2b): their serving paths on the flash forward without a mask
+# and across sequences, and decode attention
+# ---------------------------------------------------------------------------
+# the card against the CPU path in float32: layers kept of the decoder (and
+# of the encoder), prompts, prompt tokens (past internvl2's 256-position
+# prefix), decode steps
+ENCDEC_CHECK_LAYERS, ENCDEC_CHECK_B, ENCDEC_CHECK_S, ENCDEC_CHECK_STEPS = 2, 2, 320, 4
+
+
+def frontend_embeds(cfg, b: int, dev, seed: int) -> torch.Tensor:
+    """``[b, frontend_tokens, frontend_dim]`` float32 stand-ins of a
+    frontend's precomputed embeddings (speech frames, image patches), from a
+    seed."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((b, cfg.frontend_tokens, cfg.frontend_dim), generator=g).to(dev)
+
+
+def stack_layer_decode_vs_prefill(net, batch, s: int) -> list:
+    """For each decoder layer of an attention ``net`` (an encoder-decoder's
+    with its cross-attention), in float32 (a copy of the layer at a time)
+    on the same inputs (the hidden states of a prefill over ``batch``'s ``s
+    + 1`` positions and the float32 encoder output): the layer's
+    contribution at position ``s`` by a decode step after a prefill over
+    the first ``s`` positions, against its prefill over all ``s + 1``;
+    raises past SERVE_F32_TOL."""
+    cfg = net.cfg
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    errs = []
+    with torch.no_grad():
+        enc = None
+        if cfg.is_encdec:
+            e = batch["frontend_embeds"].float() @ net.frontend_proj.float()
+            tables = net.rope_tables(torch.arange(e.shape[1], device=e.device))
+            for layer in net.encoder:
+                e, _ = llm_stack._block(copy.deepcopy(layer).float(), e, tables)
+            enc = rms_norm(e, net.enc_final_norm, cfg.norm_eps)
+        x = llm_stack.embed_inputs(net, batch, cfg).float()
+        b = x.shape[0]
+        full_t = net.rope_tables(torch.arange(s + 1, device=x.device))
+        part_t = net.rope_tables(torch.arange(s, device=x.device))
+        step_t = net.rope_tables(torch.full((1,), s, device=x.device))
+        for i, layer in enumerate(net.layers):
+            l32 = copy.deepcopy(layer).float()
+            y_full, _ = llm_stack._block(l32, x, full_t, None, enc)
+            cache = llm_stack._init_block_cache(cfg32, layer.kind, b, s + 1, x.device)
+            llm_stack._block(l32, x[:, :s], part_t, cache, enc)
+            y_step = llm_stack._block_decode(l32, x[:, s], cache, s, step_t)
+            errs.append(rel_err(f"{cfg.name} layer {i} decode vs prefill", y_step - x[:, s],
+                                y_full[:, s] - x[:, s], SERVE_F32_TOL))
+            x = y_full
+            del l32, cache
+    return errs
+
+
+def encdec_card_vs_cpu(arch: str, dev) -> float:
+    """The card against the CPU path in float32 at full width and reduced
+    depth (ENCDEC_CHECK_LAYERS of the decoder and of the encoder): the
+    prompt's logits, every cache tensor (the self-attention's keys and
+    values, the cross-attention's), and each decode step's logits."""
+    cfg = configs.get_config(arch)
+    n = ENCDEC_CHECK_LAYERS
+    cfg2 = dataclasses.replace(cfg, n_layers=n, encoder_layers=min(cfg.encoder_layers, n),
+                               dtype="float32")
+    card_net, cpu_net = seeded_pair(cfg2, dev)
+    B2, S2, steps = ENCDEC_CHECK_B, ENCDEC_CHECK_S, ENCDEC_CHECK_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (B2, S2 + steps),
+                         generator=torch.Generator().manual_seed(7))
+    fe = frontend_embeds(cfg, B2, "cpu", seed=8)
+    prefill2, step2 = llm.make_prefill_step(cfg2), llm.make_serve_step(cfg2)
+    runs = []
+    for net, where in ((card_net, dev), (cpu_net, "cpu")):
+        cache = llm.init_cache(cfg2, B2, S2 + steps, device=where)
+        logits, cache = prefill2(net, cache, {"tokens": toks[:, :S2].to(where),
+                                              "frontend_embeds": fe.to(where)})
+        runs.append([logits.cpu()])
+        for i in range(steps):
+            logits, cache = step2(net, cache, toks[:, S2 + i].to(where))
+            runs[-1].append(logits.cpu())
+        runs[-1].append(cache)
+    (*got, card_cache), (*want, cpu_cache) = runs
+    errs = [rel_err(f"{arch} card vs CPU {'prefill' if i == 0 else f'step {i - 1}'}", a, b,
+                    SERVE_F32_TOL) for i, (a, b) in enumerate(zip(got, want))]
+    cache_err = max(rel_err(f"{arch} card vs CPU cache layer {l} {key} {t}", a[key][t].cpu(),
+                            b[key][t], SERVE_F32_TOL)
+                    for l, (a, b) in enumerate(zip(card_cache["layers"], cpu_cache["layers"]))
+                    for key in a for t in a[key])
+    emit("llm_encdec", arch=arch, check="card vs CPU path, float32", layers=cfg2.n_layers,
+         encoder_layers=cfg2.encoder_layers, batch=B2, prompt=S2, steps=steps,
+         frontend=[cfg.frontend_tokens, cfg.frontend_dim], max_rel_err_by_step=errs,
+         cache_max_rel_err=cache_err, cache_keys=sorted(card_cache["layers"][0]),
+         tol=SERVE_F32_TOL)
+    return max(errs + [cache_err])
+
+
+def encdec_serve(arch: str, dev) -> dict:
+    """``arch`` at full width and depth in bf16 (random weights from a
+    seed): prefill 8 x 2,048 prompt tokens with 8 frontend inputs from a
+    seed, 64 greedy decode steps, launches counted from 0 a run and held to
+    their counts, peak memory, device time by kernel of a prefill and a
+    decode step; then decode against prefill, layer by layer in float32
+    (held) and end to end in bf16 (reported against SERVE_BF16_TOL)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = configs.get_config(arch)
+    B, S, N = LLM_B, LLM_S, LLM_NEW
+    t0 = time.perf_counter()
+    net = llm.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in net.parameters())
+    prefill, step = llm.make_prefill_step(cfg), llm.make_serve_step(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1),
+                           generator=torch.Generator().manual_seed(0)).to(dev)
+    fe = frontend_embeds(cfg, B, dev, seed=1)
+    batch = {"tokens": tokens[:, :S], "frontend_embeds": fe}
+    logits, cache = prefill(net, llm.init_cache(cfg, B, S + N, device=dev), batch)  # warm-up
+    greedy_decode(step, net, cache, logits, 2)
+    del cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cache = llm.init_cache(cfg, B, S + N, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(net, cache, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    by_run = {"prefill": llm_counts()}
+    first = logits.argmax(-1)
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = greedy_decode(step, net, cache, logits, N)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    by_run["decode"] = llm_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(logits.shape) != (B, cfg.vocab_size) or not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"{arch} serve logits not finite [{B}, {cfg.vocab_size}]")
+    if cache["pos"] != S + N:
+        raise AssertionError(f"{arch} cache pos {cache['pos']} after {S} + {N} tokens")
+    # a prefill: the encoder's layers, the decoder's self-attention and its
+    # cross-attention; a decode step: decode attention and, in an
+    # encoder-decoder, the cross-attention's one row on the flash forward
+    L, cross = cfg.n_layers, cfg.n_layers if cfg.is_encdec else 0
+    zero = {k_: 0 for k_ in llm_counts()}
+    want = {"prefill": {**zero, "flash_attention_fwd": cfg.encoder_layers + L + cross},
+            "decode": {**zero, "flash_attention_fwd": cross * N, "decode_attention": L * N}}
+    if by_run != want:
+        raise AssertionError(f"{arch} launches {by_run}, expected {want}")
+    graph = [t for t in (logits, *(x for c in cache["layers"] for d in c.values()
+                                   for x in d.values())) if t.requires_grad]
+    if graph:
+        raise AssertionError(f"{arch} serving recorded an autograd graph on {len(graph)} outputs")
+    run = dict(arch=arch, layers=L, encoder_layers=cfg.encoder_layers, params=n_params,
+               param_count=cfg.param_count(), batch=B, prompt=S, new_tokens=N,
+               frontend=[cfg.frontend, cfg.frontend_tokens, cfg.frontend_dim], init_s=init_s,
+               prefill_s=prefill_s, prefill_tokens_per_s=B * S / prefill_s, decode_s=decode_s,
+               decode_ms_per_step=decode_s / N * 1e3, decode_tokens_per_s=B * N / decode_s,
+               peak_memory_gb=peak / 1e9, launches_by_run=by_run, first_tokens=first.tolist())
+    emit("llm_encdec", card=smi(), **run)
+    prof = {}
+    for label, fn, wall in (
+        ("prefill", lambda: prefill(net, llm.init_cache(cfg, B, S + N, device=dev), batch),
+         prefill_s),
+        ("decode_step", lambda: step(net, cache, logits.argmax(-1)), decode_s / N),
+    ):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as pr:  # device events alone
+            fn()
+            torch.cuda.synchronize()
+        rows = device_rows(pr)
+        dev_s = sum(r[1] for r in rows) / 1e6
+        kern = lambda tag: sum(r[1] for r in rows if tag in r[0]) / 1e6
+        prof[label] = dict(device_s=dev_s, wall_s=wall, busy_share=dev_s / wall,
+                           flash_s=kern("flash_fwd"), decode_attention_s=kern("decode_kernel"),
+                           device_launches=sum(r[2] for r in rows),
+                           top=[[k_[:70], us / 1e6, n] for k_, us, n in rows[:10]])
+        emit("llm_encdec", arch=arch, profile=label, **prof[label])
+    run["profile"] = prof
+    del cache
+
+    # decode against prefill on 2 prompts: layer by layer in float32 on the
+    # same inputs (held), end to end in bf16 (reported)
+    B1 = 2
+    one = {"tokens": tokens[:B1], "frontend_embeds": fe[:B1]}
+    layers = stack_layer_decode_vs_prefill(net, one, S)
+    full16, step16 = decode_vs_prefill(cfg, net, tokens[:B1], S, dev, frontend=fe[:B1])
+    err16 = float((step16 - full16).abs().max()) / float(full16.abs().max())
+    check = dict(float32_by_layer_max_rel_err=layers, float32_by_layer_tol=SERVE_F32_TOL,
+                 bf16_decode_vs_bf16_prefill=err16, bf16_tol=SERVE_BF16_TOL,
+                 bf16_share_of_tol=err16 / SERVE_BF16_TOL, bf16_within_tol=err16 <= SERVE_BF16_TOL,
+                 argmax_agreement_bf16=float((step16.argmax(-1) == full16.argmax(-1)).float().mean()))
+    emit("llm_encdec", arch=arch, check="decode vs prefill on the card", tokens=S + 1, batch=B1,
+         **check)
+    run.update(decode_vs_prefill_by_layer=max(layers), decode_vs_prefill_bf16=err16)
+    del net
+    torch.cuda.synchronize()
+    return run
+
+
+def phase_llm_encdec(dev) -> dict:
+    """seamless-m4t-large-v2 (the encoder-decoder: 24 encoder layers over
+    1,024 speech frames, 24 decoder layers with cross-attention) and
+    internvl2-2b (256 image embeddings in front of the prompt, D 128, 16 / 8
+    heads) on the card: each at reduced depth in float32 against the CPU
+    path, then at full width and depth in bf16 (:func:`encdec_serve`)."""
+    res = {}
+    for arch in (SEAMLESS, INTERNVL):
+        res[arch] = dict(card_vs_cpu=encdec_card_vs_cpu(arch, dev), serve=encdec_serve(arch, dev))
     return res
 
 
@@ -3593,10 +3891,11 @@ def train_run(arch: str, steps: int, dev, n_layers=None, grad_accum: int = 1) ->
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
-    rows = device_rows(pr)
+    averages = pr.key_averages()
+    rows = device_rows(pr, averages)
     dev_s = sum(r[1] for r in rows) / 1e6
     kern = lambda tag: sum(r[1] for r in rows if tag in r[0]) / 1e6
-    ssd_bwd_s = range_device_s(pr, "mlstm_chunk_bwd")
+    ssd_bwd_s = range_device_s(averages, "mlstm_chunk_bwd")
     kinds = lambda *tags: sum(r[1] for r in rows if any(t in r[0].lower() for t in tags)) / 1e6
     run["profile"] = dict(
         device_s=dev_s, wall_s=step_s, busy_share=dev_s / step_s,
@@ -3605,7 +3904,7 @@ def train_run(arch: str, steps: int, dev, n_layers=None, grad_accum: int = 1) ->
         mlstm_chunk_bwd_s=ssd_bwd_s,
         mlstm_chunk_bwd_share_of_device=ssd_bwd_s / dev_s if dev_s else None,
         mlstm_chunk_bwd_share_of_step=ssd_bwd_s / step_s,
-        adamw_update_s=range_device_s(pr, "adamw_update"),
+        adamw_update_s=range_device_s(averages, "adamw_update"),
         products_s=kinds("gemm", "cutlass", "xmma", "nvjet"),
         index_gather_scatter_s=kinds("index", "scatter", "gather"),
         scan_s=kinds("scan"), sort_s=kinds("sort"),
@@ -3635,8 +3934,7 @@ def card_vs_cpu_step(label: str, cfg2, toks, opt, dev, step: bool = True) -> dic
     the step computes it) come from the gradients' pass, which halves the
     CPU path's time."""
     t0 = time.perf_counter()
-    cpu_net = llm.init_params(1, cfg2, device="cpu")
-    card_net = copy.deepcopy(cpu_net).to(dev)
+    card_net, cpu_net = seeded_pair(cfg2, dev)
     on = lambda net_: {"tokens": toks.to(net_.embed.device)}
     routes = moe_routes_card_vs_cpu(label, card_net, cpu_net, on, cfg2) \
         if BlockKind.MOE in cfg2.layer_kinds else None
@@ -3757,6 +4055,15 @@ def phase_llm_train(dev) -> dict:
     return runs
 
 
+def encdec_rows(llm_times, kernel: str, prefix: str) -> dict:
+    """``kernel``'s timings at the encoder-decoder and vision shapes whose
+    label starts with ``prefix``, for the ``kernels`` line."""
+    keys = ("ms", "device_ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms")
+    return {label: {k_: row[k_] for k_ in keys if k_ in row}
+            for label, row in llm_times[f"{kernel}_encdec"].items() if label.startswith(prefix)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3797,6 +4104,7 @@ def main() -> int:
     serve = timed_phase("llm_serve", phase_llm_serve, dev)
     xlstm = timed_phase("llm_xlstm", phase_llm_xlstm, dev)
     moe = timed_phase("llm_moe", phase_llm_moe, dev)
+    encdec = timed_phase("llm_encdec", phase_llm_encdec, dev)
     train_times = timed_phase("llm_train_kernels", phase_llm_train_kernels, dev)
     train = timed_phase("llm_train", phase_llm_train, dev)
     kernels = []
@@ -3870,15 +4178,21 @@ def main() -> int:
         if name in ("flash_attention_fwd", "mlstm_chunk"):
             for arch, n_steps in ((TINYLLAMA, TRAIN_STEPS), (HYMBA, HYMBA_TRAIN_STEPS)):
                 by_run[f"{arch}_train_{n_steps}_steps"] = train[arch]["launches_total"][name]
+        if name != "mlstm_chunk":  # seamless-m4t-large-v2's runs: every launch at head dim 64
+            by_run.update({f"{SEAMLESS}_{run}": n[name] for run, n in
+                           encdec[SEAMLESS]["serve"]["launches_by_run"].items()})
+            extra["encdec_shapes"] = encdec_rows(llm_times, name, "seamless")
         if name == "flash_attention_fwd":
-            extra = {f"{k_}_training_shapes": v_ for k_, v_ in train_times[name]["train"].items()
-                     if k_ in ("ms", "bound_ms", "library_ms")}
+            extra.update({f"{k_}_training_shapes": v_ for k_, v_ in
+                          train_times[name]["train"].items()
+                          if k_ in ("ms", "bound_ms", "library_ms")})
         if name == "mlstm_chunk":  # its backward: torch ops, no TPU kernel
             extra = {"backward_torch_ops": train_times["mlstm_chunk_bwd"]}
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=llm_replaces[name], launches=sum(by_run.values()), launches_by_run=by_run,
-            max_abs_err=max(t["max_abs_err"], train_times.get(name, t)["max_abs_err"]),
+            max_abs_err=max(t["max_abs_err"], train_times.get(name, t)["max_abs_err"],
+                            llm_times.get(f"{name}_encdec", t)["max_abs_err"]),
             ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"], **extra,
         ))
@@ -3891,13 +4205,17 @@ def main() -> int:
         t = llm_times[name]
         by_run = {f"{QWEN_MOE}_{run}": n[kernel]
                   for run, n in moe["serve"]["launches_by_run"].items()}
+        by_run.update({f"{INTERNVL}_{run}": n[kernel]  # internvl2-2b: every launch at D 128
+                       for run, n in encdec[INTERNVL]["serve"]["launches_by_run"].items()})
+        extra = {"encdec_shapes": encdec_rows(llm_times, kernel, "internvl2")}
         if kernel == "flash_attention_fwd":  # qwen2-moe's train run: every launch at D 128
             by_run[f"{QWEN_MOE}_train_{MOE_TRAIN_STEPS}_steps"] = \
                 train[QWEN_MOE]["launches_total"][kernel]
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=llm_replaces[kernel], launches=sum(by_run.values()), launches_by_run=by_run,
-            max_abs_err=t["max_abs_err"], ms=t["ms"], device_ms=t.get("device_ms"),
+            max_abs_err=max(t["max_abs_err"], llm_times[f"{kernel}_encdec"]["max_abs_err"]),
+            ms=t["ms"], device_ms=t.get("device_ms"), **extra,
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"],
             dense_configs={a: {k_: t[a][k_] for k_ in ("ms", "bound_ms", "library_ms")}

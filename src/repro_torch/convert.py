@@ -19,10 +19,15 @@ the reference's functions take as they are.
 The LLM substrate's weights and caches cross the same way: the reference
 stacks each pattern position's parameters ``[n_units, ...]`` (``units/b{i}``)
 and keeps leftover layers under ``tail/t{i}``; the port unrolls them into
-layer ``u * pattern_len + i`` (the tail after). Its cache carries ``pos`` as
+layer ``u * pattern_len + i`` (the tail after). An encoder-decoder's
+``encoder`` (one ``ATTN`` block stacked ``[encoder_layers, ...]``,
+``units/b0``) unrolls into the port's ``encoder.{l}``; ``enc_final_norm``,
+``frontend_proj`` and each decoder layer's ``cross`` and ``norm_cross``
+keep their names. Its cache carries ``pos`` as
 a Python int and one dict per layer, keyed as the reference keys a layer's
 entries (``kv``, ``ssm``; ``cell`` for the mLSTM's ``C``, ``n``, ``m`` and
-the sLSTM's ``h``, ``c``, ``n``, ``m``). Both walk the leaves by name, so
+the sLSTM's ``h``, ``c``, ``n``, ``m``; ``cross_kv`` for the encoder
+output's keys and values). Both walk the leaves by name, so
 every block kind the port runs (xLSTM's ``mlstm`` and ``slstm`` too)
 crosses the same way. Any tree shaped like the parameters
 (gradients, AdamW moments) crosses as a dict keyed by the port's parameter
@@ -105,19 +110,29 @@ def _leaves(
             yield prefix + (k,), v
 
 
+def _stacks(cfg: ModelConfig) -> Dict[str, Tuple[str, int, int]]:
+    """The layer stacks by the port's module list: ``(the reference's
+    pytree key, n_units, pattern_len)`` (the encoder is one ``ATTN`` block
+    a unit)."""
+    out = {"layers": ("decoder", cfg.n_units, cfg.pattern_len)}
+    if cfg.is_encdec:
+        out["encoder"] = ("encoder", cfg.encoder_layers, 1)
+    return out
+
+
 def _unstack(
-    stack: Mapping[str, Any], cfg: ModelConfig
+    stack: Mapping[str, Any], n_units: int, P: int
 ) -> Iterator[Tuple[int, Tuple[str, ...], Any]]:
-    """``(layer, path inside the layer, array)`` of a reference stack
-    (``units`` stacked ``[n_units, ...]``, then ``tail``)."""
-    P = cfg.pattern_len
+    """``(layer, path inside the layer, array)`` of a reference stack of
+    pattern length ``P`` (``units`` stacked ``[n_units, ...]``, then
+    ``tail``)."""
     for path, arr in _leaves(stack.get("units") or {}):
         i = int(path[0][1:])  # "b{i}"
         rows = arr if isinstance(arr, torch.Tensor) else np.asarray(arr)
-        for u in range(cfg.n_units):
+        for u in range(n_units):
             yield u * P + i, path[1:], rows[u]
     for path, arr in _leaves(stack.get("tail") or {}):
-        yield cfg.n_units * P + int(path[0][1:]), path[1:], np.asarray(arr)  # "t{i}"
+        yield n_units * P + int(path[0][1:]), path[1:], np.asarray(arr)  # "t{i}"
 
 
 def _tensor(a: Any, dev: torch.device) -> torch.Tensor:
@@ -134,14 +149,18 @@ def named_from_reference(
 ) -> Dict[str, torch.Tensor]:
     """A tree shaped like the reference's parameters (the parameters, their
     gradients, AdamW's ``mu`` or ``nu``) as tensors on ``device`` keyed by the
-    port's parameter names (``embed``, ``layers.{l}.attn.wq``, ...)."""
+    port's parameter names (``embed``, ``layers.{l}.attn.wq``,
+    ``encoder.{l}.mlp.w_up``, ...)."""
     dev = resolve_device(device)
+    stacks = _stacks(cfg)
+    stacked = {key for key, _, _ in stacks.values()}
     named = {}
     for path, arr in _leaves(tree):
-        if path[0] != "decoder":
+        if path[0] not in stacked:
             named[".".join(path)] = _tensor(arr, dev)
-    for layer, path, arr in _unstack(tree["decoder"], cfg):
-        named[".".join(("layers", str(layer)) + path)] = _tensor(arr, dev)
+    for name, (key, n_units, P) in stacks.items():
+        for layer, path, arr in _unstack(tree[key], n_units, P):
+            named[".".join((name, str(layer)) + path)] = _tensor(arr, dev)
     return named
 
 
@@ -161,15 +180,17 @@ def model_params_from_reference(
 def model_params_to_reference(net: Transformer, cfg: ModelConfig) -> Dict[str, Any]:
     """The port's weights in the reference's parameter layout, as numpy
     arrays (bf16 as float32): ``decoder/units/b{i}/...`` stacked ``[n_units,
-    ...]``, ``decoder/tail/t{i}/...``, the rest at the top."""
-    P, U = cfg.pattern_len, cfg.n_units
+    ...]``, ``decoder/tail/t{i}/...``, an encoder-decoder's
+    ``encoder/units/b0/...`` stacked ``[encoder_layers, ...]``, the rest at
+    the top."""
+    stacks = _stacks(cfg)
     out: Dict[str, Any] = {}
-    layers: Dict[int, Dict[str, Any]] = {}
+    layers: Dict[str, Dict[int, Dict[str, Any]]] = {name: {} for name in stacks}
     for name, p in net.named_parameters():
         arr = p.detach().to(torch.float32).cpu().numpy()
         path = name.split(".")
-        if path[0] == "layers":
-            node = layers.setdefault(int(path[1]), {})
+        if path[0] in stacks:
+            node = layers[path[0]].setdefault(int(path[1]), {})
             path = path[2:]
         else:
             node = out
@@ -182,10 +203,13 @@ def model_params_to_reference(net: Transformer, cfg: ModelConfig) -> Dict[str, A
             return {k: stack([m[k] for m in members]) for k in members[0]}
         return np.stack(members)
 
-    units = {f"b{i}": stack([layers[u * P + i] for u in range(U)]) for i in range(P if U else 0)}
-    out["decoder"] = {"units": units}
-    if cfg.n_layers > U * P:
-        out["decoder"]["tail"] = {f"t{i}": layers[U * P + i] for i in range(cfg.n_layers - U * P)}
+    for name, (key, U, P) in stacks.items():
+        by_layer = layers[name]
+        out[key] = {"units": {f"b{i}": stack([by_layer[u * P + i] for u in range(U)])
+                              for i in range(P if U else 0)}}
+        if len(by_layer) > U * P:
+            out[key]["tail"] = {f"t{i}": by_layer[U * P + i]
+                                for i in range(len(by_layer) - U * P)}
     return out
 
 
@@ -195,7 +219,7 @@ def cache_from_reference(cache: Mapping[str, Any], cfg: ModelConfig,
     reference's (``pos`` scalar, ``units`` stacked, ``tail``)."""
     dev = resolve_device(device)
     layers = [dict() for _ in range(cfg.n_layers)]
-    for layer, path, arr in _unstack(cache, cfg):
+    for layer, path, arr in _unstack(cache, cfg.n_units, cfg.pattern_len):
         layers[layer].setdefault(path[0], {})[path[1]] = _tensor(arr, dev)
     return {"pos": int(np.asarray(cache["pos"])), "layers": layers}
 
@@ -223,17 +247,20 @@ def cache_to_reference(cache: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, 
 # ===========================================================================
 # train state checkpoints written by the reference
 # ===========================================================================
-def _reference_key(name: str, cfg: ModelConfig) -> Tuple[str, bool]:
-    """``(the reference's pytree path of the port's parameter name, whether
-    that leaf is stacked [n_units, ...])``: ``layers.{l}.attn.wq`` is
-    ``decoder/units/b{l % P}/attn/wq`` (or ``decoder/tail/t{i}/...``)."""
+def _reference_key(name: str, cfg: ModelConfig) -> Tuple[str, int]:
+    """``(the reference's pytree path of the port's parameter name, the
+    length of the axis that leaf is stacked on, 0 if none)``:
+    ``layers.{l}.attn.wq`` is ``decoder/units/b{l % P}/attn/wq`` (stacked
+    ``[n_units, ...]``; or ``decoder/tail/t{i}/...``), ``encoder.{l}.attn.wq``
+    ``encoder/units/b0/attn/wq`` (stacked ``[encoder_layers, ...]``)."""
     path = name.split(".")
-    if path[0] != "layers":
-        return "/".join(path), False
-    layer, stacked = int(path[1]), cfg.n_units * cfg.pattern_len
-    head = (f"decoder/units/b{layer % cfg.pattern_len}" if layer < stacked
-            else f"decoder/tail/t{layer - stacked}")
-    return "/".join([head] + path[2:]), layer < stacked
+    stacks = _stacks(cfg)
+    if path[0] not in stacks:
+        return "/".join(path), 0
+    key, U, P = stacks[path[0]]
+    layer, stacked = int(path[1]), U * P
+    head = f"{key}/units/b{layer % P}" if layer < stacked else f"{key}/tail/t{layer - stacked}"
+    return "/".join([head] + path[2:]), U if layer < stacked else 0
 
 
 def _nest(leaves: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
@@ -270,8 +297,8 @@ def train_state_from_reference(leaves: Mapping[str, torch.Tensor], state: Dict[s
     dev = net.embed.device
     want = {"step": ((), state["step"].dtype), "opt/.step": ((), state["opt"].step.dtype)}
     for name, p in net.named_parameters():
-        key, stacked = _reference_key(name, cfg)
-        shape = ((cfg.n_units,) if stacked else ()) + tuple(p.shape)
+        key, n = _reference_key(name, cfg)
+        shape = ((n,) if n else ()) + tuple(p.shape)
         want["params/" + key] = (shape, p.dtype)
         for moment in ("mu", "nu"):
             want[f"opt/.{moment}/{key}"] = (shape, getattr(state["opt"], moment)[name].dtype)

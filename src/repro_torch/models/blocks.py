@@ -1,10 +1,9 @@
 """Layer blocks of the serving path: GQA attention (full or sliding
-window), the gated MLP, the mixture of experts, mamba-style SSD heads and
+window, causal or not), cross-attention, the gated MLP, the mixture of experts, mamba-style SSD heads and
 xLSTM's mLSTM and sLSTM cells, each with its full-sequence forward and its
 one-token decode.
 
-The port of the attention, MLP, MoE, SSD and xLSTM parts of the reference
-package's ``repro.models.blocks``. Each block is an ``nn.Module`` whose
+The port of the reference package's ``repro.models.blocks``. Each block is an ``nn.Module`` whose
 parameters carry the reference's names (``wq``, ``w_gate``, ``w_in``,
 ``r_gates``, ...), so :mod:`repro_torch.convert` maps the reference's
 pytree onto it.
@@ -27,10 +26,11 @@ Conventions, as in the reference:
 - the sLSTM has no kernel, as the reference has none: its recurrence is a
   Python loop over positions in torch ops (the reference's ``lax.scan``);
 - the MoE's expert products are plain batched matrix products (``einsum``
-  over ``[B, E, C, d]`` buffers), as the reference leaves them to XLA.
-
-Cross-attention and the modality frontends are not ported yet (ROADMAP
-A.12): :func:`unported` names them.
+  over ``[B, E, C, d]`` buffers), as the reference leaves them to XLA;
+- cross-attention (the encoder-decoder's) has no bias and no RoPE on either
+  side: its keys and values are the encoder output's projections, computed
+  once a prompt, and it runs on the flash forward without a causal mask, in
+  decode too (one query row).
 """
 from __future__ import annotations
 
@@ -46,6 +46,7 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = [
     "Attention",
+    "CrossAttention",
     "MLP",
     "MoE",
     "MoERoute",
@@ -58,18 +59,10 @@ __all__ = [
     "init_slstm_cache",
     "linear_cell_step",
     "final_linear_state",
-    "unported",
 ]
 
 Cache = Dict[str, torch.Tensor]
 Tables = Tuple[torch.Tensor, torch.Tensor]  # rope (cos, sin)
-
-
-def unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A.12: the LLM "
-        "substrate's encoder-decoder and frontend blocks)"
-    )
 
 
 def _new(g: Optional[torch.Generator], shape, dtype, device, fan_in=None) -> nn.Parameter:
@@ -118,16 +111,18 @@ class Attention(nn.Module):
                 v.reshape(B, S, cfg.n_kv_heads, cfg.hd))
 
     def forward(
-        self, x: torch.Tensor, rope: Tables, *, window: Optional[int] = None
+        self, x: torch.Tensor, rope: Tables, *, window: Optional[int] = None,
+        causal: bool = True,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Full-sequence causal attention: ``(y [B, S, d], k, v)`` with the
-        post-RoPE keys and the values, which prefill writes to the cache."""
+        """Full-sequence attention (causal unless an encoder's): ``(y [B, S,
+        d], k, v)`` with the post-RoPE keys and the values, which prefill
+        writes to the cache."""
         B, S, _ = x.shape
         q, k, v = self.qkv(x)
         cos, sin = rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        out, _ = ops.flash_attention(q, k, v, causal=True, window=window)
+        out, _ = ops.flash_attention(q, k, v, causal=causal, window=window)
         return out.reshape(B, S, -1) @ self.wo, k, v
 
     def decode(self, x: torch.Tensor, cache: Cache, rope: Tables, *, pos: int) -> torch.Tensor:
@@ -146,6 +141,38 @@ class Attention(nn.Module):
         lengths = torch.full((B,), min(pos + 1, size), dtype=torch.int32, device=x.device)
         out = ops.decode_attention(q, cache["k"], cache["v"], lengths)
         return out.reshape(B, -1) @ self.wo
+
+
+class CrossAttention(nn.Module):
+    """A decoder layer's attention over the encoder's output: ``wq [d, H
+    hd]``, ``wk``/``wv [d, Hkv hd]``, ``wo [H hd, d]``; no bias (even with
+    ``qkv_bias``) and no RoPE, as the reference's ``init_attention(...,
+    cross=True)`` and ``cross_attention_forward``."""
+
+    def __init__(self, cfg: ModelConfig, g: Optional[torch.Generator], device=None):
+        super().__init__()
+        d, hd, H, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        dt = DTYPES[cfg.dtype]
+        self.cfg = cfg
+        self.wq = _new(g, (d, H * hd), dt, device)
+        self.wk = _new(g, (d, Hkv * hd), dt, device)
+        self.wv = _new(g, (d, Hkv * hd), dt, device)
+        self.wo = _new(g, (H * hd, d), dt, device)
+
+    def kv(self, enc: torch.Tensor) -> Cache:
+        """The encoder output ``enc [B, Se, d]``'s keys and values, ``{"k",
+        "v"}`` of ``[B, Se, Hkv, hd]`` (what prefill keeps as ``cross_kv``)."""
+        B, Se, _ = enc.shape
+        shape = (B, Se, self.cfg.n_kv_heads, self.cfg.hd)
+        return {"k": (enc @ self.wk).reshape(shape), "v": (enc @ self.wv).reshape(shape)}
+
+    def forward(self, x: torch.Tensor, kv: Cache) -> torch.Tensor:
+        """``x [B, S, d]`` (``S`` 1 in decode) attending to every key of
+        ``kv``: ``[B, S, d]``."""
+        B, S, _ = x.shape
+        q = (x @ self.wq).reshape(B, S, self.cfg.n_heads, self.cfg.hd)
+        out, _ = ops.flash_attention(q, kv["k"], kv["v"], causal=False)
+        return out.reshape(B, S, -1) @ self.wo
 
 
 def init_attention_cache(

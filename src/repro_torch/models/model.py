@@ -74,7 +74,8 @@ def loss_fn(
     *,
     aux_weight: float = 0.01,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """``(loss, {"ce", "aux"})`` of ``batch["tokens"] [B, S]``: next-token
+    """``(loss, {"ce", "aux"})`` of ``batch["tokens"] [B, S]`` (and
+    ``batch["frontend_embeds"]``, as :func:`make_prefill_step` takes it): next-token
     cross entropy (targets the tokens shifted by one, the last position
     masked) unless the batch brings ``targets`` and ``loss_mask``, plus
     ``aux_weight`` times the MoE auxiliary loss."""
@@ -181,7 +182,10 @@ def make_train_step(
 # ===========================================================================
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     """``prefill_step(params, cache, {"tokens": [B, S]}) -> (last-position
-    logits [B, V], cache)``, under ``torch.no_grad()``."""
+    logits [B, V], cache)``, under ``torch.no_grad()``. A config with a
+    frontend takes ``batch["frontend_embeds"] [B, n, frontend_dim]`` too:
+    an encoder-decoder's encoder input (required: a ``KeyError`` names it),
+    a vision config's prefix (optional)."""
 
     def prefill_step(params: T.Transformer, cache: T.Cache, batch: Dict[str, torch.Tensor]):
         with torch.no_grad():

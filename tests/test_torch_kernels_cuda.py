@@ -60,7 +60,10 @@ when an input requires grad. The mLSTM kernel's gradient is
 ``ops.MlstmChunk``'s backward in torch ops, held on the card to the CPU
 path's within 1e-4 of each gradient's max. The MoE block's backward (its
 dispatch gathers scatter-add a token's slots) gives the same bits on two
-runs, at qwen2-moe-a2.7b's full width in bf16."""
+runs, at qwen2-moe-a2.7b's full width in bf16. The encoder-decoder and the
+vision config serve at their smoke widths in float32 on the card as on the
+CPU path (a prefill and two decode steps: logits and every cache tensor
+within 2e-3 of their max)."""
 import functools
 
 import pytest
@@ -580,7 +583,10 @@ def _randn(g, *shape, dtype):
 # (B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset): GQA, a window, a
 # q_offset, S off the 64-row tile, non-causal, and rows with no key
 # (a window shorter than the gap q_offset leaves past the keys), alone and
-# beside rows that keep some in one 64-row tile (query positions >= 27)
+# beside rows that keep some in one 64-row tile (query positions >= 27);
+# then the encoder-decoder's cross-attention without a mask: more queries
+# than keys, and decode's one query row over 1,024 keys (63 rows of the
+# 64-row tile past Sq)
 _FLASH_CASES = [
     (2, 100, 100, 6, 2, 64, True, None, 0),
     (2, 130, 130, 4, 4, 32, True, 17, 0),
@@ -588,6 +594,8 @@ _FLASH_CASES = [
     (2, 77, 50, 2, 1, 48, False, None, 0),
     (1, 30, 20, 2, 2, 16, True, 4, 40),
     (1, 30, 20, 2, 2, 16, True, 8, 10),
+    (2, 150, 70, 4, 4, 64, False, None, 0),
+    (2, 1, 1024, 16, 16, 64, False, None, 0),
 ]
 
 
@@ -919,7 +927,9 @@ def test_flash_mma_kernels_take_unaligned_inputs(case, shift):
 # forward's width-128 instances: qwen2-moe's 16 / 16 heads, GQA (the dense
 # D = 128 configs' groups 5, 4 and 2), a window, a q_offset, rows with no
 # key beside rows that keep some, D 96 (cp.async staging of 12 chunks of
-# 16) and D 100 and 77 (off a multiple of 8: plain loads)
+# 16) and D 100 and 77 (off a multiple of 8: plain loads); then without a
+# mask: more queries than keys, one query row over 1,024 keys, and GQA 2
+# (internvl2-2b's group)
 _FLASH_D128_CASES = [
     (2, 130, 130, 16, 16, 128, True, None, 0),
     (1, 100, 100, 10, 2, 128, True, None, 0),
@@ -929,6 +939,9 @@ _FLASH_D128_CASES = [
     (2, 77, 50, 4, 1, 96, False, None, 0),
     (1, 70, 70, 4, 2, 100, True, None, 0),
     (1, 70, 70, 2, 2, 77, True, 9, 0),
+    (1, 150, 70, 4, 2, 128, False, None, 0),
+    (2, 1, 1024, 4, 2, 128, False, None, 0),
+    (2, 100, 100, 8, 4, 128, False, None, 0),
 ]
 
 
@@ -1037,3 +1050,52 @@ def test_mlstm_backward_on_card_matches_cpu(normalize, S, Dk, Dv, dtype):
         grads[where] = f32
     for name, a, b in zip(("q", "k", "v", "i_gate", "f_gate"), grads["cuda"], grads["cpu"]):
         assert _rel_err(a.cpu(), b) <= 1e-4, name
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-2b"])
+def test_encdec_serving_on_card_matches_cpu(arch):
+    """One prefill (with the frontend's embeddings) and two decode steps of
+    the encoder-decoder and the vision config at their smoke widths in
+    float32, the card against the CPU path on the same weights and inputs:
+    logits and every cache tensor (``cross_kv`` too) within 2e-3 of their
+    max (cuBLAS and the kernels against MKL and the plain versions), and
+    the flash forward launched as the path says (a prefill: the encoder's
+    layers, self- and cross-attention a decoder layer; a decode step: the
+    cross-attention's one query row a layer)."""
+    _need_cuda()
+    import copy
+
+    from repro_torch.models import model
+
+    cfg = configs.get_smoke_config(arch)
+    cpu_net = model.init_params(0, cfg, device="cpu")
+    card_net = copy.deepcopy(cpu_net).to("cuda")
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 30), generator=g)
+    fe = torch.randn((2, cfg.frontend_tokens, cfg.frontend_dim), generator=g)
+    cross = cfg.n_layers if cfg.is_encdec else 0
+    runs = []
+    for net, dev in ((card_net, "cuda"), (cpu_net, "cpu")):
+        cache = model.init_cache(cfg, 2, 40, device=dev)
+        before = flash_attention.LAUNCHES["flash_attention_fwd"]
+        logits, cache = model.make_prefill_step(cfg)(
+            net, cache, {"tokens": toks[:, :28].to(dev), "frontend_embeds": fe.to(dev)})
+        if dev == "cuda":
+            assert flash_attention.LAUNCHES["flash_attention_fwd"] - before == \
+                cfg.encoder_layers + cfg.n_layers + cross
+        outs = [logits.cpu()]
+        for i in (28, 29):
+            before = flash_attention.LAUNCHES["flash_attention_fwd"]
+            logits, cache = model.make_serve_step(cfg)(net, cache, toks[:, i].to(dev))
+            if dev == "cuda":
+                assert flash_attention.LAUNCHES["flash_attention_fwd"] - before == cross
+            outs.append(logits.cpu())
+        runs.append((outs, cache))
+    (got, card_cache), (want, cpu_cache) = runs
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= 2e-3
+    for a, b in zip(card_cache["layers"], cpu_cache["layers"]):
+        assert sorted(a) == sorted(b) == (["cross_kv", "kv"] if cross else ["kv"])
+        for key in a:
+            for t in ("k", "v"):
+                assert _rel_err(a[key][t].cpu(), b[key][t]) <= 2e-3, (key, t)

@@ -138,17 +138,32 @@ def test_entry_points_want_cuda_unless_asked_for_cpu(monkeypatch):
 
 
 # the encoder-decoder stack (as seamless-m4t-large-v2 sets it) and a vision
-# frontend (as internvl2-2b sets it), each still unported
+# frontend (as internvl2-2b sets it), which the port refused until both
+# were ported: on tinyllama's smoke config they now build and serve
 @pytest.mark.parametrize("unported", [
-    dict(encoder_layers=2),
+    dict(encoder_layers=2, frontend="audio", frontend_tokens=24, frontend_dim=48),
     dict(frontend="vision", frontend_tokens=16, frontend_dim=96),
 ], ids=["encoder_decoder", "vision_frontend"])
 def test_unported_block_kinds_raise(unported):
+    """Both settings build, prefill with their frontend's embeddings and
+    decode a step to finite logits, with the encoder-decoder's cross keys
+    in the cache; a block kind outside ``BlockKind.ALL`` is refused by the
+    config itself."""
     cfg = dataclasses.replace(configs.get_smoke_config("tinyllama-1.1b"), **unported)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
-        model.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
-        model.init_cache(cfg, 1, 8, device="cpu")
+    net = model.init_params(0, cfg, device="cpu")
+    assert tuple(net.frontend_proj.shape) == (cfg.frontend_dim, cfg.d_model)
+    assert len(getattr(net, "encoder", ())) == cfg.encoder_layers
+    cache = model.init_cache(cfg, B, MAX_LEN, device="cpu")
+    g = torch.Generator().manual_seed(6)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g),
+             "frontend_embeds": torch.randn((B, cfg.frontend_tokens, cfg.frontend_dim), generator=g)}
+    logits, cache = model.make_prefill_step(cfg)(net, cache, batch)
+    logits, cache = model.make_serve_step(cfg)(net, cache, logits.argmax(-1))
+    assert logits.shape == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+    assert cache["pos"] == S + 1
+    assert ("cross_kv" in cache["layers"][0]) == cfg.is_encdec
+    with pytest.raises(ValueError, match="unknown block kind"):
+        dataclasses.replace(cfg, block_pattern=("conv",))
 
 
 def test_configs_carry_the_published_widths():
@@ -179,10 +194,15 @@ def test_configs_carry_the_published_widths():
         assert dataclasses.asdict(configs.get_config(arch)) == dataclasses.asdict(ref_config(arch)), arch
         assert configs.get_config(arch).param_count() == ref_config(arch).param_count(), arch
     assert sorted(configs.list_archs()) == [
-        "gemma3-27b", "hymba-1.5b", "minitron-8b", "qwen2-moe-a2.7b", "qwen2.5-14b",
-        "qwen3-moe-235b-a22b", "tinyllama-1.1b", "xlstm-350m"]
+        "gemma3-27b", "hymba-1.5b", "internvl2-2b", "minitron-8b", "qwen2-moe-a2.7b",
+        "qwen2.5-14b", "qwen3-moe-235b-a22b", "seamless-m4t-large-v2", "tinyllama-1.1b",
+        "xlstm-350m"]
+    for arch in ("seamless-m4t-large-v2", "internvl2-2b"):
+        assert dataclasses.asdict(configs.get_config(arch)) == dataclasses.asdict(ref_config(arch))
+        assert dataclasses.asdict(configs.get_smoke_config(arch)) == dataclasses.asdict(
+            ref_smoke_config(arch))
     with pytest.raises(KeyError):
-        configs.get_config("seamless-m4t-large-v2")  # the reference has it; the port not yet
+        configs.get_config("gdaps-wlcg")  # the reference has it; the port not yet
 
 
 # the dense head-dim-128 configs at their smoke widths, and qwen2.5-14b's
